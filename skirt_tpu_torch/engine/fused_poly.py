@@ -1,0 +1,625 @@
+"""Polychromatic fused analytic event (kernel K1) and its lifecycle driver.
+
+Twin of skirt_tpu/engine/fused_poly.py.  Every lane carries the full
+W-wavelength vector on one mixture-sampled geometric path: one set of
+closed-form panel density evaluations (propagation + per-leader peel
+quadrature) serves all W wavelengths.  The estimator is the
+defensive-mixture importance sampling derived in the module docstring of
+skirt_tpu/engine/fused_table_poly.py.
+
+The event has two implementations with one input/output contract:
+- `poly_event_plain`: plain PyTorch on (W, N) tensors, any device.  It is
+  the spec the CPU tests hold against the Pallas kernel (interpret mode)
+  and the reference `chip_smoke.py` holds the CUDA kernel against.
+- csrc/fused_poly.cu: the hand-written CUDA kernel, one thread per lane.
+
+`poly_event` takes the plain version for CPU tensors and launches the
+kernel (or raises) for CUDA tensors.  Neither draws random numbers: the
+(n_uniform, N) uniforms come in as an input, so both versions (and the
+Pallas kernel) see identical inputs.
+
+Layouts (N lanes, no padding: the kernel bounds-checks):
+  u (n_uniform, N); oc (3, W) = kext*m/L^3, albedo, g; L, L0, Ln, Lp
+  (W, N); state px, py, pz, dx, dy, dz float32 (N,), alive, ns (and bc
+  with refill) int32 (N,); Ip, cos (nlead, N); depi int32 / depv (N,).
+
+ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import kernels, rng
+from ..ops import binned_add
+from .fused import (_expon_cutoff, _f32, _group_leaders, _make_locate,
+                    _make_span)
+
+_TINY = 1e-30
+# compile-time panel maximum of the CUDA kernel (the lane's cumulative
+# column densities live in registers; MAXP in csrc/fused_poly.cu)
+_CUDA_MAXP = 32
+_CUDA_DENSITY = {"expdisk": 1}
+_CUDA_SAMPLER = {None: 0, "point": 1, "expdisk": 2}
+_CHECK_EVERY = 16       # event iterations between host reads of the stop test
+
+
+def _validate(grid, ds, stellar_system, instruments, options, nlambda,
+              mueller, io_state, launch_fn):
+    def bail(msg):
+        raise ValueError(f"polychromatic fused lifecycle: {msg}")
+
+    if ds is None or not getattr(ds, "analytic", False) \
+            or getattr(ds, "table", False):
+        bail("requires density_mode='analytic' (closed-form densities)")
+    if ds.ncomp != 1:
+        bail("single dust component only")
+    if mueller is not None:
+        bail("polarization is not ported yet (slice S5)")
+    if io_state:
+        bail("io_state is not ported yet (slice S2)")
+    if launch_fn is not None:
+        bail("launch_fn (dust-emission launch with refill between kernel "
+             "calls) belongs to the panchromatic loop, not ported yet "
+             "(slice S3)")
+    if options.continuous_scattering:
+        bail("continuous_scattering not supported")
+    if options.store_absorption and options.deposition != "sampled":
+        bail("absorption tallies require deposition='sampled'")
+    if options.store_absorption and not (hasattr(grid, "_uniform")
+                                         and all(grid._uniform)):
+        bail("absorption tallies require a uniform Cartesian grid "
+             "(in-kernel arithmetic locate)")
+    if nlambda > 128:
+        bail("nlambda <= 128 (split wider grids into blocks of <= 128 "
+             "wavelengths)")
+    if stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
+        bail("requires a single isotropic stellar component")
+    for ins in instruments:
+        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
+            bail("requires distant (constant-direction) instruments")
+    if options.refill_batches > 1:
+        geom = stellar_system.components[0].geometry
+        if geom.device_sampler_xyz() is None:
+            bail(f"refill: {type(geom).__name__} has no closed-form "
+                 "device sampler")
+
+
+@dataclass
+class PolyEventSpec:
+    """Everything the event needs besides its tensor inputs: the float32
+    constants the Pallas kernel closes over, the geometry closed forms
+    (torch callables for the plain version, `__device__` function names
+    and constants for the CUDA kernel)."""
+    W: int
+    npanels: int
+    np_peel: int
+    want_labs: bool
+    scattering_peeloff: bool
+    refill: bool
+    K: int
+    nu_pos: int
+    n_uniform: int
+    min_scatt: int
+    xi: float
+    inv_np: float
+    inv_pp: float
+    inv_minred: float
+    invL: float
+    lscale: float
+    leaders: list
+    box: tuple
+    oc: np.ndarray                   # (3, W) float32
+    density_geometry: object
+    sampler_geometry: object = None  # refill's closed-form sampler
+    grid: object = None
+    span: object = field(default=None, repr=False)
+    locate: object = field(default=None, repr=False)
+
+    def rho_s(self, X, Y, Z):
+        return self.density_geometry.density_scaled_xyz(
+            X * self.invL, Y * self.invL, Z * self.invL, self.lscale)
+
+
+def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
+                  want_labs, scattering_peeloff, sampler_geometry=None):
+    """The event's constants (mirrors skirt_tpu fused_poly._build_kernel).
+
+    sampler_geometry: the stellar geometry whose closed-form sampler
+    relaunches dead lanes in the event (refill), or None."""
+    geom = ds.components[0].geometry
+    lscale = ds.lscale
+    mL3 = float(np.asarray(ds._mass_over_L3).ravel()[0])
+    kextm_w = [np.float32(float(v) * mL3) for v in ds.kappaext[0][:W]]
+    albedo_w = [np.float32(float(s) / max(float(e), 1e-37))
+                for s, e in zip(ds.kappasca[0][:W], ds.kappaext[0][:W])]
+    g_w = [np.float32(float(v)) for v in ds.g[0][:W]]
+    refill = sampler_geometry is not None
+    nu_pos = sampler_geometry.device_sampler_xyz()[0] if refill else 0
+    oc = np.stack([np.asarray(kextm_w, np.float32),
+                   np.asarray(albedo_w, np.float32),
+                   np.asarray(g_w, np.float32)])
+    return PolyEventSpec(
+        W=W, npanels=int(npanels), np_peel=int(np_peel),
+        want_labs=bool(want_labs),
+        scattering_peeloff=bool(scattering_peeloff), refill=refill,
+        K=int(options.refill_batches) if refill else 1, nu_pos=nu_pos,
+        n_uniform=7 + (nu_pos + 2 if refill else 0),
+        min_scatt=int(options.min_scatt_events),
+        xi=float(options.scatt_bias), inv_np=_f32(1.0 / npanels),
+        inv_pp=_f32(1.0 / np_peel),
+        inv_minred=_f32(1.0 / options.min_weight_reduction),
+        invL=_f32(1.0 / lscale), lscale=lscale, leaders=list(leaders),
+        box=tuple(float(v) for v in grid.bounding_box()), oc=oc,
+        density_geometry=geom, sampler_geometry=sampler_geometry, grid=grid,
+        span=_make_span(grid.bounding_box()),
+        locate=_make_locate(grid) if want_labs else None)
+
+
+def _wsum(x):
+    """Sum over the wavelength axis in w order (a cumulative sum's last
+    entry): the CUDA kernel sums each lane's wavelengths in that order,
+    and a reduction kernel would round differently."""
+    return torch.cumsum(x, 0)[-1]
+
+
+def _hg(g, cosa):
+    t = 1.0 + g * g - 2.0 * g * cosa
+    return (1.0 - g) * (1.0 + g) / torch.sqrt(t * t * t)
+
+
+def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
+    """One polychromatic scattering event for every lane, plain PyTorch.
+
+    Mirrors the Pallas body (skirt_tpu/engine/fused_poly.py:137-361)
+    operation for operation.  Returns a dict: "state" (px, py, pz, dx,
+    dy, dz, alive, ns), "Ln", "Lp", "Ip", "cos", and "depi"/"depv" with
+    labs, "bc"/"fresh" with refill."""
+    W = spec.W
+    npanels = spec.npanels
+    X, Y, Z, DX, DY, DZ = state[:6]
+    alive = state[6] != 0
+    nscatt = state[7]
+    span = spec.span
+    xi = spec.xi
+    out = {}
+
+    # -- panel quadrature of the lambda-independent column density ------
+    t0, t1 = span(X, Y, Z, DX, DY, DZ)
+    delta = (t1 - t0) * spec.inv_np
+    cum = torch.zeros_like(delta)
+    cums = []
+    for kk in range(npanels):
+        midk = t0 + _f32(kk + 0.5) * delta
+        rho = spec.rho_s(X + midk * DX, Y + midk * DY, Z + midk * DZ)
+        cum = cum + rho * delta
+        cums.append(cum)
+    I_tot = cum
+    cums_t = torch.stack(cums)
+
+    kext = oc[0][:, None]
+    alb = oc[1][:, None]
+    gw = oc[2][:, None]
+    tau = kext * I_tot[None]
+    ome = 1.0 - torch.exp(-tau)
+    Lm = torch.where(alive[None], L, 0.0)
+
+    def count_below(x):
+        # panel pick: number of cumulative sums (all but the last) < x
+        return (cums_t[:npanels - 1] < x[None]).sum(0).to(torch.int32)
+
+    # -- absorption deposit: one sampled wavelength per event -----------
+    if spec.want_labs:
+        D = (1.0 - alb) * Lm * ome
+        cumD = torch.cumsum(D, 0)
+        Dsum = cumD[W - 1]
+        target = u[6] * Dsum
+        wsel = (cumD[:W - 1] <= target[None]).sum(0).to(torch.int32)
+        w64 = wsel.to(torch.int64)
+        tau_sel = tau.gather(0, w64[None])[0]
+        kinv_sel = 1.0 / oc[0][w64]
+        tau_dep = _expon_cutoff(u[2], tau_sel)
+        I_dep = tau_dep * kinv_sel
+        i_dep = count_below(I_dep)
+        mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
+        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                           Z + mid_dep * DZ)
+        okd = (Dsum > 0) & alive & (cell >= 0)
+        out["depi"] = torch.where(okd, cell * W + wsel, -1)
+        out["depv"] = torch.where(okd, Dsum, 0.0)
+
+    Lab = alb * Lm * ome
+
+    # -- mixture-driver forced propagation -------------------------------
+    c = torch.clamp((u[5] * float(W)).to(torch.int32), max=W - 1)
+    c64 = c.to(torch.int64)
+    tau_c = tau.gather(0, c64[None])[0]
+    kinv_cc = 1.0 / oc[0][c64]
+    g_cc = oc[2][c64]
+    u1 = u[0]
+    u2 = u[1]
+    tau_exp = _expon_cutoff(u2, tau_c)
+    if xi == 0.0:
+        tau_smp = tau_exp
+    else:
+        tau_smp = torch.where(u1 < xi, u2 * tau_c, tau_exp)
+    I_s = tau_smp * kinv_cc
+
+    i_hit = count_below(I_s)
+    h64 = i_hit.to(torch.int64)
+    cum_h = cums_t.gather(0, h64[None])[0]
+    cum_prev = torch.where(
+        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0], 0.0)
+    dI_h = cum_h - cum_prev
+    frac = torch.clamp(torch.where(dI_h > 0, (I_s - cum_prev)
+                                   / torch.clamp(dI_h, min=_TINY), 0.0),
+                       0.0, 1.0)
+    s = t0 + (i_hit.to(torch.float32) + frac) * delta
+    X = torch.where(alive, X + s * DX, X)
+    Y = torch.where(alive, Y + s * DY, Y)
+    Z = torch.where(alive, Z + s * DZ, Z)
+
+    # -- per-wavelength mixture ratios -----------------------------------
+    F = kext * torch.exp(-kext * I_s[None]) / torch.clamp(ome, min=_TINY)
+    if xi == 0.0:
+        Q = F
+    else:
+        Q = ((1.0 - xi) * F
+             + _f32(xi) * kext / torch.clamp(tau, min=_TINY))
+    Qmix = _wsum(Q) * _f32(1.0 / W)
+
+    u_g = u[3]
+    u_phi = u[4]
+    f = (1.0 - g_cc) * (1.0 + g_cc) / (1.0 - g_cc + 2.0 * g_cc * u_g)
+    small_g = torch.abs(g_cc) < 1e-6
+    cos_hg = (1.0 + g_cc * g_cc - f * f) / (2.0 * torch.where(small_g, 1.0,
+                                                              g_cc))
+    costheta = torch.where(small_g, 2.0 * u_g - 1.0,
+                           torch.clamp(cos_hg, -1.0, 1.0))
+    HG = _hg(gw, costheta[None])
+    QHmix = _wsum(Q * HG) * _f32(1.0 / W)
+
+    Lp = Lab * F / torch.clamp(Qmix[None], min=_TINY)
+    Ln = Lab * F * HG / torch.clamp(QHmix[None], min=_TINY)
+
+    past_min = nscatt >= spec.min_scatt
+    kill = (Ln <= L0 * spec.inv_minred) & past_min[None]
+    Lp = torch.where(kill, 0.0, Lp)
+    Ln = torch.where(kill, 0.0, Ln)
+    alive = alive & (Ln > 0).any(0) & (I_tot > _TINY)
+
+    # -- persistent-lane relaunch ----------------------------------------
+    fresh = torch.zeros_like(alive)
+    if spec.refill:
+        bcount = state[8]
+        eligible = torch.logical_not(alive) & (bcount < spec.K)
+        nu, sample = spec.sampler_geometry.device_sampler_xyz()
+        xs, ys, zs = sample([u[7 + j] for j in range(nu)])
+        ct = 2.0 * u[7 + nu] - 1.0
+        st_ = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+        ph2 = _f32(2.0 * np.pi) * u[8 + nu]
+        X = torch.where(eligible, xs, X)
+        Y = torch.where(eligible, ys, Y)
+        Z = torch.where(eligible, zs, Z)
+        DX = torch.where(eligible, st_ * torch.cos(ph2), DX)
+        DY = torch.where(eligible, st_ * torch.sin(ph2), DY)
+        DZ = torch.where(eligible, ct, DZ)
+        Ln = torch.where(eligible[None], L0, Ln)
+        Lp = torch.where(eligible[None], 0.0, Lp)
+        nscatt = torch.where(eligible, 0, nscatt)
+        bcount = bcount + eligible.to(torch.int32)
+        fresh = eligible
+        alive = alive | eligible
+        out["bc"] = bcount
+        out["fresh"] = fresh.to(torch.int32)
+
+    # -- peel quadrature toward each leader (lambda-independent) ---------
+    Ips, coss = [], []
+    for kx, ky, kz in spec.leaders:
+        if not spec.scattering_peeloff:
+            coss.append(torch.zeros_like(I_tot))
+            Ips.append(torch.zeros_like(I_tot))
+            continue
+        fx, fy, fz = _f32(kx), _f32(ky), _f32(kz)
+        coss.append(DX * fx + DY * fy + DZ * fz)
+        pt0, pt1 = span(X, Y, Z, kx, ky, kz, const_d=True)
+        pd = (pt1 - pt0) * spec.inv_pp
+        rsum = torch.zeros_like(I_tot)
+        for kk in range(spec.np_peel):
+            mk = pt0 + _f32(kk + 0.5) * pd
+            rsum = rsum + spec.rho_s(X + mk * fx, Y + mk * fy, Z + mk * fz)
+        Ips.append(rsum * pd)
+    out["Ip"] = torch.stack(Ips)
+    out["cos"] = torch.stack(coss)
+
+    # -- HG scatter about the old direction (driver g) -------------------
+    phi = _f32(2.0 * np.pi) * u_phi
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=0.0))
+    cosphi = torch.cos(phi)
+    sinphi = torch.sin(phi)
+    sign = torch.where(DZ >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + DZ)
+    b = DX * DY * a
+    ux = 1.0 + sign * DX * DX * a
+    uy = sign * b
+    uz = -sign * DX
+    vx = b
+    vy = sign + DY * DY * a
+    vz = -DY
+    nxd = sintheta * (cosphi * ux + sinphi * vx) + costheta * DX
+    nyd = sintheta * (cosphi * uy + sinphi * vy) + costheta * DY
+    nzd = sintheta * (cosphi * uz + sinphi * vz) + costheta * DZ
+    inv_n = torch.rsqrt(torch.clamp(nxd * nxd + nyd * nyd + nzd * nzd,
+                                    min=_TINY))
+    scat = alive & torch.logical_not(fresh)
+    DX = torch.where(scat, nxd * inv_n, DX)
+    DY = torch.where(scat, nyd * inv_n, DY)
+    DZ = torch.where(scat, nzd * inv_n, DZ)
+    nscatt = torch.where(scat, nscatt + 1, nscatt)
+
+    out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
+    out["Ln"] = torch.where(alive[None], Ln, 0.0)
+    out["Lp"] = torch.where(alive[None], Lp, 0.0)
+    return out
+
+
+def _cuda_args(spec: PolyEventSpec):
+    """The kernel's constant arguments and template choices for a spec."""
+    if len(spec.leaders) > kernels.PolyArgs.MAX_LEAD:
+        raise ValueError(f"poly_event kernel: at most "
+                         f"{kernels.PolyArgs.MAX_LEAD} observer directions")
+    if spec.W > kernels.PolyArgs.MAX_W:
+        raise ValueError("poly_event kernel: W <= 128")
+    if spec.npanels > _CUDA_MAXP:
+        raise ValueError(f"poly_event kernel: quadrature_panels <= "
+                         f"{_CUDA_MAXP} (the lane's cumulative sums live "
+                         "in registers)")
+    dens = spec.density_geometry.cuda_density(spec.lscale)
+    if dens is None or dens[0] not in _CUDA_DENSITY:
+        raise ValueError(f"poly_event kernel: no CUDA device density for "
+                         f"{type(spec.density_geometry).__name__}")
+    samp = None
+    if spec.refill:
+        samp = spec.sampler_geometry.cuda_sampler()
+        if samp is None or samp[0] not in _CUDA_SAMPLER:
+            raise ValueError(f"poly_event kernel: no CUDA device sampler "
+                             f"for {type(spec.sampler_geometry).__name__}")
+    a = kernels.PolyArgs()
+    a.W = spec.W
+    a.npanels = spec.npanels
+    a.np_peel = spec.np_peel
+    a.nlead = len(spec.leaders)
+    a.min_scatt = spec.min_scatt
+    a.K = spec.K
+    a.scattering_peeloff = int(spec.scattering_peeloff)
+    a.xi = spec.xi
+    a.inv_np = spec.inv_np
+    a.inv_pp = spec.inv_pp
+    a.inv_minred = spec.inv_minred
+    a.invL = spec.invL
+    for i in range(3):
+        a.box_lo[i] = _f32(spec.box[i])
+        a.box_hi[i] = _f32(spec.box[3 + i])
+    g = spec.grid
+    if spec.want_labs:
+        a.nx, a.ny, a.nz = g.nx, g.ny, g.nz
+        for i in range(3):
+            a.loc_lo[i] = _f32(g._lo[i])
+            a.loc_inv[i] = _f32(1.0 / g._dx[i])
+    for j, kvec in enumerate(spec.leaders):
+        for i, d in enumerate(kvec):
+            a.lead_k[j][i] = _f32(d)
+            moving = abs(d) > 1e-30
+            a.lead_moving[j][i] = int(moving)
+            a.lead_inv[j][i] = _f32(1.0 / d) if moving else 0.0
+    for i, v in enumerate(dens[1]):
+        a.dens[i] = v
+    if samp is not None:
+        for i, v in enumerate(samp[1]):
+            a.samp[i] = v
+    return a, (_CUDA_DENSITY[dens[0]], _CUDA_SAMPLER[samp[0] if samp
+                                                      else None])
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _poly_event_cuda(spec, u, oc, L, L0, state):
+    N = state[0].shape[0]
+    W = spec.W
+    nlead = len(spec.leaders)
+    dev = u.device
+    n_state = 9 if spec.refill else 8
+    if len(state) != n_state:
+        raise ValueError(f"poly_event: expected {n_state} state arrays")
+    checks = [(u, (spec.n_uniform, N), torch.float32),
+              (oc, (3, W), torch.float32), (L, (W, N), torch.float32),
+              (L0, (W, N), torch.float32)]
+    checks += [(s, (N,), torch.float32) for s in state[:6]]
+    checks += [(s, (N,), torch.int32) for s in state[6:]]
+    for t, shape, dt in checks:
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
+                or not t.is_contiguous()):
+            raise ValueError(f"poly_event kernel: expected a contiguous "
+                             f"{dt} tensor of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    a, (dens, samp) = _cuda_args(spec)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32) for _ in range(6)] \
+        + [torch.empty(N, **i32) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32)
+    Lp = torch.empty((W, N), **f32)
+    Ip = torch.empty((nlead, N), **f32)
+    cos = torch.empty((nlead, N), **f32)
+    out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp, "Ip": Ip, "cos": cos}
+    depi = depv = bc = fresh = None
+    if spec.want_labs:
+        depi = out["depi"] = torch.empty(N, **i32)
+        depv = out["depv"] = torch.empty(N, **f32)
+    if spec.refill:
+        bc = out["bc"] = torch.empty(N, **i32)
+        fresh = out["fresh"] = torch.empty(N, **i32)
+    a.N = N
+    ins = [u, oc, L, L0, *state[:8], state[8] if spec.refill else None]
+    for name, t in zip(("u", "oc", "L", "L0", "px", "py", "pz", "dx", "dy",
+                        "dz", "alive", "ns", "bc"), ins):
+        setattr(a, name, _ptr(t))
+    outs = [*st_out, Ln, Lp, depi, depv, Ip, cos, bc, fresh]
+    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
+                        "ons", "oLn", "oLp", "odepi", "odepv", "oIp", "ocos",
+                        "obc", "ofresh"), outs):
+        setattr(a, name, _ptr(t))
+    lib = kernels.library()
+    kernels.check(lib.skirt_poly_event(ctypes.byref(a), dens, samp,
+                                       int(spec.want_labs),
+                                       kernels.stream_of(u)),
+                  "poly_event kernel")
+    poly_event.launches += 1
+    return out
+
+
+def poly_event(spec: PolyEventSpec, u, oc, L, L0, state):
+    """The event on CPU tensors (plain version) or CUDA tensors (the K1
+    kernel, counted in `poly_event.launches`).  Same contract as
+    poly_event_plain."""
+    if u.device.type == "cpu":
+        return poly_event_plain(spec, u, oc, L, L0, state)
+    if u.device.type != "cuda":
+        raise ValueError(f"poly_event: unsupported device {u.device}")
+    return _poly_event_cuda(spec, u, oc, L, L0, state)
+
+
+poly_event.launches = 0
+
+
+def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
+                              instruments, options, nlambda: int,
+                              launch_fn=None, emission_peeloff: bool = True,
+                              scattering_peeloff: bool = True,
+                              is_dust_emission=False, mueller=None,
+                              io_state: bool = False,
+                              max_iterations: int | None = None):
+    """Build run_batch(key, ell, L0, tallies) — polychromatic analytic.
+
+    `L0` must be (N, nlambda) per-lane launch luminosities on the run's
+    device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
+    packets.  Labs bins are cell * nlambda + w.  The tallies (float32
+    tensors on the same device) are updated in place and returned.
+
+    The event loop runs at most max_scatt_events * K iterations and stops
+    when no lane is alive and no lane has launch budget left; the host
+    reads that condition every _CHECK_EVERY iterations (an iteration over
+    finished lanes changes nothing), so it syncs with the device rarely.
+    """
+    ds = dust_system
+    W = int(nlambda)
+    _validate(grid, ds, stellar_system, instruments, options, W,
+              mueller, io_state, launch_fn)
+    npanels = int(options.quadrature_panels
+                  or getattr(grid, "max_steps", 96))
+    np_peel = int(options.peel_panels or npanels)
+    want_labs = bool(options.store_absorption)
+    leaders, lead_of = _group_leaders(instruments)
+    refill = options.refill_batches > 1
+    K = int(options.refill_batches) if refill else 1
+    sampler_geom = stellar_system.components[0].geometry if refill else None
+    spec = _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
+                         want_labs, scattering_peeloff, sampler_geom)
+    iter_cap = int(max_iterations if max_iterations is not None
+                   else options.max_scatt_events) * K
+
+    def run_batch(key, ell, L0, tallies):
+        del ell
+        if L0.ndim != 2 or L0.shape[1] != W:
+            raise ValueError("polychromatic run_batch needs L0 of shape "
+                             f"(N, {W})")
+        n = L0.shape[0]
+        dev = L0.device
+        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+        ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
+        pos, direction, _, _ = stellar_system.launch(
+            k_launch, ell0, torch.ones(n, dtype=torch.float32, device=dev))
+        L = L0.T.contiguous()
+        l0 = L
+        alive = (L > 0).any(0)
+        wls = torch.arange(W, device=dev)
+        oc = torch.as_tensor(spec.oc, device=dev)
+        kext_col = oc[0][:, None]
+        g_col = oc[2][:, None]
+        kext_t_col = torch.as_tensor(
+            np.asarray(ds.kappaext, np.float32)[0, :W], device=dev)[:, None]
+        ins = tallies["instruments"]
+        labs = tallies.get("labs")
+
+        if emission_peeloff:
+            # emission peel: panel quadrature toward each leader once
+            from . import vector_traversal as vt
+            Lw = torch.where(alive[None], L, 0.0)
+            ones = [torch.ones(n, dtype=torch.float32, device=dev)]
+            Ipe = []
+            for kvec in leaders:
+                kobs = torch.tensor(np.asarray(kvec, np.float32),
+                                    device=dev).expand(n, 3)
+                dsg, _, midp = vt.panel_paths(grid, pos, kobs, np_peel)
+                # with unit weights analytic_rows returns the kg/m^3
+                # density rows -> tau_w = kappaext_w * integral
+                rows = ds.analytic_rows(pos, kobs, midp, None, ones,
+                                        want_sca=False)
+                Ipe.append((rows * dsg).sum(1))
+            for i, ins_obj in enumerate(instruments):
+                ext = Lw * torch.exp(-kext_t_col * Ipe[lead_of[i]][None])
+                ins_obj.detect_poly(ins[i], pos, wls, ext)
+
+        state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                 pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                 direction[:, 1].contiguous(), direction[:, 2].contiguous(),
+                 alive.to(torch.int32),
+                 torch.zeros(n, dtype=torch.int32, device=dev)]
+        if refill:
+            state.append(torch.ones(n, dtype=torch.int32, device=dev))
+
+        for it in range(iter_cap):
+            if it % _CHECK_EVERY == 0:
+                go = state[6].any()
+                if refill:
+                    go = go | (state[8] < K).any()
+                if not bool(go):
+                    break
+            u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                 (spec.n_uniform, n), dev)
+            out = poly_event(spec, u, oc, L, l0, state)
+            st = out["state"]
+            Ln, Lp = out["Ln"], out["Lp"]
+            alive_new = st[6] != 0
+            if want_labs:
+                binned_add(labs, out["depi"], out["depv"])
+            if scattering_peeloff:
+                pos_new = torch.stack(st[:3], dim=-1)
+                for i, ins_obj in enumerate(instruments):
+                    Ii = out["Ip"][lead_of[i]]
+                    cosj = out["cos"][lead_of[i]]
+                    # HG phase weights for all wavelengths at once
+                    tq = 1.0 + g_col * g_col - 2.0 * g_col * cosj[None]
+                    pw = (1.0 - g_col) * (1.0 + g_col) / torch.sqrt(tq * tq * tq)
+                    cw = Lp * pw
+                    if refill:
+                        # the in-kernel relaunch happens BEFORE the peel
+                        # quadrature, so Ii/cosj are at the fresh position
+                        cw = torch.where(out["fresh"][None] != 0, Ln, cw)
+                    cw = torch.where(alive_new[None], cw, 0.0)
+                    ext = cw * torch.exp(-kext_col * Ii[None])
+                    ins_obj.detect_poly(ins[i], pos_new, wls, ext)
+            state = list(st)
+            if refill:
+                state.append(out["bc"])
+            L = Ln
+        return tallies
+
+    run_batch.spec = spec
+    return run_batch

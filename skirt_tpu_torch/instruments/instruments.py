@@ -1,0 +1,228 @@
+"""Distant instruments with parallel projection.
+
+Twin of skirt_tpu/instruments/instruments.py (slice 1: DistantInstrument,
+SEDInstrument, FrameInstrument, SimpleInstrument with the polychromatic
+detects, calibration and writers).  ref: SKIRTcore/DistantInstrument.cpp,
+SingleFrameInstrument.cpp (pixelondetector :119-145, calibration
+:151-226), SEDInstrument / FrameInstrument / SimpleInstrument.
+
+Tallies are float32 tensors on the run's device, updated in place; the
+frame cube goes through the K2 binned scatter-add (ops.binned_add).
+Calibration and output run on the host in float64 through the shared,
+JAX-free skirt_tpu.io.fits writer and skirt_tpu.units, imported only when
+a result is written: a run imports no module of skirt_tpu.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from ..ops import binned_add
+
+if TYPE_CHECKING:
+    from skirt_tpu.units import Units
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+class DistantInstrument:
+    """Base: parallel projection from (inclination, azimuth, position
+    angle) at a large distance.  Angles in radians, distance in metres."""
+
+    def __init__(self, name: str, distance: float, inclination: float = 0.0,
+                 azimuth: float = 0.0, position_angle: float = 0.0):
+        self.name = name
+        self.distance = float(distance)
+        self.inclination = float(inclination)
+        self.azimuth = float(azimuth)
+        self.position_angle = float(position_angle)
+
+        ct, st = math.cos(self.inclination), math.sin(self.inclination)
+        cp, sp = math.cos(self.azimuth), math.sin(self.azimuth)
+        cpa, spa = math.cos(self.position_angle), math.sin(self.position_angle)
+        self._trig = (ct, st, cp, sp, cpa, spa)
+
+        # ref: DistantInstrument.cpp setupSelfBefore
+        self.kobs = np.array([st * cp, st * sp, ct])
+        self.kx = np.array([cp * ct * spa - sp * cpa,
+                            sp * ct * spa + cp * cpa,
+                            -st * spa])
+        self.ky = np.array([-cp * ct * cpa - sp * spa,
+                            -sp * ct * cpa + cp * spa,
+                            st * cpa])
+
+    def project(self, pos):
+        """Model position (N, 3) float32 -> detector-plane (xp, yp).
+
+        Each trig product is formed in float64 and rounded to float32
+        before it meets a coordinate, as skirt_tpu's JAX arithmetic does,
+        so pixel edges agree bit for bit.  ref: pixelondetector."""
+        ct, st, cp, sp, cpa, spa = self._trig
+        x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+        xpp = _f32(-sp) * x + _f32(cp) * y
+        ypp = _f32(-cp * ct) * x - _f32(sp * ct) * y + _f32(st) * z
+        xp = _f32(cpa) * xpp - _f32(spa) * ypp
+        yp = _f32(spa) * xpp + _f32(cpa) * ypp
+        return xp, yp
+
+
+class SEDInstrument(DistantInstrument):
+    """Integrated SED only (ref: SKIRTcore/SEDInstrument.cpp)."""
+
+    def __init__(self, name: str, distance: float, nlambda: int, **kw):
+        super().__init__(name, distance, **kw)
+        self.nlambda = int(nlambda)
+
+    def zero_tallies(self, device="cpu"):
+        return {"Ftot": torch.zeros((self.nlambda,), dtype=torch.float32,
+                                    device=device)}
+
+    def detect_poly(self, tallies, pos, wls, contrib):
+        """contrib (W, N): row i carries wavelength index wls[i] (a
+        (W,) int64 tensor) for the same N positions."""
+        tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
+        return tallies
+
+    def write(self, accumulated, wavelength_grid, units: Units, out_dir: str,
+              prefix: str):
+        _write_sed(self, {"total": accumulated["Ftot"]}, wavelength_grid,
+                   units, out_dir, prefix)
+
+
+class FrameInstrument(DistantInstrument):
+    """Data cube only (ref: SKIRTcore/FrameInstrument.cpp)."""
+
+    def __init__(self, name: str, distance: float, nlambda: int,
+                 nx: int, ny: int, fov_x: float, fov_y: float,
+                 center_x: float = 0.0, center_y: float = 0.0, **kw):
+        super().__init__(name, distance, **kw)
+        self.nlambda = int(nlambda)
+        self.nx = int(nx)
+        self.ny = int(ny)
+        self.fov_x = float(fov_x)
+        self.fov_y = float(fov_y)
+        self.center_x = float(center_x)
+        self.center_y = float(center_y)
+        self.psize_x = self.fov_x / self.nx
+        self.psize_y = self.fov_y / self.ny
+        self.xmin = self.center_x - self.fov_x / 2.0
+        self.ymin = self.center_y - self.fov_y / 2.0
+
+    def pixel(self, pos):
+        """Flat pixel index (iy * nx + ix), -1 outside the frame: floor of
+        the float32 projection, as in skirt_tpu."""
+        xp, yp = self.project(pos)
+        i = torch.floor((xp - _f32(self.xmin)) / _f32(self.psize_x)).to(torch.int32)
+        j = torch.floor((yp - _f32(self.ymin)) / _f32(self.psize_y)).to(torch.int32)
+        ok = (i >= 0) & (i < self.nx) & (j >= 0) & (j < self.ny)
+        return torch.where(ok, i + self.nx * j, -1)
+
+    def zero_tallies(self, device="cpu"):
+        return {"ftot": torch.zeros((self.nlambda * self.nx * self.ny,),
+                                    dtype=torch.float32, device=device)}
+
+    def _poly_idx(self, pos, wls):
+        """(W, N) flat cube bins sharing one pixel projection per lane."""
+        pix = self.pixel(pos)
+        wcol = wls.to(torch.int32)[:, None]
+        return torch.where(pix[None, :] >= 0,
+                           wcol * (self.nx * self.ny) + pix[None, :], -1)
+
+    def detect_poly(self, tallies, pos, wls, contrib):
+        idx = self._poly_idx(pos, wls)
+        binned_add(tallies["ftot"], idx.reshape(-1), contrib.reshape(-1))
+        return tallies
+
+    def write(self, accumulated, wavelength_grid, units: Units, out_dir: str,
+              prefix: str):
+        _write_cube(self, {"total": accumulated["ftot"]}, wavelength_grid,
+                    units, out_dir, prefix)
+
+
+class SimpleInstrument(FrameInstrument):
+    """SED + data cube (ref: SKIRTcore/SimpleInstrument.cpp)."""
+
+    def zero_tallies(self, device="cpu"):
+        t = super().zero_tallies(device)
+        t["Ftot"] = torch.zeros((self.nlambda,), dtype=torch.float32,
+                                device=device)
+        return t
+
+    def detect_poly(self, tallies, pos, wls, contrib):
+        tallies = super().detect_poly(tallies, pos, wls, contrib)
+        tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
+        return tallies
+
+    def write(self, accumulated, wavelength_grid, units: Units, out_dir: str,
+              prefix: str):
+        _write_cube(self, {"total": accumulated["ftot"]}, wavelength_grid,
+                    units, out_dir, prefix)
+        _write_sed(self, {"total": accumulated["Ftot"]}, wavelength_grid,
+                   units, out_dir, prefix)
+
+
+# ---------------------------------------------------------------------------
+# calibration + output (host side, float64)
+# ---------------------------------------------------------------------------
+
+def _host64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+def calibrate_sed(instrument, Ftot, wavelength_grid) -> np.ndarray:
+    """W per bin -> F_lambda [W/m^3] at the instrument distance.
+
+    ref: DistantInstrument::calibrateAndWriteSEDs (DistantInstrument.cpp:131+)."""
+    fourpid2 = 4.0 * np.pi * instrument.distance ** 2
+    return _host64(Ftot) / wavelength_grid.dlambdav / fourpid2
+
+
+def calibrate_cube(instrument, ftot, wavelength_grid) -> np.ndarray:
+    """W per bin per pixel -> surface brightness f_lambda [W/m^3/sr].
+
+    ref: SingleFrameInstrument::calibrateAndWriteDataCubes (:151-226)."""
+    cube = _host64(ftot).reshape(wavelength_grid.nlambda, instrument.ny,
+                                 instrument.nx)
+    d = instrument.distance
+    omega = (2.0 * np.arctan(instrument.psize_x / (2.0 * d))
+             * 2.0 * np.arctan(instrument.psize_y / (2.0 * d)))
+    fourpid2 = 4.0 * np.pi * d * d
+    return cube / wavelength_grid.dlambdav[:, None, None] / omega / fourpid2
+
+
+def _write_sed(instrument, seds: dict, wavelength_grid, units: Units,
+               out_dir: str, prefix: str):
+    lam = wavelength_grid.lambdav
+    cols = [units.out("wavelength", lam)]
+    header = [f"lambda ({units.unit('wavelength')})"]
+    for name, F in seds.items():
+        Flam = calibrate_sed(instrument, F, wavelength_grid)
+        cols.append(units.out_fluxdensity(lam, Flam))
+        header.append(f"{name} flux ({units.fluxdensity_unit()})")
+    path = os.path.join(out_dir, f"{prefix}_{instrument.name}_sed.dat")
+    np.savetxt(path, np.column_stack(cols), header="  ".join(header))
+
+
+def _write_cube(instrument, frames: dict, wavelength_grid, units: Units,
+                out_dir: str, prefix: str):
+    from skirt_tpu.io.fits import write_fits
+
+    lam = wavelength_grid.lambdav
+    for name, f in frames.items():
+        cube = calibrate_cube(instrument, f, wavelength_grid)
+        out = units.out_surfacebrightness(lam[:, None, None], cube)
+        path = os.path.join(out_dir, f"{prefix}_{instrument.name}_{name}.fits")
+        write_fits(path, out,
+                   incx=units.out("length", instrument.psize_x),
+                   incy=units.out("length", instrument.psize_y),
+                   xc=instrument.center_x, yc=instrument.center_y,
+                   units=units.surfacebrightness_unit())
