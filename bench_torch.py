@@ -6,7 +6,11 @@ BENCH_* environment overrides, and prints the same one JSON line
 The default is the polychromatic main path: an ExpDisk stellar disc in
 an ExpDisk dust disc on a 32x32x16 grid, 128 wavelengths per lane, 2^15
 lanes, refill depth K = 128, 2 batches per call, an SED and a 16x16
-frame instrument, absorption tallies on.
+frame instrument, absorption tallies on.  BENCH_POLY=0 runs the
+monochromatic engine (kernel K3) as bench.py does, one wavelength per
+lane; its flagship is BENCH_POLY=0 BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21
+BENCH_DISPATCH_BATCHES=8.  Packets counted: lanes x K x batches x reps,
+times W with polychromatic lanes.
 
 Run on a CUDA machine:  python3 bench_torch.py
 (it raises without a CUDA device; a CPU rehearsal calls _build with
@@ -23,17 +27,18 @@ import time
 import numpy as np
 
 
-def _build(nlambda=2, ncells=16, packets=1024, n_instruments=2,
-           store_absorption=True, max_scatt=64, quadrature_panels=None,
-           refill_batches=0, peel_panels=None, albedo=0.6,
-           min_weight_reduction=1e4, vary_lambda=False, device="cpu"):
+def _model(nlambda=2, ncells=16, n_instruments=2, store_absorption=True,
+           max_scatt=64, quadrature_panels=None, refill_batches=0,
+           peel_panels=None, albedo=0.6, min_weight_reduction=1e4,
+           vary_lambda=False, polychromatic=True, ncomp=1):
     """The dusty-disc model of __graft_entry__._build on the port
-    (polychromatic lanes, analytic densities, sampled deposits)."""
-    import torch
-
+    (analytic densities, sampled deposits, the fused engines) as
+    (grid, dust system, stellar system, instruments, options).
+    ncomp=2 adds the second dust component of tests/test_fused.py's
+    two-component model (a thicker 2 kpc x 0.5 kpc disc, albedo 0.2 to
+    0.8 and g -0.2 to 0.6 over the wavelengths, tau_z = 0.5)."""
     from skirt_tpu_torch.constants import KPC
-    from skirt_tpu_torch.engine.lifecycle import (LifecycleOptions,
-                                                  make_lifecycle)
+    from skirt_tpu_torch.engine.lifecycle import LifecycleOptions
     from skirt_tpu_torch.geometry import ExpDiskGeometry
     from skirt_tpu_torch.grids import CartesianGrid
     from skirt_tpu_torch.instruments import SEDInstrument, SimpleInstrument
@@ -59,9 +64,18 @@ def _build(nlambda=2, ncells=16, packets=1024, n_instruments=2,
     else:
         mix = SimpleOligoDustMix(wg, [2600.0] * nlambda, [albedo] * nlambda,
                                  [0.5] * nlambda)
-    comp = DustComponent(ExpDiskGeometry(4 * KPC, 0.2 * KPC), mix,
-                         OpticalDepthNormalization("z", wg.lambdav[0], 1.0))
-    dsys = DustSystem(grid, [comp], samples_per_cell=4,
+    comps = [DustComponent(ExpDiskGeometry(4 * KPC, 0.2 * KPC), mix,
+                           OpticalDepthNormalization("z", wg.lambdav[0],
+                                                     1.0))]
+    if ncomp == 2:
+        mix2 = SimpleOligoDustMix(wg, list(np.linspace(1000.0, 1500.0,
+                                                       nlambda)),
+                                  list(np.linspace(0.2, 0.8, nlambda)),
+                                  list(np.linspace(-0.2, 0.6, nlambda)))
+        comps.append(DustComponent(ExpDiskGeometry(2 * KPC, 0.5 * KPC), mix2,
+                                   OpticalDepthNormalization(
+                                       "z", wg.lambdav[0], 0.5)))
+    dsys = DustSystem(grid, comps, samples_per_cell=4,
                       density_mode="analytic")
     instruments = [
         SEDInstrument("sed", 3.08e23, nlambda, inclination=1.0),
@@ -76,7 +90,23 @@ def _build(nlambda=2, ncells=16, packets=1024, n_instruments=2,
                             quadrature_panels=quadrature_panels,
                             refill_batches=refill_batches,
                             peel_panels=peel_panels, fused=True,
-                            polychromatic=True)
+                            polychromatic=polychromatic)
+    return grid, dsys, ss, instruments, opts
+
+
+def _build(nlambda=2, ncells=16, packets=1024, refill_batches=0,
+           polychromatic=True, device="cpu", **model_kw):
+    """`_model` with its lifecycle built: (run_batch, zero_tallies, ell,
+    L0) for `packets` lanes, polychromatic (every lane carries all
+    nlambda wavelengths) or one wavelength per lane (ell = lane % W)."""
+    import torch
+
+    from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+
+    grid, dsys, ss, instruments, opts = _model(
+        nlambda=nlambda, ncells=ncells, refill_batches=refill_batches,
+        polychromatic=polychromatic, **model_kw)
+    store_absorption = opts.store_absorption
     run_batch = make_lifecycle(grid, dsys, ss, instruments, opts, nlambda)
 
     def zero_tallies():
@@ -86,11 +116,16 @@ def _build(nlambda=2, ncells=16, packets=1024, n_instruments=2,
                                     dtype=torch.float32, device=device)
         return t
 
-    # every lane carries all nlambda wavelengths: `packets` counts lanes;
-    # photon packets = packets * K * nlambda
     total = packets * max(refill_batches, 1)
-    ell = torch.zeros((packets,), dtype=torch.int32, device=device)
-    L0 = torch.full((packets, nlambda), 1e36 / total, dtype=torch.float32,
+    if polychromatic:
+        # every lane carries all nlambda wavelengths: `packets` counts
+        # lanes; photon packets = packets * K * nlambda
+        ell = torch.zeros((packets,), dtype=torch.int32, device=device)
+        L0 = torch.full((packets, nlambda), 1e36 / total,
+                        dtype=torch.float32, device=device)
+        return run_batch, zero_tallies, ell, L0
+    ell = torch.arange(packets, dtype=torch.int32, device=device) % nlambda
+    L0 = torch.full((packets,), 1e36 / total, dtype=torch.float32,
                     device=device)
     return run_batch, zero_tallies, ell, L0
 
@@ -106,6 +141,7 @@ def main():
     packets = 1 << int(os.environ.get("BENCH_LOG2_PACKETS", "15"))
     refill = int(os.environ.get("BENCH_REFILL", "128"))
     nlambda = int(os.environ.get("BENCH_NLAMBDA", "128"))
+    poly = os.environ.get("BENCH_POLY", "1") == "1"
     run_batch, zero_tallies, ell, L0 = _build(
         nlambda=nlambda,
         ncells=int(os.environ.get("BENCH_NCELLS", "32")),
@@ -116,7 +152,7 @@ def main():
         quadrature_panels=int(os.environ.get("BENCH_PANELS", "32")),
         refill_batches=refill,
         peel_panels=int(os.environ.get("BENCH_PEEL_PANELS", "8")) or None,
-        device="cuda")
+        polychromatic=poly, device="cuda")
     nbatches = int(os.environ.get("BENCH_DISPATCH_BATCHES", "2"))
     run_many = make_multibatch(run_batch, nbatches)
     key = rng.root_key(4357)
@@ -136,7 +172,8 @@ def main():
         assert np.isfinite(total)
         best_dt = min(best_dt, dt)
 
-    pps = packets * max(refill, 1) * nbatches * nrep * nlambda / best_dt
+    poly_w = nlambda if poly else 1
+    pps = packets * max(refill, 1) * nbatches * nrep * poly_w / best_dt
     baseline = 1.6e6
     print(json.dumps({
         "metric": "photon_packets_per_second_per_chip",

@@ -1,4 +1,4 @@
-"""GPU smoke test of skirt_tpu_torch: kernels, parity and the main path.
+"""GPU smoke test of skirt_tpu_torch: kernels, parity and the main paths.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -9,39 +9,54 @@ exits non-zero without printing a result):
   1. the card (nvidia-smi name and power limit) and torch / CUDA versions;
      no CUDA device is an error, never a CPU fallback
   2. build the CUDA kernels with nvcc (skirt_tpu_torch/_build/)
-  3. K2 binned_add kernel vs its plain version at the main path's shapes:
-     the frame tally (4,194,304 updates into 32,768 bins, with dropped
-     indices) and the labs tally (32,768 updates into 2,097,152 bins)
+  3. K2 binned_add kernel vs its plain version at both main paths' shapes,
+     with the route each takes: the polychromatic frame (4,194,304
+     updates into 32,768 bins, with dropped indices) and labs (32,768
+     updates into 2,097,152 bins); the monochromatic frame (2,097,152
+     updates into 1,024 bins) and labs (2,097,152 into 65,536)
   4. K1 poly_event kernel vs its plain version on identical inputs at the
-     main path's shapes (N = 32,768 lanes, W = 128, 32/8 panels, 2
-     leaders, refill K = 128 from the ExpDisk sampler), chained over six
+     polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
+     2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
      events from each of three skirt_tpu_torch.testing.event_case states:
      about 10% dead lanes (some with the launch budget used up),
      axis-parallel directions and a weight cut that fires
-  5. the main path through make_lifecycle + make_multibatch at the bench
-     model's full width (bench_torch._build defaults): the launch counts
-     of both kernels are reset just before and read just after, and the
-     run's tallies are checked; then the same model family at a small
-     size on the card against the plain path on the CPU
-  6. one JSON line of per-kernel results, the card line, and last
+  5. K3 mono_event kernel vs its plain version, the same way, at the
+     monochromatic path's shapes (N = 2,097,152 lanes, one of W = 4
+     wavelengths per lane, 32/8 panels, 2 leaders, refill K = 128 from
+     the ExpDisk sampler, labs on; three mono_event_case states, with
+     min_scatt_events 1 and a weight cut that fires), then one two-
+     component case and one 128-wavelength case (where the Pallas
+     driver feeds per-lane tables, lam_inputs) at 262,144 lanes
+  6. the polychromatic main path through make_lifecycle + make_multibatch
+     at the bench model's full width (bench_torch._build defaults), and
+     the monochromatic main path through OligoSimulation at the mono
+     flagship's full width (bench.py BENCH_POLY=0 BENCH_NLAMBDA=4
+     BENCH_LOG2_PACKETS=21, 2 batches instead of 8): the launch counts of
+     the path's kernels are reset just before each run and read just
+     after, and the run's tallies are checked; then each path at a small
+     size on the card against the same run on the CPU
+  7. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
 
-Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few hundred
+Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few thousand
 updates taken in another order by atomics; each order is within
-n * 2^-24 of the exact sum).  K1 by skirt_tpu_torch.testing's criterion:
-the discrete outputs (deposit bin, alive, nscatt, bcount, fresh, the
-wavelengths that survive the weight cut) agree on >= 99.9% of lanes (the
-CPU test's bound), and every float output to rtol 1e-4 with atol 1e-6 x
-the array's largest magnitude on every lane whose discrete outputs agree.
-On the card the kernel and its plain version round alike op for op
-(-fmad=false, float32 reciprocals of the scale lengths, sums over w in w
-order, rsqrtf), so they agree to the bit in practice; the bounds leave
-room only for a compiler that rounds one op differently.  K1's
-max_abs_err is taken over the float outputs, each scaled by its array's
-largest magnitude, on the lanes whose discrete outputs agree.  The
-small-size cross-device check holds the CUDA run to the CPU run at the
-Monte Carlo tolerances of tests/test_poly.py (per-wavelength SED 0.15,
-totals 0.05): the two devices draw different random streams.
+n * 2^-24 of the exact sum).  K1 and K3 by skirt_tpu_torch.testing's
+criterion: the discrete outputs (deposit bin, alive, nscatt, bcount,
+fresh, and for K1 the wavelengths that survive the weight cut) agree on
+>= 99.9% of lanes (the CPU tests' bound), and no lane whose discrete
+outputs agree has a float output off by more than rtol 1e-4 with atol
+1e-6 x the array's largest magnitude.  On the card the kernels and their
+plain versions round alike op for op (-fmad=false, float32 reciprocals
+of the scale lengths, sums in one fixed order, rsqrtf), so they agree
+to the bit in practice; the bounds leave room only for a compiler that
+rounds one op differently.  max_abs_err is taken over the float outputs,
+each scaled by its array's largest magnitude, on the lanes whose
+discrete outputs agree.  The small-size cross-device checks hold the
+CUDA run to the CPU run at Monte Carlo tolerances (the two devices draw
+different random streams): polychromatic at tests/test_poly.py's
+(per-wavelength SED 0.15, totals 0.05), monochromatic at
+tests/test_fused.py's (SED per wavelength and frame total 0.03, labs
+0.05).
 """
 
 import json
@@ -52,8 +67,8 @@ import time
 import numpy as np
 
 
-# K1: events chained from each of three starting states
-K1_EVENTS = 6
+# K1 and K3: events chained from each starting state
+EVENTS = 6
 
 
 def log(msg):
@@ -91,7 +106,9 @@ def phase_k2(torch, results):
     rs = np.random.default_rng(12)
     worst = 0.0
     times = {}
-    shapes = {"frame": (32768, 128 * 32768), "labs": (128 * 16384, 32768)}
+    shapes = {"frame": (32768, 128 * 32768), "labs": (128 * 16384, 32768),
+              "mono frame": (4 * 256, 1 << 21),
+              "mono labs": (4 * 16384, 1 << 21)}
     for name, (nbins, n) in shapes.items():
         idx = rs.integers(0, nbins, n)
         drop = rs.random(n)
@@ -139,7 +156,7 @@ def phase_k1(torch, results):
             f"{int((dead & (state[8] >= spec.K)).sum())} dead with the "
             f"launch budget used up, {int((state[3] == 0).sum())} with "
             f"dx == 0, min_scatt {spec.min_scatt}")
-        for it in range(K1_EVENTS):
+        for it in range(EVENTS):
             if it:
                 u = rng.uniform_open(rng.event_key(seed, it),
                                      (spec.n_uniform, n), "cuda")
@@ -168,7 +185,69 @@ def phase_k1(torch, results):
     results["K1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_main(torch, results):
+def phase_k3(torch, results):
+    from bench_torch import _build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused
+    from skirt_tpu_torch.testing import event_agreement, mono_event_case
+
+    worst = 0.0
+    cases = (("W=4", 4, 1, 1 << 21, (5, 6, 7)),
+             ("W=4 H=2", 4, 2, 1 << 18, (8,)),
+             ("W=128", 128, 1, 1 << 18, (9,)))
+    for label, nlambda, ncomp, n, seeds in cases:
+        run_batch, *_ = _build(nlambda=nlambda, ncells=32, packets=n,
+                               refill_batches=128, quadrature_panels=32,
+                               peel_panels=8, polychromatic=False,
+                               ncomp=ncomp, device="cuda")
+        for seed in seeds:
+            spec, u, state = mono_event_case(run_batch.spec, n, seed, "cuda")
+            assert spec.npanels == 32 and spec.np_peel == 8
+            assert len(spec.leaders) == 2 and spec.refill and spec.nu_pos == 4
+            assert spec.want_labs and spec.H == ncomp
+            dead = state[7] == 0
+            log(f"  K3 {label} inputs (seed {seed}): {n} lanes, "
+                f"{int(dead.sum())} dead, "
+                f"{int((dead & (state[11] >= spec.K)).sum())} dead with the "
+                f"launch budget used up, {int((state[3] == 0).sum())} with "
+                f"dx == 0, min_scatt {spec.min_scatt}")
+            for it in range(EVENTS):
+                if it:
+                    u = rng.uniform_open(rng.event_key(seed, it),
+                                         (spec.n_uniform, n), "cuda")
+                got = fused.mono_event(spec, u, state)
+                want = fused.mono_event_plain(spec, u, state)
+                torch.cuda.synchronize()
+                res = event_agreement(got, want)
+                bits = all(torch.equal(a, b) for a, b in
+                           zip(got["state"], want["state"])) and all(
+                    torch.equal(got[k], want[k]) for k in want
+                    if k != "state")
+                alive_in = state[7] != 0
+                alive = got["state"][7] != 0
+                log(f"  K3 {label} event {it}: discrete agree "
+                    f"{res['discrete']:.6f}, float-disagreeing lanes "
+                    f"{res['float_bad']}, scaled max err "
+                    f"{res['scaled_err']:.3e}, bit-identical {bits}; alive "
+                    f"{float(alive.float().mean()):.3f}, fresh "
+                    f"{int(got['fresh'].sum())}, killed "
+                    f"{int((alive_in & ~alive).sum())}, deposits "
+                    f"{int((got['depi'] >= 0).sum())}")
+                if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                    raise AssertionError(f"K3 kernel disagrees with its "
+                                         f"plain version ({label}) at event "
+                                         f"{it}: {res}")
+                worst = max(worst, res["scaled_err"])
+                state = list(got["state"]) + state[9:11] + [got["bc"]]
+        if label == "W=4":
+            ms = cuda_ms(lambda: fused.mono_event(spec, u, state))
+            plain_ms = cuda_ms(lambda: fused.mono_event_plain(spec, u, state),
+                               reps=5)
+            log(f"  K3 N={n} W=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results["K3"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_main_poly(torch, results):
     from bench_torch import _build
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_poly
@@ -190,12 +269,12 @@ def phase_main(torch, results):
     dt = time.perf_counter() - t0
     launches = {"K1": fused_poly.poly_event.launches,
                 "K2": binned.binned_add.launches}
-    results["launches"] = launches
+    results["launches_poly"] = launches
     pps = packets * K * nbatches * W / dt
     sed = out["instruments"][0]["Ftot"].double().cpu().numpy()
     labs = float(out["labs"].double().sum())
     launched = nbatches * W * 1e36
-    log(f"  main path: {nbatches} batches x {packets} lanes x K={K} x "
+    log(f"  poly main path: {nbatches} batches x {packets} lanes x K={K} x "
         f"W={W} in {dt:.3f} s = {pps:.4e} packets/s; launches {launches}; "
         f"SED total {sed.sum():.4e} W, labs {labs:.4e} W of "
         f"{launched:.4e} W launched")
@@ -210,12 +289,12 @@ def phase_main(torch, results):
         raise AssertionError("SED Ftot not positive")
     if not 0 < labs < launched:
         raise AssertionError(f"labs {labs} outside (0, {launched})")
-    results["main"] = {"seconds": dt, "packets_per_s": pps}
+    results["main_poly"] = {"seconds": dt, "packets_per_s": pps}
 
 
-def phase_reference(torch):
-    """The same model family at a small size: CUDA kernels vs the plain
-    path on the CPU, at Monte Carlo tolerance."""
+def phase_reference_poly(torch):
+    """The polychromatic model family at a small size: CUDA kernels vs
+    the plain path on the CPU, at Monte Carlo tolerance."""
     from bench_torch import _build
     from skirt_tpu_torch import rng
 
@@ -236,8 +315,103 @@ def phase_reference(torch):
             raise AssertionError(f"{k}: cuda {g[k]} vs cpu {c[k]}")
     if abs(g["sed"].sum() / c["sed"].sum() - 1) > 0.05:
         raise AssertionError("SED total differs between cuda and cpu")
-    log(f"  small model cuda/cpu: SED {g['sed'].sum() / c['sed'].sum():.4f}, "
+    log(f"  small poly model cuda/cpu: SED {g['sed'].sum() / c['sed'].sum():.4f}, "
         f"frame {g['frame'] / c['frame']:.4f}, labs {g['labs'] / c['labs']:.4f}")
+
+
+def _mono_simulation(device, nlambda, lanes, batches, **model_kw):
+    """An OligoSimulation of the bench model with one wavelength per lane:
+    `lanes` lanes per batch, `batches` batches in one dispatch."""
+    from bench_torch import _model
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+
+    grid, ds, ss, ins, opts = _model(nlambda=nlambda, polychromatic=False,
+                                     **model_kw)
+    K = max(opts.refill_batches, 1)
+    return OligoSimulation(stellar_system=ss, instruments=ins,
+                           dust_system=ds, options=opts,
+                           packets=lanes // nlambda * K * batches,
+                           batch_size=lanes, dispatch_batches=batches,
+                           log=SilentLog(), device=device)
+
+
+def _check_tallies(acc, launched, what):
+    """Finite tallies, a positive SED, 0 < labs < launched (float64 host
+    sums of an OligoSimulation phase)."""
+    for d in acc["instruments"]:
+        for v in d.values():
+            if not np.isfinite(v).all():
+                raise AssertionError(f"{what}: non-finite tally")
+    sed = acc["instruments"][0]["Ftot"]
+    if not (sed > 0).all():
+        raise AssertionError(f"{what}: SED Ftot not positive")
+    labs = float(acc["labs"].sum())
+    if not 0 < labs < launched:
+        raise AssertionError(f"{what}: labs {labs} outside (0, {launched})")
+    return sed, labs
+
+
+def phase_main_mono(torch, results):
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused
+    from skirt_tpu_torch.ops import binned
+
+    W, lanes, K, nbatches = 4, 1 << 21, 128, 2
+    sim = _mono_simulation("cuda", W, lanes, nbatches, ncells=32,
+                           refill_batches=K, quadrature_panels=32,
+                           peel_panels=8)
+    spec = sim._lifecycle.spec
+    assert isinstance(spec, fused.MonoEventSpec)
+    assert len(list(sim._batches())) == nbatches
+    torch.cuda.synchronize()
+    binned.binned_add.launches = 0
+    fused.mono_event.launches = 0
+    t0 = time.perf_counter()
+    acc = sim._run_phase(rng.root_key(sim.seed), 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"K3": fused.mono_event.launches,
+                "K2": binned.binned_add.launches}
+    results["launches_mono"] = launches
+    pps = lanes * K * nbatches / dt
+    launched = float(sim.stellar_system.Lv.sum())
+    sed, labs = _check_tallies(acc, launched, "mono main path")
+    log(f"  mono main path (OligoSimulation): {nbatches} batches x {lanes} "
+        f"lanes x K={K}, W={W} one per lane, in {dt:.3f} s = {pps:.4e} "
+        f"packets/s; launches {launches} ({launches['K3'] / nbatches:.0f} "
+        f"event iterations per batch); SED total {sed.sum():.4e} W, labs "
+        f"{labs:.4e} W of {launched:.4e} W launched")
+    if launches["K3"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["main_mono"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_reference_mono(torch):
+    """A small OligoSimulation(fused=True) on the card against the same
+    on the CPU, at tests/test_fused.py's Monte Carlo tolerances."""
+    from skirt_tpu_torch import rng
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = _mono_simulation(dev, 2, 1 << 13, 2, ncells=16,
+                               refill_batches=4, quadrature_panels=16,
+                               peel_panels=8, max_scatt=32, vary_lambda=True)
+        acc = sim._run_phase(rng.root_key(sim.seed), 0)
+        sed, labs = _check_tallies(acc, float(sim.stellar_system.Lv.sum()),
+                                   f"small mono run on {dev}")
+        outs[dev] = {"sed": sed,
+                     "frame": float(acc["instruments"][1]["ftot"].sum()),
+                     "labs": labs}
+    g, c = outs["cuda"], outs["cpu"]
+    np.testing.assert_allclose(g["sed"], c["sed"], rtol=0.03)
+    for k, tol in (("frame", 0.03), ("labs", 0.05)):
+        if abs(g[k] / c[k] - 1) > tol:
+            raise AssertionError(f"{k}: cuda {g[k]} vs cpu {c[k]}")
+    log(f"  small mono OligoSimulation cuda/cpu: SED "
+        f"{', '.join(f'{r:.4f}' for r in g['sed'] / c['sed'])}, frame "
+        f"{g['frame'] / c['frame']:.4f}, labs {g['labs'] / c['labs']:.4f}")
 
 
 def main():
@@ -268,28 +442,46 @@ def main():
     phase_k2(torch, results)
     log("phase 4: K1 poly_event kernel vs plain")
     phase_k1(torch, results)
-    log("phase 5: main path (make_lifecycle + make_multibatch, W=128)")
-    phase_main(torch, results)
-    phase_reference(torch)
+    log("phase 5: K3 mono_event kernel vs plain")
+    phase_k3(torch, results)
+    log("phase 6: main paths (poly: make_lifecycle + make_multibatch, "
+        "W=128; mono: OligoSimulation, W=4)")
+    phase_main_poly(torch, results)
+    phase_main_mono(torch, results)
+    phase_reference_poly(torch)
+    phase_reference_mono(torch)
 
-    log("phase 6: results")
+    log("phase 7: results")
+    lp, lm = results["launches_poly"], results["launches_mono"]
     kern = [
         {"name": "K1 poly_event", "route": "cuda",
          "source": "skirt_tpu_torch/csrc/fused_poly.cu",
          "replaces": "skirt_tpu/engine/fused_poly.py:85",
-         "launches": results["launches"]["K1"],
+         "launches": lp["K1"],
          "max_abs_err": results["K1"]["max_abs_err"],
          "ms": results["K1"]["ms"], "plain_ms": results["K1"]["plain_ms"]},
         {"name": "K2 binned_add", "route": "cuda",
          "source": "skirt_tpu_torch/csrc/binned.cu",
          "replaces": "skirt_tpu/ops/binned.py:37",
-         "launches": results["launches"]["K2"],
+         "launches": lp["K2"] + lm["K2"],
+         "launches_by_path": {"poly": lp["K2"], "mono": lm["K2"]},
          "max_abs_err": results["K2"]["max_abs_err"],
-         "ms": results["K2"]["ms"], "plain_ms": results["K2"]["plain_ms"]},
+         "ms": results["K2"]["ms"], "plain_ms": results["K2"]["plain_ms"],
+         "ms_by_shape": {k: v[0] for k, v in results["K2"]["times"].items()},
+         "plain_ms_by_shape": {k: v[1] for k, v
+                               in results["K2"]["times"].items()}},
+        {"name": "K3 mono_event", "route": "cuda",
+         "source": "skirt_tpu_torch/csrc/fused_mono.cu",
+         "replaces": "skirt_tpu/engine/fused.py:199",
+         "launches": lm["K3"],
+         "max_abs_err": results["K3"]["max_abs_err"],
+         "ms": results["K3"]["ms"], "plain_ms": results["K3"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kern,
-                      "main_path_packets_per_s":
-                          results["main"]["packets_per_s"]}), flush=True)
+                      "main_path_packets_per_s": {
+                          "poly": results["main_poly"]["packets_per_s"],
+                          "mono": results["main_mono"]["packets_per_s"]}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 `from_skirt_tpu` reads the NumPy state of the JAX package's objects by
 duck typing (class names and attributes; it never imports jax) and builds
-the port's objects from it.  The discretised densities travel as they
+the port's objects from it; `convert_simulation` does the same for an
+OligoSimulation and its settings.  The discretised densities travel as they
 are (`rho64`); everything else the port recomputes from the same
 parameters in float64, so `lscale`, `_mass_over_L3`, the event kernel's
 optical constants and the instrument frames come out identical.  The
@@ -55,7 +56,8 @@ def _convert_normalization(norm):
 
 
 def convert_dust_system(ds, grid):
-    """A port DustSystem over the JAX system's discretised densities."""
+    """A port DustSystem over the JAX system's discretised densities, with
+    every component (geometry, mix, normalization) carried across."""
     if not getattr(ds, "analytic", False) or getattr(ds, "table", False):
         raise ValueError("only analytic-mode dust systems are ported")
     comps = []
@@ -102,3 +104,27 @@ def from_skirt_tpu(grid, dust_system, stellar_system, instruments, options):
             convert_stellar_system(stellar_system),
             [convert_instrument(i) for i in instruments],
             convert_options(options))
+
+
+def convert_simulation(sim, device="cpu", log=None, **overrides):
+    """A port OligoSimulation with the model and settings of a skirt_tpu
+    OligoSimulation: its (original, leaf-resolution) dust system, stellar
+    system, instruments and lifecycle options, and packets, seed,
+    batch_size, out_dir, prefix, checkpoint_every and dispatch_batches.
+    `overrides` replace any of those keywords."""
+    from .engine.simulation import OligoSimulation
+
+    ds = getattr(sim, "dust_system_out", sim.dust_system)
+    grid = dsys = None
+    if ds is not None:
+        grid = convert_grid(ds.grid)
+        dsys = convert_dust_system(ds, grid)
+    kw = dict(stellar_system=convert_stellar_system(sim.stellar_system),
+              instruments=[convert_instrument(i) for i in sim.instruments],
+              dust_system=dsys, packets=sim.packets, seed=sim.seed,
+              options=convert_options(sim.options),
+              batch_size=sim.batch_size, out_dir=sim.out_dir,
+              prefix=sim.prefix, checkpoint_every=sim.checkpoint_every,
+              dispatch_batches=sim.dispatch_batches, log=log, device=device)
+    kw.update(overrides)
+    return OligoSimulation(**kw)

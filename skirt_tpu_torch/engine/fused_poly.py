@@ -36,16 +36,9 @@ import torch
 
 from .. import kernels, rng
 from ..ops import binned_add
-from .fused import (_expon_cutoff, _f32, _group_leaders, _make_locate,
-                    _make_span)
-
-_TINY = 1e-30
-# compile-time panel maximum of the CUDA kernel (the lane's cumulative
-# column densities live in registers; MAXP in csrc/fused_poly.cu)
-_CUDA_MAXP = 32
-_CUDA_DENSITY = {"expdisk": 1}
-_CUDA_SAMPLER = {None: 0, "point": 1, "expdisk": 2}
-_CHECK_EVERY = 16       # event iterations between host reads of the stop test
+from .fused import (_CHECK_EVERY, _CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER,
+                    _TINY, _expon_cutoff, _f32, _geom_args, _group_leaders,
+                    _make_locate, _make_span, _ptr)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -61,7 +54,7 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if mueller is not None:
         bail("polarization is not ported yet (slice S5)")
     if io_state:
-        bail("io_state is not ported yet (slice S2)")
+        bail("io_state is not ported yet (slice S2b)")
     if launch_fn is not None:
         bail("launch_fn (dust-emission launch with refill between kernel "
              "calls) belongs to the panchromatic loop, not ported yet "
@@ -400,33 +393,10 @@ def _cuda_args(spec: PolyEventSpec):
     a.inv_np = spec.inv_np
     a.inv_pp = spec.inv_pp
     a.inv_minred = spec.inv_minred
-    a.invL = spec.invL
-    for i in range(3):
-        a.box_lo[i] = _f32(spec.box[i])
-        a.box_hi[i] = _f32(spec.box[3 + i])
-    g = spec.grid
-    if spec.want_labs:
-        a.nx, a.ny, a.nz = g.nx, g.ny, g.nz
-        for i in range(3):
-            a.loc_lo[i] = _f32(g._lo[i])
-            a.loc_inv[i] = _f32(1.0 / g._dx[i])
-    for j, kvec in enumerate(spec.leaders):
-        for i, d in enumerate(kvec):
-            a.lead_k[j][i] = _f32(d)
-            moving = abs(d) > 1e-30
-            a.lead_moving[j][i] = int(moving)
-            a.lead_inv[j][i] = _f32(1.0 / d) if moving else 0.0
-    for i, v in enumerate(dens[1]):
-        a.dens[i] = v
-    if samp is not None:
-        for i, v in enumerate(samp[1]):
-            a.samp[i] = v
+    _geom_args(a, spec.box, spec.grid, spec.want_labs, spec.leaders,
+               spec.invL, dens[1], samp[1] if samp else None)
     return a, (_CUDA_DENSITY[dens[0]], _CUDA_SAMPLER[samp[0] if samp
                                                       else None])
-
-
-def _ptr(t):
-    return t.data_ptr() if t is not None else None
 
 
 def _poly_event_cuda(spec, u, oc, L, L0, state):

@@ -2,13 +2,16 @@
 
 Twin of skirt_tpu/engine/lifecycle.py.  `LifecycleOptions` keeps the
 reference's field names and defaults so a configuration carries across
-unchanged; `make_lifecycle` has the polychromatic analytic branch only
-(slice S1) and names the missing slice for every other branch.
+unchanged; `make_lifecycle` has the fused analytic branches (the
+polychromatic engine, slice S1, and the monochromatic one, slice S2a)
+and names the missing slice for every other branch.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+
+import torch
 
 from .. import rng
 
@@ -56,6 +59,66 @@ def make_multibatch(run_batch, nbatches: int, key_fn=None):
     return run_many
 
 
+def make_lifecycle_with_fallback(*args, log=None, **kwargs):
+    """make_lifecycle, retrying without the fused fast path on ValueError.
+
+    skirt_tpu's retry builds the general (unfused) lifecycle, which is not
+    ported yet: here the retry raises, naming slice S2b and the reason the
+    fused engine gave, and never runs silently."""
+    options = args[4] if len(args) > 4 else kwargs["options"]
+    try:
+        return make_lifecycle(*args, **kwargs)
+    except ValueError as e:
+        if not getattr(options, "fused", False):
+            raise
+        if log is not None:
+            log.info(f"fused fast path unavailable ({e}); using the "
+                     "general estimators")
+        slow = replace(options, fused=False, refill_batches=0,
+                       polychromatic=False)
+        if len(args) > 4:
+            args = args[:4] + (slow,) + args[5:]
+        else:
+            kwargs["options"] = slow
+        try:
+            return make_lifecycle(*args, **kwargs)
+        except ValueError as e2:
+            raise ValueError(f"{e2} [the fused engine refused first: {e}]"
+                             ) from e
+
+
+def make_peel_off(grid, dust_system, instrument, rho_path_map=None):
+    """Returns peel(tallies, pos, ell, contribution, tags, tau=...) that
+    applies the extinction exp(-tau) toward the instrument and detects.
+
+    Ported: the shared-tau branch (the fused drivers compute tau once per
+    observer direction) and the run without dust.  The fast-peeloff map
+    (rho_path_map) and the grid-traversal optical depth belong to the
+    general lifecycle and raise, naming slice S2b."""
+    if rho_path_map is not None:
+        raise ValueError("make_peel_off: the fast-peeloff density-path maps "
+                         "(compute_rho_path_maps) are not ported yet "
+                         "(slice S2b)")
+    if hasattr(instrument, "observer_distance"):
+        raise ValueError("make_peel_off: perspective instruments are not "
+                         "ported yet (slice S6)")
+
+    def peel(tallies, pos, ell, contribution, tags, active=None, cell=None,
+             tau=None, kapparho=None):
+        if tau is not None:
+            extincted = contribution * torch.exp(-tau)
+        elif dust_system is None:
+            extincted = contribution
+        else:
+            raise ValueError("make_peel_off: the peel-off optical depth by "
+                             "grid traversal is not ported yet (slice S2b)")
+        if tags is not None:
+            tags = dict(tags, transparent=contribution)
+        return instrument.detect(tallies, pos, ell, extincted, tags)
+
+    return peel
+
+
 def make_lifecycle(grid, dust_system, stellar_system, instruments,
                    options: LifecycleOptions, nlambda: int,
                    launch_fn=None, emission_peeloff: bool = True,
@@ -64,18 +127,17 @@ def make_lifecycle(grid, dust_system, stellar_system, instruments,
                    max_iterations: int | None = None):
     """Build the per-batch lifecycle run_batch(key, ell, L0, tallies).
 
-    Ported: fused + polychromatic + analytic densities
-    (engine/fused_poly.py).  Every other branch of skirt_tpu's dispatch
-    raises ValueError naming the slice that will port it."""
+    Ported: fused + analytic densities, polychromatic
+    (engine/fused_poly.py, kernel K1) or monochromatic (engine/fused.py,
+    kernel K3).  Every other branch of skirt_tpu's dispatch raises
+    ValueError naming the slice that will port it."""
     ds = dust_system
 
     def missing(what, slice_):
         raise ValueError(f"make_lifecycle: {what} is not ported yet "
                          f"(slice {slice_}); skirt_tpu_torch runs the "
-                         "fused polychromatic analytic path only")
+                         "fused analytic engines only")
 
-    if ds is None:
-        missing("a run without dust", "S2")
     table = getattr(ds, "table", False)
     analytic = getattr(ds, "analytic", False)
     if options.fused and options.polychromatic and table:
@@ -92,5 +154,12 @@ def make_lifecycle(grid, dust_system, stellar_system, instruments,
     if options.fused and table:
         missing("the monochromatic table engine (fused_table)", "S4")
     if options.fused:
-        missing("the monochromatic fused analytic engine (fused)", "S2")
-    missing("the unfused vector lifecycle", "S2")
+        from . import fused as _fused
+        return _fused.make_fused_lifecycle(
+            grid, dust_system, stellar_system, instruments, options,
+            nlambda, launch_fn=launch_fn,
+            emission_peeloff=emission_peeloff,
+            scattering_peeloff=scattering_peeloff,
+            is_dust_emission=is_dust_emission, mueller=mueller,
+            io_state=io_state, max_iterations=max_iterations)
+    missing("the general (unfused) vector lifecycle", "S2b")

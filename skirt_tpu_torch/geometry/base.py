@@ -126,12 +126,12 @@ class Geometry:
 
     def cuda_density(self, lscale: float):
         """(name, float32 constants) of this geometry's `__device__`
-        density in csrc/fused_poly.cu, or None."""
+        density in csrc/common.cuh, or None."""
         return None
 
     def cuda_sampler(self):
         """(name, float32 constants) of this geometry's `__device__`
-        sampler in csrc/fused_poly.cu, or None."""
+        sampler in csrc/common.cuh, or None."""
         return None
 
 

@@ -1,8 +1,8 @@
 """Distant instruments with parallel projection.
 
-Twin of skirt_tpu/instruments/instruments.py (slice 1: DistantInstrument,
-SEDInstrument, FrameInstrument, SimpleInstrument with the polychromatic
-detects, calibration and writers).  ref: SKIRTcore/DistantInstrument.cpp,
+Twin of skirt_tpu/instruments/instruments.py (DistantInstrument,
+SEDInstrument, FrameInstrument, SimpleInstrument with the monochromatic
+and polychromatic detects, calibration and writers).  ref: SKIRTcore/DistantInstrument.cpp,
 SingleFrameInstrument.cpp (pixelondetector :119-145, calibration
 :151-226), SEDInstrument / FrameInstrument / SimpleInstrument.
 
@@ -73,6 +73,22 @@ class DistantInstrument:
         return xp, yp
 
 
+def _bin_sum(values, ell, nlambda):
+    """Per-wavelength-bin sum of (N,) values with (N,) bin indices.
+
+    A pairwise reduction of masked rows, as skirt_tpu's one-hot matvec
+    (error ~sqrt(N) eps): a scatter of N lanes into a handful of bins
+    would be N-way contended atomics on the GPU with ~N eps error.  The
+    rows are taken in chunks of at most 2^24 elements."""
+    n = max(values.shape[0], 1)
+    wl = torch.arange(nlambda, dtype=ell.dtype, device=ell.device)
+    step = max(1, (1 << 24) // n)
+    out = [torch.where(ell[None, :] == wl[i:i + step, None], values[None, :],
+                       0.0).sum(dim=1)
+           for i in range(0, nlambda, step)]
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 class SEDInstrument(DistantInstrument):
     """Integrated SED only (ref: SKIRTcore/SEDInstrument.cpp)."""
 
@@ -83,6 +99,12 @@ class SEDInstrument(DistantInstrument):
     def zero_tallies(self, device="cpu"):
         return {"Ftot": torch.zeros((self.nlambda,), dtype=torch.float32,
                                     device=device)}
+
+    def detect(self, tallies, pos, ell, contribution, tags=None):
+        """Add the (already extincted) contributions of N packets with
+        wavelength indices ell (N,) to the tallies."""
+        tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
+        return tallies
 
     def detect_poly(self, tallies, pos, wls, contrib):
         """contrib (W, N): row i carries wavelength index wls[i] (a
@@ -128,6 +150,12 @@ class FrameInstrument(DistantInstrument):
         return {"ftot": torch.zeros((self.nlambda * self.nx * self.ny,),
                                     dtype=torch.float32, device=device)}
 
+    def detect(self, tallies, pos, ell, contribution, tags=None):
+        pix = self.pixel(pos)
+        idx = torch.where(pix >= 0, ell * (self.nx * self.ny) + pix, -1)
+        binned_add(tallies["ftot"], idx, contribution)
+        return tallies
+
     def _poly_idx(self, pos, wls):
         """(W, N) flat cube bins sharing one pixel projection per lane."""
         pix = self.pixel(pos)
@@ -154,6 +182,11 @@ class SimpleInstrument(FrameInstrument):
         t["Ftot"] = torch.zeros((self.nlambda,), dtype=torch.float32,
                                 device=device)
         return t
+
+    def detect(self, tallies, pos, ell, contribution, tags=None):
+        tallies = super().detect(tallies, pos, ell, contribution, tags)
+        tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
+        return tallies
 
     def detect_poly(self, tallies, pos, wls, contrib):
         tallies = super().detect_poly(tallies, pos, wls, contrib)

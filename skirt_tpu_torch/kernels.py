@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes.  The build runs at first use, never at
+interface, loaded through ctypes: one nvcc process per `.cu` file, all
+started together, then one link.  The build runs at first use, never at
 import: the CPU tests import every module of the package on machines
 without nvcc.  The library is keyed by a hash of the sources and flags
 and lands in `skirt_tpu_torch/_build/` (listed in .gitignore); a build
@@ -31,8 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # versions compute it (one elementwise op at a time), so a kernel and its
 # plain version round alike
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""
@@ -59,29 +59,60 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into _build/libskirt_kernels_<hash>.so (cached)."""
+    """Compile csrc/*.cu into _build/libskirt_kernels_<hash>.so (cached):
+    one nvcc per source, all running at once, then one link."""
     global build_log
     so = BUILD_DIR / f"libskirt_kernels_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cus = [p for p in sources() if p.suffix == ".cu"]
+        objs = [os.path.join(work, p.stem + ".o") for p in cus]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cus, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [p.name for p, proc in zip(cus, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = os.path.join(work, so.name)
+        proc = subprocess.run([nvcc(), "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{build_log}")
+        os.replace(tmp, so)
     return so
 
 
+MAX_LEAD = 8
+
+
+class Geom(ctypes.Structure):
+    """Mirror of `struct Geom` in csrc/common.cuh (same order): the grid
+    box and locate, the observer directions, the density and sampler
+    constants shared by the event kernels."""
+    _fields_ = (
+        [(name, ctypes.c_int) for name in ("nx", "ny", "nz")]
+        + [("invL", ctypes.c_float)]
+        + [(name, ctypes.c_float * 3) for name in (
+            "box_lo", "box_hi", "loc_lo", "loc_inv")]
+        + [("lead_k", (ctypes.c_float * 3) * MAX_LEAD),
+           ("lead_inv", (ctypes.c_float * 3) * MAX_LEAD),
+           ("lead_moving", (ctypes.c_int * 3) * MAX_LEAD),
+           ("dens", ctypes.c_float * 8),
+           ("samp", ctypes.c_float * 4)])
+
+
 class PolyArgs(ctypes.Structure):
-    """Mirror of `struct PolyArgs` in csrc/fused_poly.cu (same order)."""
-    MAX_LEAD = 8
+    """Mirror of `struct PolyArgs` in csrc/fused_poly.cu (same order); the
+    Geom's fields read and write as the struct's own."""
+    MAX_LEAD = MAX_LEAD
     MAX_W = 128
+    _anonymous_ = ("geo",)
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "u", "oc", "L", "L0", "px", "py", "pz", "dx", "dy", "dz",
@@ -90,16 +121,34 @@ class PolyArgs(ctypes.Structure):
             "oLn", "oLp", "odepi", "odepv", "oIp", "ocos", "obc", "ofresh")]
         + [(name, ctypes.c_int) for name in (
             "N", "W", "npanels", "np_peel", "nlead", "min_scatt", "K",
-            "scattering_peeloff", "nx", "ny", "nz")]
+            "scattering_peeloff")]
         + [(name, ctypes.c_float) for name in (
-            "xi", "inv_np", "inv_pp", "inv_minred", "invL")]
-        + [(name, ctypes.c_float * 3) for name in (
-            "box_lo", "box_hi", "loc_lo", "loc_inv")]
-        + [("lead_k", (ctypes.c_float * 3) * MAX_LEAD),
-           ("lead_inv", (ctypes.c_float * 3) * MAX_LEAD),
-           ("lead_moving", (ctypes.c_int * 3) * MAX_LEAD),
-           ("dens", ctypes.c_float * 8),
-           ("samp", ctypes.c_float * 4)])
+            "xi", "inv_np", "inv_pp", "inv_minred")]
+        + [("geo", Geom)])
+
+
+class MonoArgs(ctypes.Structure):
+    """Mirror of `struct MonoArgs` in csrc/fused_mono.cu (same order); the
+    Geom's fields read and write as the struct's own."""
+    MAX_LEAD = MAX_LEAD
+    MAX_COMP = 2
+    # the (3H, nlambda) wavelength tables sit in a block's static shared
+    # memory window
+    MAX_TABLE = 12288
+    _anonymous_ = ("geo",)
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "u", "tab", "px", "py", "pz", "dx", "dy", "dz", "L", "alive",
+            "ns", "ell", "L0", "bc",
+            "opx", "opy", "opz", "odx", "ody", "odz", "oL", "oalive", "ons",
+            "odepi", "odepv", "otau", "ocos", "oph", "obc", "ofresh")]
+        + [(name, ctypes.c_int) for name in (
+            "N", "nlambda", "H", "npanels", "np_peel", "nlead", "min_scatt",
+            "K", "scattering_peeloff", "u_comp")]
+        + [(name, ctypes.c_float) for name in (
+            "xi", "one_m_xi", "inv_np", "inv_pp", "inv_minred")]
+        + [("dens1", ctypes.c_float * 8),
+           ("geo", Geom)])
 
 
 def library() -> ctypes.CDLL:
@@ -117,11 +166,18 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(PolyArgs), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.skirt_poly_event.restype = ctypes.c_int
-        lib.skirt_poly_args_size.argtypes = []
-        lib.skirt_poly_args_size.restype = ctypes.c_int
-        if lib.skirt_poly_args_size() != ctypes.sizeof(PolyArgs):
-            raise RuntimeError("PolyArgs layout differs between Python "
-                               "and csrc/fused_poly.cu")
+        lib.skirt_mono_event.argtypes = [
+            ctypes.POINTER(MonoArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.skirt_mono_event.restype = ctypes.c_int
+        for name, struct, src in (("poly", PolyArgs, "fused_poly.cu"),
+                                  ("mono", MonoArgs, "fused_mono.cu")):
+            size = getattr(lib, f"skirt_{name}_args_size")
+            size.argtypes = []
+            size.restype = ctypes.c_int
+            if size() != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} layout differs "
+                                   f"between Python and csrc/{src}")
         _lib = lib
     return _lib
 

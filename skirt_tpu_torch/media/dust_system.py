@@ -1,6 +1,7 @@
 """Dust system: density field over a grid + optical properties.
 
-Twin of skirt_tpu/media/dust_system.py, analytic mode only (slice 1).
+Twin of skirt_tpu/media/dust_system.py, analytic mode only, one or more
+components.
 ref: SKIRTcore/DustSystem.cpp:63-192 and the normalization family.
 
 Setup runs on the host in NumPy float64 with the same seed and sampling
@@ -144,6 +145,7 @@ class DustSystem:
         # kg/m^3 (float64 host product; ~1e-26, float32-safe)
         self._mass_over_L3 = np.asarray(self.masses / self.lscale ** 3,
                                         np.float32)
+        self._kappas_dev = {}
 
     # -- diagnostics (host) -----------------------------------------------
 
@@ -151,6 +153,18 @@ class DustSystem:
         return float((self.rho64.sum(axis=0) * self.volumes).sum())
 
     # -- device side --------------------------------------------------------
+
+    def packet_kappas(self, ell):
+        """Per-packet opacity lookups: (ksca_pk, kext_pk), lists over
+        components of (N,) tensors on ell's device."""
+        dev = ell.device
+        if dev not in self._kappas_dev:     # one host->device copy per device
+            self._kappas_dev[dev] = (torch.as_tensor(self.kappasca, device=dev),
+                                     torch.as_tensor(self.kappaext, device=dev))
+        ksca, kext = self._kappas_dev[dev]
+        idx = ell.long()
+        return ([ksca[h, idx] for h in range(self.ncomp)],
+                [kext[h, idx] for h in range(self.ncomp)])
 
     def analytic_rows(self, pos, direction, mid, ksca_pk, kext_pk,
                       want_sca=True):

@@ -1,12 +1,13 @@
 """Dust mixes: per-wavelength optical properties.
 
-Twin of skirt_tpu/media/mix.py (slice 1: DustMix, SimpleOligoDustMix).
-ref: SKIRTcore/DustMix.cpp, SimpleOligoDustMix.cpp.
+Twin of skirt_tpu/media/mix.py (DustMix with its HG phase function,
+SimpleOligoDustMix).  ref: SKIRTcore/DustMix.cpp, SimpleOligoDustMix.cpp.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class DustMix:
@@ -30,6 +31,20 @@ class DustMix:
         self.kappaext = np.asarray(self.kappaext64, np.float32)
         self.albedo = np.asarray(self.albedo64, np.float32)
         self.g = np.asarray(self.g64, np.float32)
+        self._g_dev = {}
+
+    def phase_function(self, ell, cosalpha):
+        """HG phase function normalized to mean 1 over directions, for
+        wavelength indices ell on cosalpha's device.
+
+        ref: SKIRTcore/DustMix.cpp:648-671 phaseFunctionValue:
+        (1-g^2) / (1 + g^2 - 2 g cos a)^{3/2}."""
+        dev = cosalpha.device
+        if dev not in self._g_dev:      # one host->device copy per device
+            self._g_dev[dev] = torch.as_tensor(self.g, device=dev)
+        g = self._g_dev[dev][ell.long()]
+        t = 1.0 + g * g - 2.0 * g * cosalpha
+        return (1.0 - g) * (1.0 + g) / torch.sqrt(t * t * t)
 
 
 class SimpleOligoDustMix(DustMix):

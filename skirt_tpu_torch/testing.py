@@ -1,18 +1,21 @@
-"""Parity helpers for the K1 event: inputs and the lane-wise criterion.
+"""Parity helpers for the event kernels K1 and K3: inputs and the
+lane-wise criterion.
 
-Shared by tests/test_torch_fused_poly.py (the plain event against the
-Pallas kernel on the CPU), tests/test_torch_cuda.py and chip_smoke.py
-(the CUDA kernel against the plain event on the card).
+Shared by tests/test_torch_fused_poly.py and tests/test_torch_fused.py
+(the plain events against the Pallas kernels on the CPU),
+tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels against the
+plain events on the card).
 
-The criterion.  An event's discrete outputs are alive, nscatt, the
-deposit bin, bcount, fresh and the set of wavelengths that survive the
-weight cut (Ln > 0).  Each is decided by comparing float32 values (panel
-picks against cumulative column densities, the wavelength pick against a
-running sum, the cut against L0 / min_weight_reduction), and two
-implementations that round differently may flip a comparison that lands
-within an ulp.  So the discrete outputs are held on a fraction of lanes
-(>= 99.9%), and every float output on every lane whose discrete outputs
-agree, up to a stated number of lanes: the caller's `float_bad` cap.
+The criterion.  An event's discrete outputs are its integer outputs
+(alive, nscatt, the deposit bin, bcount, fresh) and, for K1, the set of
+wavelengths that survive the weight cut (Ln > 0).  Each is decided by
+comparing float32 values (panel picks against cumulative optical depths,
+the wavelength pick against a running sum, the cut against
+L0 / min_weight_reduction), and two implementations that round
+differently may flip a comparison that lands within an ulp.  So the
+discrete outputs are held on a fraction of lanes (>= 99.9%), and every
+float output on every lane whose discrete outputs agree, up to a stated
+number of lanes: the caller's `float_bad` cap.
 """
 
 from __future__ import annotations
@@ -78,9 +81,34 @@ def event_case(spec, N, seed, device):
     return (spec, t(u), t(spec.oc), t(L), t(L0), [t(s) for s in state])
 
 
+def mono_event_inputs(N, nlambda, n_uniform, K=None, seed=0):
+    """numpy inputs (u, state) of one K3 event for N lanes: the packets of
+    event_inputs (positions in the stellar disc, some axis-parallel
+    directions, about 10% dead lanes, nscatt 0..3, launch counts 1..K with
+    refill), one wavelength index per lane in [0, nlambda), L and L0.
+    state: px, py, pz, dx, dy, dz, L, alive, ns, ell, L0 (and bc)."""
+    u, L, L0, st = event_inputs(N, 1, n_uniform, K, seed)
+    ell = np.random.default_rng(seed + 10007).integers(
+        0, nlambda, N).astype(np.int32)
+    state = st[:6] + [L[0], st[6], st[7], ell, L0[0]] + st[8:]
+    return u, [np.ascontiguousarray(s) for s in state]
+
+
+def mono_event_case(spec, N, seed, device):
+    """The first event of a K3 kernel-vs-plain check: `spec` with the
+    weight cut of event_case (min_weight_reduction 4 after one
+    scattering), and mono_event_inputs for it as tensors on `device`.
+    Returns (spec, u, state)."""
+    spec = dataclasses.replace(spec, min_scatt=1, inv_minred=0.25)
+    u, state = mono_event_inputs(N, spec.nlambda, spec.n_uniform,
+                                 spec.K if spec.refill else None, seed)
+    return (spec, torch.from_numpy(u).to(device),
+            [torch.from_numpy(s).to(device) for s in state])
+
+
 def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
-    """Lane-wise agreement of two event results with the poly_event
-    contract (dicts of tensors on one device).
+    """Lane-wise agreement of two event results with the poly_event or
+    mono_event contract (dicts of tensors on one device).
 
     Returns a dict: "discrete", the fraction of lanes whose discrete
     outputs all agree; "float_bad", the number of those lanes on which
@@ -89,15 +117,17 @@ def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
     difference on discretely agreeing lanes, each array scaled by its
     largest magnitude; "lanes", the lane count."""
     N = want["state"][0].shape[0]
-    disc = [(got["state"][i], want["state"][i]) for i in (6, 7)]
-    disc += [(got[k], want[k]) for k in ("depi", "bc", "fresh") if k in want]
-    disc.append((got["Ln"] > 0, want["Ln"] > 0))
+    pairs = list(zip(got["state"], want["state"]))
+    pairs += [(got[k], want[k]) for k in ("depi", "bc", "fresh", "depv",
+                                          "Ln", "Lp", "Ip", "tau", "cos",
+                                          "phase") if k in want]
+    disc = [(a, b) for a, b in pairs if not b.is_floating_point()]
+    if "Ln" in want:
+        disc.append((got["Ln"] > 0, want["Ln"] > 0))
+    floats = [(a, b) for a, b in pairs if b.is_floating_point()]
     agree = torch.ones(N, dtype=torch.bool, device=want["state"][0].device)
     for a, b in disc:
         agree &= (a == b).reshape(-1, N).all(dim=0)
-    floats = [(got["state"][i], want["state"][i]) for i in range(6)]
-    floats += [(got[k], want[k]) for k in ("Ln", "Lp", "Ip", "cos", "depv")
-               if k in want]
     bad = torch.zeros_like(agree)
     scaled_err = 0.0
     for a, b in floats:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from skirt_tpu_torch import kernels
+from skirt_tpu_torch.engine import fused as tfm
 from skirt_tpu_torch.engine import fused_poly as tfp
 from skirt_tpu_torch.ops import binned
 
@@ -33,20 +34,34 @@ def _model(device="cpu", **kw):
     return _build(**args)
 
 
-def test_poly_args_mirror_the_c_struct():
-    """kernels.PolyArgs lists the fields of `struct PolyArgs` in
-    csrc/fused_poly.cu in the same order (the library checks the size
-    when it loads; this checks the names here)."""
-    src = (kernels.CSRC / "fused_poly.cu").read_text()
-    body = re.search(r"struct PolyArgs \{(.*?)\};", src, re.S).group(1)
+def _c_fields(source, struct):
+    """Field names of `struct <struct> { ... };` in csrc/<source>."""
+    src = (kernels.CSRC / source).read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
     names = []
     for decl in body.split(";"):
         decl = re.sub(r"\[[^\]]*\]", "", decl.strip())
         if decl:
             names += [n.strip().lstrip("*") for n in
                       decl.split(None, 1)[1].replace("*", " ").split(",")]
-    names = [n.split()[-1] for n in names]
+    return [n.split()[-1] for n in names]
+
+
+def test_poly_args_mirror_the_c_struct():
+    """kernels.PolyArgs lists the fields of `struct PolyArgs` in
+    csrc/fused_poly.cu in the same order (the library checks the size
+    when it loads; this checks the names here)."""
+    names = _c_fields("fused_poly.cu", "PolyArgs")
     assert names == [f[0] for f in kernels.PolyArgs._fields_]
+
+
+@pytest.mark.parametrize("source, struct, mirror", [
+    ("common.cuh", "Geom", kernels.Geom),
+    ("fused_mono.cu", "MonoArgs", kernels.MonoArgs)])
+def test_structs_mirror_the_c_structs(source, struct, mirror):
+    """kernels.Geom and kernels.MonoArgs list the fields of their C
+    structs in the same order."""
+    assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
 
 
 def test_kernel_args_pack_the_spec():
@@ -68,19 +83,42 @@ def test_kernel_args_pack_the_spec():
     assert a.loc_inv[0] == np.float32(1.0 / g._dx[0])
 
 
+def test_mono_kernel_args_pack_the_spec():
+    run, *_ = _model(nlambda=4, polychromatic=False)
+    spec = run.spec
+    a, (dens, samp) = tfm._cuda_args(spec)
+    assert (dens, samp) == (1, 2)
+    assert (a.nlambda, a.H, a.npanels, a.np_peel, a.nlead, a.K) == \
+        (4, 1, 16, 8, 2, 4)
+    assert a.u_comp == 5 + 4 + 2 and spec.n_uniform == 11
+    assert a.xi == np.float32(0.5) and a.one_m_xi == np.float32(0.5)
+    geom = spec.density_geometries[0]
+    assert a.dens[0] == np.float32(geom.rho0 * spec.lscale ** 3)
+    assert a.samp[0] == np.float32(spec.sampler_geometry.hR)
+    assert a.lead_k[1][0] == np.float32(spec.leaders[1][0])
+    assert a.nx == spec.grid.nx and a.invL == np.float32(spec.invL)
+    assert spec.tab.shape == (3, 4)
+
+
 def test_kernel_args_raise_beyond_the_kernel():
     run, *_ = _model(quadrature_panels=33)
     with pytest.raises(ValueError, match="quadrature_panels <= 32"):
         tfp._cuda_args(run.spec)
+    run, *_ = _model(quadrature_panels=33, nlambda=4, polychromatic=False)
+    with pytest.raises(ValueError, match="quadrature_panels <= 32"):
+        tfm._cuda_args(run.spec)
 
 
 def test_cpu_run_launches_no_kernel():
-    """On CPU tensors both wrappers take their plain versions."""
-    run, zero, ell, L0 = _model(packets=128)
-    before = (binned.binned_add.launches, tfp.poly_event.launches)
-    t = run(7, ell, L0, zero())
-    assert float(t["labs"].sum()) > 0
-    assert (binned.binned_add.launches, tfp.poly_event.launches) == before
+    """On CPU tensors the wrappers take their plain versions."""
+    before = (binned.binned_add.launches, tfp.poly_event.launches,
+              tfm.mono_event.launches)
+    for poly in (True, False):
+        run, zero, ell, L0 = _model(packets=128, polychromatic=poly)
+        t = run(7, ell, L0, zero())
+        assert float(t["labs"].sum()) > 0
+    assert (binned.binned_add.launches, tfp.poly_event.launches,
+            tfm.mono_event.launches) == before
 
 
 @pytest.mark.gpu
@@ -125,3 +163,33 @@ def test_poly_event_kernel_matches_plain():
         assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
         state = list(got["state"]) + [got["bc"]]
         L = got["Ln"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nlambda, ncomp", [(4, 1), (2, 2), (128, 1)],
+                         ids=["W4", "two-components", "lam-inputs-128"])
+def test_mono_event_kernel_matches_plain(nlambda, ncomp):
+    """K3 against its plain version on identical inputs (dead lanes,
+    used-up launch budgets, axis-parallel directions, a weight cut that
+    fires), chained over a few events, with one or two dust components
+    and compile-time or per-lane tables: discrete outputs as in
+    test_torch_fused, floats on every discretely agreeing lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import event_agreement, mono_event_case
+
+    run, *_ = _model(nlambda=nlambda, ncomp=ncomp, polychromatic=False,
+                     device="cuda")
+    n = 4096
+    spec, u, state = mono_event_case(run.spec, n, 1, "cuda")
+    for it in range(4):
+        if it:
+            u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
+        before = tfm.mono_event.launches
+        got = tfm.mono_event(spec, u, state)
+        assert tfm.mono_event.launches == before + 1
+        want = tfm.mono_event_plain(spec, u, state)
+        res = event_agreement(got, want)
+        assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
+        state = list(got["state"]) + state[9:11] + [got["bc"]]

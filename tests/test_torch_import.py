@@ -4,8 +4,9 @@ Checked in a fresh subprocess: in this test process tests/conftest.py has
 already imported jax, so an in-process check would prove nothing.  The
 subprocess imports every module of skirt_tpu_torch (the CUDA wrapper
 modules included) and chip_smoke.py with no nvcc on PATH, runs a tiny
-slice on the CPU, writes its results, and reports which of jax / triton /
-skirt_tpu got imported and whether a kernel build was attempted.
+slice on the CPU and a monochromatic OligoSimulation, writes the
+simulation's results, and reports which of jax / triton / skirt_tpu got
+imported and whether a kernel build was attempted.
 """
 
 import json
@@ -30,32 +31,39 @@ SCRIPT = textwrap.dedent("""
         skirt_tpu_torch.__path__, "skirt_tpu_torch."))
     for m in mods:
         importlib.import_module(m)
-    from bench_torch import _build
+    from bench_torch import _build, _model
     from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
     run, zero, ell, L0 = _build(nlambda=3, ncells=4, packets=256,
                                 refill_batches=2, quadrature_panels=8,
                                 peel_panels=4, max_scatt=4)
     t = run(rng.root_key(1), ell, L0, zero())
+    # the public entry point on the monochromatic engine (kernel K3)
+    grid, ds, ss, ins, opts = _model(nlambda=3, ncells=4, refill_batches=2,
+                                     quadrature_panels=8, peel_panels=4,
+                                     max_scatt=4, polychromatic=False)
+    sim = OligoSimulation(stellar_system=ss, instruments=ins,
+                          dust_system=ds, options=opts, packets=512,
+                          batch_size=384, log=SilentLog(),
+                          out_dir=sys.argv[1], prefix="run")
+    acc = sim._run_phase(rng.root_key(sim.seed), 0)
     reference = sorted(m for m in sys.modules
                        if m == "skirt_tpu" or m.startswith("skirt_tpu."))
-    # the writers, on the run's tallies (instruments as _build makes them)
-    import numpy as np
-    from skirt_tpu.units import Units
-    from skirt_tpu_torch.instruments import SEDInstrument, SimpleInstrument
-    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
-    wg = OligoWavelengthGrid(list(np.linspace(0.4e-6, 1.2e-6, 3)))
-    ins = [SEDInstrument("sed", 3.08e23, 3),
-           SimpleInstrument("img", 3.08e23, 3, 16, 16, fov_x=7e20,
-                            fov_y=7e20)]
-    for i, acc in zip(ins, t["instruments"]):
-        i.write(acc, wg, Units(), sys.argv[1], "run")
+    # the writers (OligoSimulation.write, as run() calls it)
+    sim.write(acc)
     print(json.dumps({
         "jax": "jax" in sys.modules,
         "triton": "triton" in sys.modules,
         "reference_during_run": reference,
         "built": kernels._lib is not None,
         "launches": [binned.binned_add.launches,
-                     fused_poly.poly_event.launches],
+                     fused_poly.poly_event.launches,
+                     fused.mono_event.launches],
+        "mono": isinstance(sim._lifecycle.spec, fused.MonoEventSpec),
+        "mono_sed": float(acc["instruments"][0]["Ftot"].sum()),
+        "mono_labs": float(acc["labs"].sum()),
         "modules": mods,
         "sed": float(t["instruments"][0]["Ftot"].sum()),
         "labs": float(t["labs"].sum()),
@@ -77,9 +85,11 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     # a run (and chip_smoke.py, which drives one) imports nothing of the
     # JAX package; only the writers use its JAX-free io.fits and units
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0, 0]
-    assert "skirt_tpu_torch.engine.fused_poly" in res["modules"]
-    assert "skirt_tpu_torch.kernels" in res["modules"]
+    assert res["built"] is False and res["launches"] == [0, 0, 0]
+    for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
+                "kernels"):
+        assert f"skirt_tpu_torch.{mod}" in res["modules"]
     assert res["sed"] > 0 and res["labs"] > 0
+    assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "run_img_sed.dat", "run_img_total.fits", "run_sed_sed.dat"]

@@ -181,9 +181,13 @@ def test_unported_branches_raise(models):
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
 
     _, (grid, ds, ss, ins, opt) = models
-    with pytest.raises(ValueError, match="slice S2"):
+    with pytest.raises(ValueError, match="slice S2b"):
         make_lifecycle(grid, ds, ss, ins,
-                       dataclasses.replace(opt, polychromatic=False), W)
+                       dataclasses.replace(opt, fused=False), W)
+    with pytest.raises(ValueError, match="slice S2b"):
+        make_lifecycle(grid, ds, ss, ins,
+                       dataclasses.replace(opt, polychromatic=False,
+                                           tally_flush=2), W)
     with pytest.raises(ValueError, match="slice S3"):
         make_lifecycle(grid, ds, ss, ins, opt, W, launch_fn=lambda *a: None)
     with pytest.raises(ValueError, match="not ported"):
