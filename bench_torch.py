@@ -18,6 +18,24 @@ device="cpu" at a small size).
 
 Timing: a warm-up call (it builds the kernels at first use), then
 best-of-3 blocks of 3 calls, each block closed by torch.cuda.synchronize().
+
+BENCH_MODEL=octree runs capability config 3 instead, as
+experiments/bench_octree.py builds it (its OCTREE_* knobs, their
+defaults): a point source in the AGN torus (TorusGeometry 1.0, 2.0, 0.7,
+0.05-2 kpc, tau_x = 5 at the first wavelength) on an octree over +-2.2 kpc
+(min_level 2, max_level 5, midpoint subdivision), gridded with 8 samples
+per leaf, traced through its exact 32^3 voxel view in table mode
+(kernels K4 and K6); OCTREE_NLAM log-spaced wavelengths from 0.55 to
+2.2 um with power-law optics (default 2), one SED instrument at
+inclination 1.2, labs on, 16 propagation panels, the exact peel,
+max_scatt_events 64.  OCTREE_POLY=1 (default): W = nlambda per lane,
+2^OCTREE_LOG2N lanes (17), refill OCTREE_REFILL (256); OCTREE_POLY=0:
+ell = lane % W, refill 128.  Packets counted as bench_octree.py counts
+them: lanes x K x W (poly), lanes x K (mono).  The host build (octree,
+gridding, voxel view) is timed and printed on a line of its own, outside
+the timed calls; timing as bench_octree.py: a warm-up call, then the best
+of 3 calls, each closed by torch.cuda.synchronize().  The production-width
+row is OCTREE_NLAM=24 OCTREE_LOG2N=15.
 """
 
 import json
@@ -130,6 +148,145 @@ def _build(nlambda=2, ncells=16, packets=1024, refill_batches=0,
     return run_batch, zero_tallies, ell, L0
 
 
+def _octree_model(nlambda=2, polychromatic=True, refill_batches=None,
+                  quadrature_panels=16, peel_panels=32, table_peel="exact",
+                  store_absorption=True, max_level=5, tau=5.0, grid=None,
+                  voxelize=True):
+    """experiments/bench_octree.py's config-3 model on the port: (grid,
+    table dust system, stellar system, instruments, options, host), where
+    host holds the seconds of the host build: "octree", "gridding",
+    "voxelize".  `grid` reuses an octree built earlier (the same torus).
+    voxelize=False returns the octree and its gridded (leaf-resolution)
+    dust system instead, for OligoSimulation(voxelize="table")."""
+    import time
+
+    from skirt_tpu_torch.constants import KPC
+    from skirt_tpu_torch.engine.lifecycle import LifecycleOptions
+    from skirt_tpu_torch.geometry import PointGeometry, TorusGeometry
+    from skirt_tpu_torch.grids import OctreeGrid
+    from skirt_tpu_torch.instruments import SEDInstrument
+    from skirt_tpu_torch.media import (DustComponent, DustSystem,
+                                       OpticalDepthNormalization,
+                                       SimpleOligoDustMix)
+    from skirt_tpu_torch.sources import (LuminosityStellarComponent,
+                                         StellarSystem)
+    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
+
+    lams = np.geomspace(0.55e-6, 2.2e-6, nlambda)
+    fpl = np.log(lams / 0.55e-6) / np.log(2.2 / 0.55)
+    wg = OligoWavelengthGrid(list(lams))
+    ss = StellarSystem([LuminosityStellarComponent(PointGeometry(), wg,
+                                                   [1e36] * nlambda)])
+    torus = TorusGeometry(1.0, 2.0, 0.7, 0.05 * KPC, 2 * KPC)
+    half = 2.2 * KPC
+    host = {}
+    t0 = time.perf_counter()
+    if grid is None:
+        grid = OctreeGrid((-half, -half, -half, half, half, half),
+                          torus.density, min_level=2, max_level=max_level)
+    host["octree"] = time.perf_counter() - t0
+    mix = SimpleOligoDustMix(wg, list(2600.0 * (600.0 / 2600.0) ** fpl),
+                             list(0.5 + (0.4 - 0.5) * fpl),
+                             list(0.4 + (0.2 - 0.4) * fpl))
+    comp = DustComponent(torus, mix,
+                         OpticalDepthNormalization("x", wg.lambdav[0], tau))
+    t0 = time.perf_counter()
+    dsys = DustSystem(grid, [comp], samples_per_cell=8)
+    host["gridding"] = time.perf_counter() - t0
+    if voxelize:
+        t0 = time.perf_counter()
+        vds, _ = dsys.voxelized()
+        dsys = vds.as_table()
+        host["voxelize"] = time.perf_counter() - t0
+    if refill_batches is None:
+        refill_batches = 256 if polychromatic else 128
+    ins = [SEDInstrument("sed", 3.08e23, nlambda, inclination=1.2)]
+    opts = LifecycleOptions(store_absorption=store_absorption,
+                            max_scatt_events=64, polychromatic=polychromatic,
+                            deposition="sampled",
+                            quadrature_panels=quadrature_panels,
+                            peel_panels=peel_panels, table_peel=table_peel,
+                            refill_batches=refill_batches, fused=True,
+                            voxelize=None if voxelize else "table")
+    return dsys.grid, dsys, ss, ins, opts, host
+
+
+def _octree_build(lanes, device="cpu", **model_kw):
+    """`_octree_model` with its lifecycle built: (run_batch, zero_tallies,
+    ell, L0, packets per call, model) for `lanes` lanes at bench_octree.py's
+    launch luminosities."""
+    import torch
+
+    from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+
+    model = _octree_model(**model_kw)
+    grid, tds, ss, ins, opts, _ = model
+    nlam = ss.wavelength_grid.nlambda
+    K = max(opts.refill_batches, 1)
+    run_batch = make_lifecycle(grid, tds, ss, ins, opts, nlam)
+
+    def zero_tallies():
+        t = {"instruments": [i.zero_tallies(device) for i in ins]}
+        if opts.store_absorption:
+            t["labs"] = torch.zeros((grid.ncells * nlam,),
+                                    dtype=torch.float32, device=device)
+        return t
+
+    if opts.polychromatic:
+        packets = lanes * K * nlam
+        ell = torch.zeros((lanes,), dtype=torch.int32, device=device)
+        L0 = torch.full((lanes, nlam), 1e36 / (lanes * K),
+                        dtype=torch.float32, device=device)
+    else:
+        packets = lanes * K
+        ell = torch.arange(lanes, dtype=torch.int32, device=device) % nlam
+        L0 = torch.full((lanes,), 1e36 / packets, dtype=torch.float32,
+                        device=device)
+    return run_batch, zero_tallies, ell, L0, packets, model
+
+
+def _octree_main():
+    """BENCH_MODEL=octree: config 3 with experiments/bench_octree.py's
+    OCTREE_* knobs (module docstring)."""
+    import torch
+
+    from skirt_tpu_torch import rng
+
+    env = os.environ.get
+    poly = env("OCTREE_POLY", "1") == "1"
+    lanes = 1 << int(env("OCTREE_LOG2N", "17"))
+    run_batch, zero_tallies, ell, L0, packets, model = _octree_build(
+        lanes, device="cuda", nlambda=int(env("OCTREE_NLAM", "2")),
+        polychromatic=poly,
+        refill_batches=int(env("OCTREE_REFILL", "256" if poly else "128")),
+        quadrature_panels=int(env("OCTREE_PANELS", "16")),
+        peel_panels=int(env("OCTREE_PEELP", "32")),
+        table_peel=env("OCTREE_PEELMODE", "exact"),
+        store_absorption=env("OCTREE_ABS", "1") == "1")
+    grid, tds, *_, host = model
+    print(json.dumps({"host_build_s": host, "voxels": [grid.nx, grid.ny,
+                                                       grid.nz]}),
+          flush=True)
+    key = rng.root_key(4357)
+    run_batch(key, ell, L0, zero_tallies())             # warm-up + build
+    torch.cuda.synchronize()
+    best_dt = float("inf")
+    for rep in range(3):
+        t0 = time.perf_counter()
+        out = run_batch(rng.fold_in(key, 1 + rep), ell, L0, zero_tallies())
+        torch.cuda.synchronize()
+        best_dt = min(best_dt, time.perf_counter() - t0)
+        assert np.isfinite(float(out["instruments"][0]["Ftot"].sum()))
+    pps = packets / best_dt
+    print(json.dumps({
+        "metric": "photon_packets_per_second_per_chip",
+        "value": round(pps, 1),
+        "unit": "packets/s",
+        "vs_baseline": round(pps / 1.6e6, 4),
+        "device": torch.cuda.get_device_name(0),
+    }))
+
+
 def main():
     import torch
 
@@ -138,6 +295,8 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch: no CUDA device")
+    if os.environ.get("BENCH_MODEL", "disc") == "octree":
+        return _octree_main()
     packets = 1 << int(os.environ.get("BENCH_LOG2_PACKETS", "15"))
     refill = int(os.environ.get("BENCH_REFILL", "128"))
     nlambda = int(os.environ.get("BENCH_NLAMBDA", "128"))

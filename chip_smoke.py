@@ -8,12 +8,14 @@ Phases (each prints one line first; any failure raises and the script
 exits non-zero without printing a result):
   1. the card (nvidia-smi name and power limit) and torch / CUDA versions;
      no CUDA device is an error, never a CPU fallback
-  2. build the CUDA kernels with nvcc (skirt_tpu_torch/_build/)
-  3. K2 binned_add kernel vs its plain version at both main paths' shapes,
+  2. build the CUDA kernels with nvcc (skirt_tpu_torch/_build/), one nvcc
+     per source, all started together
+  3. K2 binned_add kernel vs its plain version at the main paths' shapes,
      with the route each takes: the polychromatic frame (4,194,304
      updates into 32,768 bins, with dropped indices) and labs (32,768
      updates into 2,097,152 bins); the monochromatic frame (2,097,152
-     updates into 1,024 bins) and labs (2,097,152 into 65,536)
+     updates into 1,024 bins) and labs (2,097,152 into 65,536); and one
+     index_add_ over the same (kept) updates as the library yardstick
   4. K1 poly_event kernel vs its plain version on identical inputs at the
      polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
      2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
@@ -27,36 +29,68 @@ exits non-zero without printing a result):
      min_scatt_events 1 and a weight cut that fires), then one two-
      component case and one 128-wavelength case (where the Pallas
      driver feeds per-lane tables, lam_inputs) at 262,144 lanes
-  6. the polychromatic main path through make_lifecycle + make_multibatch
-     at the bench model's full width (bench_torch._build defaults), and
-     the monochromatic main path through OligoSimulation at the mono
-     flagship's full width (bench.py BENCH_POLY=0 BENCH_NLAMBDA=4
-     BENCH_LOG2_PACKETS=21, 2 batches instead of 8): the launch counts of
-     the path's kernels are reset just before each run and read just
-     after, and the run's tallies are checked; then each path at a small
-     size on the card against the same run on the CPU
-  7. one JSON line of per-kernel results, the card line, and last
+  6. K4 table_event kernel vs its plain version at capability config 3's
+     monochromatic shapes (the octree AGN torus of
+     experiments/bench_octree.py traced through its 32^3 voxel view,
+     N = 2^17 lanes, one of W = 2 wavelengths per lane, 16 panels, labs
+     on): three skirt_tpu_torch.testing.table_event_inputs states (about
+     10% dead lanes, lanes with optical depths below 1e-3, lanes past
+     min_scatt_events 1 with a weight cut that fires, lanes whose deposit
+     falls outside the grid), each chained over six events, the panels
+     re-staged on the card between events as the driver stages them
+  7. K6 table_poly_event kernel vs its plain version the same way at
+     W = 2 (config 3's polychromatic lanes, N = 2^17, three states),
+     W = 24 (the production-width row, N = 2^15) and W = 128 (the widest
+     the kernel takes, N = 2^15)
+  8. the main paths at full width, each with the launch counts of its
+     kernels reset just before it and read just after, and its tallies
+     checked: S1, polychromatic analytic, through make_lifecycle +
+     make_multibatch (bench_torch._build defaults); S2a, the mono
+     flagship through OligoSimulation (bench.py BENCH_POLY=0
+     BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21, 2 batches instead of 8);
+     config 3 monochromatic (K4, 2^17 lanes, K = 128) and polychromatic
+     (K6, W = 2, 2^17 lanes, K = 256) through make_lifecycle +
+     make_multibatch, 2 batches each; and one
+     OligoSimulation(voxelize="table") on the octree (one batch of 2^17
+     polychromatic lanes, K = 256, labs folded back onto the leaves)
+  9. each path at a small size on the card against the same run on the
+     CPU
+  10. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
+
+Times: CUDA events around back-to-back calls after warm-up calls, with a
+sleep kernel queued first so that the host enqueues every call before
+the device reaches them (the mean is then device time, not the wrappers'
+host time); kernels mean of 10, plain versions mean of 5.  bound_ms is
+the least time the H100 could take for the same work: the larger of the
+bytes the call must move (each input read once, each output written
+once; a table event reads its panels only for live lanes) over 3.35 TB/s
+and its float operations over 67 TFLOP/s (the float32 rate outside the
+tensor cores), operations counted per live lane from the kernel source
+(each transcendental one operation; approximate), from this run's inputs.
 
 Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few thousand
 updates taken in another order by atomics; each order is within
-n * 2^-24 of the exact sum).  K1 and K3 by skirt_tpu_torch.testing's
-criterion: the discrete outputs (deposit bin, alive, nscatt, bcount,
-fresh, and for K1 the wavelengths that survive the weight cut) agree on
->= 99.9% of lanes (the CPU tests' bound), and no lane whose discrete
-outputs agree has a float output off by more than rtol 1e-4 with atol
-1e-6 x the array's largest magnitude.  On the card the kernels and their
-plain versions round alike op for op (-fmad=false, float32 reciprocals
-of the scale lengths, sums in one fixed order, rsqrtf), so they agree
-to the bit in practice; the bounds leave room only for a compiler that
-rounds one op differently.  max_abs_err is taken over the float outputs,
-each scaled by its array's largest magnitude, on the lanes whose
-discrete outputs agree.  The small-size cross-device checks hold the
-CUDA run to the CPU run at Monte Carlo tolerances (the two devices draw
-different random streams): polychromatic at tests/test_poly.py's
-(per-wavelength SED 0.15, totals 0.05), monochromatic at
+n * 2^-24 of the exact sum).  K1, K3, K4 and K6 by skirt_tpu_torch.
+testing's criterion: the discrete outputs (deposit bin, alive, nscatt,
+bcount, fresh, and for K1 and K6 the wavelengths that survive the
+weight cut) agree on >= 99.9% of lanes (the CPU tests' bound), and no
+lane whose discrete outputs agree has a float output off by more than
+rtol 1e-4 with atol 1e-6 x the array's largest magnitude.  On the card
+the kernels and their plain versions round alike op for op (-fmad=false,
+float32 reciprocals of the scale lengths, sums in one fixed order,
+rsqrtf), so they agree to the bit in practice; the bounds leave room
+only for a compiler that rounds one op differently.  max_abs_err is
+taken over the float outputs, each scaled by its array's largest
+magnitude, on the lanes whose discrete outputs agree.  The small-size
+cross-device checks hold the CUDA run to the CPU run at Monte Carlo
+tolerances (the two devices draw different random streams): the
+analytic polychromatic path at tests/test_poly.py's (per-wavelength SED
+0.15, totals 0.05), the analytic monochromatic OligoSimulation at
 tests/test_fused.py's (SED per wavelength and frame total 0.03, labs
-0.05).
+0.05), the table paths at tests/test_fused_table.py's and
+tests/test_poly.py's table tolerances (SED per wavelength 0.05 mono and
+0.06 poly, labs total 0.05).
 """
 
 import json
@@ -85,19 +119,95 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps=10, warmup=2):
-    """Mean device time of fn() over reps launches, by CUDA events."""
+    """Mean device time of fn() over reps back-to-back calls, by CUDA
+    events.  A sleep kernel queued first holds the device while the host
+    enqueues the calls, so the wrappers' host time opens no gaps."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles per second; at most 2 s of sleep
+    torch.cuda._sleep(int(min(1.5 * reps * host, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# the least-time model of bound_ms (module docstring): the H100 SXM's
+# published HBM3 rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors):
+    """Bytes of tensors, lists of tensors and dicts of them (None skipped)."""
+    total = 0
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(nbyte, ops):
+    """(bound_ms, bound_by) for a call that moves nbyte bytes and does ops
+    float operations."""
+    t_bytes = nbyte / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def event_bound(reads, out, n, live, ops_per_live_lane):
+    """bound of one event kernel call over n lanes: each (tensors, lanes)
+    pair of `reads` holds per-lane inputs whose columns only `lanes` of
+    the n lanes read (a dead lane skips most of them), each read once; the
+    outputs written once; ops_per_live_lane operations on each live lane."""
+    b = nbytes(out) + sum(nbytes(t) * lanes / n for t, lanes in reads)
+    return bound(b, live * ops_per_live_lane)
+
+
+# float operations per live lane, counted from the kernel sources
+# (transcendentals one each; approximate): the slab-test span ~60, a
+# closed-form density ~24 plus the panel midpoint 6, the deposit, bias,
+# HG and frame arithmetic ~150 (~120 in the table kernels), a panel pick
+# 2 per panel
+def k1_ops(spec):
+    P, W, pp, nl = spec.npanels, spec.W, spec.np_peel, len(spec.leaders)
+    return (60 + 30 * P + 2 * (P - 1) + 150 + 70 * W
+            + nl * (40 + 30 * pp + 6 * W))
+
+
+def k3_ops(spec):
+    P, pp, nl, H = spec.npanels, spec.np_peel, len(spec.leaders), spec.H
+    return (60 + (6 + 24 * H) * P + 2 * (P - 1) + 150
+            + nl * (40 + (6 + 24 * H) * pp))
+
+
+def k4_ops(P):
+    # the cumulative sums (2 per panel), two panel picks, the event
+    return 2 * P + 4 * (P - 1) + 120
+
+
+def k6_ops(P, W):
+    # per wavelength: the deposit weight ~8, its Hillis-Steele prefix
+    # log2 W adds and a compare, the Q / QH pass ~23, the weight pass ~27
+    lg = max(1, (W - 1).bit_length())
+    return 2 * P + 4 * (P - 1) + 120 + W * (59 + lg)
 
 
 def phase_k2(torch, results):
@@ -125,14 +235,28 @@ def phase_k2(torch, results):
         tally = torch.zeros(nbins, device="cuda")
         ms = cuda_ms(lambda: binned.binned_add(tally, idx, val))
         plain_ms = cuda_ms(lambda: binned.drop_add(tally, idx, val))
-        times[name] = (ms, plain_ms)
+        # the library yardstick: one index_add_ over the kept updates
+        keep = (idx >= 0) & (idx < nbins)
+        kidx, kval = idx[keep].long(), val[keep]
+        lib_ms = cuda_ms(lambda: tally.index_add_(0, kidx, kval))
+        # each update read once (int32 + float32); the tally read and
+        # written once, but no more of it than one 32-byte sector per kept
+        # update; one add per kept update
+        kept = int(keep.sum())
+        bnd = bound(nbytes(idx, val) + 2 * min(nbytes(tally), 32 * kept),
+                    kept)
+        times[name] = (ms, plain_ms, lib_ms, bnd)
         route = "shared" if binned.kernels.library().skirt_binned_route(
             nbins) else "global"
         log(f"  K2 {name}: {n} updates -> {nbins} bins, route {route}, "
             f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
     results["K2"] = {"max_abs_err": worst, "ms": times["frame"][0],
-                     "plain_ms": times["frame"][1], "times": times}
+                     "plain_ms": times["frame"][1],
+                     "library_ms": times["frame"][2],
+                     "bound_ms": times["frame"][3][0],
+                     "bound_by": times["frame"][3][1], "times": times}
 
 
 def phase_k1(torch, results):
@@ -181,8 +305,21 @@ def phase_k1(torch, results):
     ms = cuda_ms(lambda: fused_poly.poly_event(spec, u, oc, L, l0, state))
     plain_ms = cuda_ms(lambda: fused_poly.poly_event_plain(
         spec, u, oc, L, l0, state), reps=5)
-    log(f"  K1 N={n} W=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["K1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    alive = state[6] != 0
+    live = int(alive.sum())
+    refill = int((~alive & (state[8] < spec.K)).sum())
+    cut = int((alive & (state[7] >= spec.min_scatt)).sum())
+    # every lane reads its state; the uniforms only a live or relaunched
+    # lane; the weights L only a live one, the launch weights L0 only a
+    # relaunched one or a live one past min_scatt (its weight cut)
+    bnd = event_bound([([oc, state], n), ([u], live + refill), ([L], live),
+                       ([l0], refill + cut)],
+                      fused_poly.poly_event(spec, u, oc, L, l0, state), n,
+                      live, k1_ops(spec))
+    log(f"  K1 N={n} W=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+    results["K1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
 def phase_k3(torch, results):
@@ -219,10 +356,7 @@ def phase_k3(torch, results):
                 want = fused.mono_event_plain(spec, u, state)
                 torch.cuda.synchronize()
                 res = event_agreement(got, want)
-                bits = all(torch.equal(a, b) for a, b in
-                           zip(got["state"], want["state"])) and all(
-                    torch.equal(got[k], want[k]) for k in want
-                    if k != "state")
+                bits = _bits(got, want)
                 alive_in = state[7] != 0
                 alive = got["state"][7] != 0
                 log(f"  K3 {label} event {it}: discrete agree "
@@ -243,8 +377,19 @@ def phase_k3(torch, results):
             ms = cuda_ms(lambda: fused.mono_event(spec, u, state))
             plain_ms = cuda_ms(lambda: fused.mono_event_plain(spec, u, state),
                                reps=5)
-            log(f"  K3 N={n} W=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["K3"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            alive = state[7] != 0
+            live = int(alive.sum())
+            refill = int((~alive & (state[11] < spec.K)).sum())
+            # every lane reads its state, the uniforms only a live or a
+            # relaunched one
+            bnd = event_bound([([state], n), ([u], live + refill)],
+                              fused.mono_event(spec, u, state), n, live,
+                              k3_ops(spec))
+            log(f"  K3 N={n} W=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+            k3 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                  "bound_by": bnd[1]}
+    results["K3"] = dict(k3, max_abs_err=worst)
 
 
 def phase_main_poly(torch, results):
@@ -414,7 +559,326 @@ def phase_reference_mono(torch):
         f"{g['frame'] / c['frame']:.4f}, labs {g['labs'] / c['labs']:.4f}")
 
 
+def _bits(got, want):
+    """Every output of two event results equal to the bit."""
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(got["state"],
+                                                   want["state"])) and all(
+        torch.equal(got[k], want[k]) for k in want if k != "state")
+
+
+def phase_k4(torch, results, octree):
+    import dataclasses
+
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table as tft
+    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
+                                         table_restage, table_state)
+
+    n = 1 << 17
+    run_batch, *_, model = _octree_build(n, device="cuda",
+                                         polychromatic=False, grid=octree)
+    grid, ds = model[0], model[1]
+    # a weight cut that fires within the six events: min_weight_reduction
+    # 100 after one scattering
+    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
+                               inv_minred=float(np.float32(1 / 100)))
+    P = spec.npanels
+    assert P == 16 and spec.nlambda == 2 and spec.want_labs
+    assert (grid.nx, grid.ny, grid.nz) == (32, 32, 32)
+    worst = 0.0
+    for seed in (21, 22, 23):
+        inp = table_event_inputs(ds, n, spec.n_uniform, 2, seed=seed,
+                                 npanels=P, small_tau=0.02, outside=0.02,
+                                 device="cuda")
+        kr, state = table_state(inp, ds)
+        u = inp["u"]
+        ell = state[9]
+        kext_pk = ds.packet_kappas(ell)[1]
+        alive_in = state[7] != 0
+        log(f"  K4 inputs (seed {seed}): {n} lanes, "
+            f"{int((~alive_in).sum())} dead, "
+            f"{int((alive_in & inp['small_tau']).sum())} live with tau < "
+            f"1e-3, {int((alive_in & (state[8] >= spec.min_scatt)).sum())} "
+            f"live past min_scatt, {int((alive_in & inp['outside']).sum())} "
+            f"live with the deposit point outside the grid")
+        for it in range(EVENTS):
+            if it:
+                u = rng.uniform_open(rng.event_key(seed, it),
+                                     (spec.n_uniform, n), "cuda")
+            if it == 0:
+                first = (u, kr, state)          # the timed inputs
+            got = tft.table_event(spec, u, kr, state)
+            want = tft.table_event_plain(spec, u, kr, state)
+            torch.cuda.synchronize()
+            res = event_agreement(got, want)
+            alive_in = state[7] != 0
+            alive = got["state"][7] != 0
+            log(f"  K4 event {it}: discrete agree {res['discrete']:.6f}, "
+                f"float-disagreeing lanes {res['float_bad']}, scaled max "
+                f"err {res['scaled_err']:.3e}, bit-identical "
+                f"{_bits(got, want)}; alive "
+                f"{float(alive.float().mean()):.3f}, killed "
+                f"{int((alive_in & ~alive).sum())}, deposits "
+                f"{int((got['depi'] >= 0).sum())}")
+            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                raise AssertionError(f"K4 kernel disagrees with its plain "
+                                     f"version at event {it}: {res}")
+            worst = max(worst, res["scaled_err"])
+            st = got["state"]
+            kr, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                  torch.stack(st[3:6], -1), P, kext_pk)
+            state = list(st) + [state[9], state[10], t0, dt, state[13],
+                                state[14]]
+    # timed on a state's first event (~90% live lanes; by the sixth event
+    # few are left)
+    u, kr, state = first
+    live = int((state[7] != 0).sum())
+    ms = cuda_ms(lambda: tft.table_event(spec, u, kr, state))
+    plain_ms = cuda_ms(lambda: tft.table_event_plain(spec, u, kr, state),
+                       reps=5)
+    # every lane reads position, direction, L, alive and nscatt; only a
+    # live one its uniforms, panels, ell, L0, t0, dt, albedo and g
+    bnd = event_bound([(state[:9], n), ([u, kr, state[9:]], live)],
+                      tft.table_event(spec, u, kr, state), n, live,
+                      k4_ops(P))
+    log(f"  K4 N={n} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+    results["K4"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def phase_k6(torch, results, octree):
+    import dataclasses
+
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    worst = 0.0
+    by_w = {}
+    for W, n, seeds in ((2, 1 << 17, (31, 32, 33)), (24, 1 << 15, (34,)),
+                        (128, 1 << 15, (35,))):
+        run_batch, *_, model = _octree_build(n, device="cuda", nlambda=W,
+                                             polychromatic=True, grid=octree)
+        grid, ds = model[0], model[1]
+        spec = dataclasses.replace(run_batch.spec, min_scatt=1,
+                                   inv_minred=float(np.float32(1 / 100)))
+        P = spec.npanels
+        assert P == 16 and spec.W == W and spec.want_labs
+        oc = torch.as_tensor(spec.oc, device="cuda")
+        ones = [torch.ones(n, device="cuda")]
+        for seed in seeds:
+            inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
+                                     npanels=P, small_tau=0.02, outside=0.02,
+                                     device="cuda")
+            state = table_poly_state(inp)
+            u, r, L, L0 = inp["u"], inp["rows"], inp["L"], inp["L0"]
+            alive_in = state[6] != 0
+            log(f"  K6 W={W} inputs (seed {seed}): {n} lanes, "
+                f"{int((~alive_in).sum())} dead, "
+                f"{int((alive_in & inp['small_tau']).sum())} live with "
+                f"panel densities x 1e-6, "
+                f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
+                f"live past min_scatt, "
+                f"{int((alive_in & inp['outside']).sum())} live with the "
+                f"deposit point outside the grid")
+            for it in range(EVENTS):
+                if it:
+                    u = rng.uniform_open(rng.event_key(seed, it),
+                                         (spec.n_uniform, n), "cuda")
+                if it == 0:
+                    first = (u, r, L, state)    # the timed inputs
+                got = tftp.table_poly_event(spec, u, r, oc, L, L0, state)
+                want = tftp.table_poly_event_plain(spec, u, r, oc, L, L0,
+                                                   state)
+                torch.cuda.synchronize()
+                res = event_agreement(got, want)
+                alive_in = state[6] != 0
+                alive = got["state"][6] != 0
+                cut = int(((got["Ln"] == 0) & alive[None]).sum())
+                log(f"  K6 W={W} event {it}: discrete agree "
+                    f"{res['discrete']:.6f}, float-disagreeing lanes "
+                    f"{res['float_bad']}, scaled max err "
+                    f"{res['scaled_err']:.3e}, bit-identical "
+                    f"{_bits(got, want)}; alive "
+                    f"{float(alive.float().mean()):.3f}, killed "
+                    f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
+                    f"deposits {int((got['depi'] >= 0).sum())}")
+                if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                    raise AssertionError(f"K6 kernel disagrees with its "
+                                         f"plain version (W={W}) at event "
+                                         f"{it}: {res}")
+                worst = max(worst, res["scaled_err"])
+                st = got["state"]
+                r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                     torch.stack(st[3:6], -1), P, ones)
+                state = list(st) + [t0, dt]
+                L = got["Ln"]
+        u, r, L, state = first
+        live = int((state[6] != 0).sum())
+        ms = cuda_ms(lambda: tftp.table_poly_event(spec, u, r, oc, L, L0,
+                                                   state))
+        plain_ms = cuda_ms(lambda: tftp.table_poly_event_plain(
+            spec, u, r, oc, L, L0, state), reps=5)
+        # every lane reads position, direction, alive and nscatt; only a
+        # live one its uniforms, panels, weights L, t0 and dt, and only a
+        # live one past min_scatt the launch weights L0 (its weight cut)
+        cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
+        bnd = event_bound([([oc] + state[:8], n),
+                           ([u, r, L, state[8:]], live), ([L0], cut)],
+                          tftp.table_poly_event(spec, u, r, oc, L, L0, state),
+                          n, live, k6_ops(P, W))
+        log(f"  K6 N={n} W={W} P={P}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
+            f"live lanes)")
+        by_w[W] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bnd[0], "bound_by": bnd[1]}
+    results["K6"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
+
+
+def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
+                    **model_kw):
+    """Config 3 through make_lifecycle + make_multibatch: (seconds, packets,
+    SED, labs total, launched W, launches of the path's kernels)."""
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table, fused_table_poly
+    from skirt_tpu_torch.engine.lifecycle import make_multibatch
+    from skirt_tpu_torch.ops import binned
+
+    run_batch, zero, ell, L0, packets, model = _octree_build(
+        lanes, device=device, polychromatic=poly, grid=octree, **model_kw)
+    spec_type = (fused_table_poly.TablePolyEventSpec if poly
+                 else fused_table.TableEventSpec)
+    assert isinstance(run_batch.spec, spec_type)
+    event = (fused_table_poly.table_poly_event if poly
+             else fused_table.table_event)
+    W = model[2].wavelength_grid.nlambda
+    run_many = make_multibatch(run_batch, batches)
+    tallies = zero()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    binned.binned_add.launches = 0
+    event.launches = 0
+    t0 = time.perf_counter()
+    out = run_many(rng.root_key(4357), ell, L0, tallies)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"K6" if poly else "K4": event.launches,
+                "K2": binned.binned_add.launches}
+    for leaf in [v for d in out["instruments"] for v in d.values()] \
+            + [out["labs"]]:
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("non-finite tally")
+    sed = out["instruments"][0]["Ftot"].double().cpu().numpy()
+    labs = float(out["labs"].double().sum())
+    # per batch every wavelength launches 1e36 W (poly) or all
+    # wavelengths together do (mono: ell = lane % W)
+    launched = batches * 1e36 * (W if poly else 1)
+    return dt, packets * batches, sed, labs, launched, launches
+
+
+def phase_main_table(torch, results, octree):
+    for poly in (False, True):
+        name = "poly" if poly else "mono"
+        lanes, batches = 1 << 17, 2
+        K = 256 if poly else 128
+        dt, packets, sed, labs, launched, launches = _run_table_path(
+            torch, poly, lanes, batches, octree)
+        pps = packets / dt
+        kname = "K6" if poly else "K4"
+        log(f"  config 3 {name}: {batches} batches x {lanes} lanes x K={K}"
+            f"{' x W=2' if poly else ', W=2 one per lane'} in {dt:.3f} s = "
+            f"{pps:.4e} packets/s; launches {launches} "
+            f"({launches[kname] / batches:.0f} event iterations per batch); "
+            f"SED {', '.join(f'{v:.4e}' for v in sed)} W, labs "
+            f"{labs:.4e} W of {launched:.4e} W launched")
+        if launches[kname] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        if not (sed > 0).all():
+            raise AssertionError("SED Ftot not positive")
+        if not 0 < labs < launched:
+            raise AssertionError(f"labs {labs} outside (0, {launched})")
+        results[f"launches_table_{name}"] = launches
+        results[f"main_table_{name}"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_simulation_table(torch, results, octree):
+    """OligoSimulation(voxelize="table") on the octree (leaf-resolution
+    gridded densities): it voxelizes, runs the K6 engine and folds the
+    labs back onto the leaves."""
+    from bench_torch import _octree_model
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+    from skirt_tpu_torch.ops import binned
+
+    grid, ds, ss, ins, opts, _ = _octree_model(grid=octree, voxelize=False)
+    W, lanes, K = 2, 1 << 17, opts.refill_batches
+    sim = OligoSimulation(stellar_system=ss, instruments=ins, dust_system=ds,
+                          options=opts, packets=lanes * K,
+                          batch_size=lanes * W, dispatch_batches=1,
+                          log=SilentLog(), device="cuda")
+    assert sim._poly and sim.dust_system.table and sim._labs_fold
+    assert isinstance(sim._lifecycle.spec, fused_table_poly.TablePolyEventSpec)
+    assert len(list(sim._batches())) == 1
+    torch.cuda.synchronize()
+    binned.binned_add.launches = 0
+    fused_table_poly.table_poly_event.launches = 0
+    t0 = time.perf_counter()
+    acc = sim._run_phase(rng.root_key(sim.seed), 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"K6": fused_table_poly.table_poly_event.launches,
+                "K2": binned.binned_add.launches}
+    results["launches_table_sim"] = launches
+    launched = float(ss.Lv.sum())
+    sed, labs = _check_tallies(acc, launched, "table OligoSimulation")
+    if acc["labs"].shape != (octree.ncells * W,):
+        raise AssertionError(f"labs not folded onto the {octree.ncells} "
+                             f"leaves: {acc['labs'].shape}")
+    pps = lanes * K * W / dt
+    log(f"  OligoSimulation(voxelize='table'): {octree.ncells} leaves -> "
+        f"{sim.grid.nx}^3 voxels, 1 batch x {lanes} lanes x K={K} x W={W} in "
+        f"{dt:.3f} s = {pps:.4e} packets/s; launches {launches}; SED "
+        f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
+        f"{launched:.4e} W launched, on {octree.ncells} leaves")
+    if launches["K6"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["main_table_sim"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_reference_table(torch):
+    """The table paths at a small size (max_level 4: 16^3 voxels) on the
+    card against the same runs on the CPU, at the table tolerances."""
+    for poly, lanes, sed_tol in ((False, 1 << 13, 0.05), (True, 1 << 12, 0.06)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            _, _, sed, labs, launched, _ = _run_table_path(
+                torch, poly, lanes, 1, None, device=dev, max_level=4,
+                refill_batches=4)
+            if not (0 < labs < launched and (sed > 0).all()):
+                raise AssertionError(f"small table run on {dev}: SED {sed}, "
+                                     f"labs {labs}")
+            outs[dev] = (sed, labs)
+        (g, gl), (c, cl) = outs["cuda"], outs["cpu"]
+        np.testing.assert_allclose(g, c, rtol=sed_tol)
+        if abs(gl / cl - 1) > 0.05:
+            raise AssertionError(f"labs: cuda {gl} vs cpu {cl}")
+        log(f"  small table {'poly' if poly else 'mono'} cuda/cpu: SED "
+            f"{', '.join(f'{r:.4f}' for r in g / c)}, labs {gl / cl:.4f}")
+
+
 def main():
+    t_start = time.perf_counter()
     log("phase 1: device")
     import torch
     if not torch.cuda.is_available():
@@ -444,44 +908,74 @@ def main():
     phase_k1(torch, results)
     log("phase 5: K3 mono_event kernel vs plain")
     phase_k3(torch, results)
-    log("phase 6: main paths (poly: make_lifecycle + make_multibatch, "
-        "W=128; mono: OligoSimulation, W=4)")
+    from bench_torch import _octree_model
+    t0 = time.perf_counter()
+    octree = _octree_model(voxelize=False)[0]
+    log(f"  config 3 octree: {octree.ncells} leaves, host build "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("phase 6: K4 table_event kernel vs plain")
+    phase_k4(torch, results, octree)
+    log("phase 7: K6 table_poly_event kernel vs plain")
+    phase_k6(torch, results, octree)
+    log("phase 8: main paths (S1 poly: make_lifecycle + make_multibatch, "
+        "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
+        "make_lifecycle + make_multibatch, W=2; config 3 "
+        "OligoSimulation(voxelize='table'))")
     phase_main_poly(torch, results)
     phase_main_mono(torch, results)
+    phase_main_table(torch, results, octree)
+    phase_simulation_table(torch, results, octree)
+    log("phase 9: small runs on the card against the CPU")
     phase_reference_poly(torch)
     phase_reference_mono(torch)
+    phase_reference_table(torch)
 
-    log("phase 7: results")
-    lp, lm = results["launches_poly"], results["launches_mono"]
-    kern = [
-        {"name": "K1 poly_event", "route": "cuda",
-         "source": "skirt_tpu_torch/csrc/fused_poly.cu",
-         "replaces": "skirt_tpu/engine/fused_poly.py:85",
-         "launches": lp["K1"],
-         "max_abs_err": results["K1"]["max_abs_err"],
-         "ms": results["K1"]["ms"], "plain_ms": results["K1"]["plain_ms"]},
-        {"name": "K2 binned_add", "route": "cuda",
-         "source": "skirt_tpu_torch/csrc/binned.cu",
-         "replaces": "skirt_tpu/ops/binned.py:37",
-         "launches": lp["K2"] + lm["K2"],
-         "launches_by_path": {"poly": lp["K2"], "mono": lm["K2"]},
-         "max_abs_err": results["K2"]["max_abs_err"],
-         "ms": results["K2"]["ms"], "plain_ms": results["K2"]["plain_ms"],
-         "ms_by_shape": {k: v[0] for k, v in results["K2"]["times"].items()},
-         "plain_ms_by_shape": {k: v[1] for k, v
-                               in results["K2"]["times"].items()}},
-        {"name": "K3 mono_event", "route": "cuda",
-         "source": "skirt_tpu_torch/csrc/fused_mono.cu",
-         "replaces": "skirt_tpu/engine/fused.py:199",
-         "launches": lm["K3"],
-         "max_abs_err": results["K3"]["max_abs_err"],
-         "ms": results["K3"]["ms"], "plain_ms": results["K3"]["plain_ms"]},
-    ]
-    print(json.dumps({"kernels": kern,
-                      "main_path_packets_per_s": {
-                          "poly": results["main_poly"]["packets_per_s"],
-                          "mono": results["main_mono"]["packets_per_s"]}}),
-          flush=True)
+    log(f"phase 10: results (phases 1-9 took "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    launches = {
+        "K1": results["launches_poly"]["K1"],
+        "K2": sum(results[k]["K2"] for k in (
+            "launches_poly", "launches_mono", "launches_table_mono",
+            "launches_table_poly", "launches_table_sim")),
+        "K3": results["launches_mono"]["K3"],
+        "K4": results["launches_table_mono"]["K4"],
+        "K6": results["launches_table_poly"]["K6"]
+        + results["launches_table_sim"]["K6"]}
+    meta = {
+        "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
+               "skirt_tpu/engine/fused_poly.py:85"),
+        "K2": ("K2 binned_add", "skirt_tpu_torch/csrc/binned.cu",
+               "skirt_tpu/ops/binned.py:37"),
+        "K3": ("K3 mono_event", "skirt_tpu_torch/csrc/fused_mono.cu",
+               "skirt_tpu/engine/fused.py:199"),
+        "K4": ("K4 table_event", "skirt_tpu_torch/csrc/fused_table.cu",
+               "skirt_tpu/engine/fused_table.py:83"),
+        "K6": ("K6 table_poly_event",
+               "skirt_tpu_torch/csrc/fused_table_poly.cu",
+               "skirt_tpu/engine/fused_table_poly.py:107")}
+    kern = []
+    for k, (name, source, replaces) in meta.items():
+        r = results[k]
+        kern.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[k],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms")})
+    k2 = kern[1]
+    k2["launches_by_path"] = {
+        p: results[f"launches_{p}"]["K2"] for p in (
+            "poly", "mono", "table_mono", "table_poly", "table_sim")}
+    for i, key in enumerate(("ms", "plain_ms", "library_ms")):
+        k2[f"{key}_by_shape"] = {n: v[i] for n, v
+                                 in results["K2"]["times"].items()}
+    k2["bound_ms_by_shape"] = {n: v[3][0] for n, v
+                               in results["K2"]["times"].items()}
+    kern[4]["by_W"] = results["K6"]["by_W"]
+    print(json.dumps({"kernels": kern, "main_path_packets_per_s": {
+        p: results[f"main_{p}"]["packets_per_s"] for p in (
+            "poly", "mono", "table_mono", "table_poly", "table_sim")}}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

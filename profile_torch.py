@@ -3,30 +3,45 @@
 Run on a CUDA machine from the repository root:
 
     python3 profile_torch.py [poly|mono ...]     (default: both)
+    BENCH_MODEL=octree python3 profile_torch.py [poly|mono ...]
 
 poly builds the polychromatic main path as bench_torch.py does by
 default (W = 128, 2^15 lanes, K = 128); mono builds the monochromatic
 flagship (bench_torch.py with BENCH_POLY=0 BENCH_NLAMBDA=4
 BENCH_LOG2_PACKETS=21: one of 4 wavelengths per lane, 2^21 lanes,
 K = 128).  Both use the 32x32x16 grid, 32/8 panels, both instruments and
-labs.  For each: one warm-up batch (it builds the kernels), 3 unprofiled
+labs.  With BENCH_MODEL=octree they build capability config 3 instead,
+as `BENCH_MODEL=octree bench_torch.py` does (its OCTREE_NLAM and
+OCTREE_LOG2N knobs; poly: W = 2 per lane, 2^17 lanes, K = 256, kernel
+K6; mono: one of 2 wavelengths per lane, 2^17 lanes, K = 128, kernel
+K4).  For each: one warm-up batch (it builds the kernels), 3 unprofiled
 batches timed with torch.cuda.synchronize() while nvidia-smi samples the
 SM clock and the power draw, then one batch under torch.profiler; it
 prints:
   - the card, the unprofiled wall per batch, the SM clock and power draw
-    under load, the event iterations of the batch (K1 or K3 launches);
+    under load, the event iterations of the batch (event kernel launches);
   - device time per layer (the event kernel, K2 on each route, the
     uniforms, plain torch) with its share of the busy time and its launch
     count, and the device's idle share: 1 - busy / best unprofiled wall;
+  - on config 3, the device time of the table path's plain-torch stages,
+    each wrapped in a profiler range for the profiled batch: the staging
+    gather (panel paths, arithmetic locate and rho gather of the (P, N)
+    panel rows), the exact column-DDA peel and the detects; the rest of
+    the plain torch (refill, bookkeeping) is what remains;
   - torch.profiler's table of the 40 largest device-time entries.
 """
 
+import bisect
 import statistics
 import subprocess
 import time
 
 
 def layer_of(name: str) -> str:
+    if "table_poly_event_kernel" in name:
+        return "K6 table_poly_event"
+    if "table_event_kernel" in name:
+        return "K4 table_event"
     if "poly_event_kernel" in name:
         return "K1 poly_event"
     if "mono_event_kernel" in name:
@@ -42,21 +57,70 @@ def layer_of(name: str) -> str:
     return "plain torch: detects, emission peel, bookkeeping"
 
 
-def profile(path):
+# config 3's plain-torch stages, each a profiler range in the profiled batch
+STAGES = ("stage gather", "exact peel", "detects")
+
+
+def _ranged(name, fn):
+    import torch
+
+    def inner(*a, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*a, **kw)
+    return inner
+
+
+def _build_octree(poly):
+    """Config 3's lifecycle with its stages wrapped in profiler ranges:
+    (run_batch, zero_tallies, ell, L0, restore)."""
+    import os
+
+    from bench_torch import _octree_build
+    from skirt_tpu_torch.engine import fused_table, vector_traversal
+
+    orig_peel = fused_table.make_exact_peel
+    orig_paths = vector_traversal.panel_paths
+    fused_table.make_exact_peel = lambda *a, **kw: _ranged(
+        "exact peel", orig_peel(*a, **kw))
+    vector_traversal.panel_paths = _ranged("stage gather", orig_paths)
+    env = os.environ.get
+    run_batch, zero, ell, L0, _, model = _octree_build(
+        1 << int(env("OCTREE_LOG2N", "17")), device="cuda",
+        nlambda=int(env("OCTREE_NLAM", "2")), polychromatic=poly)
+    ds, ins = model[1], model[3]
+    ds.analytic_rows = _ranged("stage gather", ds.analytic_rows)
+    for i in ins:
+        i.detect = _ranged("detects", i.detect)
+        i.detect_poly = _ranged("detects", i.detect_poly)
+
+    def restore():
+        fused_table.make_exact_peel = orig_peel
+        vector_traversal.panel_paths = orig_paths
+    return run_batch, zero, ell, L0, restore
+
+
+def profile(path, octree=False):
     import torch
 
     from bench_torch import _build
     from skirt_tpu_torch import rng
-    from skirt_tpu_torch.engine import fused, fused_poly
+    from skirt_tpu_torch.engine import (fused, fused_poly, fused_table,
+                                        fused_table_poly)
 
     poly = path == "poly"
-    event = fused_poly.poly_event if poly else fused.mono_event
-    print(f"== {path} main path", flush=True)
-    run_batch, zero_tallies, ell, L0 = _build(
-        nlambda=128 if poly else 4, ncells=32,
-        packets=1 << 15 if poly else 1 << 21, refill_batches=128,
-        quadrature_panels=32, peel_panels=8, polychromatic=poly,
-        device="cuda")
+    print(f"== {'config 3 ' if octree else ''}{path} main path", flush=True)
+    restore = None
+    if octree:
+        event = (fused_table_poly.table_poly_event if poly
+                 else fused_table.table_event)
+        run_batch, zero_tallies, ell, L0, restore = _build_octree(poly)
+    else:
+        event = fused_poly.poly_event if poly else fused.mono_event
+        run_batch, zero_tallies, ell, L0 = _build(
+            nlambda=128 if poly else 4, ncells=32,
+            packets=1 << 15 if poly else 1 << 21, refill_batches=128,
+            quadrature_panels=32, peel_panels=8, polychromatic=poly,
+            device="cuda")
     key = rng.root_key(4357)
     run_batch(key, ell, L0, zero_tallies())              # warm-up + build
     torch.cuda.synchronize()
@@ -99,14 +163,38 @@ def profile(path):
         run_batch(rng.fold_in(key, 99), ell, L0, zero_tallies())
         torch.cuda.synchronize()
     iters = event.launches
+    if restore is not None:
+        restore()
 
-    layers = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # device kernels and, on config 3, the stage ranges' spans on the
+    # device timeline; a kernel belongs to the stage whose span holds its
+    # start (the spans include idle gaps, the kernel sums do not)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels_, spans = [], []
+    for e in prof.events():
+        if e.device_type != cuda:
             continue
-        us = e.self_device_time_total
-        ms, n = layers.get(layer_of(e.key), (0.0, 0))
-        layers[layer_of(e.key)] = (ms + us / 1e3, n + e.count)
+        if e.name in STAGES:
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+        else:
+            kernels_.append(e)
+    spans.sort()
+    if octree:
+        # a stage whose hook the engines bypass would silently land in
+        # "outside the stages"
+        lost = [s for s in STAGES if not any(sp[2] == s for sp in spans)]
+        if lost:
+            raise SystemExit(f"profile_torch: no device range for the "
+                             f"stages {lost}: a stage hook was bypassed")
+    starts = [sp[0] for sp in spans]
+    layers, stages = {}, {}
+    for e in kernels_:
+        ms_e = e.time_range.elapsed_us() / 1e3
+        ms, n = layers.get(layer_of(e.name), (0.0, 0))
+        layers[layer_of(e.name)] = (ms + ms_e, n + 1)
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            stages[spans[i][2]] = stages.get(spans[i][2], 0.0) + ms_e
     busy = sum(ms for ms, _ in layers.values())
     if busy == 0:
         raise SystemExit("profile_torch: the profiler saw no device time")
@@ -117,11 +205,22 @@ def profile(path):
     print(f"{'layer':52s} {'device ms':>10s} {'share':>7s} {'launches':>9s}")
     for name, (ms, n) in sorted(layers.items(), key=lambda kv: -kv[1][0]):
         print(f"{name:52s} {ms:10.1f} {ms / busy:7.1%} {n:9d}")
+    if octree:
+        print(f"{'config 3 stage (kernels inside its ranges)':52s} "
+              f"{'device ms':>10s} {'share':>7s} {'ranges':>9s}")
+        for name in STAGES:
+            ms = stages.get(name, 0.0)
+            n = sum(1 for sp in spans if sp[2] == name)
+            print(f"{name:52s} {ms:10.1f} {ms / busy:7.1%} {n:9d}")
+        rest = busy - sum(stages.values())
+        print(f"{'outside the stages (kernels, uniforms, refill)':52s} "
+              f"{rest:10.1f} {rest / busy:7.1%}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=40), flush=True)
 
 
 def main():
+    import os
     import sys
 
     import torch
@@ -135,8 +234,9 @@ def main():
     for path in paths:
         if path not in ("poly", "mono"):
             raise SystemExit(f"profile_torch: unknown path {path!r}")
+    octree = os.environ.get("BENCH_MODEL", "disc") == "octree"
     for path in paths:
-        profile(path)
+        profile(path, octree)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ the port's objects from it; `convert_simulation` does the same for an
 OligoSimulation and its settings.  The discretised densities travel as they
 are (`rho64`); everything else the port recomputes from the same
 parameters in float64, so `lscale`, `_mass_over_L3`, the event kernel's
-optical constants and the instrument frames come out identical.  The
+optical constants and the instrument frames come out identical.  An
+octree travels as its frozen host tree (node boxes, levels, children), so
+its leaves, cell numbers and voxel view are the JAX grid's.  The
 skirt_tpu wavelength grid object is carried across as it is: it is a
 JAX-free NumPy object with the attributes of the port's own grid.
 """
@@ -18,8 +20,8 @@ import dataclasses
 import numpy as np
 
 from .engine.lifecycle import LifecycleOptions
-from .geometry import ExpDiskGeometry, PointGeometry
-from .grids import CartesianGrid
+from .geometry import ExpDiskGeometry, PointGeometry, TorusGeometry
+from .grids import CartesianGrid, OctreeGrid
 from .instruments import FrameInstrument, SEDInstrument, SimpleInstrument
 from .media import (DustComponent, DustMassNormalization, DustMix,
                     DustSystem, OpticalDepthNormalization)
@@ -37,13 +39,23 @@ def convert_geometry(g):
                                axial_trunc=g.zmax, inner_radius=g.Rmin)
     if kind == "PointGeometry":
         return PointGeometry()
+    if kind == "TorusGeometry":
+        return TorusGeometry(g.p, g.q, g.delta, g.rmin, g.rmax)
     raise ValueError(f"geometry {kind} is not ported yet")
 
 
 def convert_grid(grid):
-    if _name(grid) != "CartesianGrid":
-        raise ValueError(f"grid {_name(grid)} is not ported yet")
-    return CartesianGrid(grid.xb64, grid.yb64, grid.zb64)
+    kind = _name(grid)
+    if kind == "CartesianGrid":
+        return CartesianGrid(grid.xb64, grid.yb64, grid.zb64)
+    if kind == "OctreeGrid":
+        tree = OctreeGrid.__new__(OctreeGrid)
+        tree.extent = np.asarray(grid.extent, np.float64)
+        tree.subdivision = grid.subdivision
+        tree.voxelize_exact = grid.voxelize_exact
+        tree._finalize(grid.lo64, grid.hi64, grid.levels, grid.child64)
+        return tree
+    raise ValueError(f"grid {kind} is not ported yet")
 
 
 def _convert_normalization(norm):
@@ -56,17 +68,18 @@ def _convert_normalization(norm):
 
 
 def convert_dust_system(ds, grid):
-    """A port DustSystem over the JAX system's discretised densities, with
-    every component (geometry, mix, normalization) carried across."""
-    if not getattr(ds, "analytic", False) or getattr(ds, "table", False):
-        raise ValueError("only analytic-mode dust systems are ported")
+    """A port DustSystem over the JAX system's discretised (Ncomp, Ncells)
+    densities, in its density mode, with every component (geometry, mix,
+    normalization) carried across."""
+    mode = ("table" if getattr(ds, "table", False)
+            else "analytic" if ds.analytic else "gridded")
     comps = []
     for c in ds.components:
         mix = DustMix(c.mix.wavelength_grid, c.mix.kappaabs64,
                       c.mix.kappasca64, c.mix.g64)
         comps.append(DustComponent(convert_geometry(c.geometry), mix,
                                    _convert_normalization(c.normalization)))
-    return DustSystem.from_state(grid, comps, np.asarray(ds.rho64))
+    return DustSystem.from_state(grid, comps, np.asarray(ds.rho64), mode)
 
 
 def convert_stellar_system(ss):
@@ -106,12 +119,13 @@ def from_skirt_tpu(grid, dust_system, stellar_system, instruments, options):
             convert_options(options))
 
 
-def convert_simulation(sim, device="cpu", log=None, **overrides):
+def convert_simulation(sim, device="cuda", log=None, **overrides):
     """A port OligoSimulation with the model and settings of a skirt_tpu
     OligoSimulation: its (original, leaf-resolution) dust system, stellar
     system, instruments and lifecycle options, and packets, seed,
-    batch_size, out_dir, prefix, checkpoint_every and dispatch_batches.
-    `overrides` replace any of those keywords."""
+    batch_size, out_dir, prefix, checkpoint_every and dispatch_batches,
+    on `device` (the card unless the caller says otherwise).  `overrides`
+    replace any of those keywords."""
     from .engine.simulation import OligoSimulation
 
     ds = getattr(sim, "dust_system_out", sim.dust_system)

@@ -30,10 +30,12 @@ Layouts (N lanes, no padding: the kernel bounds-checks):
   state (7 float32 + alive, ns), depi int32 / depv (N,), tau, cos (and
   phase with H > 1) (nlead, N), bc / fresh (N,).
 
-The helpers below (:_expon_cutoff to :_group_leaders) twin
-skirt_tpu/engine/fused.py:55-144 and serve the polychromatic event
-(engine/fused_poly.py) too; csrc/common.cuh carries the same arithmetic
-as `__device__` functions.
+The helpers below (:_expon_cutoff to :_group_leaders, _hit_point,
+_hg_costheta, _scatter_direction) twin skirt_tpu/engine/fused.py:55-144
+and the event bodies' shared steps, and serve the polychromatic and the
+table events (engine/fused_poly.py, fused_table.py, fused_table_poly.py)
+too; csrc/common.cuh carries the same arithmetic as `__device__`
+functions.
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -365,6 +367,41 @@ def _hit_point(cums, npanels, tau, t0, delta):
     return t0 + (i_hit.to(torch.float32) + frac) * delta
 
 
+def _hg_costheta(g, u_g):
+    """Henyey-Greenstein deflection cosine from one uniform (the Pallas
+    bodies' form, common.cuh hg_costheta)."""
+    f = (1.0 - g) * (1.0 + g) / (1.0 - g + 2.0 * g * u_g)
+    small_g = torch.abs(g) < 1e-6
+    cos_hg = (1.0 + g * g - f * f) / (2.0 * torch.where(small_g, 1.0, g))
+    return torch.where(small_g, 2.0 * u_g - 1.0,
+                       torch.clamp(cos_hg, -1.0, 1.0))
+
+
+def _scatter_direction(costheta, u_phi, DX, DY, DZ):
+    """The direction at polar cosine costheta and azimuth 2 pi u_phi about
+    (DX, DY, DZ): the branchless Frisvad frame (common.cuh
+    scatter_direction)."""
+    phi = _f32(2.0 * np.pi) * u_phi
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=0.0))
+    cosphi = torch.cos(phi)
+    sinphi = torch.sin(phi)
+    sign = torch.where(DZ >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + DZ)
+    b = DX * DY * a
+    ux = 1.0 + sign * DX * DX * a
+    uy = sign * b
+    uz = -sign * DX
+    vx = b
+    vy = sign + DY * DY * a
+    vz = -DY
+    nxd = sintheta * (cosphi * ux + sinphi * vx) + costheta * DX
+    nyd = sintheta * (cosphi * uy + sinphi * vy) + costheta * DY
+    nzd = sintheta * (cosphi * uz + sinphi * vz) + costheta * DZ
+    inv_n = torch.rsqrt(torch.clamp(nxd * nxd + nyd * nyd + nzd * nzd,
+                                    min=_TINY))
+    return nxd * inv_n, nyd * inv_n, nzd * inv_n
+
+
 def mono_event_plain(spec: MonoEventSpec, u, state, lam=None):
     """One monochromatic scattering event for every lane, plain PyTorch.
 
@@ -567,35 +604,12 @@ def mono_event_plain(spec: MonoEventSpec, u, state, lam=None):
         out["phase"] = torch.stack(phs)
 
     # -- Henyey-Greenstein scatter (fresh lanes keep their launch dir) ----
-    u_g = u[3]
-    u_phi = u[4]
-    f = (1.0 - g) * (1.0 + g) / (1.0 - g + 2.0 * g * u_g)
-    small_g = torch.abs(g) < 1e-6
-    cos_hg = (1.0 + g * g - f * f) / (2.0 * torch.where(small_g, 1.0, g))
-    costheta = torch.where(small_g, 2.0 * u_g - 1.0,
-                           torch.clamp(cos_hg, -1.0, 1.0))
-    phi = _f32(2.0 * np.pi) * u_phi
-    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=0.0))
-    cosphi = torch.cos(phi)
-    sinphi = torch.sin(phi)
-    sign = torch.where(DZ >= 0.0, 1.0, -1.0)
-    a = -1.0 / (sign + DZ)
-    b = DX * DY * a
-    ux = 1.0 + sign * DX * DX * a
-    uy = sign * b
-    uz = -sign * DX
-    vx = b
-    vy = sign + DY * DY * a
-    vz = -DY
-    nxd = sintheta * (cosphi * ux + sinphi * vx) + costheta * DX
-    nyd = sintheta * (cosphi * uy + sinphi * vy) + costheta * DY
-    nzd = sintheta * (cosphi * uz + sinphi * vz) + costheta * DZ
-    inv_n = torch.rsqrt(torch.clamp(nxd * nxd + nyd * nyd + nzd * nzd,
-                                    min=_TINY))
+    costheta = _hg_costheta(g, u[3])
+    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
     scat = alive & torch.logical_not(fresh)
-    DX = torch.where(scat, nxd * inv_n, DX)
-    DY = torch.where(scat, nyd * inv_n, DY)
-    DZ = torch.where(scat, nzd * inv_n, DZ)
+    DX = torch.where(scat, nx, DX)
+    DY = torch.where(scat, ny, DY)
+    DZ = torch.where(scat, nz, DZ)
     nscatt = torch.where(scat, nscatt + 1, nscatt)
 
     out["state"] = (X, Y, Z, DX, DY, DZ, L, alive.to(torch.int32), nscatt)

@@ -38,7 +38,8 @@ from .. import kernels, rng
 from ..ops import binned_add
 from .fused import (_CHECK_EVERY, _CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER,
                     _TINY, _expon_cutoff, _f32, _geom_args, _group_leaders,
-                    _make_locate, _make_span, _ptr)
+                    _hg_costheta, _make_locate, _make_span, _ptr,
+                    _scatter_direction)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -265,14 +266,7 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
              + _f32(xi) * kext / torch.clamp(tau, min=_TINY))
     Qmix = _wsum(Q) * _f32(1.0 / W)
 
-    u_g = u[3]
-    u_phi = u[4]
-    f = (1.0 - g_cc) * (1.0 + g_cc) / (1.0 - g_cc + 2.0 * g_cc * u_g)
-    small_g = torch.abs(g_cc) < 1e-6
-    cos_hg = (1.0 + g_cc * g_cc - f * f) / (2.0 * torch.where(small_g, 1.0,
-                                                              g_cc))
-    costheta = torch.where(small_g, 2.0 * u_g - 1.0,
-                           torch.clamp(cos_hg, -1.0, 1.0))
+    costheta = _hg_costheta(g_cc, u[3])
     HG = _hg(gw, costheta[None])
     QHmix = _wsum(Q * HG) * _f32(1.0 / W)
 
@@ -330,28 +324,11 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
     out["cos"] = torch.stack(coss)
 
     # -- HG scatter about the old direction (driver g) -------------------
-    phi = _f32(2.0 * np.pi) * u_phi
-    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=0.0))
-    cosphi = torch.cos(phi)
-    sinphi = torch.sin(phi)
-    sign = torch.where(DZ >= 0.0, 1.0, -1.0)
-    a = -1.0 / (sign + DZ)
-    b = DX * DY * a
-    ux = 1.0 + sign * DX * DX * a
-    uy = sign * b
-    uz = -sign * DX
-    vx = b
-    vy = sign + DY * DY * a
-    vz = -DY
-    nxd = sintheta * (cosphi * ux + sinphi * vx) + costheta * DX
-    nyd = sintheta * (cosphi * uy + sinphi * vy) + costheta * DY
-    nzd = sintheta * (cosphi * uz + sinphi * vz) + costheta * DZ
-    inv_n = torch.rsqrt(torch.clamp(nxd * nxd + nyd * nyd + nzd * nzd,
-                                    min=_TINY))
+    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
     scat = alive & torch.logical_not(fresh)
-    DX = torch.where(scat, nxd * inv_n, DX)
-    DY = torch.where(scat, nyd * inv_n, DY)
-    DZ = torch.where(scat, nzd * inv_n, DZ)
+    DX = torch.where(scat, nx, DX)
+    DY = torch.where(scat, ny, DY)
+    DZ = torch.where(scat, nz, DZ)
     nscatt = torch.where(scat, nscatt + 1, nscatt)
 
     out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)

@@ -1,0 +1,581 @@
+"""Monochromatic fused table event (kernel K4), the exact column-DDA peel
+and the table-mode lifecycle driver.
+
+Twin of skirt_tpu/engine/fused_table.py for a single dust component on a
+uniform Cartesian (voxel) grid: models without closed-form densities (an
+octree torus traced through its exact voxel view,
+`DustSystem.voxelized().as_table()`).  The event splits at the gather:
+torch stages the (P, N) panel-midpoint kappa_ext * rho rows each
+iteration (`vector_traversal.panel_paths` + `DustSystem.analytic_rows`),
+and the event kernel consumes them: cumulative optical depth, sampled
+absorption deposit, forced propagation with the composite bias weight,
+weight cut, position update, Henyey-Greenstein scatter.  Relaunch
+(refill) and the peel-off run torch-side after the kernel; the peel
+optical depth toward each observer direction is the exact integral of
+the piecewise-constant voxel field along the ray (`make_exact_peel`).
+
+The event has two implementations with one input/output contract:
+- `table_event_plain`: plain PyTorch on (N,) tensors, any device.  It is
+  the spec the CPU tests hold against the Pallas body (interpret mode)
+  and the reference `chip_smoke.py` holds the CUDA kernel against.
+- csrc/fused_table.cu: the hand-written CUDA kernel, one thread per lane.
+`table_event` takes the plain version for CPU tensors and launches the
+kernel (or raises) for CUDA tensors.
+
+Layouts (N lanes, no padding: the kernel bounds-checks): u (5, N);
+kr (P, N); state px, py, pz, dx, dy, dz, L float32, alive, ns, ell int32,
+L0, t0, dt, albedo, g float32, each (N,); outputs state (7 float32 +
+alive, ns) and depi int32 / depv float32 (N,).
+
+Not ported here, each refusing with its slice: table_peel='taumap'
+(density-path maps, S2b), several dust components (kernel K5, S4b),
+non-uniform grids (direct-table locate, S4b), polarization (S5), the
+dust-emission launch (S3), io_state (S2b).
+
+ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import kernels, rng
+from ..ops import binned_add
+from . import vector_traversal as vt
+from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
+                    _group_leaders, _hg_costheta, _hit_point, _make_locate,
+                    _ptr, _scatter_direction)
+
+# lanes per chunk of the exact peel: its (lanes, Kp, n_a) gathers and
+# overlaps stay under ~2^26 floats (256 MB) each
+_PEEL_CHUNK_FLOATS = 1 << 26
+
+
+def _uniform_grid(grid) -> bool:
+    return bool(hasattr(grid, "_uniform") and all(grid._uniform))
+
+
+def _validate(grid, ds, stellar_system, instruments, options, mueller,
+              io_state, launch_fn):
+    def bail(msg):
+        raise ValueError(f"fused table lifecycle: {msg}")
+
+    if ds is None or not getattr(ds, "table", False):
+        bail("requires density_mode='table' (voxelized().as_table())")
+    if ds.ncomp != 1:
+        bail("several dust components (kernel K5) are not ported yet "
+             "(slice S4b)")
+    if not _uniform_grid(grid):
+        bail("non-uniform grids (the direct-table locate) are not ported "
+             "yet (slice S4b)")
+    if mueller is not None:
+        bail("polarization is not ported yet (slice S5)")
+    if launch_fn is not None:
+        bail("launch_fn (the dust-emission launch) is not ported yet "
+             "(slice S3)")
+    if io_state:
+        bail("io_state is not ported yet (slice S2b)")
+    if options.continuous_scattering:
+        bail("continuous_scattering not supported")
+    if options.store_absorption and options.deposition != "sampled":
+        bail("absorption tallies require deposition='sampled'")
+    peel_mode = getattr(options, "table_peel", "exact")
+    if peel_mode == "taumap":
+        bail("table_peel='taumap' (compute_rho_path_maps) is not ported yet "
+             "(slice S2b)")
+    if peel_mode not in ("staged", "exact"):
+        bail("table_peel must be 'exact', 'taumap' or 'staged'")
+    for ins in instruments:
+        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
+            bail("requires distant (constant-direction) instruments")
+    if stellar_system is None or stellar_system.ncomp != 1 \
+            or not stellar_system.is_isotropic:
+        bail("requires a single isotropic stellar component (the others "
+             "launch through slice S6)")
+
+
+# ---------------------------------------------------------------------------
+# kernel K4: the monochromatic table event
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TableEventSpec:
+    """The constants the K4 event closes over (skirt_tpu
+    fused_table._build_kernel): float32 values as Python floats, and the
+    uniform grid of the in-kernel deposit locate."""
+    npanels: int
+    nlambda: int
+    want_labs: bool
+    min_scatt: int
+    xi: float
+    one_m_xi: float
+    inv_minred: float
+    grid: object
+    n_uniform: int = 5
+    locate: object = field(default=None, repr=False)
+
+
+def _build_kernel(grid, options, nlambda, npanels, want_labs):
+    """The event's constants (mirrors skirt_tpu fused_table._build_kernel
+    with arith_locate)."""
+    xi = float(options.scatt_bias)
+    return TableEventSpec(
+        npanels=int(npanels), nlambda=int(nlambda), want_labs=bool(want_labs),
+        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
+        one_m_xi=_f32(1.0 - xi),
+        inv_minred=_f32(1.0 / options.min_weight_reduction), grid=grid,
+        locate=_make_locate(grid))
+
+
+def table_event_plain(spec: TableEventSpec, u, kr, state):
+    """One monochromatic table event for every lane, plain PyTorch.
+
+    Mirrors the Pallas body (skirt_tpu/engine/fused_table.py:110-243)
+    operation for operation.  kr: (P, N) staged kappa_ext * rho panels.
+    Returns a dict: "state" (px, py, pz, dx, dy, dz, L, alive, ns) and
+    "depi"/"depv" with labs."""
+    P = spec.npanels
+    X, Y, Z, DX, DY, DZ, L = state[:7]
+    alive = state[7] != 0
+    nscatt = state[8]
+    ell = state[9]
+    Lth = state[10] * spec.inv_minred
+    t0, delta, albedo, g = state[11:15]
+    xi = spec.xi
+    out = {}
+
+    # -- cumulative optical depth from the staged panels ------------------
+    cum = torch.zeros_like(L)
+    cums = []
+    for kk in range(P):
+        cum = cum + kr[kk] * delta
+        cums.append(cum)
+    taupath = cum
+    one_m_e = 1.0 - torch.exp(-taupath)
+    Lm = torch.where(alive, L, 0.0)
+
+    # -- sampled absorption deposit ----------------------------------------
+    if spec.want_labs:
+        D = (1.0 - albedo) * Lm * one_m_e
+        tau_dep = _expon_cutoff(u[2], taupath)
+        i_dep = (torch.stack(cums[:P - 1]) < tau_dep[None]).sum(0) \
+            .to(torch.int32) if P > 1 else torch.zeros_like(nscatt)
+        mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
+        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                           Z + mid_dep * DZ)
+        okd = (D > 0) & alive & (cell >= 0)
+        out["depi"] = torch.where(okd, cell * spec.nlambda + ell, -1)
+        out["depv"] = torch.where(okd, D, 0.0)
+
+    # -- scattered-luminosity update + termination -------------------------
+    L = torch.where(alive, albedo * Lm * one_m_e, L)
+    alive = alive & (L > 0) & torch.logical_not(
+        (L <= Lth) & (nscatt >= spec.min_scatt)) & (taupath > 0)
+
+    # -- forced propagation ------------------------------------------------
+    tau_exp = _expon_cutoff(u[1], taupath)
+    if xi == 0.0:
+        tau = tau_exp
+    else:
+        tau = torch.where(u[0] < xi, u[1] * taupath, tau_exp)
+        p = torch.exp(-tau) / torch.clamp(one_m_e, min=_TINY)
+        # a true division (torch evaluates `scalar / tensor` as
+        # reciprocal(tensor) * scalar, which rounds twice)
+        qq = spec.one_m_xi * p + (torch.full_like(taupath, xi)
+                                  / torch.clamp(taupath, min=_TINY))
+        L = torch.where(alive, L * (p / torch.clamp(qq, min=1e-37)), L)
+    s = _hit_point(cums, P, tau, t0, delta)
+    X = torch.where(alive, X + s * DX, X)
+    Y = torch.where(alive, Y + s * DY, Y)
+    Z = torch.where(alive, Z + s * DZ, Z)
+
+    # -- Henyey-Greenstein scatter -----------------------------------------
+    nx, ny, nz = _scatter_direction(_hg_costheta(g, u[3]), u[4], DX, DY, DZ)
+    DX = torch.where(alive, nx, DX)
+    DY = torch.where(alive, ny, DY)
+    DZ = torch.where(alive, nz, DZ)
+    nscatt = torch.where(alive, nscatt + 1, nscatt)
+
+    out["state"] = (X, Y, Z, DX, DY, DZ, L, alive.to(torch.int32), nscatt)
+    return out
+
+
+def _locate_args(a, grid):
+    """Fill the arithmetic-locate fields of a kernels.Geom."""
+    a.nx, a.ny, a.nz = grid.nx, grid.ny, grid.nz
+    for i in range(3):
+        a.loc_lo[i] = _f32(grid._lo[i])
+        a.loc_inv[i] = _f32(1.0 / grid._dx[i])
+
+
+def _check_tensors(what, checks):
+    dev = checks[0][0].device
+    for t, shape, dt in checks:
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
+                or not t.is_contiguous()):
+            raise ValueError(f"{what} kernel: expected a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _table_event_cuda(spec, u, kr, state):
+    N = state[0].shape[0]
+    P = spec.npanels
+    if P > _CUDA_MAXP:
+        raise ValueError(f"table_event kernel: quadrature_panels <= "
+                         f"{_CUDA_MAXP} (the lane's cumulative sums live in "
+                         "registers)")
+    if len(state) != 15:
+        raise ValueError("table_event: expected 15 state arrays")
+    dts = [torch.float32] * 7 + [torch.int32] * 3 + [torch.float32] * 5
+    _check_tensors("table_event",
+                   [(u, (spec.n_uniform, N), torch.float32),
+                    (kr, (P, N), torch.float32)]
+                   + [(s, (N,), dt) for s, dt in zip(state, dts)])
+    dev = u.device
+    a = kernels.TableArgs()
+    a.N = N
+    a.nlambda = spec.nlambda
+    a.npanels = P
+    a.min_scatt = spec.min_scatt
+    a.xi = spec.xi
+    a.one_m_xi = spec.one_m_xi
+    a.inv_minred = spec.inv_minred
+    _locate_args(a.geo, spec.grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32) for _ in range(7)] \
+        + [torch.empty(N, **i32) for _ in range(2)]
+    out = {"state": tuple(st_out)}
+    depi = depv = None
+    if spec.want_labs:
+        depi = out["depi"] = torch.empty(N, **i32)
+        depv = out["depv"] = torch.empty(N, **f32)
+    for name, t in zip(("u", "kr", "px", "py", "pz", "dx", "dy", "dz", "L",
+                        "alive", "ns", "ell", "L0", "t0", "dt", "alb", "g"),
+                       [u, kr, *state]):
+        setattr(a, name, _ptr(t))
+    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oL",
+                        "oalive", "ons", "odepi", "odepv"),
+                       [*st_out, depi, depv]):
+        setattr(a, name, _ptr(t))
+    lib = kernels.library()
+    kernels.check(lib.skirt_table_event(ctypes.byref(a), int(spec.want_labs),
+                                        kernels.stream_of(u)),
+                  "table_event kernel")
+    table_event.launches += 1
+    return out
+
+
+def table_event(spec: TableEventSpec, u, kr, state):
+    """The event on CPU tensors (plain version) or CUDA tensors (the K4
+    kernel, counted in `table_event.launches`)."""
+    if u.device.type == "cpu":
+        return table_event_plain(spec, u, kr, state)
+    if u.device.type != "cuda":
+        raise ValueError(f"table_event: unsupported device {u.device}")
+    return _table_event_cuda(spec, u, kr, state)
+
+
+table_event.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the exact peel: column-DDA optical depths toward constant directions
+# ---------------------------------------------------------------------------
+
+def make_exact_peel(grid, ds, leaders):
+    """Exact peel-off column densities toward static leader directions.
+
+    Twin of skirt_tpu/engine/fused_table.py:395-540.  Per leader the
+    dominant axis a of the direction is the row axis: every lateral
+    (b, c) column the ray crosses contributes the exact overlap integral
+    of its piecewise-constant a-profile, so the result is exact for the
+    voxel field.  The column crossings are the merged arithmetic
+    sequences of the two lateral axes' wall crossings (one sequence when a
+    lateral component is zero); the merge is a sort (the TPU's two-pointer
+    merge gives the same sequence).  Lanes go in chunks so the (lanes,
+    Kp, n_a) gathers stay bounded.
+
+    Returns taus(pos, kext_pk) -> list over leaders of (N,) tau =
+    sum_h kext_pk[h] * integral rho_h."""
+    nxyz = (grid.nx, grid.ny, grid.nz)
+    lo = np.asarray(grid._lo, np.float64)
+    dx = np.asarray(grid._dx, np.float64)
+    hi = lo + np.asarray(nxyz) * dx
+    H = ds.ncomp
+    rho3 = [np.asarray(ds.rho[h], np.float32).reshape(nxyz) for h in range(H)]
+
+    per_leader = []
+    for kvec in leaders:
+        k = np.asarray(kvec, np.float64)
+        a = int(np.argmax(np.abs(k)))
+        b, c = [i for i in range(3) if i != a]
+        # rows along axis a, indexed by ib * n_c + ic
+        rows = [np.ascontiguousarray(np.moveaxis(r, a, 2).reshape(-1, nxyz[a]))
+                for r in rho3]
+        # max in-domain ray length along k, bounded per axis
+        ext = hi - lo
+        Dk = min(float(ext[i] / abs(k[i])) for i in range(3)
+                 if abs(k[i]) > 1e-12)
+        cb = int(np.floor(Dk * abs(k[b]) / dx[b])) + 1
+        cc = int(np.floor(Dk * abs(k[c]) / dx[c])) + 1
+        Kp = min(cb + cc + 1, nxyz[b] + nxyz[c] + 1)
+        per_leader.append((k, a, b, c, rows, Kp))
+    rows_dev = {}
+
+    def cross_seq(p0, kk, loi, dxi, count):
+        """Ray parameters of the wall crossings along one lateral axis."""
+        if abs(kk) < 1e-12:
+            return torch.full(p0.shape[:1] + (count,), float("inf"),
+                              dtype=torch.float32, device=p0.device)
+        i0 = (p0 - _f32(loi)) * _f32(1.0 / dxi)
+        step = np.float32(abs(dxi / kk))
+        if kk > 0:
+            first = (torch.ceil(i0) - i0) * _f32(dxi / kk)
+        else:
+            first = (i0 - torch.floor(i0)) * _f32(-dxi / kk)
+        first = torch.where(first <= float(1e-6 * step), first + float(step),
+                            first)
+        m = torch.arange(count, dtype=torch.float32, device=p0.device)[None, :]
+        return first[:, None] + m * float(step)
+
+    def leader_tau(pos, kext_pk, j):
+        k, a, b, c, rows, Kp = per_leader[j]
+        ka, kb, kc = float(k[a]), float(k[b]), float(k[c])
+        dev = pos.device
+        key = (dev, j)
+        if key not in rows_dev:          # one host->device copy per device
+            rows_dev[key] = [torch.as_tensor(r, device=dev) for r in rows]
+        rows_t = rows_dev[key]
+        pa, pb, pc = pos[:, a], pos[:, b], pos[:, c]
+        kdir = torch.as_tensor(np.asarray(k, np.float32),
+                               device=dev).expand(pos.shape[0], 3)
+        _, t_exit = grid.ray_span(pos, kdir)
+        tb = cross_seq(pb, kb, lo[b], dx[b], Kp)
+        tc = cross_seq(pc, kc, lo[c], dx[c], Kp)
+        tb = torch.where(tb < t_exit[:, None], tb, float("inf"))
+        tc = torch.where(tc < t_exit[:, None], tc, float("inf"))
+        if abs(kb) < 1e-12 or abs(kc) < 1e-12:
+            # one lateral axis is inactive (e.g. azimuth-0 leaders): the
+            # crossing sequence is already sorted
+            tall = (tc if abs(kb) < 1e-12 else tb)[:, :Kp - 1]
+        else:
+            tall = torch.sort(torch.cat([tb, tc], 1), 1).values[:, :Kp - 1]
+        zeros = torch.zeros_like(t_exit)[:, None]
+        tbnd = torch.cat([zeros, torch.minimum(tall, t_exit[:, None]),
+                          t_exit[:, None]], 1)               # (N, Kp + 1)
+        t_in = tbnd[:, :-1]
+        t_out = tbnd[:, 1:]
+        valid = t_out > t_in
+        tmid = 0.5 * (t_in + t_out)
+        nb_, nc_, na = nxyz[b], nxyz[c], nxyz[a]
+        ib = torch.floor((pb[:, None] + tmid * _f32(kb) - _f32(lo[b]))
+                         * _f32(1.0 / dx[b])).to(torch.int32)
+        ic = torch.floor((pc[:, None] + tmid * _f32(kc) - _f32(lo[c]))
+                         * _f32(1.0 / dx[c])).to(torch.int32)
+        okc = valid & (ib >= 0) & (ib < nb_) & (ic >= 0) & (ic < nc_)
+        col = torch.where(okc, ib * nc_ + ic, 0).long()
+        # exact in-column integral over the a-profile
+        a_in = pa[:, None] + t_in * _f32(ka)
+        a_out = pa[:, None] + t_out * _f32(ka)
+        a_nearc = torch.minimum(a_in, a_out)
+        a_farc = torch.maximum(a_in, a_out)
+        edges = _f32(lo[a]) + _f32(dx[a]) * torch.arange(
+            na + 1, dtype=torch.float32, device=dev)
+        ov = torch.clamp(
+            torch.minimum(a_farc[..., None], edges[1:])
+            - torch.maximum(a_nearc[..., None], edges[:-1]),
+            min=0.0)                                       # (N, Kp, na)
+        tau = 0.0
+        for h in range(H):
+            colsum = (rows_t[h][col] * ov).sum(2)          # (N, Kp)
+            tau = tau + kext_pk[h] * torch.where(okc, colsum, 0.0).sum(1)
+        return tau * _f32(1.0 / max(abs(ka), 1e-12))
+
+    def taus(pos, kext_pk):
+        out = []
+        for j, (_, a, _, _, _, Kp) in enumerate(per_leader):
+            chunk = max(1, _PEEL_CHUNK_FLOATS // (Kp * nxyz[a]))
+            if pos.shape[0] <= chunk:
+                out.append(leader_tau(pos, kext_pk, j))
+                continue
+            out.append(torch.cat([
+                leader_tau(pos[i:i + chunk],
+                           [kp[i:i + chunk] for kp in kext_pk], j)
+                for i in range(0, pos.shape[0], chunk)]))
+        return out
+
+    return taus
+
+
+# ---------------------------------------------------------------------------
+# the lifecycle driver
+# ---------------------------------------------------------------------------
+
+def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel):
+    """Peel optical depths toward each leader: the exact column DDA, or the
+    P_peel panel quadrature of the staged rows ('staged')."""
+    if peel_mode == "exact":
+        return make_exact_peel(grid, ds, leaders)
+
+    def staged(pos, kext_pk):
+        taus = []
+        for kvec in leaders:
+            kobs = torch.as_tensor(np.asarray(kvec, np.float32),
+                                   device=pos.device).expand(pos.shape[0], 3)
+            dsg, _, mid = vt.panel_paths(grid, pos, kobs, np_peel)
+            rows = ds.analytic_rows(pos, kobs, mid, None, kext_pk,
+                                    want_sca=False)
+            taus.append((rows * dsg).sum(1))
+        return taus
+
+    return staged
+
+
+def make_fused_table_lifecycle(grid, dust_system, stellar_system,
+                               instruments, options, nlambda: int,
+                               launch_fn=None, emission_peeloff: bool = True,
+                               scattering_peeloff: bool = True,
+                               is_dust_emission=False, mueller=None,
+                               io_state: bool = False,
+                               max_iterations: int | None = None):
+    """Build run_batch(key, ell, L0, tallies) for table densities with the
+    event in kernel K4.
+
+    ell (N,) int32 wavelength indices and L0 (N,) float32 launch
+    luminosities on the run's device; the tallies (float32 tensors on the
+    same device) are updated in place and returned.  Labs bins are
+    voxel * nlambda + ell.  With options.count_events the tallies gain
+    "nevents": the events run, one per lane alive at an iteration's start
+    (scatterings plus the final event of each packet).
+
+    The event loop runs at most max_scatt_events * K iterations and stops
+    when no lane is alive and no lane has launch budget left; the host
+    reads that condition every _CHECK_EVERY iterations (an iteration over
+    finished lanes changes nothing)."""
+    from .lifecycle import make_peel_off
+
+    ds = dust_system
+    _validate(grid, ds, stellar_system, instruments, options, mueller,
+              io_state, launch_fn)
+    del is_dust_emission   # the ported instruments keep no provenance
+    npanels = int(options.quadrature_panels
+                  or getattr(grid, "max_steps", 96))
+    np_peel = int(options.peel_panels or npanels)
+    want_labs = bool(options.store_absorption)
+    leaders, lead_of = _group_leaders(instruments)
+    peel_mode = getattr(options, "table_peel", "exact")
+    refill = options.refill_batches > 1
+    K = int(options.refill_batches) if refill else 1
+    spec = _build_kernel(grid, options, nlambda, npanels, want_labs)
+    peels = [make_peel_off(grid, ds, ins) for ins in instruments]
+    staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel)
+    mix = ds.components[0].mix
+    iter_cap = int(max_iterations if max_iterations is not None
+                   else options.max_scatt_events) * K
+    count_events = bool(getattr(options, "count_events", False))
+
+    def run_batch(key, ell, L0, tallies):
+        n = ell.shape[0]
+        dev = ell.device
+        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+        ell = ell.to(torch.int32).contiguous()
+        L0 = L0.to(torch.float32).contiguous()
+        pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
+        alive = L > 0
+        ksca_pk, kext_pk = ds.packet_kappas(ell)
+        albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
+            .contiguous()
+        g_pk = torch.as_tensor(mix.g, device=dev)[ell.long()].contiguous()
+        ins = tallies["instruments"]
+        labs = tallies.get("labs")
+
+        def emission_peel(pos_p, contribution):
+            taus0 = staged_taus(pos_p, kext_pk)
+            for i, peel in enumerate(peels):
+                peel(ins[i], pos_p, ell, contribution, None,
+                     tau=taus0[lead_of[i]])
+
+        if emission_peeloff:
+            emission_peel(pos, torch.where(alive, L, 0.0))
+
+        pos = pos.contiguous()
+        direction = direction.contiguous()
+        L = L.to(torch.float32).contiguous()
+        alive = alive.to(torch.int32)
+        ns = torch.zeros(n, dtype=torch.int32, device=dev)
+        bc = torch.ones(n, dtype=torch.int32, device=dev)
+        nev = torch.zeros((), dtype=torch.float32, device=dev)
+
+        for it in range(iter_cap):
+            if it % _CHECK_EVERY == 0:
+                go = alive.any()
+                if refill:
+                    go = go | (bc < K).any()
+                if not bool(go):
+                    break
+            u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                 (spec.n_uniform, n), dev)
+            # -- stage the kappa_ext * rho panel rows (the gather) --------
+            dsg, _, mid = vt.panel_paths(grid, pos, direction, npanels)
+            t0 = mid[:, 0] - 0.5 * dsg[:, 0]
+            kr = ds.analytic_rows(pos, direction, mid, None, kext_pk,
+                                  want_sca=False).T.contiguous()
+            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                     direction[:, 1].contiguous(),
+                     direction[:, 2].contiguous(), L, alive, ns, ell, L0,
+                     t0.contiguous(), dsg[:, 0].contiguous(), albedo_pk, g_pk]
+            out = table_event(spec, u, kr, state)
+            if want_labs and labs is not None:
+                binned_add(labs, out["depi"], out["depv"])
+            st = out["state"]
+            if count_events:
+                nev = nev + alive.sum().to(torch.float32)
+            dir_old = direction
+            pos = torch.stack(st[:3], dim=-1)
+            direction = torch.stack(st[3:6], dim=-1)
+            L, alive, ns = st[6], st[7], st[8]
+
+            # -- torch-side relaunch (refill) ------------------------------
+            fresh = None
+            if refill:
+                fresh = (alive == 0) & (bc < K)
+                kre = rng.event_key(k_cycle, it, 7)
+                pos_l, dir_l, L_l, _ = stellar_system.launch(kre, ell, L0)
+                f3 = fresh[:, None]
+                pos = torch.where(f3, pos_l, pos)
+                direction = torch.where(f3, dir_l, direction)
+                L = torch.where(fresh, L_l, L)
+                ns = torch.where(fresh, 0, ns)
+                bc = bc + fresh.to(torch.int32)
+                alive = alive | fresh.to(torch.int32)
+
+            # -- merged peel-off: scattered lanes with the phase weight at
+            # the incoming direction, fresh lanes with the (isotropic)
+            # emission weight ---------------------------------------------
+            alive_b = alive != 0
+            if scattering_peeloff:
+                taus0 = staged_taus(pos, kext_pk)
+                for i, peel in enumerate(peels):
+                    kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
+                    cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
+                            + dir_old[:, 2] * kz)
+                    w = mix.phase_function(ell, cosj)
+                    if refill:
+                        w = torch.where(fresh, 1.0, w)
+                    con = torch.where(alive_b, L * w, 0.0)
+                    peel(ins[i], pos, ell, con, None, tau=taus0[lead_of[i]])
+            elif refill and emission_peeloff:
+                emission_peel(pos, torch.where(fresh, L, 0.0))
+        if count_events:
+            tallies["nevents"] = tallies.get("nevents", 0.0) + nev
+        return tallies
+
+    run_batch.spec = spec
+    return run_batch

@@ -1,0 +1,499 @@
+"""Polychromatic fused table event (kernel K6) and its lifecycle driver.
+
+Twin of skirt_tpu/engine/fused_table_poly.py for a single dust component
+on a uniform Cartesian (voxel) grid.  Every lane carries the full
+W-wavelength vector on one mixture-sampled geometric path: the staged
+(P, N) rho panels and the exact column-DDA peel integrals are
+wavelength-independent, so one gather serves all W wavelengths.  The
+estimator is the defensive-mixture importance sampling derived in the
+module docstring of skirt_tpu/engine/fused_table_poly.py (the same as the
+analytic K1's).
+
+The event has two implementations with one input/output contract:
+- `table_poly_event_plain`: plain PyTorch on (W, N) tensors, any device.
+  It is the spec the CPU tests hold against the Pallas body (interpret
+  mode) and the reference `chip_smoke.py` holds the CUDA kernel against.
+- csrc/fused_table_poly.cu: the hand-written CUDA kernel, one thread per
+  lane.
+`table_poly_event` takes the plain version for CPU tensors and launches
+the kernel (or raises) for CUDA tensors.
+
+Layouts (N lanes, no padding): u (7, N); r (P, N) raw rho panels; oc
+(3, W) = kext, albedo, g; L, L0, Ln, Lp (W, N); state px, py, pz, dx,
+dy, dz float32, alive, ns int32, t0, dt float32, each (N,); depi int32 /
+depv float32 (N,).
+
+Not ported here, each refusing with its slice: several dust components
+(kernel K7, S4b), non-uniform grids (direct-table locate, S4b),
+polarization (S5), the dust-emission launch (S3), io_state (S2b).
+
+ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import kernels, rng
+from ..ops import binned_add
+from . import vector_traversal as vt
+from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
+                    _group_leaders, _hg_costheta, _make_locate, _ptr,
+                    _scatter_direction)
+from .fused_poly import _hg
+from .fused_table import (_check_tensors, _locate_args, _staged_taus_fn,
+                          _uniform_grid)
+
+
+def _validate(grid, ds, stellar_system, instruments, options, nlambda,
+              mueller, io_state, launch_fn):
+    def bail(msg):
+        raise ValueError(f"polychromatic table lifecycle: {msg}")
+
+    if ds is None or not getattr(ds, "table", False):
+        bail("requires density_mode='table' (voxelized().as_table())")
+    if ds.ncomp != 1:
+        bail("several dust components (kernel K7) are not ported yet "
+             "(slice S4b)")
+    if not _uniform_grid(grid):
+        bail("non-uniform grids (the direct-table locate) are not ported "
+             "yet (slice S4b)")
+    if mueller is not None:
+        bail("polarization is not ported yet (slice S5)")
+    if io_state:
+        bail("io_state is not ported yet (slice S2b)")
+    if launch_fn is not None:
+        bail("launch_fn (the dust-emission launch) is not ported yet "
+             "(slice S3)")
+    if options.continuous_scattering:
+        bail("continuous_scattering not supported")
+    if options.store_absorption and options.deposition != "sampled":
+        bail("absorption tallies require deposition='sampled'")
+    if getattr(options, "table_peel", "exact") == "taumap":
+        bail("table_peel='taumap' is per-wavelength; use 'exact'")
+    if nlambda > 128:
+        bail("nlambda <= 128 (split wider grids into blocks of <= 128 "
+             "wavelengths)")
+    if stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
+        bail("requires a single isotropic stellar component")
+    for ins in instruments:
+        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
+            bail("requires distant (constant-direction) instruments")
+
+
+def _sum_block(W: int) -> int:
+    """Block length of XLA's CPU reduction over W wavelengths: the largest
+    divisor of W not above 32 (see _wsum)."""
+    return max(d for d in range(1, min(W, 32) + 1) if W % d == 0)
+
+
+def _wsum(x):
+    """Sum over the wavelength axis in the order XLA's CPU backend takes for
+    the Pallas body's jnp.sum(., axis=0), which the CPU tests run: blocks
+    of _sum_block(W) consecutive wavelengths each summed in order, then
+    the block sums in order (found on the CPU: exact for every W <= 32,
+    every even W <= 64, and W = 96 and 128; other W differ there).  The
+    CUDA kernel sums in the same order."""
+    W = x.shape[0]
+    B = _sum_block(W)
+    total = None
+    for j in range(0, W, B):
+        part = x[j]
+        for w in range(j + 1, j + B):
+            part = part + x[w]
+        total = part if total is None else total + part
+    return total
+
+
+def _cumsum_w(x):
+    """Inclusive prefix sum over the wavelength axis as the Pallas body
+    forms it: log2(W) shifted adds (Hillis-Steele), not a running sum."""
+    W = x.shape[0]
+    s = 1
+    while s < W:
+        x = x + torch.cat([torch.zeros_like(x[:s]), x[:-s]])
+        s *= 2
+    return x
+
+
+@dataclass
+class TablePolyEventSpec:
+    """The constants the K6 event closes over (skirt_tpu
+    fused_table_poly._build_kernel): float32 values as Python floats, the
+    (3, W) optical constants, the uniform grid of the deposit locate."""
+    W: int
+    npanels: int
+    want_labs: bool
+    min_scatt: int
+    xi: float
+    one_m_xi: float
+    inv_W: float
+    inv_minred: float
+    oc: np.ndarray                   # (3, W) float32
+    grid: object
+    n_uniform: int = 7
+    locate: object = field(default=None, repr=False)
+
+
+def _build_kernel(grid, ds, options, W, npanels, want_labs):
+    """The event's constants (mirrors skirt_tpu
+    fused_table_poly._build_kernel with arith_locate): oc = the float32
+    kappa_ext, albedo and g of the mix per wavelength."""
+    mix = ds.components[0].mix
+    oc = np.stack([np.asarray(ds.kappaext[0][:W], np.float32),
+                   np.asarray(mix.albedo[:W], np.float32),
+                   np.asarray(mix.g[:W], np.float32)])
+    xi = float(options.scatt_bias)
+    return TablePolyEventSpec(
+        W=int(W), npanels=int(npanels), want_labs=bool(want_labs),
+        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
+        one_m_xi=_f32(1.0 - xi), inv_W=_f32(1.0 / W),
+        inv_minred=_f32(1.0 / options.min_weight_reduction),
+        oc=np.ascontiguousarray(oc), grid=grid, locate=_make_locate(grid))
+
+
+def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
+    """One polychromatic table event for every lane, plain PyTorch.
+
+    Mirrors the Pallas body (skirt_tpu/engine/fused_table_poly.py:160-350)
+    operation for operation.  Returns a dict: "state" (px, py, pz, dx, dy,
+    dz, alive, ns), "Ln", "Lp" and "depi"/"depv" with labs."""
+    W = spec.W
+    P = spec.npanels
+    X, Y, Z, DX, DY, DZ = state[:6]
+    alive = state[6] != 0
+    nscatt = state[7]
+    t0, delta = state[8], state[9]
+    xi = spec.xi
+    out = {}
+
+    # -- cumulative column density I_k (lambda-independent) -------------
+    cum = torch.zeros_like(delta)
+    cums = []
+    for kk in range(P):
+        cum = cum + r[kk] * delta
+        cums.append(cum)
+    I_tot = cum
+    cums_t = torch.stack(cums)
+
+    kext = oc[0][:, None]
+    alb = oc[1][:, None]
+    gw = oc[2][:, None]
+    tau = kext * I_tot[None]
+    ome = 1.0 - torch.exp(-tau)
+    Lm = torch.where(alive[None], L, 0.0)
+
+    def count_below(x):
+        # panel pick: number of cumulative sums (all but the last) < x
+        return (cums_t[:P - 1] < x[None]).sum(0).to(torch.int32)
+
+    # -- absorption deposit: one sampled wavelength per event ------------
+    if spec.want_labs:
+        D = (1.0 - alb) * Lm * ome
+        Dsum = _wsum(D)
+        target = u[6] * Dsum
+        if W > 1:
+            wsel = (_cumsum_w(D)[:W - 1] <= target[None]).sum(0) \
+                .to(torch.int32)
+        else:
+            wsel = torch.zeros_like(nscatt)
+        w64 = wsel.long()
+        tau_sel = tau.gather(0, w64[None])[0]
+        kinv_sel = 1.0 / oc[0][w64]
+        I_dep = _expon_cutoff(u[2], tau_sel) * kinv_sel
+        i_dep = count_below(I_dep)
+        mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
+        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                           Z + mid_dep * DZ)
+        okd = (Dsum > 0) & alive & (cell >= 0)
+        out["depi"] = torch.where(okd, cell * W + wsel, -1)
+        out["depv"] = torch.where(okd, Dsum, 0.0)
+
+    Lab = alb * Lm * ome
+
+    # -- mixture-driver forced propagation -------------------------------
+    c = torch.clamp((u[5] * float(W)).to(torch.int32), max=W - 1)
+    c64 = c.long()
+    tau_c = tau.gather(0, c64[None])[0]
+    kinv_cc = 1.0 / oc[0][c64]
+    g_cc = oc[2][c64]
+    tau_exp = _expon_cutoff(u[1], tau_c)
+    if xi == 0.0:
+        tau_smp = tau_exp
+    else:
+        tau_smp = torch.where(u[0] < xi, u[1] * tau_c, tau_exp)
+    I_s = tau_smp * kinv_cc
+
+    i_hit = count_below(I_s)
+    h64 = i_hit.long()
+    cum_h = cums_t.gather(0, h64[None])[0]
+    cum_prev = torch.where(
+        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0],
+        0.0)
+    dI_h = cum_h - cum_prev
+    frac = torch.clamp(torch.where(dI_h > 0, (I_s - cum_prev)
+                                   / torch.clamp(dI_h, min=_TINY), 0.0),
+                       0.0, 1.0)
+    s = t0 + (i_hit.to(torch.float32) + frac) * delta
+    X = torch.where(alive, X + s * DX, X)
+    Y = torch.where(alive, Y + s * DY, Y)
+    Z = torch.where(alive, Z + s * DZ, Z)
+
+    # -- per-wavelength mixture ratios (arithmetic in I_s) ---------------
+    F = kext * torch.exp(-kext * I_s[None]) / torch.clamp(ome, min=_TINY)
+    if xi == 0.0:
+        Q = F
+    else:
+        Q = spec.one_m_xi * F + xi * kext / torch.clamp(tau, min=_TINY)
+    Qmix = _wsum(Q) * spec.inv_W
+
+    # -- Henyey-Greenstein scatter with the driver's g -------------------
+    costheta = _hg_costheta(g_cc, u[3])
+    HG = _hg(gw, costheta[None])
+    QHmix = _wsum(Q * HG) * spec.inv_W
+
+    # peel luminosity: s-marginal weight; onward: joint weight
+    Lp = Lab * F / torch.clamp(Qmix[None], min=_TINY)
+    Ln = Lab * F * HG / torch.clamp(QHmix[None], min=_TINY)
+
+    # per-wavelength termination (ref: MonteCarloSimulation.cpp:44-50)
+    past_min = nscatt >= spec.min_scatt
+    kill = (Ln <= L0 * spec.inv_minred) & past_min[None]
+    Lp = torch.where(kill, 0.0, Lp)
+    Ln = torch.where(kill, 0.0, Ln)
+    alive = alive & (Ln > 0).any(0) & (I_tot > _TINY)
+
+    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
+    DX = torch.where(alive, nx, DX)
+    DY = torch.where(alive, ny, DY)
+    DZ = torch.where(alive, nz, DZ)
+    nscatt = torch.where(alive, nscatt + 1, nscatt)
+
+    out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
+    out["Ln"] = torch.where(alive[None], Ln, 0.0)
+    out["Lp"] = torch.where(alive[None], Lp, 0.0)
+    return out
+
+
+def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
+    N = state[0].shape[0]
+    W = spec.W
+    P = spec.npanels
+    if W > kernels.TablePolyArgs.MAX_W:
+        raise ValueError("table_poly_event kernel: W <= 128")
+    if P > _CUDA_MAXP:
+        raise ValueError(f"table_poly_event kernel: quadrature_panels <= "
+                         f"{_CUDA_MAXP} (the lane's cumulative sums live in "
+                         "registers)")
+    if len(state) != 10:
+        raise ValueError("table_poly_event: expected 10 state arrays")
+    dts = [torch.float32] * 6 + [torch.int32] * 2 + [torch.float32] * 2
+    _check_tensors("table_poly_event",
+                   [(u, (spec.n_uniform, N), torch.float32),
+                    (r, (P, N), torch.float32), (oc, (3, W), torch.float32),
+                    (L, (W, N), torch.float32), (L0, (W, N), torch.float32)]
+                   + [(s, (N,), dt) for s, dt in zip(state, dts)])
+    dev = u.device
+    a = kernels.TablePolyArgs()
+    a.N = N
+    a.W = W
+    a.npanels = P
+    a.min_scatt = spec.min_scatt
+    a.sum_block = _sum_block(W)
+    a.xi = spec.xi
+    a.one_m_xi = spec.one_m_xi
+    a.inv_W = spec.inv_W
+    a.inv_minred = spec.inv_minred
+    _locate_args(a.geo, spec.grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32) for _ in range(6)] \
+        + [torch.empty(N, **i32) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32)
+    Lp = torch.empty((W, N), **f32)
+    out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp}
+    depi = depv = None
+    if spec.want_labs:
+        depi = out["depi"] = torch.empty(N, **i32)
+        depv = out["depv"] = torch.empty(N, **f32)
+    for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
+                        "dy", "dz", "alive", "ns", "t0", "dt"),
+                       [u, r, oc, L, L0, *state]):
+        setattr(a, name, _ptr(t))
+    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
+                        "ons", "oLn", "oLp", "odepi", "odepv"),
+                       [*st_out, Ln, Lp, depi, depv]):
+        setattr(a, name, _ptr(t))
+    lib = kernels.library()
+    kernels.check(lib.skirt_table_poly_event(ctypes.byref(a),
+                                             int(spec.want_labs),
+                                             kernels.stream_of(u)),
+                  "table_poly_event kernel")
+    table_poly_event.launches += 1
+    return out
+
+
+def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
+    """The event on CPU tensors (plain version) or CUDA tensors (the K6
+    kernel, counted in `table_poly_event.launches`)."""
+    if u.device.type == "cpu":
+        return table_poly_event_plain(spec, u, r, oc, L, L0, state)
+    if u.device.type != "cuda":
+        raise ValueError(f"table_poly_event: unsupported device {u.device}")
+    return _table_poly_event_cuda(spec, u, r, oc, L, L0, state)
+
+
+table_poly_event.launches = 0
+
+
+def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
+                                    instruments, options, nlambda: int,
+                                    launch_fn=None,
+                                    emission_peeloff: bool = True,
+                                    scattering_peeloff: bool = True,
+                                    is_dust_emission=False, mueller=None,
+                                    io_state: bool = False,
+                                    max_iterations: int | None = None):
+    """Build run_batch(key, ell, L0, tallies) for polychromatic table lanes.
+
+    `L0` must be (N, nlambda) per-lane launch luminosities on the run's
+    device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
+    packets.  Labs bins are voxel * nlambda + w.  With options.count_events
+    the tallies gain "nevents" (events run: lanes alive at an iteration's
+    start).  The tallies are updated in place and returned; the host reads
+    the stop condition every _CHECK_EVERY iterations."""
+    ds = dust_system
+    W = int(nlambda)
+    _validate(grid, ds, stellar_system, instruments, options, W, mueller,
+              io_state, launch_fn)
+    del is_dust_emission   # the ported instruments keep no provenance
+    npanels = int(options.quadrature_panels
+                  or getattr(grid, "max_steps", 96))
+    np_peel = int(options.peel_panels or npanels)
+    want_labs = bool(options.store_absorption)
+    leaders, lead_of = _group_leaders(instruments)
+    refill = options.refill_batches > 1
+    K = int(options.refill_batches) if refill else 1
+    spec = _build_kernel(grid, ds, options, W, npanels, want_labs)
+    # one wavelength-independent peel integral per leader serves all W
+    peel_I_fn = _staged_taus_fn(grid, ds, leaders,
+                                getattr(options, "table_peel", "exact"),
+                                np_peel)
+    iter_cap = int(max_iterations if max_iterations is not None
+                   else options.max_scatt_events) * K
+    count_events = bool(getattr(options, "count_events", False))
+
+    def run_batch(key, ell, L0, tallies):
+        del ell
+        if L0.ndim != 2 or L0.shape[1] != W:
+            raise ValueError("polychromatic run_batch needs L0 of shape "
+                             f"(N, {W})")
+        n = L0.shape[0]
+        dev = L0.device
+        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+        ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
+        ones = torch.ones(n, dtype=torch.float32, device=dev)
+        pos, direction, _, _ = stellar_system.launch(k_launch, ell0, ones)
+        l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
+        L = l0
+        alive = (L > 0).any(0)
+        wls = torch.arange(W, device=dev)
+        oc = torch.as_tensor(spec.oc, device=dev)
+        kext_col = oc[0][:, None]
+        g_col = oc[2][:, None]
+        ins = tallies["instruments"]
+        labs = tallies.get("labs")
+
+        def peel_I(pos_p):
+            return peel_I_fn(pos_p, [ones])
+
+        def detect_all(pos_p, contrib, Ipeel):
+            for i, ins_obj in enumerate(instruments):
+                ext = contrib * torch.exp(-kext_col * Ipeel[lead_of[i]][None])
+                ins_obj.detect_poly(ins[i], pos_p, wls, ext)
+
+        if emission_peeloff:
+            detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos))
+
+        pos = pos.contiguous()
+        direction = direction.contiguous()
+        alive = alive.to(torch.int32)
+        ns = torch.zeros(n, dtype=torch.int32, device=dev)
+        bc = torch.ones(n, dtype=torch.int32, device=dev)
+        nev = torch.zeros((), dtype=torch.float32, device=dev)
+
+        for it in range(iter_cap):
+            if it % _CHECK_EVERY == 0:
+                go = alive.any()
+                if refill:
+                    go = go | (bc < K).any()
+                if not bool(go):
+                    break
+            u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                 (spec.n_uniform, n), dev)
+            # -- stage the rho panel rows (the gather) --------------------
+            dsg, _, midp = vt.panel_paths(grid, pos, direction, npanels)
+            t0 = midp[:, 0] - 0.5 * dsg[:, 0]
+            r = ds.analytic_rows(pos, direction, midp, None, [ones],
+                                 want_sca=False).T.contiguous()
+            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                     direction[:, 1].contiguous(),
+                     direction[:, 2].contiguous(), alive, ns,
+                     t0.contiguous(), dsg[:, 0].contiguous()]
+            out = table_poly_event(spec, u, r, oc, L, l0, state)
+            if want_labs and labs is not None:
+                binned_add(labs, out["depi"], out["depv"])
+            if count_events:
+                nev = nev + alive.sum().to(torch.float32)
+            st = out["state"]
+            dir_old = direction
+            pos = torch.stack(st[:3], dim=-1)
+            direction = torch.stack(st[3:6], dim=-1)
+            alive, ns = st[6], st[7]
+            Ln, Lp = out["Ln"], out["Lp"]
+
+            # -- torch-side relaunch (refill) ------------------------------
+            fresh = None
+            if refill:
+                fresh = (alive == 0) & (bc < K)
+                kre = rng.event_key(k_cycle, it, 7)
+                pos_l, dir_l, _, _ = stellar_system.launch(kre, ell0, ones)
+                f3 = fresh[:, None]
+                pos = torch.where(f3, pos_l, pos)
+                direction = torch.where(f3, dir_l, direction)
+                Ln = torch.where(fresh[None], l0, Ln)
+                ns = torch.where(fresh, 0, ns)
+                bc = bc + fresh.to(torch.int32)
+                alive = alive | fresh.to(torch.int32)
+
+            # -- merged peel-off: scattered lanes use the peel luminosities
+            # and the per-wavelength phase weights at the incoming
+            # direction, fresh lanes the isotropic emission weight --------
+            alive_b = alive != 0
+            if scattering_peeloff:
+                Ipeel = peel_I(pos)
+                for i, ins_obj in enumerate(instruments):
+                    kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
+                    cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
+                            + dir_old[:, 2] * kz)
+                    cw = Lp * _hg(g_col, cosj[None])
+                    if refill:
+                        cw = torch.where(fresh[None], Ln, cw)
+                    cw = torch.where(alive_b[None], cw, 0.0)
+                    ext = cw * torch.exp(-kext_col * Ipeel[lead_of[i]][None])
+                    ins_obj.detect_poly(ins[i], pos, wls, ext)
+            elif refill and emission_peeloff:
+                detect_all(pos, torch.where(fresh[None], Ln, 0.0),
+                           peel_I(pos))
+            L = Ln.contiguous()
+        if count_events:
+            tallies["nevents"] = tallies.get("nevents", 0.0) + nev
+        return tallies
+
+    run_batch.spec = spec
+    return run_batch

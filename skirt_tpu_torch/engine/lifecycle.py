@@ -2,9 +2,10 @@
 
 Twin of skirt_tpu/engine/lifecycle.py.  `LifecycleOptions` keeps the
 reference's field names and defaults so a configuration carries across
-unchanged; `make_lifecycle` has the fused analytic branches (the
-polychromatic engine, slice S1, and the monochromatic one, slice S2a)
-and names the missing slice for every other branch.
+unchanged; `make_lifecycle` has the fused branches (the polychromatic
+analytic engine, slice S1; the monochromatic analytic one, slice S2a; the
+monochromatic and polychromatic table engines, slice S4a) and names the
+missing slice for every other branch.
 """
 
 from __future__ import annotations
@@ -129,37 +130,41 @@ def make_lifecycle(grid, dust_system, stellar_system, instruments,
 
     Ported: fused + analytic densities, polychromatic
     (engine/fused_poly.py, kernel K1) or monochromatic (engine/fused.py,
-    kernel K3).  Every other branch of skirt_tpu's dispatch raises
-    ValueError naming the slice that will port it."""
+    kernel K3); fused + table densities, polychromatic
+    (engine/fused_table_poly.py, kernel K6) or monochromatic
+    (engine/fused_table.py, kernel K4).  Every other branch of skirt_tpu's
+    dispatch raises ValueError naming the slice that will port it."""
     ds = dust_system
 
     def missing(what, slice_):
         raise ValueError(f"make_lifecycle: {what} is not ported yet "
                          f"(slice {slice_}); skirt_tpu_torch runs the "
-                         "fused analytic engines only")
+                         "fused engines only")
 
     table = getattr(ds, "table", False)
     analytic = getattr(ds, "analytic", False)
+    kw = dict(launch_fn=launch_fn, emission_peeloff=emission_peeloff,
+              scattering_peeloff=scattering_peeloff,
+              is_dust_emission=is_dust_emission, mueller=mueller,
+              io_state=io_state, max_iterations=max_iterations)
     if options.fused and options.polychromatic and table:
-        missing("the polychromatic table engine (fused_table_poly)", "S4")
+        from . import fused_table_poly as _ftp
+        return _ftp.make_fused_table_poly_lifecycle(
+            grid, dust_system, stellar_system, instruments, options,
+            nlambda, **kw)
     if options.fused and options.polychromatic and analytic:
         from . import fused_poly as _fp
         return _fp.make_fused_poly_lifecycle(
             grid, dust_system, stellar_system, instruments, options,
-            nlambda, launch_fn=launch_fn,
-            emission_peeloff=emission_peeloff,
-            scattering_peeloff=scattering_peeloff,
-            is_dust_emission=is_dust_emission, mueller=mueller,
-            io_state=io_state, max_iterations=max_iterations)
+            nlambda, **kw)
     if options.fused and table:
-        missing("the monochromatic table engine (fused_table)", "S4")
+        from . import fused_table as _ft
+        return _ft.make_fused_table_lifecycle(
+            grid, dust_system, stellar_system, instruments, options,
+            nlambda, **kw)
     if options.fused:
         from . import fused as _fused
         return _fused.make_fused_lifecycle(
             grid, dust_system, stellar_system, instruments, options,
-            nlambda, launch_fn=launch_fn,
-            emission_peeloff=emission_peeloff,
-            scattering_peeloff=scattering_peeloff,
-            is_dust_emission=is_dust_emission, mueller=mueller,
-            io_state=io_state, max_iterations=max_iterations)
+            nlambda, **kw)
     missing("the general (unfused) vector lifecycle", "S2b")

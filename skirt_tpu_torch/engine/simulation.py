@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..devices import resolve
 from ..log import Log
+from ..units import Units
 from .lifecycle import (LifecycleOptions, make_lifecycle,
                         make_lifecycle_with_fallback, make_multibatch)
 
@@ -33,12 +35,19 @@ class OligoSimulation:
     """Oligochromatic Monte Carlo simulation: stellar emission only.
 
     ref: SKIRTcore/OligoMonteCarloSimulation.cpp:69-74.  Same keywords as
-    skirt_tpu's, plus `device` (where the tallies and packets live).  Not
-    ported yet, and raising with the slice that ports them: use_mesh True
-    or "slab" (S8), compaction_iterations > 0 (S2b), voxelize (S4), the
-    write_convergence / write_density / write_depth_map / write_grid /
-    write_cells_crossed diagnostics (S2b).  use_mesh=None means one device
-    here (skirt_tpu shards over every local device)."""
+    skirt_tpu's, plus `device` (where the tallies and packets live: the
+    card unless the caller passes another; without a CUDA device the
+    default raises).  Tree grids are traced through their exact voxel
+    view, as skirt_tpu does (`LifecycleOptions.voxelize`: None voxelizes
+    exactly voxelizable grids, True any, False none; "table" also turns
+    the gridded densities into table mode, which the fused table engines
+    run); the returned absorption tallies fold back onto the leaf cells.
+    Not ported yet, and raising with the slice that ports them: use_mesh
+    True or "slab" (S8), compaction_iterations > 0 (S2b), a gridded dust
+    system left for the per-crossing walk (S2b), approximate voxelizations
+    (S4b), the write_convergence / write_density / write_depth_map /
+    write_grid / write_cells_crossed diagnostics (S2b).  use_mesh=None
+    means one device here (skirt_tpu shards over every local device)."""
 
     def __init__(self, *, stellar_system, instruments, dust_system=None,
                  packets: float = 1e6, seed: int = rng.DEFAULT_SEED,
@@ -50,7 +59,8 @@ class OligoSimulation:
                  use_mesh: bool | str | None = None,
                  compaction_iterations: int = 0, dispatch_batches: int = 8,
                  write_grid: bool = False, write_cells_crossed: bool = False,
-                 device="cpu"):
+                 device="cuda"):
+        self.device = resolve(device)
         self.options = options or LifecycleOptions()
         diagnostics = {"write_convergence": write_convergence,
                        "write_density": write_density,
@@ -69,33 +79,68 @@ class OligoSimulation:
             raise ValueError("OligoSimulation: survivor compaction "
                              "(compaction_iterations > 0) is not ported yet "
                              "(slice S2b)")
-        if getattr(self.options, "voxelize", None) in (True, "table"):
-            raise ValueError("OligoSimulation: voxelized and table density "
-                             "modes are not ported yet (slice S4)")
         self.stellar_system = stellar_system
         self.instruments = list(instruments)
-        self.dust_system = dust_system
+        self.log = log or Log()
         self.packets = int(packets)
         self.seed = seed
         self.batch_size = int(batch_size)
-        self.log = log or Log()
         self.units = units
         self.out_dir = out_dir
         self.prefix = prefix
         # checkpoint/resume: batches are deterministic per (seed, phase,
         # batch index), so a phase can resume mid-stream
         self.checkpoint_every = int(checkpoint_every)
-        self.device = torch.device(device)
 
         self.wavelength_grid = stellar_system.wavelength_grid
         self.nlambda = self.wavelength_grid.nlambda
-        self.grid = dust_system.grid if dust_system is not None else None
+        self.dust_system_out = dust_system   # original (leaf resolution)
+        self.dust_system = self._voxelized(dust_system)
+        self.grid = (self.dust_system.grid if self.dust_system is not None
+                     else None)
         self._build_main_lifecycle()
         # fold several launch batches into one dispatch; the tallies drain
         # to the host once per dispatch
         self.dispatch_batches = max(int(dispatch_batches), 1)
 
     # ------------------------------------------------------------------
+
+    def _voxelized(self, dust_system):
+        """The dust system the run traces (skirt_tpu simulation.py:74-104):
+        a tree grid's exact voxel view, in table mode with
+        voxelize='table'; sets the voxel -> leaf fold of the labs."""
+        self._labs_fold = None
+        if dust_system is None:
+            return None
+        vox_opt = getattr(self.options, "voxelize", None)
+        if vox_opt in (True, "table") or (
+                vox_opt is not False
+                and getattr(dust_system.grid, "voxelize_exact", False)):
+            v = dust_system.voxelized()
+            if v is not None:
+                dust_system, self._labs_fold = v
+                g = dust_system.grid
+                self.log.info(f"Voxelized tree grid: {g.nx}x{g.ny}x{g.nz} "
+                              "voxels over "
+                              f"{self.dust_system_out.grid.ncells} leaf cells")
+        if vox_opt == "table" and not dust_system.analytic:
+            dust_system = dust_system.as_table()
+            self.log.info("Table density mode: panel quadrature over the "
+                          "gridded densities")
+        if not dust_system.analytic:
+            raise ValueError(
+                "OligoSimulation: a gridded dust system runs the per-crossing "
+                "gridded walk of the unfused lifecycle, not ported yet (slice "
+                "S2b); voxelize='table' with fused=True runs the table "
+                "engines")
+        return dust_system
+
+    def _fold_acc(self, acc):
+        """Fold voxel-resolution absorption tallies back onto leaf cells
+        (after the float64 drain; checkpoints keep the voxel tallies)."""
+        if self._labs_fold is not None and "labs" in acc:
+            acc["labs"] = self._labs_fold(acc["labs"])
+        return acc
 
     def _build_main_lifecycle(self):
         """Build self._lifecycle, engaging polychromatic lanes when the
@@ -176,7 +221,7 @@ class OligoSimulation:
 
     def _run_phase(self, key, phase_tag: int):
         """Run every batch of a phase; returns the float64 host tallies
-        (raw, uncalibrated, in W)."""
+        (raw, uncalibrated, in W; labs at leaf resolution)."""
         tallies = self._zero_tallies()
         acc = {"instruments": [
             {k: np.zeros(v.shape, np.float64) for k, v in t.items()}
@@ -239,7 +284,7 @@ class OligoSimulation:
             pos += nproc
         if self.checkpoint_every and os.path.exists(ckpt_path):
             os.remove(ckpt_path)  # phase complete
-        return acc
+        return self._fold_acc(acc)
 
     def _save_checkpoint(self, path, next_batch, acc):
         os.makedirs(self.out_dir, exist_ok=True)
@@ -258,9 +303,6 @@ class OligoSimulation:
         os.makedirs(self.out_dir, exist_ok=True)
         units = self.units
         if units is None:
-            # the JAX-free unit system, imported only when a result is
-            # written (a run imports no module of skirt_tpu)
-            from skirt_tpu.units import Units
             units = Units()
         for ins, a in zip(self.instruments, acc["instruments"]):
             ins.write(a, self.wavelength_grid, units, self.out_dir,

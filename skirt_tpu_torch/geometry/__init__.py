@@ -1,5 +1,5 @@
-"""Geometries (twin of skirt_tpu.geometry; slice 1 subset)."""
+"""Geometries (twin of skirt_tpu.geometry; ported subset)."""
 
-from .axial import ExpDiskGeometry  # noqa: F401
+from .axial import ExpDiskGeometry, TorusGeometry  # noqa: F401
 from .base import AxGeometry, Geometry  # noqa: F401
 from .general import PointGeometry  # noqa: F401

@@ -1,7 +1,8 @@
 """Axisymmetric geometries.
 
-Twin of skirt_tpu/geometry/axial.py (slice 1: ExpDiskGeometry).
-ref: SKIRTcore/ExpDiskGeometry.cpp.
+Twin of skirt_tpu/geometry/axial.py: ExpDiskGeometry (slice 1) and the
+host side of TorusGeometry (slice S4a).
+ref: SKIRTcore/ExpDiskGeometry.cpp, TorusGeometry.cpp.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..devices import resolve
 from .base import AxGeometry, _f32, build_inverse_cdf
 
 
@@ -75,7 +77,8 @@ class ExpDiskGeometry(AxGeometry):
             inside &= absz <= _f32(self.zmax)
         return torch.where(inside, shape, 0.0)
 
-    def generate_position(self, key: int, n: int, device="cpu"):
+    def generate_position(self, key: int, n: int, device="cuda"):
+        device = resolve(device)
         k1, k2, k3, k4 = rng.split(key, 4)
         if self.Rmin > 0 or self.Rmax > 0:
             R = self._r_sampler.sample(rng.uniform_open(k1, (n,), device))
@@ -142,3 +145,56 @@ class ExpDiskGeometry(AxGeometry):
         if self.zmax > 0:
             return float(-2.0 * self.rho0 * self.hz * np.expm1(-self.zmax / self.hz))
         return float(2.0 * self.rho0 * self.hz)
+
+
+class TorusGeometry(AxGeometry):
+    """AGN torus: rho ~ r^(-p) exp(-q|cos(theta)|) within rmin < r < rmax
+    and |pi/2 - theta| <= Delta (opening angle).
+
+    Host side only (the normalisation quadrature, the float64 density the
+    dust system grids, the surface densities of the normalizations): the
+    table path traces its gridded densities.  Its closed-form device
+    density and position sampler belong to slice S6.
+    ref: SKIRTcore/TorusGeometry.cpp (Stalevski et al. 2012 flared torus).
+    """
+
+    def __init__(self, exponent_p: float, index_q: float, open_angle: float,
+                 rmin: float, rmax: float):
+        self.p = float(exponent_p)
+        self.q = float(index_q)
+        self.delta = float(open_angle)
+        self.rmin = float(rmin)
+        self.rmax = float(rmax)
+
+        # normalization by 2-D quadrature over (r, theta)
+        rv = np.logspace(np.log10(self.rmin), np.log10(self.rmax), 2048)
+        tv = np.linspace(np.pi / 2 - self.delta, np.pi / 2 + self.delta, 1025)
+        rr, tt = np.meshgrid(rv, tv, indexing="ij")
+        f = rr ** (-self.p) * np.exp(-self.q * np.abs(np.cos(tt)))
+        integrand = f * rr * rr * np.sin(tt)
+        integral = 2.0 * np.pi * np.trapezoid(
+            np.trapezoid(integrand, tv, axis=1), rv)
+        self.A = 1.0 / integral
+
+    def density_rz(self, R, z):
+        """Host (NumPy float64) density."""
+        r = np.sqrt(R * R + z * z)
+        r_safe = np.maximum(r, 1e-30)
+        costheta = z / r_safe
+        rho = self.A * r_safe ** (-self.p) * np.exp(-self.q * np.abs(costheta))
+        inside = ((r >= self.rmin) & (r <= self.rmax)
+                  & (np.abs(costheta) <= np.sin(self.delta)))
+        return np.where(inside, rho, 0.0)
+
+    def generate_position(self, key: int, n: int, device="cuda"):
+        raise NotImplementedError("TorusGeometry's position sampler is not "
+                                  "ported yet (slice S6)")
+
+    def sigma_x(self) -> float:
+        rv = np.logspace(np.log10(self.rmin), np.log10(self.rmax), 65536)
+        return float(2.0 * self.A * np.trapezoid(rv ** (-self.p), rv))
+
+    sigma_y = sigma_x
+
+    def sigma_z(self) -> float:
+        return 0.0  # the z-axis is inside the opening cone

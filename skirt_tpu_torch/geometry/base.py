@@ -71,7 +71,8 @@ class Geometry:
     """A normalized (unit total mass) spatial density distribution.
 
     Subclasses implement `density(pos)` (NumPy SI positions (..., 3)) and
-    `generate_position(key, n, device)`.  Directions are isotropic.
+    `generate_position(key, n, device)` (the card unless `device` says
+    otherwise).  Directions are isotropic.
     """
 
     dimension = 3
@@ -80,7 +81,7 @@ class Geometry:
     def density(self, pos):
         raise NotImplementedError
 
-    def generate_position(self, key: int, n: int, device="cpu"):
+    def generate_position(self, key: int, n: int, device="cuda"):
         raise NotImplementedError
 
     def generate_direction(self, key: int, ell, pos):

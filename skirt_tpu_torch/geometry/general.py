@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve
 from .base import Geometry
 
 
@@ -21,8 +22,9 @@ class PointGeometry(Geometry):
         pos = np.asarray(pos)
         return np.zeros(pos.shape[:-1], dtype=pos.dtype)
 
-    def generate_position(self, key: int, n: int, device="cpu"):
-        return torch.zeros((n, 3), dtype=torch.float32, device=device)
+    def generate_position(self, key: int, n: int, device="cuda"):
+        return torch.zeros((n, 3), dtype=torch.float32,
+                           device=resolve(device))
 
     def device_sampler_xyz(self):
         """Kernel-safe sampler: the position is the constant origin."""

@@ -1,3 +1,4 @@
-"""Dust grids (twin of skirt_tpu.grids; slice 1 subset)."""
+"""Dust grids (twin of skirt_tpu.grids; ported subset)."""
 
 from .cartesian import CartesianGrid  # noqa: F401
+from .octree import OctreeGrid  # noqa: F401

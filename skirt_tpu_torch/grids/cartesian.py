@@ -1,8 +1,9 @@
 """3-D rectilinear Cartesian dust grid.
 
-Twin of skirt_tpu/grids/cartesian.py (slice 1: the host metadata, the
-uniform-spacing detection the event kernel's arithmetic locate relies
-on, and the in-domain ray span of the panel quadrature).
+Twin of skirt_tpu/grids/cartesian.py: the host metadata, the
+uniform-spacing detection the event kernels' arithmetic locate relies
+on, the in-domain ray span of the panel quadrature (slice 1), and the
+point locates the table path gathers with (slice S4a).
 ref: SKIRTcore/CartesianDustGrid.cpp.
 """
 
@@ -12,6 +13,10 @@ import numpy as np
 import torch
 
 _BIG = 3.4e38
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
 
 
 class CartesianGrid:
@@ -107,3 +112,34 @@ class CartesianGrid:
         hit = (t_start <= t_far) & (t_far > 0)
         t_start = torch.where(hit, t_start, 0.0)
         return t_start, torch.where(hit, t_far, t_start)
+
+    def locate(self, pos):
+        """Flat cell index containing pos (..., 3), -1 outside: a search of
+        the float32 borders (skirt_tpu's start())."""
+        idx = []
+        for b, n, x in ((self.xb, self.nx, pos[..., 0]),
+                        (self.yb, self.ny, pos[..., 1]),
+                        (self.zb, self.nz, pos[..., 2])):
+            borders = torch.as_tensor(b, device=pos.device)
+            i = torch.searchsorted(borders, x.contiguous(), right=True) - 1
+            idx.append(torch.where((i >= 0) & (i < n), i, -1))
+        ix, iy, iz = idx
+        ok = (ix >= 0) & (iy >= 0) & (iz >= 0)
+        return torch.where(ok, (ix * self.ny + iy) * self.nz + iz,
+                           -1).to(torch.int32)
+
+    def locate_batched(self, points):
+        """Flat cell ids for point batches (..., 3), -1 outside: on a
+        uniform grid the arithmetic floor((x - lo) / dx) with float32 lo
+        and 1 / dx (what the event kernels compute), else `locate`."""
+        if not all(self._uniform):
+            return self.locate(points)
+        idx = []
+        for axis, n in enumerate((self.nx, self.ny, self.nz)):
+            rel = ((points[..., axis] - _f32(self._lo[axis]))
+                   * _f32(1.0 / self._dx[axis]))
+            i = torch.floor(rel).to(torch.int32)
+            idx.append(torch.where((i >= 0) & (i < n), i, -1))
+        ix, iy, iz = idx
+        ok = (ix >= 0) & (iy >= 0) & (iz >= 0)
+        return torch.where(ok, (ix * self.ny + iy) * self.nz + iz, -1)

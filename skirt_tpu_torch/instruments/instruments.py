@@ -8,9 +8,9 @@ SingleFrameInstrument.cpp (pixelondetector :119-145, calibration
 
 Tallies are float32 tensors on the run's device, updated in place; the
 frame cube goes through the K2 binned scatter-add (ops.binned_add).
-Calibration and output run on the host in float64 through the shared,
-JAX-free skirt_tpu.io.fits writer and skirt_tpu.units, imported only when
-a result is written: a run imports no module of skirt_tpu.
+Calibration and output run on the host in float64 through the port's
+own FITS writer (fits.py) and unit system (units.py), copies of
+skirt_tpu's: the port imports no module of skirt_tpu.
 """
 
 from __future__ import annotations
@@ -22,10 +22,12 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from ..devices import resolve
+from ..fits import write_fits
 from ..ops import binned_add
 
 if TYPE_CHECKING:
-    from skirt_tpu.units import Units
+    from ..units import Units
 
 
 def _f32(v) -> float:
@@ -96,9 +98,9 @@ class SEDInstrument(DistantInstrument):
         super().__init__(name, distance, **kw)
         self.nlambda = int(nlambda)
 
-    def zero_tallies(self, device="cpu"):
+    def zero_tallies(self, device="cuda"):
         return {"Ftot": torch.zeros((self.nlambda,), dtype=torch.float32,
-                                    device=device)}
+                                    device=resolve(device))}
 
     def detect(self, tallies, pos, ell, contribution, tags=None):
         """Add the (already extincted) contributions of N packets with
@@ -146,9 +148,10 @@ class FrameInstrument(DistantInstrument):
         ok = (i >= 0) & (i < self.nx) & (j >= 0) & (j < self.ny)
         return torch.where(ok, i + self.nx * j, -1)
 
-    def zero_tallies(self, device="cpu"):
+    def zero_tallies(self, device="cuda"):
         return {"ftot": torch.zeros((self.nlambda * self.nx * self.ny,),
-                                    dtype=torch.float32, device=device)}
+                                    dtype=torch.float32,
+                                    device=resolve(device))}
 
     def detect(self, tallies, pos, ell, contribution, tags=None):
         pix = self.pixel(pos)
@@ -177,7 +180,7 @@ class FrameInstrument(DistantInstrument):
 class SimpleInstrument(FrameInstrument):
     """SED + data cube (ref: SKIRTcore/SimpleInstrument.cpp)."""
 
-    def zero_tallies(self, device="cpu"):
+    def zero_tallies(self, device="cuda"):
         t = super().zero_tallies(device)
         t["Ftot"] = torch.zeros((self.nlambda,), dtype=torch.float32,
                                 device=device)
@@ -247,8 +250,6 @@ def _write_sed(instrument, seds: dict, wavelength_grid, units: Units,
 
 def _write_cube(instrument, frames: dict, wavelength_grid, units: Units,
                 out_dir: str, prefix: str):
-    from skirt_tpu.io.fits import write_fits
-
     lam = wavelength_grid.lambdav
     for name, f in frames.items():
         cube = calibrate_cube(instrument, f, wavelength_grid)

@@ -151,6 +151,39 @@ class MonoArgs(ctypes.Structure):
            ("geo", Geom)])
 
 
+class TableArgs(ctypes.Structure):
+    """Mirror of `struct TableArgs` in csrc/fused_table.cu (same order);
+    only the Geom's arithmetic-locate fields are read."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "u", "kr", "px", "py", "pz", "dx", "dy", "dz", "L", "alive",
+            "ns", "ell", "L0", "t0", "dt", "alb", "g",
+            "opx", "opy", "opz", "odx", "ody", "odz", "oL", "oalive", "ons",
+            "odepi", "odepv")]
+        + [(name, ctypes.c_int) for name in (
+            "N", "nlambda", "npanels", "min_scatt")]
+        + [(name, ctypes.c_float) for name in (
+            "xi", "one_m_xi", "inv_minred")]
+        + [("geo", Geom)])
+
+
+class TablePolyArgs(ctypes.Structure):
+    """Mirror of `struct TablePolyArgs` in csrc/fused_table_poly.cu (same
+    order); only the Geom's arithmetic-locate fields are read."""
+    MAX_W = 128
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "u", "r", "oc", "L", "L0", "px", "py", "pz", "dx", "dy", "dz",
+            "alive", "ns", "t0", "dt",
+            "opx", "opy", "opz", "odx", "ody", "odz", "oalive", "ons",
+            "oLn", "oLp", "odepi", "odepv")]
+        + [(name, ctypes.c_int) for name in (
+            "N", "W", "npanels", "min_scatt", "sum_block")]
+        + [(name, ctypes.c_float) for name in (
+            "xi", "one_m_xi", "inv_W", "inv_minred")]
+        + [("geo", Geom)])
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -170,8 +203,17 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(MonoArgs), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.skirt_mono_event.restype = ctypes.c_int
+        for name, struct in (("table", TableArgs),
+                             ("table_poly", TablePolyArgs)):
+            fn = getattr(lib, f"skirt_{name}_event")
+            fn.argtypes = [ctypes.POINTER(struct), ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         for name, struct, src in (("poly", PolyArgs, "fused_poly.cu"),
-                                  ("mono", MonoArgs, "fused_mono.cu")):
+                                  ("mono", MonoArgs, "fused_mono.cu"),
+                                  ("table", TableArgs, "fused_table.cu"),
+                                  ("table_poly", TablePolyArgs,
+                                   "fused_table_poly.cu")):
             size = getattr(lib, f"skirt_{name}_args_size")
             size.argtypes = []
             size.restype = ctypes.c_int

@@ -1,13 +1,19 @@
 """Dust system: density field over a grid + optical properties.
 
-Twin of skirt_tpu/media/dust_system.py, analytic mode only, one or more
-components.
+Twin of skirt_tpu/media/dust_system.py: the components, the
+normalizations, the MC gridding of the densities, analytic mode (slice
+1), and the gridded and table modes with the exact voxel view of tree
+grids (slice S4a).
 ref: SKIRTcore/DustSystem.cpp:63-192 and the normalization family.
 
 Setup runs on the host in NumPy float64 with the same seed and sampling
 as skirt_tpu, so the discretised densities are identical.  In analytic
 mode the engine evaluates each component's closed-form density at panel
-midpoints; the per-cell table only feeds diagnostics.
+midpoints; in table mode it gathers the gridded per-cell densities at the
+panel midpoints of a uniform Cartesian (voxel) grid.  Gridded mode (the
+per-crossing walk of the unfused lifecycle, slice S2b) is a host-side
+state here: the port's engines refuse it, but it voxelizes and converts
+to table mode.
 """
 
 from __future__ import annotations
@@ -104,11 +110,9 @@ class DustSystem:
     def _setup(self, grid, components, density_mode):
         if not components:
             raise ValueError("need at least one dust component")
-        if density_mode != "analytic":
+        if density_mode not in ("gridded", "analytic", "table"):
             raise ValueError(
-                f"density_mode={density_mode!r} is not ported yet: "
-                "skirt_tpu_torch has analytic mode only (gridded/table "
-                "modes belong to later slices)")
+                "density_mode must be 'gridded', 'analytic' or 'table'")
         self.grid = grid
         self.components = list(components)
         self.ncomp = len(self.components)
@@ -118,13 +122,17 @@ class DustSystem:
                 raise ValueError("all mixes must share the wavelength grid")
         self.wavelength_grid = wg
         self.volumes = grid.cell_volumes()
-        self.analytic = True
-        self.table = False
-        for c in self.components:
-            if not c.geometry.supports_analytic:
-                raise ValueError(
-                    f"{type(c.geometry).__name__} has no analytic device "
-                    "density (density_scaled)")
+        self.analytic = density_mode in ("analytic", "table")
+        self.table = density_mode == "table"
+        if self.table:
+            self._check_table_grid(grid)
+        if self.analytic and not self.table:
+            for c in self.components:
+                if not c.geometry.supports_analytic:
+                    raise ValueError(
+                        f"{type(c.geometry).__name__} has no analytic "
+                        "device density (density_scaled); use "
+                        "density_mode='gridded'")
         box = grid.bounding_box()
         self.lscale = float(max(box[3] - box[0], box[4] - box[1],
                                 box[5] - box[2]))
@@ -146,6 +154,65 @@ class DustSystem:
         self._mass_over_L3 = np.asarray(self.masses / self.lscale ** 3,
                                         np.float32)
         self._kappas_dev = {}
+        self._rho_dev = {}
+
+    @staticmethod
+    def _check_table_grid(grid):
+        if not (hasattr(grid, "ray_span") and hasattr(grid, "locate_batched")):
+            raise ValueError(
+                f"density_mode='table' needs a grid with ray_span + "
+                f"locate_batched (a Cartesian or voxelized grid); the device "
+                f"walk of {type(grid).__name__} is not ported yet (slice S2b)")
+
+    def as_table(self) -> "DustSystem":
+        """Copy of this system in 'table' mode: the panel quadrature gathers
+        the per-cell densities at panel midpoints."""
+        import copy
+
+        self._check_table_grid(self.grid)
+        t = copy.copy(self)
+        t.analytic = True
+        t.table = True
+        return t
+
+    def voxelized(self, max_voxels: int = 1 << 24):
+        """Uniform-voxel view of this system for tree grids.
+
+        The gridded density field is piecewise constant on leaf cells and
+        leaves are unions of finest-level voxels, so the voxel view traces
+        the identical field through the Cartesian grid.  Returns
+        (voxel_dust_system, fold_labs), where fold_labs maps a flat
+        (nvox * nlambda,) absorption tally onto (ncells * nlambda,) leaf
+        cells; None when the grid has no voxelization or it would exceed
+        max_voxels.  Approximate voxelizations (Voronoi rasterization, with
+        skirt_tpu's field-error check) belong to slice S4b."""
+        import copy
+
+        if self.analytic or not hasattr(self.grid, "voxelize"):
+            return None
+        if not getattr(self.grid, "voxelize_exact", True):
+            raise ValueError("approximate voxelization (field-error check) "
+                             "is not ported yet (slice S4b)")
+        v = self.grid.voxelize(max_voxels=max_voxels)
+        if v is None:
+            return None
+        cart, cell_of = v
+        vds = copy.copy(self)
+        vds.grid = cart
+        vds.rho64 = np.ascontiguousarray(self.rho64[:, cell_of])
+        vds.rho = np.asarray(vds.rho64, np.float32)
+        vds.volumes = cart.cell_volumes()
+        vds._rho_dev = {}
+        nl = self.wavelength_grid.nlambda
+        ncells = self.grid.ncells
+
+        def fold_labs(labs_vox):
+            lv = np.asarray(labs_vox, np.float64).reshape(-1, nl)
+            out = np.zeros((ncells, nl))
+            np.add.at(out, cell_of, lv)
+            return out.reshape(-1)
+
+        return vds, fold_labs
 
     # -- diagnostics (host) -----------------------------------------------
 
@@ -166,12 +233,37 @@ class DustSystem:
         return ([ksca[h, idx] for h in range(self.ncomp)],
                 [kext[h, idx] for h in range(self.ncomp)])
 
+    def rho_at(self, h, cells_safe):
+        """rho_h (float32) at (clipped) flat cell ids: a plain index (the
+        TPU's two-level row gather gives the same values)."""
+        dev = cells_safe.device
+        if dev not in self._rho_dev:        # one host->device copy per device
+            self._rho_dev[dev] = torch.as_tensor(self.rho, device=dev)
+        return self._rho_dev[dev][h][cells_safe.long()]
+
     def analytic_rows(self, pos, direction, mid, ksca_pk, kext_pk,
                       want_sca=True):
-        """Per-segment (kappasca*rho, kappaext*rho) from the analytic
-        densities at segment midpoints.  pos, direction (N, 3) SI; mid
-        (N, S) midpoint ray parameters; ksca_pk/kext_pk: per-component
-        (N,) opacities.  Returns (N, S) rows."""
+        """Per-segment (kappasca*rho, kappaext*rho) at segment midpoints.
+        pos, direction (N, 3) SI; mid (N, S) midpoint ray parameters;
+        ksca_pk/kext_pk: per-component (N,) opacities.  Returns (N, S)
+        rows: the closed-form densities in analytic mode, the gridded ones
+        gathered at the midpoint cells in table mode (zero outside)."""
+        if self.table:
+            pmid = pos[:, None, :] + mid[..., None] * direction[:, None, :]
+            cells = self.grid.locate_batched(pmid)
+            safe = torch.clamp(cells, min=0)
+            valid = cells >= 0
+            ksca = 0.0
+            kext = 0.0
+            for h in range(self.ncomp):
+                rho_h = self.rho_at(h, safe)
+                if want_sca:
+                    ksca = ksca + ksca_pk[h][:, None] * rho_h
+                kext = kext + kext_pk[h][:, None] * rho_h
+            kext = torch.where(valid, kext, 0.0)
+            if not want_sca:
+                return kext
+            return torch.where(valid, ksca, 0.0), kext
         invL = float(np.float32(1.0 / self.lscale))
         pos_s = pos * invL
         pmid_s = pos_s[:, None, :] + (mid * invL)[..., None] \

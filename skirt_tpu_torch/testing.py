@@ -1,10 +1,10 @@
-"""Parity helpers for the event kernels K1 and K3: inputs and the
+"""Parity helpers for the event kernels K1, K3, K4 and K6: inputs and the
 lane-wise criterion.
 
-Shared by tests/test_torch_fused_poly.py and tests/test_torch_fused.py
-(the plain events against the Pallas kernels on the CPU),
-tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels against the
-plain events on the card).
+Shared by tests/test_torch_fused_poly.py, tests/test_torch_fused.py and
+tests/test_torch_table*.py (the plain events against the Pallas kernels
+on the CPU), tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels
+against the plain events on the card).
 
 The criterion.  An event's discrete outputs are its integer outputs
 (alive, nscatt, the deposit bin, bcount, fresh) and, for K1, the set of
@@ -104,6 +104,114 @@ def mono_event_case(spec, N, seed, device):
                                  spec.K if spec.refill else None, seed)
     return (spec, torch.from_numpy(u).to(device),
             [torch.from_numpy(s).to(device) for s in state])
+
+
+def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
+                       small_tau=0.0, outside=0.0, device="cpu"):
+    """numpy-made inputs of one table event (K4 or K6) for N lanes on a
+    table-mode dust system `ds` (a uniform Cartesian grid), as tensors on
+    `device`: a dict with u (n_uniform, N), the lanes' pos / dir (N, 3),
+    alive and ns (int32), t0 and dt of the P equal panels, ell (one of W
+    wavelengths per lane, for K4), L and L0 (W, N), and rows: the (P, N)
+    staged panel densities (raw rho, kg/m^3) the torch driver would
+    gather.
+
+    Packets: 70% in the torus-like shell |z| < 0.64 r, 0.05-2 kpc from
+    the centre, the rest uniform over the box; isotropic directions with
+    some axis-parallel ones; about 10% dead lanes; nscatt 0..3.  Two
+    optional families stress the event where the main path rarely goes:
+    a `small_tau` fraction of lanes with panel densities scaled by 1e-6
+    (optical depths below 1e-3), and an `outside` fraction whose panels
+    start 10 box widths away, so their deposit point lies outside the
+    grid (panels kept dense)."""
+    import torch
+
+    from .engine import vector_traversal as vt
+
+    rs = np.random.default_rng(seed)
+    box = np.asarray(ds.grid.bounding_box(), np.float64)
+    half = 0.5 * (box[3:] - box[:3])
+    r = rs.uniform(0.05, 2.0, N) * KPC
+    mu = rs.uniform(-0.64, 0.64, N)
+    phi = rs.uniform(0.0, 2 * np.pi, N)
+    st = np.sqrt(1.0 - mu * mu)
+    shell = np.stack([r * st * np.cos(phi), r * st * np.sin(phi), r * mu], 1)
+    flat = box[:3] + rs.uniform(size=(N, 3)) * (box[3:] - box[:3])
+    pos = np.where((rs.random(N) < 0.7)[:, None], shell, flat)
+    d = rs.normal(size=(N, 3))
+    n1, n2 = N // 64, N // 128
+    d[:n1, 0] = 0.0
+    d[n1:n1 + n2, :2] = 0.0
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    pos_t = torch.from_numpy(pos.astype(np.float32))
+    dir_t = torch.from_numpy(d.astype(np.float32))
+    dsg, _, mid = vt.panel_paths(ds.grid, pos_t, dir_t, npanels)
+    ones = [torch.ones(N, dtype=torch.float32)]
+    rows = ds.analytic_rows(pos_t, dir_t, mid, None, ones,
+                            want_sca=False).T.contiguous().numpy()
+    t0 = (mid[:, 0] - 0.5 * dsg[:, 0]).numpy()
+    dt = dsg[:, 0].numpy()
+    fam = rs.random(N)
+    low = fam < small_tau
+    rows = np.where(low[None], rows * np.float32(1e-6), rows)
+    far = (fam >= small_tau) & (fam < small_tau + outside)
+    t0 = np.where(far, t0 + np.float32(20.0 * half.max()), t0)
+    rows = np.where(far[None], np.maximum(rows, np.float32(1e-22)), rows)
+    L = (rs.uniform(0.5, 1.5, (W, N)) * 1e32).astype(np.float32)
+    out = {"u": rs.uniform(1e-7, 1 - 1e-7, (n_uniform, N)),
+           "pos": pos, "dir": d, "alive": rs.random(N) < 0.9,
+           "ns": rs.integers(0, 4, N), "t0": t0, "dt": dt, "rows": rows,
+           "ell": rs.integers(0, W, N), "L": L,
+           "L0": L * rs.uniform(0.5, 2.0, (W, N)), "small_tau": low,
+           "outside": far}
+    dts = {"alive": torch.int32, "ns": torch.int32, "ell": torch.int32,
+           "small_tau": torch.bool, "outside": torch.bool}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        dtype=dts.get(k, torch.float32), device=device)
+        for k, v in out.items()}
+
+
+def table_state(inp, ds):
+    """K4's 15 state arrays from table_event_inputs: px..dz, L, alive, ns,
+    ell, L0, t0, dt and the per-lane albedo and g at ell; and its kr
+    panels (kappa_ext(ell) x rho)."""
+    import torch
+
+    dev = inp["u"].device
+    ell = inp["ell"]
+    ksca, kext = ds.packet_kappas(ell)
+    alb = ksca[0] / torch.clamp(kext[0], min=1e-37)
+    g = torch.as_tensor(ds.g[0], device=dev)[ell.long()]
+    n = ell.shape[0]
+    cols = torch.arange(n, device=dev)
+    L = inp["L"][ell.long(), cols]
+    L0 = inp["L0"][ell.long(), cols]
+    state = [inp["pos"][:, 0], inp["pos"][:, 1], inp["pos"][:, 2],
+             inp["dir"][:, 0], inp["dir"][:, 1], inp["dir"][:, 2], L,
+             inp["alive"], inp["ns"], ell, L0, inp["t0"], inp["dt"], alb, g]
+    kr = (kext[0][None] * inp["rows"]).contiguous()
+    return kr, [s.contiguous() for s in state]
+
+
+def table_poly_state(inp):
+    """K6's 10 state arrays from table_event_inputs: px..dz, alive, ns, t0,
+    dt."""
+    return [s.contiguous() for s in (
+        inp["pos"][:, 0], inp["pos"][:, 1], inp["pos"][:, 2],
+        inp["dir"][:, 0], inp["dir"][:, 1], inp["dir"][:, 2],
+        inp["alive"], inp["ns"], inp["t0"], inp["dt"])]
+
+
+def table_restage(grid, ds, pos, d, npanels, kext_pk):
+    """The (P, N) staged panel rows, t0 and dt of lanes at pos, d (N, 3),
+    as the table drivers stage them before each event (panel_paths and
+    the table analytic_rows with the per-component opacities kext_pk)."""
+    from .engine import vector_traversal as vt
+
+    dsg, _, mid = vt.panel_paths(grid, pos, d, npanels)
+    rows = ds.analytic_rows(pos, d, mid, None, kext_pk, want_sca=False)
+    return (rows.T.contiguous(), (mid[:, 0] - 0.5 * dsg[:, 0]).contiguous(),
+            dsg[:, 0].contiguous())
 
 
 def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):

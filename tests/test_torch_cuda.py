@@ -18,6 +18,8 @@ import torch
 from skirt_tpu_torch import kernels
 from skirt_tpu_torch.engine import fused as tfm
 from skirt_tpu_torch.engine import fused_poly as tfp
+from skirt_tpu_torch.engine import fused_table as tft
+from skirt_tpu_torch.engine import fused_table_poly as tftp
 from skirt_tpu_torch.ops import binned
 
 torch.set_num_threads(2)
@@ -57,10 +59,12 @@ def test_poly_args_mirror_the_c_struct():
 
 @pytest.mark.parametrize("source, struct, mirror", [
     ("common.cuh", "Geom", kernels.Geom),
-    ("fused_mono.cu", "MonoArgs", kernels.MonoArgs)])
+    ("fused_mono.cu", "MonoArgs", kernels.MonoArgs),
+    ("fused_table.cu", "TableArgs", kernels.TableArgs),
+    ("fused_table_poly.cu", "TablePolyArgs", kernels.TablePolyArgs)])
 def test_structs_mirror_the_c_structs(source, struct, mirror):
-    """kernels.Geom and kernels.MonoArgs list the fields of their C
-    structs in the same order."""
+    """kernels.Geom, MonoArgs, TableArgs and TablePolyArgs list the fields
+    of their C structs in the same order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
 
 
@@ -100,6 +104,30 @@ def test_mono_kernel_args_pack_the_spec():
     assert spec.tab.shape == (3, 4)
 
 
+def _table_model(lanes=64, **kw):
+    """Config 3 (bench_torch's octree torus) at max_level 4: 16^3 voxels."""
+    from bench_torch import _octree_build
+    args = dict(polychromatic=False, max_level=4, refill_batches=2,
+                quadrature_panels=16, peel_panels=8)
+    args.update(kw)
+    return _octree_build(lanes, **args)
+
+
+def test_table_locate_args_pack_the_grid():
+    """The K4 / K6 deposit locate reads the voxel grid's float32 lower
+    corner and inverse spacing, as the plain locate does."""
+    run, *_, model = _table_model()
+    grid = model[0]
+    a = kernels.Geom()
+    tft._locate_args(a, grid)
+    assert (a.nx, a.ny, a.nz) == (16, 16, 16)
+    for i in range(3):
+        assert a.loc_lo[i] == np.float32(grid._lo[i])
+        assert a.loc_inv[i] == np.float32(1.0 / grid._dx[i])
+    assert tftp._sum_block(24) == 24 and tftp._sum_block(128) == 32
+    assert tftp._sum_block(48) == 24 and tftp._sum_block(7) == 7
+
+
 def test_kernel_args_raise_beyond_the_kernel():
     run, *_ = _model(quadrature_panels=33)
     with pytest.raises(ValueError, match="quadrature_panels <= 32"):
@@ -111,14 +139,20 @@ def test_kernel_args_raise_beyond_the_kernel():
 
 def test_cpu_run_launches_no_kernel():
     """On CPU tensors the wrappers take their plain versions."""
-    before = (binned.binned_add.launches, tfp.poly_event.launches,
-              tfm.mono_event.launches)
+    def counts():
+        return (binned.binned_add.launches, tfp.poly_event.launches,
+                tfm.mono_event.launches, tft.table_event.launches,
+                tftp.table_poly_event.launches)
+
+    before = counts()
     for poly in (True, False):
         run, zero, ell, L0 = _model(packets=128, polychromatic=poly)
         t = run(7, ell, L0, zero())
         assert float(t["labs"].sum()) > 0
-    assert (binned.binned_add.launches, tfp.poly_event.launches,
-            tfm.mono_event.launches) == before
+        run, zero, ell, L0, *_ = _table_model(polychromatic=poly)
+        t = run(7, ell, L0, zero())
+        assert float(t["labs"].sum()) > 0
+    assert counts() == before
 
 
 @pytest.mark.gpu
@@ -193,3 +227,93 @@ def test_mono_event_kernel_matches_plain(nlambda, ncomp):
         res = event_agreement(got, want)
         assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
         state = list(got["state"]) + state[9:11] + [got["bc"]]
+
+
+def _chain_table_events(kernel, plain, spec, u, rows, state, args, restage,
+                        events=4):
+    """Hold a table event kernel against its plain version over a few
+    chained events, re-staging the panels between them; returns the
+    outputs of the last event."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import event_agreement
+
+    n = state[0].shape[0]
+    for it in range(events):
+        if it:
+            u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
+        before = kernel.launches
+        got = kernel(spec, u, rows, *args(), state)
+        assert kernel.launches == before + 1
+        want = plain(spec, u, rows, *args(), state)
+        res = event_agreement(got, want)
+        assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
+        rows, state = restage(got, state)
+    return got
+
+
+@pytest.mark.gpu
+def test_table_event_kernel_matches_plain():
+    """K4 against its plain version on identical inputs (dead lanes, lanes
+    with optical depths below 1e-3, a weight cut that fires, deposits
+    outside the grid), chained over a few events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs, table_restage,
+                                         table_state)
+
+    run, *_, model = _table_model(device="cuda")
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    inp = table_event_inputs(ds, 4096, 5, 2, seed=1, npanels=16,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    kr, state = table_state(inp, ds)
+    kext_pk = ds.packet_kappas(state[9])[1]
+
+    def restage(got, state):
+        st = got["state"]
+        kr, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                   torch.stack(st[3:6], -1), 16, kext_pk)
+        return kr, list(st) + [state[9], state[10], t0, dt, state[13],
+                               state[14]]
+
+    _chain_table_events(tft.table_event, tft.table_event_plain, spec,
+                        inp["u"], kr, state, lambda: (), restage)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 24])
+def test_table_poly_event_kernel_matches_plain(W):
+    """K6 against its plain version on identical inputs, chained over a
+    few events, the lanes' luminosities carried from event to event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    run, *_, model = _table_model(device="cuda", nlambda=W,
+                                  polychromatic=True)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    n = 4096
+    inp = table_event_inputs(ds, n, 7, W, seed=W, npanels=16,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    lum = {"L": inp["L"]}
+    ones = [torch.ones(n, device="cuda")]
+
+    def restage(got, state):
+        st = got["state"]
+        lum["L"] = got["Ln"]
+        r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                  torch.stack(st[3:6], -1), 16, ones)
+        return r, list(st) + [t0, dt]
+
+    _chain_table_events(tftp.table_poly_event, tftp.table_poly_event_plain,
+                        spec, inp["u"], inp["rows"], table_poly_state(inp),
+                        lambda: (oc, lum["L"], inp["L0"]), restage)

@@ -384,7 +384,7 @@ def slice_runs(request):
     run = make_lifecycle(grid, ds, ss, ins, opts, nl)
     tt = run(rng.root_key(4357), torch.from_numpy(ell.copy()),
              torch.from_numpy(L0.copy()),
-             {"instruments": [i.zero_tallies() for i in ins],
+             {"instruments": [i.zero_tallies("cpu") for i in ins],
               "labs": torch.zeros(grid.ncells * nl)})
     tt = {"instruments": [{k: v.double().numpy() for k, v in d.items()}
                           for d in tt["instruments"]],

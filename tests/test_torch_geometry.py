@@ -76,7 +76,7 @@ def test_generate_position_distribution(discs):
     j, t = discs
     n = 200000
     pj = np.asarray(j.generate_position(jrng.root_key(5), n), np.float64)
-    pt = t.generate_position(rng.root_key(5), n).numpy().astype(np.float64)
+    pt = t.generate_position(rng.root_key(5), n, "cpu").numpy().astype(np.float64)
     for p in (pj, pt):
         assert np.isfinite(p).all()
     Rj, Rt = np.hypot(pj[:, 0], pj[:, 1]), np.hypot(pt[:, 0], pt[:, 1])

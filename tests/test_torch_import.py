@@ -4,7 +4,8 @@ Checked in a fresh subprocess: in this test process tests/conftest.py has
 already imported jax, so an in-process check would prove nothing.  The
 subprocess imports every module of skirt_tpu_torch (the CUDA wrapper
 modules included) and chip_smoke.py with no nvcc on PATH, runs a tiny
-slice on the CPU and a monochromatic OligoSimulation, writes the
+analytic slice, a monochromatic OligoSimulation and both table engines
+(config 3's octree torus at max_level 3) on the CPU, writes the
 simulation's results, and reports which of jax / triton / skirt_tpu got
 imported and whether a kernel build was attempted.
 """
@@ -25,7 +26,7 @@ SCRIPT = textwrap.dedent("""
     import skirt_tpu_torch
     from skirt_tpu_torch import kernels
     from skirt_tpu_torch.ops import binned
-    from skirt_tpu_torch.engine import fused_poly
+    from skirt_tpu_torch.engine import fused_poly, fused_table, fused_table_poly
     import chip_smoke
     mods = sorted(m.name for m in pkgutil.walk_packages(
         skirt_tpu_torch.__path__, "skirt_tpu_torch."))
@@ -47,12 +48,22 @@ SCRIPT = textwrap.dedent("""
     sim = OligoSimulation(stellar_system=ss, instruments=ins,
                           dust_system=ds, options=opts, packets=512,
                           batch_size=384, log=SilentLog(),
-                          out_dir=sys.argv[1], prefix="run")
+                          out_dir=sys.argv[1], prefix="run", device="cpu")
     acc = sim._run_phase(rng.root_key(sim.seed), 0)
-    reference = sorted(m for m in sys.modules
-                       if m == "skirt_tpu" or m.startswith("skirt_tpu."))
     # the writers (OligoSimulation.write, as run() calls it)
     sim.write(acc)
+    # the table engines (kernels K4 and K6) on config 3's octree torus
+    from bench_torch import _octree_build
+    table = []
+    for poly in (False, True):
+        tr, tz, tell, tL0, _, _ = _octree_build(
+            64, device="cpu", polychromatic=poly, refill_batches=2,
+            quadrature_panels=8, peel_panels=4, max_level=3)
+        tt = tr(rng.root_key(2), tell, tL0, tz())
+        table.append([float(tt["instruments"][0]["Ftot"].sum()),
+                      float(tt["labs"].sum())])
+    reference = sorted(m for m in sys.modules
+                       if m == "skirt_tpu" or m.startswith("skirt_tpu."))
     print(json.dumps({
         "jax": "jax" in sys.modules,
         "triton": "triton" in sys.modules,
@@ -60,13 +71,16 @@ SCRIPT = textwrap.dedent("""
         "built": kernels._lib is not None,
         "launches": [binned.binned_add.launches,
                      fused_poly.poly_event.launches,
-                     fused.mono_event.launches],
+                     fused.mono_event.launches,
+                     fused_table.table_event.launches,
+                     fused_table_poly.table_poly_event.launches],
         "mono": isinstance(sim._lifecycle.spec, fused.MonoEventSpec),
         "mono_sed": float(acc["instruments"][0]["Ftot"].sum()),
         "mono_labs": float(acc["labs"].sum()),
         "modules": mods,
         "sed": float(t["instruments"][0]["Ftot"].sum()),
         "labs": float(t["labs"].sum()),
+        "table": table,
     }))
 """)
 
@@ -82,14 +96,15 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["jax"] is False
     assert res["triton"] is False
-    # a run (and chip_smoke.py, which drives one) imports nothing of the
-    # JAX package; only the writers use its JAX-free io.fits and units
+    # a run, its writers and chip_smoke.py import nothing of the JAX package
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0, 0, 0]
+    assert res["built"] is False and res["launches"] == [0] * 5
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
-                "kernels"):
+                "engine.fused_table", "engine.fused_table_poly",
+                "grids.octree", "devices", "units", "fits", "kernels"):
         assert f"skirt_tpu_torch.{mod}" in res["modules"]
     assert res["sed"] > 0 and res["labs"] > 0
     assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
+    assert all(sed > 0 and labs > 0 for sed, labs in res["table"])
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "run_img_sed.dat", "run_img_total.fits", "run_sed_sed.dat"]

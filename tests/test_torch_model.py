@@ -178,7 +178,8 @@ def test_emission_peel_rows_match(models):
 def test_unported_branches_raise(models):
     import dataclasses
 
-    from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+    from skirt_tpu_torch.engine.lifecycle import (
+        make_lifecycle, make_lifecycle_with_fallback)
 
     _, (grid, ds, ss, ins, opt) = models
     with pytest.raises(ValueError, match="slice S2b"):
@@ -190,8 +191,11 @@ def test_unported_branches_raise(models):
                                            tally_flush=2), W)
     with pytest.raises(ValueError, match="slice S3"):
         make_lifecycle(grid, ds, ss, ins, opt, W, launch_fn=lambda *a: None)
-    with pytest.raises(ValueError, match="not ported"):
-        type(ds)(grid, ds.components, density_mode="gridded")
+    # a gridded system (the per-crossing walk of the unfused lifecycle)
+    gridded = type(ds)(grid, ds.components, samples_per_cell=2,
+                       density_mode="gridded")
+    with pytest.raises(ValueError, match="slice S2b"):
+        make_lifecycle_with_fallback(grid, gridded, ss, ins, opt, W)
 
 
 def test_writers_match(models, tmp_path):
@@ -205,7 +209,7 @@ def test_writers_match(models, tmp_path):
     rs = np.random.default_rng(8)
     units = Units()
     for a, b in zip(jins, ins):
-        acc_t = b.zero_tallies()
+        acc_t = b.zero_tallies("cpu")
         for v in acc_t.values():
             v.copy_(torch.from_numpy(rs.random(v.shape[0]).astype(np.float32)))
         acc_j = {k: jnp.asarray(v.numpy()) for k, v in acc_t.items()}

@@ -82,7 +82,8 @@ def runs(tmp_path_factory):
     jdir = tmp_path_factory.mktemp("jax")
     tdir = tmp_path_factory.mktemp("torch")
     jsim = jax_simulation(jdir)
-    tsim = convert_simulation(jsim, log=SilentLog(), out_dir=str(tdir))
+    tsim = convert_simulation(jsim, log=SilentLog(), out_dir=str(tdir),
+                              device="cpu")
     return jsim, jsim.run(), tsim, tsim.run(), jdir, tdir
 
 
@@ -156,7 +157,7 @@ def test_checkpoint_resume_reproduces_uninterrupted_run(tmp_path):
         # 4 full batches of 256 lanes x K = 4 per wavelength, 1 ragged
         jsim = jax_simulation(out_dir, packets=4608)
         return convert_simulation(jsim, log=SilentLog(), batch_size=1 << 9,
-                                  checkpoint_every=2)
+                                  checkpoint_every=2, device="cpu")
 
     full = sim(tmp_path / "full")
     assert len(list(full._batches())) == 5      # 2 + 2 + the last alone
@@ -194,9 +195,10 @@ def test_polychromatic_reaches_the_s1_engine(tmp_path):
     from skirt_tpu_torch import rng
 
     jsim = jax_simulation(tmp_path, packets=1 << 12)
-    mono = convert_simulation(jsim, log=SilentLog())
-    poly = convert_simulation(jsim, log=SilentLog(), options=dataclasses.
-                              replace(mono.options, polychromatic=True))
+    mono = convert_simulation(jsim, log=SilentLog(), device="cpu")
+    poly = convert_simulation(jsim, log=SilentLog(), device="cpu",
+                              options=dataclasses.replace(
+                                  mono.options, polychromatic=True))
     assert poly._poly and isinstance(poly._lifecycle.spec, tfp.PolyEventSpec)
     # one batch of packets / K lanes, each carrying both wavelengths
     assert [tuple(L.shape) for _, _, L in poly._batches()] == [(1 << 10, NL)]
@@ -222,4 +224,4 @@ def test_unported_settings_raise(tmp_path):
                            jsim.options, fused=False, polychromatic=True)),
                         "S2b")):
         with pytest.raises(ValueError, match=f"slice {slice_}"):
-            convert_simulation(jsim, log=SilentLog(), **kw)
+            convert_simulation(jsim, log=SilentLog(), device="cpu", **kw)

@@ -87,7 +87,7 @@ def _port(model):
 
 
 def _zero(ins, grid):
-    return {"instruments": [i.zero_tallies() for i in ins],
+    return {"instruments": [i.zero_tallies("cpu") for i in ins],
             "labs": torch.zeros(grid.ncells * W, dtype=torch.float32)}
 
 
