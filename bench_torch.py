@@ -36,6 +36,12 @@ gridding, voxel view) is timed and printed on a line of its own, outside
 the timed calls; timing as bench_octree.py: a warm-up call, then the best
 of 3 calls, each closed by torch.cuda.synchronize().  The production-width
 row is OCTREE_NLAM=24 OCTREE_LOG2N=15.
+
+BENCH_MODEL=multi runs the two-component model instead (_multi_model:
+tests/test_fused_table.py's TestMultiComponentFused, BASELINE.md:288-306;
+kernels K5 and K7), timed and counted the same way, with the knobs
+OCTREE_POLY (1: W = 2 per lane, K7; 0: ell = lane % 2, K5),
+OCTREE_LOG2N (17) and OCTREE_REFILL (128).
 """
 
 import json
@@ -211,15 +217,95 @@ def _octree_model(nlambda=2, polychromatic=True, refill_batches=None,
     return dsys.grid, dsys, ss, ins, opts, host
 
 
-def _octree_build(lanes, device="cpu", **model_kw):
-    """`_octree_model` with its lifecycle built: (run_batch, zero_tallies,
-    ell, L0, packets per call, model) for `lanes` lanes at bench_octree.py's
-    launch luminosities."""
+def _multi_model(polychromatic=True, refill_batches=128, max_level=4,
+                 grid=None, voxelize=True, nlambda=2):
+    """The two-component model of tests/test_fused_table.py's
+    TestMultiComponentFused (measured at BASELINE.md:288-306) on the port:
+    (grid, table dust system, stellar system, instruments, options, host).
+    A point source at 0.55 and 2.2 um; the AGN torus (TorusGeometry 1.0,
+    2.0, 0.7, 0.05-2 kpc; kappa_ext 2600 / 600, albedo 0.5 / 0.4, g 0.5 /
+    0.3; tau_x = 2 at 0.55 um) and a uniform sphere of 1.8 kpc (kappa_ext
+    1800 / 900, albedo 0.7 / 0.6, g 0.1 / 0.0, by dust mass) on an octree
+    over +-2.2 kpc (min_level 2, max_level 4) gridded with 8 samples per
+    leaf and traced through its exact 16^3 voxel view in table mode; one
+    SED instrument at 3.08e23 m, inclination 1.2, azimuth 0.7; labs on,
+    24 propagation panels, the exact peel, max_scatt_events 48.  `grid`
+    reuses an octree built earlier; voxelize=False returns the octree and
+    its gridded dust system, for OligoSimulation(voxelize="table").
+    nlambda > 2 spreads log-spaced wavelengths from 0.55 to 2.2 um with
+    each mix's optics interpolated in log lambda between the two
+    (kappa_ext geometrically, albedo and g linearly; the ends exact)."""
+    import time
+
+    from skirt_tpu_torch.constants import KPC
+    from skirt_tpu_torch.engine.lifecycle import LifecycleOptions
+    from skirt_tpu_torch.geometry import (PointGeometry, TorusGeometry,
+                                          UniformSphereGeometry)
+    from skirt_tpu_torch.grids import OctreeGrid
+    from skirt_tpu_torch.instruments import SEDInstrument
+    from skirt_tpu_torch.media import (DustComponent, DustMassNormalization,
+                                       DustSystem, OpticalDepthNormalization,
+                                       SimpleOligoDustMix)
+    from skirt_tpu_torch.sources import (LuminosityStellarComponent,
+                                         StellarSystem)
+    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
+
+    lams = np.geomspace(0.55e-6, 2.2e-6, nlambda)
+    f = np.log(lams / 0.55e-6) / np.log(4.0)
+
+    def optics(a, b, geometric=False):
+        mid = [a * (b / a) ** x if geometric else a + (b - a) * x for x in f]
+        return [a] + mid[1:-1] + [b]
+
+    wg = OligoWavelengthGrid(list(lams))
+    ss = StellarSystem([LuminosityStellarComponent(PointGeometry(), wg,
+                                                   [1e36] * nlambda)])
+    torus = TorusGeometry(1.0, 2.0, 0.7, 0.05 * KPC, 2 * KPC)
+    sphere = UniformSphereGeometry(1.8 * KPC)
+    half = 2.2 * KPC
+    host = {}
+    t0 = time.perf_counter()
+    if grid is None:
+        grid = OctreeGrid((-half, -half, -half, half, half, half),
+                          lambda pos: torus.density(pos) + sphere.density(pos),
+                          min_level=2, max_level=max_level)
+    host["octree"] = time.perf_counter() - t0
+    mix1 = SimpleOligoDustMix(wg, optics(2600.0, 600.0, True),
+                              optics(0.5, 0.4), optics(0.5, 0.3))
+    mix2 = SimpleOligoDustMix(wg, optics(1800.0, 900.0, True),
+                              optics(0.7, 0.6), optics(0.1, 0.0))
+    vol = 4 / 3 * np.pi * (1.8 * KPC) ** 3
+    comps = [DustComponent(torus, mix1,
+                           OpticalDepthNormalization("x", 0.55e-6, 2.0)),
+             DustComponent(sphere, mix2, DustMassNormalization(
+                 1.0 / 1800.0 * vol / (1.8 * KPC)))]
+    t0 = time.perf_counter()
+    dsys = DustSystem(grid, comps, samples_per_cell=8)
+    host["gridding"] = time.perf_counter() - t0
+    if voxelize:
+        t0 = time.perf_counter()
+        dsys = dsys.voxelized()[0].as_table()
+        host["voxelize"] = time.perf_counter() - t0
+    ins = [SEDInstrument("sed", 3.08e23, nlambda, inclination=1.2,
+                         azimuth=0.7)]
+    opts = LifecycleOptions(store_absorption=True, max_scatt_events=48,
+                            deposition="sampled", quadrature_panels=24,
+                            peel_panels=8, table_peel="exact", fused=True,
+                            polychromatic=polychromatic,
+                            refill_batches=refill_batches,
+                            voxelize=None if voxelize else "table")
+    return dsys.grid, dsys, ss, ins, opts, host
+
+
+def _octree_build(lanes, device="cpu", multi=False, **model_kw):
+    """`_octree_model` (or with multi=True `_multi_model`) with its
+    lifecycle built: (run_batch, zero_tallies, ell, L0, packets per call,
+    model) for `lanes` lanes at bench_octree.py's launch luminosities."""
     import torch
 
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
 
-    model = _octree_model(**model_kw)
+    model = (_multi_model if multi else _octree_model)(**model_kw)
     grid, tds, ss, ins, opts, _ = model
     nlam = ss.wavelength_grid.nlambda
     K = max(opts.refill_batches, 1)
@@ -245,9 +331,10 @@ def _octree_build(lanes, device="cpu", **model_kw):
     return run_batch, zero_tallies, ell, L0, packets, model
 
 
-def _octree_main():
+def _octree_main(multi=False):
     """BENCH_MODEL=octree: config 3 with experiments/bench_octree.py's
-    OCTREE_* knobs (module docstring)."""
+    OCTREE_* knobs; BENCH_MODEL=multi: the two-component model with
+    OCTREE_POLY, OCTREE_LOG2N and OCTREE_REFILL (module docstring)."""
     import torch
 
     from skirt_tpu_torch import rng
@@ -255,14 +342,18 @@ def _octree_main():
     env = os.environ.get
     poly = env("OCTREE_POLY", "1") == "1"
     lanes = 1 << int(env("OCTREE_LOG2N", "17"))
+    if multi:
+        kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
+    else:
+        kw = dict(nlambda=int(env("OCTREE_NLAM", "2")),
+                  refill_batches=int(env("OCTREE_REFILL",
+                                         "256" if poly else "128")),
+                  quadrature_panels=int(env("OCTREE_PANELS", "16")),
+                  peel_panels=int(env("OCTREE_PEELP", "32")),
+                  table_peel=env("OCTREE_PEELMODE", "exact"),
+                  store_absorption=env("OCTREE_ABS", "1") == "1")
     run_batch, zero_tallies, ell, L0, packets, model = _octree_build(
-        lanes, device="cuda", nlambda=int(env("OCTREE_NLAM", "2")),
-        polychromatic=poly,
-        refill_batches=int(env("OCTREE_REFILL", "256" if poly else "128")),
-        quadrature_panels=int(env("OCTREE_PANELS", "16")),
-        peel_panels=int(env("OCTREE_PEELP", "32")),
-        table_peel=env("OCTREE_PEELMODE", "exact"),
-        store_absorption=env("OCTREE_ABS", "1") == "1")
+        lanes, device="cuda", multi=multi, polychromatic=poly, **kw)
     grid, tds, *_, host = model
     print(json.dumps({"host_build_s": host, "voxels": [grid.nx, grid.ny,
                                                        grid.nz]}),
@@ -295,8 +386,9 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch: no CUDA device")
-    if os.environ.get("BENCH_MODEL", "disc") == "octree":
-        return _octree_main()
+    bench_model = os.environ.get("BENCH_MODEL", "disc")
+    if bench_model in ("octree", "multi"):
+        return _octree_main(multi=bench_model == "multi")
     packets = 1 << int(os.environ.get("BENCH_LOG2_PACKETS", "15"))
     refill = int(os.environ.get("BENCH_REFILL", "128"))
     nlambda = int(os.environ.get("BENCH_NLAMBDA", "128"))

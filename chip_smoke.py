@@ -38,11 +38,20 @@ exits non-zero without printing a result):
      min_scatt_events 1 with a weight cut that fires, lanes whose deposit
      falls outside the grid), each chained over six events, the panels
      re-staged on the card between events as the driver stages them
-  7. K6 table_poly_event kernel vs its plain version the same way at
+  7. K5 table_multi_event kernel vs its plain version the same way at the
+     two-component model's monochromatic shapes (bench_torch._multi_model:
+     the torus and a uniform sphere on a 16^3 voxel view, N = 2^17, 24
+     panels, H = 2, both panel sums re-staged between events after a
+     torch-side direction change)
+  8. K6 table_poly_event kernel vs its plain version the same way at
      W = 2 (config 3's polychromatic lanes, N = 2^17, three states),
      W = 24 (the production-width row, N = 2^15) and W = 128 (the widest
      the kernel takes, N = 2^15)
-  8. the main paths at full width, each with the launch counts of its
+  9. K7 table_poly_multi_event kernel vs its plain version the same way on
+     the two-component model at W = 2 (N = 2^17, three states), W = 24
+     and W = 128 (N = 2^15; the model's optics interpolated in log
+     lambda), H = 2
+  10. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
      make_multibatch (bench_torch._build defaults); S2a, the mono
@@ -50,12 +59,16 @@ exits non-zero without printing a result):
      BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21, 2 batches instead of 8);
      config 3 monochromatic (K4, 2^17 lanes, K = 128) and polychromatic
      (K6, W = 2, 2^17 lanes, K = 256) through make_lifecycle +
-     make_multibatch, 2 batches each; and one
+     make_multibatch, 2 batches each; one
      OligoSimulation(voxelize="table") on the octree (one batch of 2^17
-     polychromatic lanes, K = 256, labs folded back onto the leaves)
-  9. each path at a small size on the card against the same run on the
+     polychromatic lanes, K = 256, labs folded back onto the leaves); the
+     two-component model mono (K5) and poly (K7, W = 2) through
+     make_lifecycle + make_multibatch, 2^17 lanes, K = 128, 2 batches
+     each; and its OligoSimulation(voxelize="table") (one batch of 2^17
+     polychromatic lanes, K = 128, K7)
+  11. each path at a small size on the card against the same run on the
      CPU
-  10. one JSON line of per-kernel results, the card line, and last
+  12. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
 
 Times: CUDA events around back-to-back calls after warm-up calls, with a
@@ -67,14 +80,17 @@ bytes the call must move (each input read once, each output written
 once; a table event reads its panels only for live lanes) over 3.35 TB/s
 and its float operations over 67 TFLOP/s (the float32 rate outside the
 tensor cores), operations counted per live lane from the kernel source
-(each transcendental one operation; approximate), from this run's inputs.
+(each transcendental one operation; approximate; work a kernel repeats by
+its own design, as K7's repeated panel walks, counted once), from this
+run's inputs.
 
 Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few thousand
 updates taken in another order by atomics; each order is within
-n * 2^-24 of the exact sum).  K1, K3, K4 and K6 by skirt_tpu_torch.
+n * 2^-24 of the exact sum).  K1 and K3-K7 by skirt_tpu_torch.
 testing's criterion: the discrete outputs (deposit bin, alive, nscatt,
-bcount, fresh, and for K1 and K6 the wavelengths that survive the
-weight cut) agree on >= 99.9% of lanes (the CPU tests' bound), and no
+bcount, fresh, K5's interaction cell, and for K1, K6 and K7 the
+wavelengths that survive the weight cut) agree on >= 99.9% of lanes
+(the CPU tests' bound), and no
 lane whose discrete outputs agree has a float output off by more than
 rtol 1e-4 with atol 1e-6 x the array's largest magnitude.  On the card
 the kernels and their plain versions round alike op for op (-fmad=false,
@@ -90,7 +106,9 @@ analytic polychromatic path at tests/test_poly.py's (per-wavelength SED
 tests/test_fused.py's (SED per wavelength and frame total 0.03, labs
 0.05), the table paths at tests/test_fused_table.py's and
 tests/test_poly.py's table tolerances (SED per wavelength 0.05 mono and
-0.06 poly, labs total 0.05).
+0.06 poly, labs total 0.05), the two-component paths at the refill
+tolerance of tests/test_fused_table.py's multi-component test (SED per
+wavelength and labs total 0.08).
 """
 
 import json
@@ -101,7 +119,7 @@ import time
 import numpy as np
 
 
-# K1 and K3: events chained from each starting state
+# the event kernels: events chained from each starting state
 EVENTS = 6
 
 
@@ -208,6 +226,25 @@ def k6_ops(P, W):
     # log2 W adds and a compare, the Q / QH pass ~23, the weight pass ~27
     lg = max(1, (W - 1).bit_length())
     return 2 * P + 4 * (P - 1) + 120 + W * (59 + lg)
+
+
+def k5_ops(P):
+    # per panel: the cumulative sum, exp, the interacting energy, the albedo
+    # division, the scattered and absorbed sums (~12); two panel picks; the
+    # event
+    return 12 * P + 4 * (P - 1) + 100
+
+
+def k7_ops(P, W, H):
+    # what the function needs, not what K7 does (its three w passes walk
+    # the panels three times per wavelength): pass A (4H + 2 per panel),
+    # two inversions (8 per panel), the interaction and deposit weights of
+    # a panel (6 per panel); per wavelength one walk over the panels (4H + 6
+    # per panel), the blended HG once (15 per component), and ~36 + 2H for
+    # the optical depth, the sums, weights and the deposit prefix
+    lg = max(1, (W - 1).bit_length())
+    return ((4 * H + 2) * P + 8 * P + 6 * P + 150
+            + W * (P * (4 * H + 6) + 36 + 17 * H + lg))
 
 
 def phase_k2(torch, results):
@@ -740,23 +777,214 @@ def phase_k6(torch, results, octree):
     results["K6"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
 
 
-def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
-                    **model_kw):
-    """Config 3 through make_lifecycle + make_multibatch: (seconds, packets,
-    SED, labs total, launched W, launches of the path's kernels)."""
+def phase_k5(torch, results, multi_tree):
+    import dataclasses
+
     from bench_torch import _octree_build
     from skirt_tpu_torch import rng
-    from skirt_tpu_torch.engine import fused_table, fused_table_poly
+    from skirt_tpu_torch.engine import fused_table as tft
+    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
+                                         table_multi_state, table_restage)
+
+    n = 1 << 17
+    run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
+                                         polychromatic=False, grid=multi_tree)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
+                               inv_minred=float(np.float32(1 / 100)))
+    P = spec.npanels
+    assert isinstance(spec, tft.TableMultiEventSpec) and ds.ncomp == 2
+    assert P == 24 and spec.nlambda == 2 and spec.want_labs
+    worst = 0.0
+    for seed in (51, 52, 53):
+        inp = table_event_inputs(ds, n, spec.n_uniform, 2, seed=seed,
+                                 npanels=P, small_tau=0.02, outside=0.02,
+                                 device="cuda")
+        kr, ks, state = table_multi_state(inp, ds)
+        u = inp["u"]
+        ksca_pk, kext_pk = ds.packet_kappas(state[9])
+        alive_in = state[7] != 0
+        log(f"  K5 inputs (seed {seed}): {n} lanes, H=2, "
+            f"{int((~alive_in).sum())} dead, "
+            f"{int((alive_in & inp['small_tau']).sum())} live with tau < "
+            f"1e-3, {int((alive_in & (state[8] >= spec.min_scatt)).sum())} "
+            f"live past min_scatt, {int((alive_in & inp['outside']).sum())} "
+            f"live with the deposit point outside the grid")
+        for it in range(EVENTS):
+            if it:
+                u = rng.uniform_open(rng.event_key(seed, it),
+                                     (spec.n_uniform, n), "cuda")
+            if it == 0:
+                first = (u, kr, ks, state)      # the timed inputs
+            got = tft.table_multi_event(spec, u, kr, ks, state)
+            want = tft.table_multi_event_plain(spec, u, kr, ks, state)
+            torch.cuda.synchronize()
+            res = event_agreement(got, want)
+            alive_in = state[7] != 0
+            alive = got["state"][4] != 0
+            log(f"  K5 event {it}: discrete agree {res['discrete']:.6f}, "
+                f"float-disagreeing lanes {res['float_bad']}, scaled max "
+                f"err {res['scaled_err']:.3e}, bit-identical "
+                f"{_bits(got, want)}; alive "
+                f"{float(alive.float().mean()):.3f}, killed "
+                f"{int((alive_in & ~alive).sum())}, deposits "
+                f"{int((got['depi'] >= 0).sum())}, interaction cells "
+                f"{int((got['cell'] >= 0).sum())}")
+            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                raise AssertionError(f"K5 kernel disagrees with its plain "
+                                     f"version at event {it}: {res}")
+            worst = max(worst, res["scaled_err"])
+            # the driver scatters torch-side; here a new isotropic direction
+            # for the lanes that go on, then the panels re-staged
+            st = got["state"]
+            d = torch.where(alive[:, None], rng.isotropic_direction(
+                rng.event_key(seed, it, 11), (n,), "cuda"),
+                torch.stack(state[3:6], -1))
+            kr, ks, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                           d, P, kext_pk, ksca_pk)
+            state = list(st[:3]) + [d[:, i].contiguous() for i in range(3)] \
+                + [st[3], st[4], state[8] + st[4]] + state[9:11] + [t0, dt]
+    u, kr, ks, state = first
+    live = int((state[7] != 0).sum())
+    ms = cuda_ms(lambda: tft.table_multi_event(spec, u, kr, ks, state))
+    plain_ms = cuda_ms(lambda: tft.table_multi_event_plain(spec, u, kr, ks,
+                                                           state), reps=5)
+    # every lane reads position, L and alive; only a live one its
+    # uniforms, both panel sums, direction, nscatt, ell, L0, t0 and dt
+    bnd = event_bound([(state[:3] + state[6:8], n),
+                       ([u, kr, ks, state[3:6], state[8:]], live)],
+                      tft.table_multi_event(spec, u, kr, ks, state), n, live,
+                      k5_ops(P))
+    log(f"  K5 N={n} P={P} H=2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+    results["K5"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def phase_k7(torch, results, multi_tree):
+    import dataclasses
+
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    worst = 0.0
+    by_w = {}
+    for W, n, seeds in ((2, 1 << 17, (61, 62, 63)), (24, 1 << 15, (64,)),
+                        (128, 1 << 15, (65,))):
+        run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
+                                             nlambda=W, polychromatic=True,
+                                             grid=multi_tree)
+        grid, ds = model[0], model[1]
+        spec = dataclasses.replace(run_batch.spec, min_scatt=1,
+                                   inv_minred=float(np.float32(1 / 100)))
+        P, H = spec.npanels, spec.H
+        assert isinstance(spec, tftp.TablePolyMultiEventSpec)
+        assert P == 24 and H == 2 and spec.W == W and spec.want_labs
+        oc = torch.as_tensor(spec.oc, device="cuda")
+        for seed in seeds:
+            inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
+                                     npanels=P, small_tau=0.02, outside=0.02,
+                                     device="cuda")
+            state = table_poly_state(inp)
+            u, r, L, L0 = inp["u"], inp["rows"], inp["L"], inp["L0"]
+            alive_in = state[6] != 0
+            log(f"  K7 W={W} inputs (seed {seed}): {n} lanes, H={H}, "
+                f"{int((~alive_in).sum())} dead, "
+                f"{int((alive_in & inp['small_tau']).sum())} live with "
+                f"panel densities x 1e-6, "
+                f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
+                f"live past min_scatt, "
+                f"{int((alive_in & inp['outside']).sum())} live with the "
+                f"deposit point outside the grid")
+            for it in range(EVENTS):
+                if it:
+                    u = rng.uniform_open(rng.event_key(seed, it),
+                                         (spec.n_uniform, n), "cuda")
+                if it == 0:
+                    first = (u, r, L, state)    # the timed inputs
+                got = tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
+                                                  state)
+                want = tftp.table_poly_multi_event_plain(spec, u, r, oc, L,
+                                                         L0, state)
+                torch.cuda.synchronize()
+                res = event_agreement(got, want)
+                alive_in = state[6] != 0
+                alive = got["state"][6] != 0
+                cut = int(((got["Ln"] == 0) & alive[None]).sum())
+                log(f"  K7 W={W} event {it}: discrete agree "
+                    f"{res['discrete']:.6f}, float-disagreeing lanes "
+                    f"{res['float_bad']}, scaled max err "
+                    f"{res['scaled_err']:.3e}, bit-identical "
+                    f"{_bits(got, want)}; alive "
+                    f"{float(alive.float().mean()):.3f}, killed "
+                    f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
+                    f"deposits {int((got['depi'] >= 0).sum())}")
+                if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                    raise AssertionError(f"K7 kernel disagrees with its "
+                                         f"plain version (W={W}) at event "
+                                         f"{it}: {res}")
+                worst = max(worst, res["scaled_err"])
+                st = got["state"]
+                r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                          torch.stack(st[3:6], -1), P, None)
+                state = list(st) + [t0, dt]
+                L = got["Ln"]
+        u, r, L, state = first
+        live = int((state[6] != 0).sum())
+        ms = cuda_ms(lambda: tftp.table_poly_multi_event(spec, u, r, oc, L,
+                                                         L0, state))
+        plain_ms = cuda_ms(lambda: tftp.table_poly_multi_event_plain(
+            spec, u, r, oc, L, L0, state), reps=5)
+        # every lane reads position, direction, alive and nscatt; only a
+        # live one its uniforms, the H panel row sets, weights L, t0 and dt,
+        # and only a live one past min_scatt the launch weights L0
+        cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
+        bnd = event_bound([([oc] + state[:8], n),
+                           ([u, r, L, state[8:]], live), ([L0], cut)],
+                          tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
+                                                      state),
+                          n, live, k7_ops(P, W, H))
+        log(f"  K7 N={n} W={W} P={P} H={H}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
+            f"live lanes)")
+        by_w[W] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bnd[0], "bound_by": bnd[1]}
+    results["K7"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
+
+
+# (spec type, event wrapper, kernel name) of the table engines by
+# (multi-component, polychromatic)
+def _table_engine(multi, poly):
+    from skirt_tpu_torch.engine import fused_table as tft
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+
+    return {(False, False): (tft.TableEventSpec, tft.table_event, "K4"),
+            (False, True): (tftp.TablePolyEventSpec, tftp.table_poly_event,
+                            "K6"),
+            (True, False): (tft.TableMultiEventSpec, tft.table_multi_event,
+                            "K5"),
+            (True, True): (tftp.TablePolyMultiEventSpec,
+                           tftp.table_poly_multi_event, "K7")}[multi, poly]
+
+
+def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
+                    multi=False, **model_kw):
+    """Config 3 (multi=False) or the two-component model (multi=True)
+    through make_lifecycle + make_multibatch: (seconds, packets, SED, labs
+    total, launched W, launches of the path's kernels)."""
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine.lifecycle import make_multibatch
     from skirt_tpu_torch.ops import binned
 
     run_batch, zero, ell, L0, packets, model = _octree_build(
-        lanes, device=device, polychromatic=poly, grid=octree, **model_kw)
-    spec_type = (fused_table_poly.TablePolyEventSpec if poly
-                 else fused_table.TableEventSpec)
-    assert isinstance(run_batch.spec, spec_type)
-    event = (fused_table_poly.table_poly_event if poly
-             else fused_table.table_event)
+        lanes, device=device, multi=multi, polychromatic=poly, grid=octree,
+        **model_kw)
+    spec_type, event, kname = _table_engine(multi, poly)
+    assert type(run_batch.spec) is spec_type
     W = model[2].wavelength_grid.nlambda
     run_many = make_multibatch(run_batch, batches)
     tallies = zero()
@@ -769,8 +997,7 @@ def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
     if device == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"K6" if poly else "K4": event.launches,
-                "K2": binned.binned_add.launches}
+    launches = {kname: event.launches, "K2": binned.binned_add.launches}
     for leaf in [v for d in out["instruments"] for v in d.values()] \
             + [out["labs"]]:
         if not bool(torch.isfinite(leaf).all()):
@@ -877,6 +1104,132 @@ def phase_reference_table(torch):
             f"{', '.join(f'{r:.4f}' for r in g / c)}, labs {gl / cl:.4f}")
 
 
+def phase_main_multi(torch, results, multi_tree):
+    """The two-component model at full width through make_lifecycle +
+    make_multibatch: mono (K5) and poly (K7, W = 2), 2^17 lanes, K = 128,
+    2 batches each."""
+    for poly in (False, True):
+        name = "poly" if poly else "mono"
+        kname = "K7" if poly else "K5"
+        lanes, batches, K = 1 << 17, 2, 128
+        dt, packets, sed, labs, launched, launches = _run_table_path(
+            torch, poly, lanes, batches, multi_tree, multi=True,
+            refill_batches=K)
+        pps = packets / dt
+        log(f"  multi {name}: {batches} batches x {lanes} lanes x K={K}"
+            f"{' x W=2' if poly else ', W=2 one per lane'}, H=2 in {dt:.3f} "
+            f"s = {pps:.4e} packets/s; launches {launches} "
+            f"({launches[kname] / batches:.0f} event iterations per batch); "
+            f"SED {', '.join(f'{v:.4e}' for v in sed)} W, labs "
+            f"{labs:.4e} W of {launched:.4e} W launched")
+        if launches[kname] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        if not (sed > 0).all():
+            raise AssertionError("SED Ftot not positive")
+        if not 0 < labs < launched:
+            raise AssertionError(f"labs {labs} outside (0, {launched})")
+        results[f"launches_multi_{name}"] = launches
+        results[f"main_multi_{name}"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def _multi_simulation(multi_tree, poly, lanes, K, device):
+    """OligoSimulation(voxelize="table") on the two-component octree (the
+    leaf-resolution gridded system): one batch of `lanes` lanes."""
+    from bench_torch import _multi_model
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+
+    grid, ds, ss, ins, opts, _ = _multi_model(
+        grid=multi_tree, voxelize=False, polychromatic=poly, refill_batches=K)
+    W = 2
+    sim = OligoSimulation(stellar_system=ss, instruments=ins, dust_system=ds,
+                          options=opts,
+                          packets=lanes * K if poly else lanes // W * K,
+                          batch_size=lanes * W if poly else lanes,
+                          dispatch_batches=1, log=SilentLog(), device=device)
+    assert sim._poly == poly and sim.dust_system.table and sim._labs_fold
+    assert sim.dust_system.ncomp == 2
+    assert type(sim._lifecycle.spec) is _table_engine(True, poly)[0]
+    assert len(list(sim._batches())) == 1
+    return sim
+
+
+def phase_simulation_multi(torch, results, multi_tree):
+    """OligoSimulation(voxelize="table") on the two-component octree: it
+    voxelizes, runs the K7 engine and folds the labs onto the leaves."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly
+    from skirt_tpu_torch.ops import binned
+
+    lanes, K, W = 1 << 17, 128, 2
+    sim = _multi_simulation(multi_tree, True, lanes, K, "cuda")
+    torch.cuda.synchronize()
+    binned.binned_add.launches = 0
+    fused_table_poly.table_poly_multi_event.launches = 0
+    t0 = time.perf_counter()
+    acc = sim._run_phase(rng.root_key(sim.seed), 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"K7": fused_table_poly.table_poly_multi_event.launches,
+                "K2": binned.binned_add.launches}
+    results["launches_multi_sim"] = launches
+    launched = float(sim.stellar_system.Lv.sum())
+    sed, labs = _check_tallies(acc, launched, "multi OligoSimulation")
+    if acc["labs"].shape != (multi_tree.ncells * W,):
+        raise AssertionError(f"labs not folded onto the {multi_tree.ncells} "
+                             f"leaves: {acc['labs'].shape}")
+    pps = lanes * K * W / dt
+    log(f"  OligoSimulation(voxelize='table'), two components: "
+        f"{multi_tree.ncells} leaves -> {sim.grid.nx}^3 voxels, 1 batch x "
+        f"{lanes} lanes x K={K} x W={W} in {dt:.3f} s = {pps:.4e} "
+        f"packets/s; launches {launches}; SED "
+        f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
+        f"{launched:.4e} W launched")
+    if launches["K7"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["main_multi_sim"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_reference_multi(torch, multi_tree):
+    """The two-component paths at a small size on the card against the
+    same runs on the CPU (refill K = 4), at the tolerances of the CPU tests
+    with refill (SED per wavelength and labs total 0.08): mono (K5) and
+    poly (K7) through make_lifecycle, and the mono OligoSimulation with its
+    labs folded onto the leaves."""
+    from skirt_tpu_torch import rng
+
+    for poly, lanes in ((False, 1 << 13), (True, 1 << 12)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            _, _, sed, labs, launched, _ = _run_table_path(
+                torch, poly, lanes, 1, multi_tree, device=dev, multi=True,
+                refill_batches=4)
+            if not (0 < labs < launched and (sed > 0).all()):
+                raise AssertionError(f"small multi run on {dev}: SED {sed}, "
+                                     f"labs {labs}")
+            outs[dev] = (sed, labs)
+        (g, gl), (c, cl) = outs["cuda"], outs["cpu"]
+        np.testing.assert_allclose(g, c, rtol=0.08)
+        if abs(gl / cl - 1) > 0.08:
+            raise AssertionError(f"labs: cuda {gl} vs cpu {cl}")
+        log(f"  small multi {'poly' if poly else 'mono'} cuda/cpu: SED "
+            f"{', '.join(f'{r:.4f}' for r in g / c)}, labs {gl / cl:.4f}")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = _multi_simulation(multi_tree, False, 1 << 13, 4, dev)
+        acc = sim._run_phase(rng.root_key(sim.seed), 0)
+        outs[dev] = _check_tallies(acc, float(sim.stellar_system.Lv.sum()),
+                                   f"small multi OligoSimulation on {dev}")
+    (g, gl), (c, cl) = outs["cuda"], outs["cpu"]
+    np.testing.assert_allclose(g, c, rtol=0.08)
+    if abs(gl / cl - 1) > 0.08:
+        raise AssertionError(f"simulation labs: cuda {gl} vs cpu {cl}")
+    log(f"  small multi OligoSimulation cuda/cpu: SED "
+        f"{', '.join(f'{r:.4f}' for r in g / c)}, labs {gl / cl:.4f}")
+
+
 def main():
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -898,7 +1251,7 @@ def main():
     kernels.library()
     log(f"  {so.name} in {time.perf_counter() - t0:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     results = {}
@@ -908,39 +1261,53 @@ def main():
     phase_k1(torch, results)
     log("phase 5: K3 mono_event kernel vs plain")
     phase_k3(torch, results)
-    from bench_torch import _octree_model
+    from bench_torch import _multi_model, _octree_model
     t0 = time.perf_counter()
     octree = _octree_model(voxelize=False)[0]
-    log(f"  config 3 octree: {octree.ncells} leaves, host build "
+    multi_tree = _multi_model(voxelize=False)[0]
+    log(f"  config 3 octree: {octree.ncells} leaves; two-component octree: "
+        f"{multi_tree.ncells} leaves; host builds "
         f"{time.perf_counter() - t0:.2f} s")
     log("phase 6: K4 table_event kernel vs plain")
     phase_k4(torch, results, octree)
-    log("phase 7: K6 table_poly_event kernel vs plain")
+    log("phase 7: K5 table_multi_event kernel vs plain")
+    phase_k5(torch, results, multi_tree)
+    log("phase 8: K6 table_poly_event kernel vs plain")
     phase_k6(torch, results, octree)
-    log("phase 8: main paths (S1 poly: make_lifecycle + make_multibatch, "
+    log("phase 9: K7 table_poly_multi_event kernel vs plain")
+    phase_k7(torch, results, multi_tree)
+    log("phase 10: main paths (S1 poly: make_lifecycle + make_multibatch, "
         "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
         "make_lifecycle + make_multibatch, W=2; config 3 "
+        "OligoSimulation(voxelize='table'); the two-component model mono "
+        "and poly: make_lifecycle + make_multibatch, W=2; its "
         "OligoSimulation(voxelize='table'))")
     phase_main_poly(torch, results)
     phase_main_mono(torch, results)
     phase_main_table(torch, results, octree)
     phase_simulation_table(torch, results, octree)
-    log("phase 9: small runs on the card against the CPU")
+    phase_main_multi(torch, results, multi_tree)
+    phase_simulation_multi(torch, results, multi_tree)
+    log("phase 11: small runs on the card against the CPU")
     phase_reference_poly(torch)
     phase_reference_mono(torch)
     phase_reference_table(torch)
+    phase_reference_multi(torch, multi_tree)
 
-    log(f"phase 10: results (phases 1-9 took "
+    log(f"phase 12: results (phases 1-11 took "
         f"{time.perf_counter() - t_start:.1f} s)")
+    paths = ("poly", "mono", "table_mono", "table_poly", "table_sim",
+             "multi_mono", "multi_poly", "multi_sim")
     launches = {
         "K1": results["launches_poly"]["K1"],
-        "K2": sum(results[k]["K2"] for k in (
-            "launches_poly", "launches_mono", "launches_table_mono",
-            "launches_table_poly", "launches_table_sim")),
+        "K2": sum(results[f"launches_{p}"]["K2"] for p in paths),
         "K3": results["launches_mono"]["K3"],
         "K4": results["launches_table_mono"]["K4"],
+        "K5": results["launches_multi_mono"]["K5"],
         "K6": results["launches_table_poly"]["K6"]
-        + results["launches_table_sim"]["K6"]}
+        + results["launches_table_sim"]["K6"],
+        "K7": results["launches_multi_poly"]["K7"]
+        + results["launches_multi_sim"]["K7"]}
     meta = {
         "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
                "skirt_tpu/engine/fused_poly.py:85"),
@@ -950,32 +1317,38 @@ def main():
                "skirt_tpu/engine/fused.py:199"),
         "K4": ("K4 table_event", "skirt_tpu_torch/csrc/fused_table.cu",
                "skirt_tpu/engine/fused_table.py:83"),
+        "K5": ("K5 table_multi_event",
+               "skirt_tpu_torch/csrc/fused_table_multi.cu",
+               "skirt_tpu/engine/fused_table.py:248"),
         "K6": ("K6 table_poly_event",
                "skirt_tpu_torch/csrc/fused_table_poly.cu",
-               "skirt_tpu/engine/fused_table_poly.py:107")}
-    kern = []
+               "skirt_tpu/engine/fused_table_poly.py:107"),
+        "K7": ("K7 table_poly_multi_event",
+               "skirt_tpu_torch/csrc/fused_table_poly_multi.cu",
+               "skirt_tpu/engine/fused_table_poly.py:355")}
+    kern = {}
     for k, (name, source, replaces) in meta.items():
         r = results[k]
-        kern.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[k],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r.get("library_ms")})
-    k2 = kern[1]
-    k2["launches_by_path"] = {
-        p: results[f"launches_{p}"]["K2"] for p in (
-            "poly", "mono", "table_mono", "table_poly", "table_sim")}
+        kern[k] = {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces, "launches": launches[k],
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"],
+                   "library_ms": r.get("library_ms")}
+    k2 = kern["K2"]
+    k2["launches_by_path"] = {p: results[f"launches_{p}"]["K2"]
+                              for p in paths}
     for i, key in enumerate(("ms", "plain_ms", "library_ms")):
         k2[f"{key}_by_shape"] = {n: v[i] for n, v
                                  in results["K2"]["times"].items()}
     k2["bound_ms_by_shape"] = {n: v[3][0] for n, v
                                in results["K2"]["times"].items()}
-    kern[4]["by_W"] = results["K6"]["by_W"]
-    print(json.dumps({"kernels": kern, "main_path_packets_per_s": {
-        p: results[f"main_{p}"]["packets_per_s"] for p in (
-            "poly", "mono", "table_mono", "table_poly", "table_sim")}}),
-        flush=True)
+    for k in ("K6", "K7"):
+        kern[k]["by_W"] = results[k]["by_W"]
+    print(json.dumps({"kernels": list(kern.values()),
+                      "main_path_packets_per_s": {
+                          p: results[f"main_{p}"]["packets_per_s"]
+                          for p in paths}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

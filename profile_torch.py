@@ -4,6 +4,7 @@ Run on a CUDA machine from the repository root:
 
     python3 profile_torch.py [poly|mono ...]     (default: both)
     BENCH_MODEL=octree python3 profile_torch.py [poly|mono ...]
+    BENCH_MODEL=multi python3 profile_torch.py [poly|mono ...]
 
 poly builds the polychromatic main path as bench_torch.py does by
 default (W = 128, 2^15 lanes, K = 128); mono builds the monochromatic
@@ -14,7 +15,10 @@ labs.  With BENCH_MODEL=octree they build capability config 3 instead,
 as `BENCH_MODEL=octree bench_torch.py` does (its OCTREE_NLAM and
 OCTREE_LOG2N knobs; poly: W = 2 per lane, 2^17 lanes, K = 256, kernel
 K6; mono: one of 2 wavelengths per lane, 2^17 lanes, K = 128, kernel
-K4).  For each: one warm-up batch (it builds the kernels), 3 unprofiled
+K4).  BENCH_MODEL=multi builds the two-component model as
+`BENCH_MODEL=multi bench_torch.py` does (OCTREE_LOG2N, OCTREE_REFILL;
+poly: W = 2 per lane, kernel K7; mono: kernel K5; 2^17 lanes, K = 128).
+For each: one warm-up batch (it builds the kernels), 3 unprofiled
 batches timed with torch.cuda.synchronize() while nvidia-smi samples the
 SM clock and the power draw, then one batch under torch.profiler; it
 prints:
@@ -23,11 +27,12 @@ prints:
   - device time per layer (the event kernel, K2 on each route, the
     uniforms, plain torch) with its share of the busy time and its launch
     count, and the device's idle share: 1 - busy / best unprofiled wall;
-  - on config 3, the device time of the table path's plain-torch stages,
-    each wrapped in a profiler range for the profiled batch: the staging
-    gather (panel paths, arithmetic locate and rho gather of the (P, N)
+  - on the table models, the device time of the table path's plain-torch
+    stages, each wrapped in a profiler range for the profiled batch: the
+    staging gather (panel paths, arithmetic locate and rho gather of the
     panel rows), the exact column-DDA peel and the detects; the rest of
-    the plain torch (refill, bookkeeping) is what remains;
+    the plain torch (refill, bookkeeping, the two-component model's
+    torch-side scatter and blended phase) is what remains;
   - torch.profiler's table of the 40 largest device-time entries.
 """
 
@@ -38,6 +43,10 @@ import time
 
 
 def layer_of(name: str) -> str:
+    if "table_poly_multi_event_kernel" in name:
+        return "K7 table_poly_multi_event"
+    if "table_multi_event_kernel" in name:
+        return "K5 table_multi_event"
     if "table_poly_event_kernel" in name:
         return "K6 table_poly_event"
     if "table_event_kernel" in name:
@@ -70,23 +79,38 @@ def _ranged(name, fn):
     return inner
 
 
-def _build_octree(poly):
-    """Config 3's lifecycle with its stages wrapped in profiler ranges:
-    (run_batch, zero_tallies, ell, L0, restore)."""
+def _ranged_peel(taus):
+    """The exact peel (and its per-component integrals) in a range."""
+    inner = _ranged("exact peel", taus)
+    inner.integrals = _ranged("exact peel", taus.integrals)
+    return inner
+
+
+def _build_octree(poly, multi=False):
+    """Config 3's (or with multi=True the two-component model's) lifecycle
+    with its stages wrapped in profiler ranges: (run_batch, zero_tallies,
+    ell, L0, restore)."""
     import os
 
     from bench_torch import _octree_build
-    from skirt_tpu_torch.engine import fused_table, vector_traversal
+    from skirt_tpu_torch.engine import (fused_table, fused_table_poly,
+                                        vector_traversal)
 
     orig_peel = fused_table.make_exact_peel
     orig_paths = vector_traversal.panel_paths
-    fused_table.make_exact_peel = lambda *a, **kw: _ranged(
-        "exact peel", orig_peel(*a, **kw))
+    orig_rows = fused_table_poly.component_rows
+    fused_table.make_exact_peel = lambda *a, **kw: _ranged_peel(
+        orig_peel(*a, **kw))
     vector_traversal.panel_paths = _ranged("stage gather", orig_paths)
+    fused_table_poly.component_rows = _ranged("stage gather", orig_rows)
     env = os.environ.get
+    if multi:
+        kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
+    else:
+        kw = dict(nlambda=int(env("OCTREE_NLAM", "2")))
     run_batch, zero, ell, L0, _, model = _octree_build(
-        1 << int(env("OCTREE_LOG2N", "17")), device="cuda",
-        nlambda=int(env("OCTREE_NLAM", "2")), polychromatic=poly)
+        1 << int(env("OCTREE_LOG2N", "17")), device="cuda", multi=multi,
+        polychromatic=poly, **kw)
     ds, ins = model[1], model[3]
     ds.analytic_rows = _ranged("stage gather", ds.analytic_rows)
     for i in ins:
@@ -96,10 +120,11 @@ def _build_octree(poly):
     def restore():
         fused_table.make_exact_peel = orig_peel
         vector_traversal.panel_paths = orig_paths
+        fused_table_poly.component_rows = orig_rows
     return run_batch, zero, ell, L0, restore
 
 
-def profile(path, octree=False):
+def profile(path, model="disc"):
     import torch
 
     from bench_torch import _build
@@ -108,9 +133,16 @@ def profile(path, octree=False):
                                         fused_table_poly)
 
     poly = path == "poly"
-    print(f"== {'config 3 ' if octree else ''}{path} main path", flush=True)
+    octree = model in ("octree", "multi")
+    label = {"disc": "", "octree": "config 3 ",
+             "multi": "two-component "}[model]
+    print(f"== {label}{path} main path", flush=True)
     restore = None
-    if octree:
+    if model == "multi":
+        event = (fused_table_poly.table_poly_multi_event if poly
+                 else fused_table.table_multi_event)
+        run_batch, zero_tallies, ell, L0, restore = _build_octree(poly, True)
+    elif octree:
         event = (fused_table_poly.table_poly_event if poly
                  else fused_table.table_event)
         run_batch, zero_tallies, ell, L0, restore = _build_octree(poly)
@@ -234,9 +266,11 @@ def main():
     for path in paths:
         if path not in ("poly", "mono"):
             raise SystemExit(f"profile_torch: unknown path {path!r}")
-    octree = os.environ.get("BENCH_MODEL", "disc") == "octree"
+    model = os.environ.get("BENCH_MODEL", "disc")
+    if model not in ("disc", "octree", "multi"):
+        raise SystemExit(f"profile_torch: unknown BENCH_MODEL {model!r}")
     for path in paths:
-        profile(path, octree)
+        profile(path, model)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,8 @@ import dataclasses
 import numpy as np
 
 from .engine.lifecycle import LifecycleOptions
-from .geometry import ExpDiskGeometry, PointGeometry, TorusGeometry
+from .geometry import (ExpDiskGeometry, PointGeometry, TorusGeometry,
+                       UniformSphereGeometry)
 from .grids import CartesianGrid, OctreeGrid
 from .instruments import FrameInstrument, SEDInstrument, SimpleInstrument
 from .media import (DustComponent, DustMassNormalization, DustMix,
@@ -41,6 +42,8 @@ def convert_geometry(g):
         return PointGeometry()
     if kind == "TorusGeometry":
         return TorusGeometry(g.p, g.q, g.delta, g.rmin, g.rmax)
+    if kind == "UniformSphereGeometry":
+        return UniformSphereGeometry(g.rmax)
     raise ValueError(f"geometry {kind} is not ported yet")
 
 

@@ -78,19 +78,6 @@ struct TablePolyArgs {
 
 namespace {
 
-// running block sum in the order of XLA's CPU reduction (see the header)
-struct BlockSum {
-  float total = 0.f, part = 0.f;
-  int in_block = 0;
-  __device__ __forceinline__ void add(float x, int block) {
-    part = in_block == 0 ? x : part + x;
-    if (++in_block == block) {
-      total = total + part;
-      in_block = 0;
-    }
-  }
-};
-
 template <bool LABS>
 __global__ void __launch_bounds__(128)
 table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {

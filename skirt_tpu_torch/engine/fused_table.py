@@ -1,36 +1,45 @@
-"""Monochromatic fused table event (kernel K4), the exact column-DDA peel
-and the table-mode lifecycle driver.
+"""Monochromatic fused table events (kernels K4 and K5), the exact
+column-DDA peel and the table-mode lifecycle driver.
 
-Twin of skirt_tpu/engine/fused_table.py for a single dust component on a
-uniform Cartesian (voxel) grid: models without closed-form densities (an
-octree torus traced through its exact voxel view,
-`DustSystem.voxelized().as_table()`).  The event splits at the gather:
-torch stages the (P, N) panel-midpoint kappa_ext * rho rows each
-iteration (`vector_traversal.panel_paths` + `DustSystem.analytic_rows`),
-and the event kernel consumes them: cumulative optical depth, sampled
-absorption deposit, forced propagation with the composite bias weight,
-weight cut, position update, Henyey-Greenstein scatter.  Relaunch
+Twin of skirt_tpu/engine/fused_table.py on a uniform Cartesian (voxel)
+grid: models without closed-form densities (an octree torus traced
+through its exact voxel view, `DustSystem.voxelized().as_table()`).  The
+event splits at the gather: torch stages the (P, N) panel-midpoint
+kappa * rho rows each iteration (`vector_traversal.panel_paths` +
+`DustSystem.analytic_rows`), and the event kernel consumes them:
+cumulative optical depth, sampled absorption deposit, forced propagation
+with the composite bias weight, weight cut, position update.  Relaunch
 (refill) and the peel-off run torch-side after the kernel; the peel
 optical depth toward each observer direction is the exact integral of
 the piecewise-constant voxel field along the ray (`make_exact_peel`).
 
-The event has two implementations with one input/output contract:
-- `table_event_plain`: plain PyTorch on (N,) tensors, any device.  It is
-  the spec the CPU tests hold against the Pallas body (interpret mode)
-  and the reference `chip_smoke.py` holds the CUDA kernel against.
-- csrc/fused_table.cu: the hand-written CUDA kernel, one thread per lane.
-`table_event` takes the plain version for CPU tensors and launches the
-kernel (or raises) for CUDA tensors.
+One dust component runs kernel K4, which also scatters (Henyey-
+Greenstein).  Several components run kernel K5 on the staged
+kappa_ext * rho and kappa_sca * rho panel sums: per-panel albedo
+blending, a deposit panel drawn by absorbed energy, and the interaction
+cell out; the component selection at that cell (by kappa_sca,h * rho_h),
+the HG scatter and the blended peel phase weight run torch-side.
 
-Layouts (N lanes, no padding: the kernel bounds-checks): u (5, N);
+Each event has two implementations with one input/output contract:
+- `table_event_plain` / `table_multi_event_plain`: plain PyTorch on (N,)
+  tensors, any device.  They are the specs the CPU tests hold against the
+  Pallas bodies (interpret mode) and the references `chip_smoke.py` holds
+  the CUDA kernels against.
+- csrc/fused_table.cu (K4) and csrc/fused_table_multi.cu (K5): the
+  hand-written CUDA kernels, one thread per lane.
+`table_event` / `table_multi_event` take the plain version for CPU
+tensors and launch the kernel (or raise) for CUDA tensors.
+
+Layouts (N lanes, no padding: the kernels bounds-check).  K4: u (5, N);
 kr (P, N); state px, py, pz, dx, dy, dz, L float32, alive, ns, ell int32,
 L0, t0, dt, albedo, g float32, each (N,); outputs state (7 float32 +
-alive, ns) and depi int32 / depv float32 (N,).
+alive, ns) and depi int32 / depv float32 (N,).  K5: u (3, N); kr, ks
+(P, N); state px, py, pz, dx, dy, dz, L, alive, ns, ell, L0, t0, dt;
+outputs state px, py, pz, L, alive and the interaction cell, depi / depv.
 
 Not ported here, each refusing with its slice: table_peel='taumap'
-(density-path maps, S2b), several dust components (kernel K5, S4b),
-non-uniform grids (direct-table locate, S4b), polarization (S5), the
-dust-emission launch (S3), io_state (S2b).
+(density-path maps, S2b), non-uniform grids (direct-table locate, S4b),
+polarization (S5), the dust-emission launch (S3), io_state (S2b).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -66,9 +75,10 @@ def _validate(grid, ds, stellar_system, instruments, options, mueller,
 
     if ds is None or not getattr(ds, "table", False):
         bail("requires density_mode='table' (voxelized().as_table())")
-    if ds.ncomp != 1:
-        bail("several dust components (kernel K5) are not ported yet "
-             "(slice S4b)")
+    if ds.ncomp > 1 and not _uniform_grid(grid):
+        bail("multi-component mode needs the uniform Cartesian voxel view")
+    if ds.ncomp > 1 and mueller is not None:
+        bail("polarized mode is single-component only")
     if not _uniform_grid(grid):
         bail("non-uniform grids (the direct-table locate) are not ported "
              "yet (slice S4b)")
@@ -285,6 +295,178 @@ table_event.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernel K5: the monochromatic multi-component table event
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TableMultiEventSpec(TableEventSpec):
+    """The constants the K5 event closes over (skirt_tpu
+    fused_table._build_kernel_multi): K4's, with three uniforms."""
+    n_uniform: int = 3
+
+
+def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
+    """The K5 event's constants (mirrors skirt_tpu
+    fused_table._build_kernel_multi)."""
+    xi = float(options.scatt_bias)
+    return TableMultiEventSpec(
+        npanels=int(npanels), nlambda=int(nlambda), want_labs=bool(want_labs),
+        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
+        one_m_xi=_f32(1.0 - xi),
+        inv_minred=_f32(1.0 / options.min_weight_reduction), grid=grid,
+        locate=_make_locate(grid))
+
+
+def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
+    """One monochromatic multi-component table event for every lane, plain
+    PyTorch.
+
+    Mirrors the Pallas body (skirt_tpu/engine/fused_table.py:280-390)
+    operation for operation.  kr, ks: (P, N) staged kappa_ext * rho and
+    kappa_sca * rho panel sums over the components.  Returns a dict:
+    "state" (px, py, pz, L, alive), "cell" (the interaction cell at the
+    hit panel's midpoint from the pre-event position, -1 for lanes that
+    end) and "depi"/"depv" with labs."""
+    P = spec.npanels
+    X, Y, Z, DX, DY, DZ, L = state[:7]
+    alive = state[7] != 0
+    nscatt = state[8]
+    ell = state[9]
+    Lth = state[10] * spec.inv_minred
+    t0, delta = state[11], state[12]
+    xi = spec.xi
+    out = {}
+
+    # -- cumulative optical depth and the per-panel absorbed energy -------
+    cum = torch.zeros_like(L)
+    e_prev = torch.ones_like(L)
+    Lm = torch.where(alive, L, 0.0)
+    Lsca = torch.zeros_like(L)
+    cw = torch.zeros_like(L)
+    cums, cws = [], []
+    for kk in range(P):
+        cum = cum + kr[kk] * delta
+        cums.append(cum)
+        e_cur = torch.exp(-cum)
+        dE = Lm * (e_prev - e_cur)            # energy interacting here
+        alb = ks[kk] / torch.clamp(kr[kk], min=_TINY)
+        Lsca = Lsca + alb * dE
+        cw = cw + (1.0 - alb) * dE
+        cws.append(cw)
+        e_prev = e_cur
+    taupath = cum
+
+    def count_below(sums, x):
+        # panel pick: number of running sums (all but the last) below x
+        if P == 1:
+            return torch.zeros_like(nscatt)
+        return (torch.stack(sums[:P - 1]) < x[None]).sum(0).to(torch.int32)
+
+    # -- sampled absorption deposit: the panel drawn by absorbed energy ---
+    if spec.want_labs:
+        D = cw
+        i_dep = count_below(cws, u[2] * D)
+        mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
+        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                           Z + mid_dep * DZ)
+        okd = (D > 0) & alive & (cell >= 0)
+        out["depi"] = torch.where(okd, cell * spec.nlambda + ell, -1)
+        out["depv"] = torch.where(okd, D, 0.0)
+
+    # -- scattered-luminosity update + termination -------------------------
+    L = torch.where(alive, Lsca, L)
+    alive = alive & (L > 0) & torch.logical_not(
+        (L <= Lth) & (nscatt >= spec.min_scatt)) & (taupath > 0)
+
+    # -- forced propagation ------------------------------------------------
+    one_m_e = 1.0 - torch.exp(-taupath)
+    tau_exp = _expon_cutoff(u[1], taupath)
+    if xi == 0.0:
+        tau = tau_exp
+    else:
+        tau = torch.where(u[0] < xi, u[1] * taupath, tau_exp)
+        p = torch.exp(-tau) / torch.clamp(one_m_e, min=_TINY)
+        qq = spec.one_m_xi * p + (torch.full_like(taupath, xi)
+                                  / torch.clamp(taupath, min=_TINY))
+        L = torch.where(alive, L * (p / torch.clamp(qq, min=1e-37)), L)
+    s = _hit_point(cums, P, tau, t0, delta)
+    mid_h = t0 + (count_below(cums, tau).to(torch.float32) + 0.5) * delta
+    # the interaction cell for the torch-side component selection and
+    # blended peel: the hit panel's midpoint from the pre-event position
+    out["cell"] = torch.where(alive, spec.locate(X + mid_h * DX,
+                                                 Y + mid_h * DY,
+                                                 Z + mid_h * DZ), -1)
+    X = torch.where(alive, X + s * DX, X)
+    Y = torch.where(alive, Y + s * DY, Y)
+    Z = torch.where(alive, Z + s * DZ, Z)
+    out["state"] = (X, Y, Z, L, alive.to(torch.int32))
+    return out
+
+
+def _table_multi_event_cuda(spec, u, kr, ks, state):
+    N = state[0].shape[0]
+    P = spec.npanels
+    if P > _CUDA_MAXP:
+        raise ValueError(f"table_multi_event kernel: quadrature_panels <= "
+                         f"{_CUDA_MAXP} (the lane's running sums live in "
+                         "registers)")
+    if len(state) != 13:
+        raise ValueError("table_multi_event: expected 13 state arrays")
+    dts = [torch.float32] * 7 + [torch.int32] * 3 + [torch.float32] * 3
+    _check_tensors("table_multi_event",
+                   [(u, (spec.n_uniform, N), torch.float32),
+                    (kr, (P, N), torch.float32), (ks, (P, N), torch.float32)]
+                   + [(s, (N,), dt) for s, dt in zip(state, dts)])
+    dev = u.device
+    a = kernels.TableMultiArgs()
+    a.N = N
+    a.nlambda = spec.nlambda
+    a.npanels = P
+    a.min_scatt = spec.min_scatt
+    a.xi = spec.xi
+    a.one_m_xi = spec.one_m_xi
+    a.inv_minred = spec.inv_minred
+    _locate_args(a.geo, spec.grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32) for _ in range(4)] \
+        + [torch.empty(N, **i32)]
+    cell = torch.empty(N, **i32)
+    out = {"state": tuple(st_out), "cell": cell}
+    depi = depv = None
+    if spec.want_labs:
+        depi = out["depi"] = torch.empty(N, **i32)
+        depv = out["depv"] = torch.empty(N, **f32)
+    for name, t in zip(("u", "kr", "ks", "px", "py", "pz", "dx", "dy", "dz",
+                        "L", "alive", "ns", "ell", "L0", "t0", "dt"),
+                       [u, kr, ks, *state]):
+        setattr(a, name, _ptr(t))
+    for name, t in zip(("opx", "opy", "opz", "oL", "oalive", "ocell",
+                        "odepi", "odepv"), [*st_out, cell, depi, depv]):
+        setattr(a, name, _ptr(t))
+    lib = kernels.library()
+    kernels.check(lib.skirt_table_multi_event(ctypes.byref(a),
+                                              int(spec.want_labs),
+                                              kernels.stream_of(u)),
+                  "table_multi_event kernel")
+    table_multi_event.launches += 1
+    return out
+
+
+def table_multi_event(spec: TableMultiEventSpec, u, kr, ks, state):
+    """The K5 event on CPU tensors (plain version) or CUDA tensors (the
+    kernel, counted in `table_multi_event.launches`)."""
+    if u.device.type == "cpu":
+        return table_multi_event_plain(spec, u, kr, ks, state)
+    if u.device.type != "cuda":
+        raise ValueError(f"table_multi_event: unsupported device {u.device}")
+    return _table_multi_event_cuda(spec, u, kr, ks, state)
+
+
+table_multi_event.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the exact peel: column-DDA optical depths toward constant directions
 # ---------------------------------------------------------------------------
 
@@ -302,7 +484,11 @@ def make_exact_peel(grid, ds, leaders):
     Kp, n_a) gathers stay bounded.
 
     Returns taus(pos, kext_pk) -> list over leaders of (N,) tau =
-    sum_h kext_pk[h] * integral rho_h."""
+    sum_h kext_pk[h] * integral rho_h, with taus.integrals(pos) -> list
+    over leaders of the (H, N) raw integrals of rho_h.  skirt_tpu's
+    polychromatic multi-component driver gets those by running its peel
+    once per component with unit opacities; here one pass over the shared
+    crossings gives the same values (each 0 * S + 1 * S is exact)."""
     nxyz = (grid.nx, grid.ny, grid.nz)
     lo = np.asarray(grid._lo, np.float64)
     dx = np.asarray(grid._dx, np.float64)
@@ -344,7 +530,9 @@ def make_exact_peel(grid, ds, leaders):
         m = torch.arange(count, dtype=torch.float32, device=p0.device)[None, :]
         return first[:, None] + m * float(step)
 
-    def leader_tau(pos, kext_pk, j):
+    def leader_sums(pos, j):
+        """Per component the integral of rho_h along the ray, times
+        |k_a| (the a-extent of each column crossing)."""
         k, a, b, c, rows, Kp = per_leader[j]
         ka, kb, kc = float(k[a]), float(k[b]), float(k[c])
         dev = pos.device
@@ -391,25 +579,39 @@ def make_exact_peel(grid, ds, leaders):
             torch.minimum(a_farc[..., None], edges[1:])
             - torch.maximum(a_nearc[..., None], edges[:-1]),
             min=0.0)                                       # (N, Kp, na)
+        return [torch.where(okc, (rows_t[h][col] * ov).sum(2), 0.0).sum(1)
+                for h in range(H)]
+
+    def inv_ka(j):
+        return _f32(1.0 / max(abs(per_leader[j][0][per_leader[j][1]]),
+                              1e-12))
+
+    def leader_tau(pos, kext_pk, j):
         tau = 0.0
-        for h in range(H):
-            colsum = (rows_t[h][col] * ov).sum(2)          # (N, Kp)
-            tau = tau + kext_pk[h] * torch.where(okc, colsum, 0.0).sum(1)
-        return tau * _f32(1.0 / max(abs(ka), 1e-12))
+        for kp, sm in zip(kext_pk, leader_sums(pos, j)):
+            tau = tau + kp * sm
+        return tau * inv_ka(j)
+
+    def chunked(pos, j, fn):
+        """fn(pos slice, lane slice) over lanes in chunks, joined on the
+        last axis."""
+        _, a, _, _, _, Kp = per_leader[j]
+        chunk = max(1, _PEEL_CHUNK_FLOATS // (Kp * nxyz[a]))
+        if pos.shape[0] <= chunk:
+            return fn(pos, slice(None))
+        return torch.cat([fn(pos[i:i + chunk], slice(i, i + chunk))
+                          for i in range(0, pos.shape[0], chunk)], dim=-1)
 
     def taus(pos, kext_pk):
-        out = []
-        for j, (_, a, _, _, _, Kp) in enumerate(per_leader):
-            chunk = max(1, _PEEL_CHUNK_FLOATS // (Kp * nxyz[a]))
-            if pos.shape[0] <= chunk:
-                out.append(leader_tau(pos, kext_pk, j))
-                continue
-            out.append(torch.cat([
-                leader_tau(pos[i:i + chunk],
-                           [kp[i:i + chunk] for kp in kext_pk], j)
-                for i in range(0, pos.shape[0], chunk)]))
-        return out
+        return [chunked(pos, j, lambda p, sl, j=j: leader_tau(
+            p, [kp[sl] for kp in kext_pk], j))
+            for j in range(len(per_leader))]
 
+    def integrals(pos):
+        return [chunked(pos, j, lambda p, sl, j=j: torch.stack(
+            leader_sums(p, j)) * inv_ka(j)) for j in range(len(per_leader))]
+
+    taus.integrals = integrals
     return taus
 
 
@@ -445,7 +647,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                                io_state: bool = False,
                                max_iterations: int | None = None):
     """Build run_batch(key, ell, L0, tallies) for table densities with the
-    event in kernel K4.
+    event in kernel K4 (one dust component) or K5 (several).
 
     ell (N,) int32 wavelength indices and L0 (N,) float32 launch
     luminosities on the run's device; the tallies (float32 tensors on the
@@ -458,7 +660,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     when no lane is alive and no lane has launch budget left; the host
     reads that condition every _CHECK_EVERY iterations (an iteration over
     finished lanes changes nothing)."""
-    from .lifecycle import make_peel_off
+    from .lifecycle import hg_costheta, make_peel_off
 
     ds = dust_system
     _validate(grid, ds, stellar_system, instruments, options, mueller,
@@ -472,10 +674,13 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     peel_mode = getattr(options, "table_peel", "exact")
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
-    spec = _build_kernel(grid, options, nlambda, npanels, want_labs)
+    H = ds.ncomp
+    multi = H > 1
+    spec = (_build_kernel_multi if multi else _build_kernel)(
+        grid, options, nlambda, npanels, want_labs)
     peels = [make_peel_off(grid, ds, ins) for ins in instruments]
     staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel)
-    mix = ds.components[0].mix
+    mixes = [c.mix for c in ds.components]
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
     count_events = bool(getattr(options, "count_events", False))
@@ -491,9 +696,43 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
         ksca_pk, kext_pk = ds.packet_kappas(ell)
         albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
             .contiguous()
-        g_pk = torch.as_tensor(mix.g, device=dev)[ell.long()].contiguous()
+        g_pk = [torch.as_tensor(m.g, device=dev)[ell.long()].contiguous()
+                for m in mixes]
         ins = tallies["instruments"]
         labs = tallies.get("labs")
+
+        def component_scatter(it, cell, alive_b, dir_old):
+            """K5's scatter, torch-side: the component drawn by
+            kappa_sca,h * rho_h at the interaction cell, its HG cosine, a
+            direction about the incoming one.  Returns the per-component
+            weights kappa_sca,h * rho_h and the new directions."""
+            safe = torch.clamp(cell, min=0)
+            wv_h = [ksca_pk[h] * ds.rho_at(h, safe) for h in range(H)]
+            ksc = rng.event_key(k_cycle, it, 11)
+            usel = rng.uniform(rng.fold_in(ksc, 0), (n,), dev) \
+                * torch.clamp(sum(wv_h), min=1e-30)
+            g_sel = g_pk[0]
+            acc = wv_h[0]
+            for h in range(1, H):
+                g_sel = torch.where(usel > acc, g_pk[h], g_sel)
+                acc = acc + wv_h[h]
+            costh = hg_costheta(g_sel, rng.uniform_open(rng.fold_in(ksc, 1),
+                                                        (n,), dev))
+            d = rng.direction_about_axis(rng.fold_in(ksc, 2), dir_old, costh)
+            return wv_h, torch.where(alive_b[:, None], d, dir_old)
+
+        def phase_weight(cosj, wv_h):
+            """The peel phase weight at the incoming direction: the mix's
+            HG, or with several components their blend by
+            kappa_sca,h * rho_h at the interaction cell."""
+            if not multi:
+                return mixes[0].phase_function(ell, cosj)
+            total = sum(wv_h)
+            w = 0.0
+            for h in range(H):
+                w = w + wv_h[h] * mixes[h].phase_function(ell, cosj)
+            return torch.where(total > 0, w / torch.clamp(total, min=1e-30),
+                               0.0)
 
         def emission_peel(pos_p, contribution):
             taus0 = staged_taus(pos_p, kext_pk)
@@ -521,17 +760,23 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                     break
             u = rng.uniform_open(rng.event_key(k_cycle, it),
                                  (spec.n_uniform, n), dev)
-            # -- stage the kappa_ext * rho panel rows (the gather) --------
+            # -- stage the kappa * rho panel rows (the gather) ------------
             dsg, _, mid = vt.panel_paths(grid, pos, direction, npanels)
             t0 = mid[:, 0] - 0.5 * dsg[:, 0]
-            kr = ds.analytic_rows(pos, direction, mid, None, kext_pk,
-                                  want_sca=False).T.contiguous()
             state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
                      pos[:, 2].contiguous(), direction[:, 0].contiguous(),
                      direction[:, 1].contiguous(),
                      direction[:, 2].contiguous(), L, alive, ns, ell, L0,
-                     t0.contiguous(), dsg[:, 0].contiguous(), albedo_pk, g_pk]
-            out = table_event(spec, u, kr, state)
+                     t0.contiguous(), dsg[:, 0].contiguous()]
+            if multi:
+                ks, kr = (r.T.contiguous() for r in ds.analytic_rows(
+                    pos, direction, mid, ksca_pk, kext_pk))
+                out = table_multi_event(spec, u, kr, ks, state)
+            else:
+                kr = ds.analytic_rows(pos, direction, mid, None, kext_pk,
+                                      want_sca=False).T.contiguous()
+                out = table_event(spec, u, kr,
+                                  state + [albedo_pk, g_pk[0]])
             if want_labs and labs is not None:
                 binned_add(labs, out["depi"], out["depv"])
             st = out["state"]
@@ -539,8 +784,16 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                 nev = nev + alive.sum().to(torch.float32)
             dir_old = direction
             pos = torch.stack(st[:3], dim=-1)
-            direction = torch.stack(st[3:6], dim=-1)
-            L, alive, ns = st[6], st[7], st[8]
+            wv_h = None
+            if multi:
+                L, alive = st[3], st[4]
+                alive_b = alive != 0
+                wv_h, direction = component_scatter(it, out["cell"], alive_b,
+                                                    dir_old)
+                ns = torch.where(alive_b, ns + 1, ns)
+            else:
+                direction = torch.stack(st[3:6], dim=-1)
+                L, alive, ns = st[6], st[7], st[8]
 
             # -- torch-side relaunch (refill) ------------------------------
             fresh = None
@@ -566,7 +819,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                     kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
                     cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
                             + dir_old[:, 2] * kz)
-                    w = mix.phase_function(ell, cosj)
+                    w = phase_weight(cosj, wv_h)
                     if refill:
                         w = torch.where(fresh, 1.0, w)
                     con = torch.where(alive_b, L * w, 0.0)

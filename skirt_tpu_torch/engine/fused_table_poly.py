@@ -1,31 +1,41 @@
-"""Polychromatic fused table event (kernel K6) and its lifecycle driver.
+"""Polychromatic fused table events (kernels K6 and K7) and their
+lifecycle driver.
 
-Twin of skirt_tpu/engine/fused_table_poly.py for a single dust component
-on a uniform Cartesian (voxel) grid.  Every lane carries the full
-W-wavelength vector on one mixture-sampled geometric path: the staged
-(P, N) rho panels and the exact column-DDA peel integrals are
-wavelength-independent, so one gather serves all W wavelengths.  The
-estimator is the defensive-mixture importance sampling derived in the
-module docstring of skirt_tpu/engine/fused_table_poly.py (the same as the
-analytic K1's).
+Twin of skirt_tpu/engine/fused_table_poly.py on a uniform Cartesian
+(voxel) grid.  Every lane carries the full W-wavelength vector on one
+mixture-sampled geometric path: the staged rho panels and the exact
+column-DDA peel integrals are wavelength-independent, so one gather
+serves all W wavelengths.  The estimator is the defensive-mixture
+importance sampling derived in the module docstring of
+skirt_tpu/engine/fused_table_poly.py (the same as the analytic K1's).
+One dust component runs kernel K6 on (P, N) raw rho panels; H > 1
+components run kernel K7 on H raw rho row sets (one locate, H gathers)
+with the per-(component, wavelength) opacities and g blended in the
+kernel: the interaction point is drawn in path length from the
+uniform-driver mixture, the deposit at a second forced-pdf point, and
+the scatter from the driver wavelength's component-blended HG.  The peel
+then weights each wavelength by the components' blended phase function at
+the located new cell.
 
-The event has two implementations with one input/output contract:
-- `table_poly_event_plain`: plain PyTorch on (W, N) tensors, any device.
-  It is the spec the CPU tests hold against the Pallas body (interpret
-  mode) and the reference `chip_smoke.py` holds the CUDA kernel against.
-- csrc/fused_table_poly.cu: the hand-written CUDA kernel, one thread per
-  lane.
-`table_poly_event` takes the plain version for CPU tensors and launches
-the kernel (or raises) for CUDA tensors.
+Each event has two implementations with one input/output contract:
+- `table_poly_event_plain` / `table_poly_multi_event_plain`: plain
+  PyTorch on (W, N) tensors, any device.  They are the specs the CPU
+  tests hold against the Pallas bodies (interpret mode) and the
+  references `chip_smoke.py` holds the CUDA kernels against.
+- csrc/fused_table_poly.cu (K6) and csrc/fused_table_poly_multi.cu (K7):
+  the hand-written CUDA kernels, one thread per lane.
+`table_poly_event` / `table_poly_multi_event` take the plain version for
+CPU tensors and launch the kernel (or raise) for CUDA tensors.
 
-Layouts (N lanes, no padding): u (7, N); r (P, N) raw rho panels; oc
-(3, W) = kext, albedo, g; L, L0, Ln, Lp (W, N); state px, py, pz, dx,
-dy, dz float32, alive, ns int32, t0, dt float32, each (N,); depi int32 /
-depv float32 (N,).
+Layouts (N lanes, no padding).  K6: u (7, N); r (P, N) raw rho panels; oc
+(3, W) = kext, albedo, g.  K7: u (8, N); r (H * P, N) raw rho panels,
+h-major; oc (3H, W) = kext rows, ksca rows, g rows.  Both: L, L0, Ln, Lp
+(W, N); state px, py, pz, dx, dy, dz float32, alive, ns int32, t0, dt
+float32, each (N,); depi int32 / depv float32 (N,).
 
-Not ported here, each refusing with its slice: several dust components
-(kernel K7, S4b), non-uniform grids (direct-table locate, S4b),
-polarization (S5), the dust-emission launch (S3), io_state (S2b).
+Not ported here, each refusing with its slice: non-uniform grids
+(direct-table locate, S4b), polarization (S5), the dust-emission launch
+(S3), io_state (S2b).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -56,9 +66,11 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
 
     if ds is None or not getattr(ds, "table", False):
         bail("requires density_mode='table' (voxelized().as_table())")
-    if ds.ncomp != 1:
-        bail("several dust components (kernel K7) are not ported yet "
-             "(slice S4b)")
+    if ds.ncomp != 1 and not _uniform_grid(grid):
+        bail("multi-component mode needs the uniform Cartesian voxel "
+             "view (per-component raw rows + in-kernel blending)")
+    if mueller is not None and ds.ncomp != 1:
+        bail("polarization supports a single dust component")
     if not _uniform_grid(grid):
         bail("non-uniform grids (the direct-table locate) are not ported "
              "yet (slice S4b)")
@@ -350,6 +362,299 @@ def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
 table_poly_event.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# kernel K7: the polychromatic multi-component table event
+# ---------------------------------------------------------------------------
+
+# the largest number of dust components the K7 kernel takes (a template
+# parameter of csrc/fused_table_poly_multi.cu)
+_CUDA_MAX_H = 3
+
+
+@dataclass
+class TablePolyMultiEventSpec(TablePolyEventSpec):
+    """The constants the K7 event closes over (skirt_tpu
+    fused_table_poly._build_kernel_multi): K6's, with H components, the
+    (3H, W) float32 constants oc = kappa_ext rows, then kappa_sca rows,
+    then g rows, and eight uniforms."""
+    H: int = 2
+    n_uniform: int = 8
+
+
+def _build_kernel_multi(grid, ds, options, W, npanels, want_labs):
+    """The K7 event's constants (mirrors skirt_tpu
+    fused_table_poly._build_kernel_multi and its (3H, W) constants)."""
+    g_hw = np.stack([np.asarray(c.mix.g, np.float32)[:W]
+                     for c in ds.components])
+    oc = np.concatenate([np.asarray(ds.kappaext, np.float32)[:, :W],
+                         np.asarray(ds.kappasca, np.float32)[:, :W], g_hw])
+    xi = float(options.scatt_bias)
+    return TablePolyMultiEventSpec(
+        W=int(W), npanels=int(npanels), want_labs=bool(want_labs),
+        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
+        one_m_xi=_f32(1.0 - xi), inv_W=_f32(1.0 / W),
+        inv_minred=_f32(1.0 / options.min_weight_reduction),
+        oc=np.ascontiguousarray(oc), grid=grid, locate=_make_locate(grid),
+        H=ds.ncomp)
+
+
+def component_rows(grid, ds, pos, direction, midp):
+    """K7's staged panels: the raw rho_h of every component at the panel
+    midpoints (N, P) of rays pos, direction (N, 3), as (H * P, N) rows,
+    h-major, zero outside the grid; one locate and H gathers."""
+    cells = grid.locate_batched(pos[:, None, :]
+                                + midp[..., None] * direction[:, None])
+    safe = torch.clamp(cells, min=0)
+    return torch.cat([torch.where(cells >= 0, ds.rho_at(h, safe), 0.0)
+                      for h in range(ds.ncomp)], dim=1).T.contiguous()
+
+
+def _invert(cums_t, P, target):
+    """Panel of the driver's cumulative optical depths where target lands
+    and the fraction into it (the Pallas body's invert)."""
+    i_hit = (cums_t[:P - 1] < target[None]).sum(0).to(torch.int32)
+    h64 = i_hit.long()
+    cum_hi = cums_t.gather(0, h64[None])[0]
+    cum_prev = torch.where(
+        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0],
+        0.0)
+    dtau = cum_hi - cum_prev
+    frac = torch.clamp(torch.where(dtau > 0, (target - cum_prev)
+                                   / torch.clamp(dtau, min=_TINY), 0.0),
+                       0.0, 1.0)
+    return i_hit, frac
+
+
+def table_poly_multi_event_plain(spec: TablePolyMultiEventSpec, u, r, oc, L,
+                                 L0, state):
+    """One polychromatic multi-component table event for every lane, plain
+    PyTorch.
+
+    Mirrors the Pallas body (skirt_tpu/engine/fused_table_poly.py:423-657)
+    operation for operation.  r: (H * P, N) raw rho panels, h-major.
+    Returns a dict: "state" (px, py, pz, dx, dy, dz, alive, ns), "Ln",
+    "Lp" and "depi"/"depv" with labs."""
+    W, P, H = spec.W, spec.npanels, spec.H
+    X, Y, Z, DX, DY, DZ = state[:6]
+    alive = state[6] != 0
+    nscatt = state[7]
+    t0, delta = state[8], state[9]
+    xi = spec.xi
+    out = {}
+    kext_h = [oc[h][:, None] for h in range(H)]                 # (W, 1)
+    ksca_h = [oc[H + h][:, None] for h in range(H)]
+    g_h = [oc[2 * H + h][:, None] for h in range(H)]
+    Lm = torch.where(alive[None], L, 0.0)
+
+    # -- driver wavelength and its per-component kappas (exact reads) -----
+    c = torch.clamp((u[5] * float(W)).to(torch.int32), max=W - 1).long()
+    kextc_h = [oc[h][c] for h in range(H)]
+    kscac_h = [oc[H + h][c] for h in range(H)]
+
+    # -- pass A: driver cumulative optical depth, per-component integrals -
+    cumc = torch.zeros_like(delta)
+    cums_c = []
+    I_h = [torch.zeros_like(delta) for _ in range(H)]
+    for kk in range(P):
+        dk = 0.0
+        for h in range(H):
+            rho_hk = r[h * P + kk]
+            dk = dk + kextc_h[h] * rho_hk
+            I_h[h] = I_h[h] + rho_hk * delta
+        cumc = cumc + dk * delta
+        cums_c.append(cumc)
+    tau_c = cumc
+    cums_t = torch.stack(cums_c)
+    tau = kext_h[0] * I_h[0][None]
+    for h in range(1, H):
+        tau = tau + kext_h[h] * I_h[h][None]
+    ome = 1.0 - torch.exp(-tau)
+
+    # -- interaction and deposit samples in driver-tau space --------------
+    tau_exp = _expon_cutoff(u[1], tau_c)
+    if xi == 0.0:
+        tau_smp = tau_exp
+    else:
+        tau_smp = torch.where(u[0] < xi, u[1] * tau_c, tau_exp)
+    tau_dep = _expon_cutoff(u[2], tau_c)
+    ks_i, ks_f = _invert(cums_t, P, tau_smp)
+    kd_i, kd_f = _invert(cums_t, P, tau_dep)
+    s = t0 + (ks_i.to(torch.float32) + ks_f) * delta
+    s_dep = t0 + (kd_i.to(torch.float32) + kd_f) * delta
+
+    # -- pass B: per-wavelength prefixes and point kappas -----------------
+    zW = torch.zeros_like(Lm)
+    cum_w_s, cum_w_d = zW, zW
+    kmix_s, kscam_s, kmix_d, kscam_d = zW, zW, zW, zW
+    rho_s_h = [torch.zeros_like(delta) for _ in range(H)]
+    for kk in range(P):
+        rho_k = [r[h * P + kk] for h in range(H)]
+        dtau_wk = kext_h[0] * rho_k[0][None]
+        ksca_wk = ksca_h[0] * rho_k[0][None]
+        for h in range(1, H):
+            dtau_wk = dtau_wk + kext_h[h] * rho_k[h][None]
+            ksca_wk = ksca_wk + ksca_h[h] * rho_k[h][None]
+        m_s = torch.where(ks_i > kk, 1.0,
+                          torch.where(ks_i == kk, ks_f, 0.0)) * delta
+        m_d = torch.where(kd_i > kk, 1.0,
+                          torch.where(kd_i == kk, kd_f, 0.0)) * delta
+        cum_w_s = cum_w_s + dtau_wk * m_s[None]
+        cum_w_d = cum_w_d + dtau_wk * m_d[None]
+        sel_s = (ks_i == kk)[None]
+        sel_d = (kd_i == kk)[None]
+        kmix_s = torch.where(sel_s, dtau_wk, kmix_s)
+        kscam_s = torch.where(sel_s, ksca_wk, kscam_s)
+        kmix_d = torch.where(sel_d, dtau_wk, kmix_d)
+        kscam_d = torch.where(sel_d, ksca_wk, kscam_d)
+        for h in range(H):
+            rho_s_h[h] = torch.where(sel_s[0], rho_k[h], rho_s_h[h])
+
+    # -- deposit: per-wavelength absorbed estimate at s_dep ---------------
+    if spec.want_labs:
+        e_d = torch.exp(-cum_w_d)
+        qd = _wsum(kmix_d * e_d / torch.clamp(ome, min=_TINY)) * spec.inv_W
+        D = Lm * (kmix_d - kscam_d) * e_d / torch.clamp(qd[None], min=_TINY)
+        D = torch.where(((tau_c > _TINY) & alive)[None], D, 0.0)
+        Dsum = _wsum(D)
+        target = u[6] * Dsum
+        if W > 1:
+            wsel = (_cumsum_w(D)[:W - 1] <= target[None]).sum(0) \
+                .to(torch.int32)
+        else:
+            wsel = torch.zeros_like(nscatt)
+        cell = spec.locate(X + s_dep * DX, Y + s_dep * DY, Z + s_dep * DZ)
+        okd = (Dsum > 0) & alive & (cell >= 0)
+        out["depi"] = torch.where(okd, cell * W + wsel, -1)
+        out["depv"] = torch.where(okd, Dsum, 0.0)
+
+    # -- per-wavelength mixture ratios at s -------------------------------
+    e_s = torch.exp(-cum_w_s)
+    F = kmix_s * e_s / torch.clamp(ome, min=_TINY)
+    if xi == 0.0:
+        Q = F
+    else:
+        Q = spec.one_m_xi * F + xi * kmix_s / torch.clamp(tau, min=_TINY)
+    Qmix = _wsum(Q) * spec.inv_W
+
+    # -- scatter: the component drawn at the driver wavelength ------------
+    wv_h = [kscac_h[h] * rho_s_h[h] for h in range(H)]
+    total_wv = wv_h[0]
+    for h in range(1, H):
+        total_wv = total_wv + wv_h[h]
+    u_comp = u[7] * torch.clamp(total_wv, min=_TINY)
+    g_sel = oc[2 * H][c]
+    acc = wv_h[0]
+    for h in range(1, H):
+        g_sel = torch.where(u_comp > acc, oc[2 * H + h][c], g_sel)
+        acc = acc + wv_h[h]
+    costheta = _hg_costheta(g_sel, u[3])
+
+    # the blended phase numerators per wavelength at the sampled cosine
+    num = ksca_h[0] * rho_s_h[0][None] * _hg(g_h[0], costheta[None])
+    for h in range(1, H):
+        num = num + ksca_h[h] * rho_s_h[h][None] * _hg(g_h[h], costheta[None])
+    p_w = num / torch.clamp(kscam_s, min=_TINY)
+    QHmix = _wsum(Q * p_w) * spec.inv_W
+
+    Lp = Lm * kscam_s * e_s / torch.clamp(Qmix[None], min=_TINY)
+    Ln = Lm * num * e_s / torch.clamp(QHmix[None], min=_TINY)
+    past_min = nscatt >= spec.min_scatt
+    kill = (Ln <= L0 * spec.inv_minred) & past_min[None]
+    Lp = torch.where(kill, 0.0, Lp)
+    Ln = torch.where(kill, 0.0, Ln)
+    alive = alive & (Ln > 0).any(0) & (tau_c > _TINY)
+
+    X = torch.where(alive, X + s * DX, X)
+    Y = torch.where(alive, Y + s * DY, Y)
+    Z = torch.where(alive, Z + s * DZ, Z)
+    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
+    DX = torch.where(alive, nx, DX)
+    DY = torch.where(alive, ny, DY)
+    DZ = torch.where(alive, nz, DZ)
+    nscatt = torch.where(alive, nscatt + 1, nscatt)
+    out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
+    out["Ln"] = torch.where(alive[None], Ln, 0.0)
+    out["Lp"] = torch.where(alive[None], Lp, 0.0)
+    return out
+
+
+def _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state):
+    N = state[0].shape[0]
+    W, P, H = spec.W, spec.npanels, spec.H
+    if W > kernels.TablePolyMultiArgs.MAX_W:
+        raise ValueError("table_poly_multi_event kernel: W <= 128")
+    if P > _CUDA_MAXP:
+        raise ValueError(f"table_poly_multi_event kernel: quadrature_panels "
+                         f"<= {_CUDA_MAXP} (the lane's panels live in "
+                         "registers)")
+    if not 2 <= H <= _CUDA_MAX_H:
+        raise ValueError(f"table_poly_multi_event kernel: 2 <= dust "
+                         f"components <= {_CUDA_MAX_H}")
+    if len(state) != 10:
+        raise ValueError("table_poly_multi_event: expected 10 state arrays")
+    dts = [torch.float32] * 6 + [torch.int32] * 2 + [torch.float32] * 2
+    _check_tensors("table_poly_multi_event",
+                   [(u, (spec.n_uniform, N), torch.float32),
+                    (r, (H * P, N), torch.float32),
+                    (oc, (3 * H, W), torch.float32),
+                    (L, (W, N), torch.float32), (L0, (W, N), torch.float32)]
+                   + [(s, (N,), dt) for s, dt in zip(state, dts)])
+    dev = u.device
+    a = kernels.TablePolyMultiArgs()
+    a.N = N
+    a.W = W
+    a.H = H
+    a.npanels = P
+    a.min_scatt = spec.min_scatt
+    a.sum_block = _sum_block(W)
+    a.xi = spec.xi
+    a.one_m_xi = spec.one_m_xi
+    a.inv_W = spec.inv_W
+    a.inv_minred = spec.inv_minred
+    _locate_args(a.geo, spec.grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32) for _ in range(6)] \
+        + [torch.empty(N, **i32) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32)
+    Lp = torch.empty((W, N), **f32)
+    out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp}
+    depi = depv = None
+    if spec.want_labs:
+        depi = out["depi"] = torch.empty(N, **i32)
+        depv = out["depv"] = torch.empty(N, **f32)
+    for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
+                        "dy", "dz", "alive", "ns", "t0", "dt"),
+                       [u, r, oc, L, L0, *state]):
+        setattr(a, name, _ptr(t))
+    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
+                        "ons", "oLn", "oLp", "odepi", "odepv"),
+                       [*st_out, Ln, Lp, depi, depv]):
+        setattr(a, name, _ptr(t))
+    lib = kernels.library()
+    kernels.check(lib.skirt_table_poly_multi_event(ctypes.byref(a),
+                                                   int(spec.want_labs),
+                                                   kernels.stream_of(u)),
+                  "table_poly_multi_event kernel")
+    table_poly_multi_event.launches += 1
+    return out
+
+
+def table_poly_multi_event(spec: TablePolyMultiEventSpec, u, r, oc, L, L0,
+                           state):
+    """The K7 event on CPU tensors (plain version) or CUDA tensors (the
+    kernel, counted in `table_poly_multi_event.launches`)."""
+    if u.device.type == "cpu":
+        return table_poly_multi_event_plain(spec, u, r, oc, L, L0, state)
+    if u.device.type != "cuda":
+        raise ValueError(f"table_poly_multi_event: unsupported device "
+                         f"{u.device}")
+    return _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state)
+
+
+table_poly_multi_event.launches = 0
+
+
 def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                     instruments, options, nlambda: int,
                                     launch_fn=None,
@@ -358,7 +663,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                     is_dust_emission=False, mueller=None,
                                     io_state: bool = False,
                                     max_iterations: int | None = None):
-    """Build run_batch(key, ell, L0, tallies) for polychromatic table lanes.
+    """Build run_batch(key, ell, L0, tallies) for polychromatic table lanes
+    (kernel K6 with one dust component, K7 with several).
 
     `L0` must be (N, nlambda) per-lane launch luminosities on the run's
     device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
@@ -378,11 +684,20 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     leaders, lead_of = _group_leaders(instruments)
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
-    spec = _build_kernel(grid, ds, options, W, npanels, want_labs)
-    # one wavelength-independent peel integral per leader serves all W
-    peel_I_fn = _staged_taus_fn(grid, ds, leaders,
-                                getattr(options, "table_peel", "exact"),
-                                np_peel)
+    H = ds.ncomp
+    multi = H > 1
+    spec = (_build_kernel_multi if multi else _build_kernel)(
+        grid, ds, options, W, npanels, want_labs)
+    # one wavelength-independent peel integral per leader (per component
+    # with several) serves all W.  With several components the peel is the
+    # exact one whatever table_peel says: skirt_tpu's multi branch sets
+    # peel_mode = "exact" before it builds its peel
+    # (skirt_tpu/engine/fused_table_poly.py:726-740), and the uniform grid
+    # it needs is checked in _validate
+    peel_I_fn = _staged_taus_fn(
+        grid, ds, leaders,
+        "exact" if multi else getattr(options, "table_peel", "exact"),
+        np_peel)
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
     count_events = bool(getattr(options, "count_events", False))
@@ -409,11 +724,43 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         labs = tallies.get("labs")
 
         def peel_I(pos_p):
+            """Per leader the raw rho integral (N,), or with several
+            components the (H, N) integrals of each."""
+            if multi:
+                return peel_I_fn.integrals(pos_p)
             return peel_I_fn(pos_p, [ones])
+
+        def peel_tau_w(Ii):
+            """Per-wavelength peel optical depths (W, N): kext_w * I, or
+            kext_hw^T @ I_h with several components."""
+            if multi:
+                return torch.matmul(oc[:H].T, Ii)
+            return kext_col * Ii[None]
+
+        def stage(pos, direction, midp):
+            """The raw rho panel rows: (P, N), or with several components
+            (H * P, N) h-major."""
+            if not multi:
+                return ds.analytic_rows(pos, direction, midp, None, [ones],
+                                        want_sca=False).T.contiguous()
+            return component_rows(grid, ds, pos, direction, midp)
+
+        def phase_weights(cosj, rho_n_h):
+            """Per-wavelength peel phase weights (W, N) at the incoming
+            direction: the mix's HG, or with several components their
+            blend by kappa_sca,hw * rho_h at the new position's cell."""
+            if not multi:
+                return _hg(g_col, cosj[None])
+            num = den = 0.0
+            for h in range(H):
+                kr = oc[H + h][:, None] * rho_n_h[h][None]
+                num = num + kr * _hg(oc[2 * H + h][:, None], cosj[None])
+                den = den + kr
+            return num / torch.clamp(den, min=1e-30)
 
         def detect_all(pos_p, contrib, Ipeel):
             for i, ins_obj in enumerate(instruments):
-                ext = contrib * torch.exp(-kext_col * Ipeel[lead_of[i]][None])
+                ext = contrib * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
                 ins_obj.detect_poly(ins[i], pos_p, wls, ext)
 
         if emission_peeloff:
@@ -438,14 +785,14 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             # -- stage the rho panel rows (the gather) --------------------
             dsg, _, midp = vt.panel_paths(grid, pos, direction, npanels)
             t0 = midp[:, 0] - 0.5 * dsg[:, 0]
-            r = ds.analytic_rows(pos, direction, midp, None, [ones],
-                                 want_sca=False).T.contiguous()
+            r = stage(pos, direction, midp)
             state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
                      pos[:, 2].contiguous(), direction[:, 0].contiguous(),
                      direction[:, 1].contiguous(),
                      direction[:, 2].contiguous(), alive, ns,
                      t0.contiguous(), dsg[:, 0].contiguous()]
-            out = table_poly_event(spec, u, r, oc, L, l0, state)
+            event = table_poly_multi_event if multi else table_poly_event
+            out = event(spec, u, r, oc, L, l0, state)
             if want_labs and labs is not None:
                 binned_add(labs, out["depi"], out["depv"])
             if count_events:
@@ -477,15 +824,23 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             alive_b = alive != 0
             if scattering_peeloff:
                 Ipeel = peel_I(pos)
+                rho_n_h = None
+                if multi:
+                    # per-component densities at the new position's cell
+                    # (one locate and H gathers, shared by every leader)
+                    cell_n = grid.locate_batched(pos[:, None, :])[:, 0]
+                    safe_n = torch.clamp(cell_n, min=0)
+                    rho_n_h = [torch.where(cell_n >= 0, ds.rho_at(h, safe_n),
+                                           0.0) for h in range(H)]
                 for i, ins_obj in enumerate(instruments):
                     kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
                     cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
                             + dir_old[:, 2] * kz)
-                    cw = Lp * _hg(g_col, cosj[None])
+                    cw = Lp * phase_weights(cosj, rho_n_h)
                     if refill:
                         cw = torch.where(fresh[None], Ln, cw)
                     cw = torch.where(alive_b[None], cw, 0.0)
-                    ext = cw * torch.exp(-kext_col * Ipeel[lead_of[i]][None])
+                    ext = cw * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
                     ins_obj.detect_poly(ins[i], pos, wls, ext)
             elif refill and emission_peeloff:
                 detect_all(pos, torch.where(fresh[None], Ln, 0.0),

@@ -15,6 +15,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import rng
+from .fused import _hg_costheta
 
 
 @dataclass(frozen=True)
@@ -42,6 +43,10 @@ class LifecycleOptions:
     voxelize: bool | None = None
     path_record: bool | None = None
     count_events: bool = False
+
+
+# skirt_tpu's lifecycle.hg_costheta is the event kernels' formula
+hg_costheta = _hg_costheta
 
 
 def make_multibatch(run_batch, nbatches: int, key_fn=None):

@@ -2,4 +2,4 @@
 
 from .axial import ExpDiskGeometry, TorusGeometry  # noqa: F401
 from .base import AxGeometry, Geometry  # noqa: F401
-from .general import PointGeometry  # noqa: F401
+from .general import PointGeometry, UniformSphereGeometry  # noqa: F401

@@ -184,6 +184,49 @@ class TablePolyArgs(ctypes.Structure):
         + [("geo", Geom)])
 
 
+class TableMultiArgs(ctypes.Structure):
+    """Mirror of `struct TableMultiArgs` in csrc/fused_table_multi.cu (same
+    order); only the Geom's arithmetic-locate fields are read."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "u", "kr", "ks", "px", "py", "pz", "dx", "dy", "dz", "L",
+            "alive", "ns", "ell", "L0", "t0", "dt",
+            "opx", "opy", "opz", "oL", "oalive", "ocell", "odepi", "odepv")]
+        + [(name, ctypes.c_int) for name in (
+            "N", "nlambda", "npanels", "min_scatt")]
+        + [(name, ctypes.c_float) for name in (
+            "xi", "one_m_xi", "inv_minred")]
+        + [("geo", Geom)])
+
+
+class TablePolyMultiArgs(ctypes.Structure):
+    """Mirror of `struct TablePolyMultiArgs` in
+    csrc/fused_table_poly_multi.cu (same order); only the Geom's
+    arithmetic-locate fields are read."""
+    MAX_W = 128
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "u", "r", "oc", "L", "L0", "px", "py", "pz", "dx", "dy", "dz",
+            "alive", "ns", "t0", "dt",
+            "opx", "opy", "opz", "odx", "ody", "odz", "oalive", "ons",
+            "oLn", "oLp", "odepi", "odepv")]
+        + [(name, ctypes.c_int) for name in (
+            "N", "W", "H", "npanels", "min_scatt", "sum_block")]
+        + [(name, ctypes.c_float) for name in (
+            "xi", "one_m_xi", "inv_W", "inv_minred")]
+        + [("geo", Geom)])
+
+
+# (entry-point stem, argument struct, source) of the event kernels that take
+# one struct: skirt_<stem>_event(args, labs, stream) and
+# skirt_<stem>_args_size()
+_TABLE_EVENTS = (("table", TableArgs, "fused_table.cu"),
+                 ("table_multi", TableMultiArgs, "fused_table_multi.cu"),
+                 ("table_poly", TablePolyArgs, "fused_table_poly.cu"),
+                 ("table_poly_multi", TablePolyMultiArgs,
+                  "fused_table_poly_multi.cu"))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -203,17 +246,14 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(MonoArgs), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.skirt_mono_event.restype = ctypes.c_int
-        for name, struct in (("table", TableArgs),
-                             ("table_poly", TablePolyArgs)):
+        for name, struct, _ in _TABLE_EVENTS:
             fn = getattr(lib, f"skirt_{name}_event")
             fn.argtypes = [ctypes.POINTER(struct), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name, struct, src in (("poly", PolyArgs, "fused_poly.cu"),
                                   ("mono", MonoArgs, "fused_mono.cu"),
-                                  ("table", TableArgs, "fused_table.cu"),
-                                  ("table_poly", TablePolyArgs,
-                                   "fused_table_poly.cu")):
+                                  *_TABLE_EVENTS):
             size = getattr(lib, f"skirt_{name}_args_size")
             size.argtypes = []
             size.restype = ctypes.c_int

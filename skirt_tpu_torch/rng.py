@@ -83,6 +83,35 @@ def isotropic_direction(key: int, shape, device, dtype=torch.float32):
                         costheta], dim=-1)
 
 
+def direction_about_axis(key: int, axis, costheta):
+    """Unit vectors at polar angle acos(costheta) about the given unit axes
+    (..., 3), at a random azimuth; (..., 3).
+
+    ref: SKIRTcore/Random.cpp Random::direction(bfk, costheta).  The frame
+    (u, v, axis) is the branchless Frisvad construction, stable for
+    axis_z ~ +-1, as in skirt_tpu.
+    """
+    phi = uniform(key, costheta.shape, axis.device, axis.dtype) \
+        * (2.0 * math.pi)
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=0.0))
+    cosphi, sinphi = torch.cos(phi), torch.sin(phi)
+    kx, ky, kz = axis[..., 0], axis[..., 1], axis[..., 2]
+    sign = torch.where(kz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + kz)
+    b = kx * ky * a
+    ux = 1.0 + sign * kx * kx * a
+    uy = sign * b
+    uz = -sign * kx
+    vx = b
+    vy = sign + ky * ky * a
+    vz = -ky
+    nx = sintheta * (cosphi * ux + sinphi * vx) + costheta * kx
+    ny = sintheta * (cosphi * uy + sinphi * vy) + costheta * ky
+    nz = sintheta * (cosphi * uz + sinphi * vz) + costheta * kz
+    out = torch.stack([nx, ny, nz], dim=-1)
+    return out / torch.linalg.norm(out, dim=-1, keepdim=True)
+
+
 def expon_cutoff(u, taumax):
     """Sample optical depth from an exponential truncated at taumax.
 

@@ -1,4 +1,4 @@
-"""Parity helpers for the event kernels K1, K3, K4 and K6: inputs and the
+"""Parity helpers for the event kernels K1 and K3-K7: inputs and the
 lane-wise criterion.
 
 Shared by tests/test_torch_fused_poly.py, tests/test_torch_fused.py and
@@ -7,8 +7,9 @@ on the CPU), tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels
 against the plain events on the card).
 
 The criterion.  An event's discrete outputs are its integer outputs
-(alive, nscatt, the deposit bin, bcount, fresh) and, for K1, the set of
-wavelengths that survive the weight cut (Ln > 0).  Each is decided by
+(alive, nscatt, the deposit bin, bcount, fresh, K5's interaction cell)
+and, for the polychromatic events, the set of wavelengths that survive
+the weight cut (Ln > 0).  Each is decided by
 comparing float32 values (panel picks against cumulative optical depths,
 the wavelength pick against a running sum, the cut against
 L0 / min_weight_reduction), and two implementations that round
@@ -108,13 +109,13 @@ def mono_event_case(spec, N, seed, device):
 
 def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
                        small_tau=0.0, outside=0.0, device="cpu"):
-    """numpy-made inputs of one table event (K4 or K6) for N lanes on a
+    """numpy-made inputs of one table event (K4-K7) for N lanes on a
     table-mode dust system `ds` (a uniform Cartesian grid), as tensors on
     `device`: a dict with u (n_uniform, N), the lanes' pos / dir (N, 3),
     alive and ns (int32), t0 and dt of the P equal panels, ell (one of W
-    wavelengths per lane, for K4), L and L0 (W, N), and rows: the (P, N)
+    wavelengths per lane, for K4 and K5), L and L0 (W, N), and rows: the
     staged panel densities (raw rho, kg/m^3) the torch driver would
-    gather.
+    gather, (P, N) for one dust component and (H * P, N), h-major, for H.
 
     Packets: 70% in the torus-like shell |z| < 0.64 r, 0.05-2 kpc from
     the centre, the rest uniform over the box; isotropic directions with
@@ -127,6 +128,7 @@ def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
     import torch
 
     from .engine import vector_traversal as vt
+    from .engine.fused_table_poly import component_rows
 
     rs = np.random.default_rng(seed)
     box = np.asarray(ds.grid.bounding_box(), np.float64)
@@ -146,9 +148,12 @@ def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
     pos_t = torch.from_numpy(pos.astype(np.float32))
     dir_t = torch.from_numpy(d.astype(np.float32))
     dsg, _, mid = vt.panel_paths(ds.grid, pos_t, dir_t, npanels)
-    ones = [torch.ones(N, dtype=torch.float32)]
-    rows = ds.analytic_rows(pos_t, dir_t, mid, None, ones,
-                            want_sca=False).T.contiguous().numpy()
+    if ds.ncomp == 1:
+        ones = [torch.ones(N, dtype=torch.float32)]
+        rows = ds.analytic_rows(pos_t, dir_t, mid, None, ones,
+                                want_sca=False).T.contiguous().numpy()
+    else:
+        rows = component_rows(ds.grid, ds, pos_t, dir_t, mid).numpy()
     t0 = (mid[:, 0] - 0.5 * dsg[:, 0]).numpy()
     dt = dsg[:, 0].numpy()
     fam = rs.random(N)
@@ -193,6 +198,30 @@ def table_state(inp, ds):
     return kr, [s.contiguous() for s in state]
 
 
+def table_multi_state(inp, ds):
+    """K5's 13 state arrays from table_event_inputs on a multi-component
+    system: px..dz, L, alive, ns, ell, L0, t0, dt; and its staged panel
+    sums kr = sum_h kappa_ext,h(ell) rho_h and ks = sum_h
+    kappa_sca,h(ell) rho_h, (P, N) each."""
+    import torch
+
+    ell = inp["ell"]
+    ksca, kext = ds.packet_kappas(ell)
+    n = ell.shape[0]
+    cols = torch.arange(n, device=ell.device)
+    L = inp["L"][ell.long(), cols]
+    L0 = inp["L0"][ell.long(), cols]
+    state = [inp["pos"][:, 0], inp["pos"][:, 1], inp["pos"][:, 2],
+             inp["dir"][:, 0], inp["dir"][:, 1], inp["dir"][:, 2], L,
+             inp["alive"], inp["ns"], ell, L0, inp["t0"], inp["dt"]]
+    rows = inp["rows"].reshape(ds.ncomp, -1, n)
+    kr = ks = 0.0
+    for h in range(ds.ncomp):
+        kr = kr + kext[h][None] * rows[h]
+        ks = ks + ksca[h][None] * rows[h]
+    return kr.contiguous(), ks.contiguous(), [s.contiguous() for s in state]
+
+
 def table_poly_state(inp):
     """K6's 10 state arrays from table_event_inputs: px..dz, alive, ns, t0,
     dt."""
@@ -202,21 +231,31 @@ def table_poly_state(inp):
         inp["alive"], inp["ns"], inp["t0"], inp["dt"])]
 
 
-def table_restage(grid, ds, pos, d, npanels, kext_pk):
-    """The (P, N) staged panel rows, t0 and dt of lanes at pos, d (N, 3),
-    as the table drivers stage them before each event (panel_paths and
-    the table analytic_rows with the per-component opacities kext_pk)."""
+def table_restage(grid, ds, pos, d, npanels, kext_pk, ksca_pk=None):
+    """The staged panel rows, t0 and dt of lanes at pos, d (N, 3), as the
+    table drivers stage them before each event (panel_paths and the table
+    analytic_rows with the per-component opacities kext_pk): (kr, t0, dt),
+    with ksca_pk (kr, ks, t0, dt) as K5 takes them, with kext_pk None the
+    raw (H * P, N) component rows of K7."""
     from .engine import vector_traversal as vt
+    from .engine.fused_table_poly import component_rows
 
     dsg, _, mid = vt.panel_paths(grid, pos, d, npanels)
-    rows = ds.analytic_rows(pos, d, mid, None, kext_pk, want_sca=False)
-    return (rows.T.contiguous(), (mid[:, 0] - 0.5 * dsg[:, 0]).contiguous(),
+    if kext_pk is None:
+        rows = (component_rows(grid, ds, pos, d, mid),)
+    elif ksca_pk is None:
+        rows = (ds.analytic_rows(pos, d, mid, None, kext_pk,
+                                 want_sca=False).T.contiguous(),)
+    else:
+        ks, kr = ds.analytic_rows(pos, d, mid, ksca_pk, kext_pk)
+        rows = (kr.T.contiguous(), ks.T.contiguous())
+    return (*rows, (mid[:, 0] - 0.5 * dsg[:, 0]).contiguous(),
             dsg[:, 0].contiguous())
 
 
 def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
-    """Lane-wise agreement of two event results with the poly_event or
-    mono_event contract (dicts of tensors on one device).
+    """Lane-wise agreement of two event results with one of the event
+    contracts (dicts of tensors on one device).
 
     Returns a dict: "discrete", the fraction of lanes whose discrete
     outputs all agree; "float_bad", the number of those lanes on which
@@ -226,9 +265,9 @@ def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
     largest magnitude; "lanes", the lane count."""
     N = want["state"][0].shape[0]
     pairs = list(zip(got["state"], want["state"]))
-    pairs += [(got[k], want[k]) for k in ("depi", "bc", "fresh", "depv",
-                                          "Ln", "Lp", "Ip", "tau", "cos",
-                                          "phase") if k in want]
+    pairs += [(got[k], want[k]) for k in ("depi", "cell", "bc", "fresh",
+                                          "depv", "Ln", "Lp", "Ip", "tau",
+                                          "cos", "phase") if k in want]
     disc = [(a, b) for a, b in pairs if not b.is_floating_point()]
     if "Ln" in want:
         disc.append((got["Ln"] > 0, want["Ln"] > 0))

@@ -61,10 +61,13 @@ def test_poly_args_mirror_the_c_struct():
     ("common.cuh", "Geom", kernels.Geom),
     ("fused_mono.cu", "MonoArgs", kernels.MonoArgs),
     ("fused_table.cu", "TableArgs", kernels.TableArgs),
-    ("fused_table_poly.cu", "TablePolyArgs", kernels.TablePolyArgs)])
+    ("fused_table_multi.cu", "TableMultiArgs", kernels.TableMultiArgs),
+    ("fused_table_poly.cu", "TablePolyArgs", kernels.TablePolyArgs),
+    ("fused_table_poly_multi.cu", "TablePolyMultiArgs",
+     kernels.TablePolyMultiArgs)])
 def test_structs_mirror_the_c_structs(source, struct, mirror):
-    """kernels.Geom, MonoArgs, TableArgs and TablePolyArgs list the fields
-    of their C structs in the same order."""
+    """kernels.Geom, MonoArgs and the table events' argument structs list
+    the fields of their C structs in the same order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
 
 
@@ -113,6 +116,15 @@ def _table_model(lanes=64, **kw):
     return _octree_build(lanes, **args)
 
 
+def _multi_model(lanes=64, **kw):
+    """The two-component table model (bench_torch._multi_model, 16^3
+    voxels)."""
+    from bench_torch import _octree_build
+    args = dict(polychromatic=False, refill_batches=2)
+    args.update(kw)
+    return _octree_build(lanes, multi=True, **args)
+
+
 def test_table_locate_args_pack_the_grid():
     """The K4 / K6 deposit locate reads the voxel grid's float32 lower
     corner and inverse spacing, as the plain locate does."""
@@ -142,16 +154,19 @@ def test_cpu_run_launches_no_kernel():
     def counts():
         return (binned.binned_add.launches, tfp.poly_event.launches,
                 tfm.mono_event.launches, tft.table_event.launches,
-                tftp.table_poly_event.launches)
+                tft.table_multi_event.launches,
+                tftp.table_poly_event.launches,
+                tftp.table_poly_multi_event.launches)
 
     before = counts()
     for poly in (True, False):
         run, zero, ell, L0 = _model(packets=128, polychromatic=poly)
         t = run(7, ell, L0, zero())
         assert float(t["labs"].sum()) > 0
-        run, zero, ell, L0, *_ = _table_model(polychromatic=poly)
-        t = run(7, ell, L0, zero())
-        assert float(t["labs"].sum()) > 0
+        for build in (_table_model, _multi_model):
+            run, zero, ell, L0, *_ = build(polychromatic=poly)
+            t = run(7, ell, L0, zero())
+            assert float(t["labs"].sum()) > 0
     assert counts() == before
 
 
@@ -316,4 +331,101 @@ def test_table_poly_event_kernel_matches_plain(W):
 
     _chain_table_events(tftp.table_poly_event, tftp.table_poly_event_plain,
                         spec, inp["u"], inp["rows"], table_poly_state(inp),
+                        lambda: (oc, lum["L"], inp["L0"]), restage)
+
+
+@pytest.mark.gpu
+def test_table_multi_event_kernel_matches_plain():
+    """K5 against its plain version on identical inputs (dead lanes, lanes
+    with optical depths below 1e-3, a weight cut that fires, deposits
+    outside the grid), chained over a few events with both panel sums
+    re-staged between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_multi_state, table_restage)
+
+    run, *_, model = _multi_model(device="cuda")
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    P = spec.npanels
+    inp = table_event_inputs(ds, 4096, 3, 2, seed=5, npanels=P,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    kr, ks, state = table_multi_state(inp, ds)
+    ksca_pk, kext_pk = ds.packet_kappas(state[9])
+
+    def restage(got, state):
+        st = got["state"]
+        # the torch-side scatter leaves the direction; keep it
+        kr, ks, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                       torch.stack(state[3:6], -1), P,
+                                       kext_pk, ksca_pk)
+        return (kr, ks), list(st[:3]) + state[3:6] + [
+            st[3], st[4], state[8] + st[4], state[9], state[10], t0, dt]
+
+    def kernel(spec, u, rows, state):
+        return tft.table_multi_event(spec, u, *rows, state)
+
+    def plain(spec, u, rows, state):
+        return tft.table_multi_event_plain(spec, u, *rows, state)
+
+    _chain_table_events(_Counted(kernel, tft.table_multi_event), plain, spec,
+                        inp["u"], (kr, ks), state, lambda: (), restage)
+
+
+class _Counted:
+    """A kernel call with the launch count of the wrapper it calls."""
+
+    def __init__(self, fn, wrapper):
+        self.fn, self.wrapper = fn, wrapper
+
+    def __call__(self, *a):
+        return self.fn(*a)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 24])
+def test_table_poly_multi_event_kernel_matches_plain(W):
+    """K7 against its plain version on identical inputs, chained over a
+    few events, the lanes' luminosities carried from event to event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    run, *_, model = _multi_model(device="cuda", polychromatic=True)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    if W != spec.W:
+        # the kernel at a wider W: the two mixes' constants repeated
+        spec = dataclasses.replace(
+            spec, W=W, inv_W=float(np.float32(1.0 / W)),
+            oc=np.ascontiguousarray(np.repeat(spec.oc, W // spec.W, 1)))
+    P = spec.npanels
+    n = 4096
+    inp = table_event_inputs(ds, n, 8, W, seed=W + 1, npanels=P,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    lum = {"L": inp["L"]}
+
+    def restage(got, state):
+        st = got["state"]
+        lum["L"] = got["Ln"]
+        r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                  torch.stack(st[3:6], -1), P, None)
+        return r, list(st) + [t0, dt]
+
+    _chain_table_events(tftp.table_poly_multi_event,
+                        tftp.table_poly_multi_event_plain, spec, inp["u"],
+                        inp["rows"], table_poly_state(inp),
                         lambda: (oc, lum["L"], inp["L0"]), restage)

@@ -4,8 +4,9 @@ Checked in a fresh subprocess: in this test process tests/conftest.py has
 already imported jax, so an in-process check would prove nothing.  The
 subprocess imports every module of skirt_tpu_torch (the CUDA wrapper
 modules included) and chip_smoke.py with no nvcc on PATH, runs a tiny
-analytic slice, a monochromatic OligoSimulation and both table engines
-(config 3's octree torus at max_level 3) on the CPU, writes the
+analytic slice, a monochromatic OligoSimulation, both table engines
+(config 3's octree torus at max_level 3) and both multi-component table
+engines (the two-component model, K5 and K7) on the CPU, writes the
 simulation's results, and reports which of jax / triton / skirt_tpu got
 imported and whether a kernel build was attempted.
 """
@@ -62,6 +63,13 @@ SCRIPT = textwrap.dedent("""
         tt = tr(rng.root_key(2), tell, tL0, tz())
         table.append([float(tt["instruments"][0]["Ftot"].sum()),
                       float(tt["labs"].sum())])
+        # the two-component model (kernels K5 and K7)
+        tr, tz, tell, tL0, _, _ = _octree_build(
+            64, device="cpu", multi=True, polychromatic=poly,
+            refill_batches=2, max_level=3)
+        tt = tr(rng.root_key(3), tell, tL0, tz())
+        table.append([float(tt["instruments"][0]["Ftot"].sum()),
+                      float(tt["labs"].sum())])
     reference = sorted(m for m in sys.modules
                        if m == "skirt_tpu" or m.startswith("skirt_tpu."))
     print(json.dumps({
@@ -73,7 +81,9 @@ SCRIPT = textwrap.dedent("""
                      fused_poly.poly_event.launches,
                      fused.mono_event.launches,
                      fused_table.table_event.launches,
-                     fused_table_poly.table_poly_event.launches],
+                     fused_table.table_multi_event.launches,
+                     fused_table_poly.table_poly_event.launches,
+                     fused_table_poly.table_poly_multi_event.launches],
         "mono": isinstance(sim._lifecycle.spec, fused.MonoEventSpec),
         "mono_sed": float(acc["instruments"][0]["Ftot"].sum()),
         "mono_labs": float(acc["labs"].sum()),
@@ -98,13 +108,14 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     assert res["triton"] is False
     # a run, its writers and chip_smoke.py import nothing of the JAX package
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0] * 5
+    assert res["built"] is False and res["launches"] == [0] * 7
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
                 "engine.fused_table", "engine.fused_table_poly",
                 "grids.octree", "devices", "units", "fits", "kernels"):
         assert f"skirt_tpu_torch.{mod}" in res["modules"]
     assert res["sed"] > 0 and res["labs"] > 0
     assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
+    assert len(res["table"]) == 4
     assert all(sed > 0 and labs > 0 for sed, labs in res["table"])
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "run_img_sed.dat", "run_img_total.fits", "run_sed_sed.dat"]

@@ -359,10 +359,14 @@ def test_unported_table_branches_raise(models):
                            dataclasses.replace(opts, **kw), 2)
     with pytest.raises(ValueError, match="slice S5"):
         make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=object())
+    # several dust components build (kernel K5); with polarization or on
+    # a non-uniform grid they raise in skirt_tpu's words
     two = type(ds).from_state(grid, ds.components * 2,
                               np.concatenate([ds.rho64, ds.rho64]), "table")
-    with pytest.raises(ValueError, match="slice S4b"):
-        make_lifecycle(grid, two, ss, ins, opts, 2)
+    assert isinstance(make_lifecycle(grid, two, ss, ins, opts, 2).spec,
+                      tft.TableMultiEventSpec)
+    with pytest.raises(ValueError, match="single-component only"):
+        make_lifecycle(grid, two, ss, ins, opts, 2, mueller=object())
     from skirt_tpu_torch.grids import CartesianGrid
     b = np.concatenate([[-2.2], np.linspace(-1, 1, 14), [2.2]]) * KPC
     uneven = CartesianGrid(b, b, b)
@@ -370,6 +374,10 @@ def test_unported_table_branches_raise(models):
                                np.zeros((1, uneven.ncells)), "table")
     with pytest.raises(ValueError, match="slice S4b"):
         make_lifecycle(uneven, ds_u, ss, ins, opts, 2)
+    two_u = type(ds).from_state(uneven, ds.components * 2,
+                                np.zeros((2, uneven.ncells)), "table")
+    with pytest.raises(ValueError, match="uniform Cartesian voxel view"):
+        make_lifecycle(uneven, two_u, ss, ins, opts, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -264,7 +264,23 @@ def test_unported_poly_table_branches_raise(model):
         make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=object())
     with pytest.raises(ValueError, match="slice S3"):
         make_lifecycle(grid, ds, ss, ins, opts, 2, launch_fn=lambda *a: 0)
+    # several dust components build (kernel K7); with polarization or on
+    # a non-uniform grid they raise in skirt_tpu's words
     two = type(ds).from_state(grid, ds.components * 2,
                               np.concatenate([ds.rho64, ds.rho64]), "table")
+    assert isinstance(make_lifecycle(grid, two, ss, ins, opts, 2).spec,
+                      tftp.TablePolyMultiEventSpec)
+    with pytest.raises(ValueError, match="single dust component"):
+        make_lifecycle(grid, two, ss, ins, opts, 2, mueller=object())
+    from skirt_tpu_torch.constants import KPC
+    from skirt_tpu_torch.grids import CartesianGrid
+    b = np.concatenate([[-2.2], np.linspace(-1, 1, 14), [2.2]]) * KPC
+    uneven = CartesianGrid(b, b, b)
+    two_u = type(ds).from_state(uneven, ds.components * 2,
+                                np.zeros((2, uneven.ncells)), "table")
+    with pytest.raises(ValueError, match="uniform Cartesian voxel view"):
+        make_lifecycle(uneven, two_u, ss, ins, opts, 2)
+    ds_u = type(ds).from_state(uneven, ds.components,
+                               np.zeros((1, uneven.ncells)), "table")
     with pytest.raises(ValueError, match="slice S4b"):
-        make_lifecycle(grid, two, ss, ins, opts, 2)
+        make_lifecycle(uneven, ds_u, ss, ins, opts, 2)
