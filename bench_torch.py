@@ -42,6 +42,27 @@ tests/test_fused_table.py's TestMultiComponentFused, BASELINE.md:288-306;
 kernels K5 and K7), timed and counted the same way, with the knobs
 OCTREE_POLY (1: W = 2 per lane, K7; 0: ell = lane % 2, K5),
 OCTREE_LOG2N (17) and OCTREE_REFILL (128).
+
+BENCH_MODEL=voronoi runs capability config 4 instead, as
+experiments/bench_voronoi.py builds it in table mode (_voronoi_model; its
+VORONOI_* knobs and defaults): VORONOI_SITES sites (4096) uniform in
++-0.98 x 2 kpc (default_rng(3)) in a +-2 kpc box, volume_samples 32, a
+point source in a 1.8 kpc uniform sphere, VORONOI_NLAM log-spaced
+wavelengths (2) with power-law optics (kappa 2600 -> 600, albedo 0.5 ->
+0.4, g 0.4 -> 0.2), one SED instrument at inclination 1.2, labs on,
+VORONOI_PANELS propagation panels (16), VORONOI_PEELP peel panels (32),
+VORONOI_PEELMODE (exact), max_scatt_events 64.  By default the
+approximate voxel view at VORONOI_RES^3 voxels at most (47: 46^3 voxels;
+0 for ~8 voxels per cell and axis) runs kernels K4 / K6; VORONOI_DIRECT=1
+runs the direct table on the exact tessellation instead (kernels K4d /
+K6d, the exact peel downgraded to the staged one).  VORONOI_POLY (1: W =
+nlambda per lane; 0: ell = lane % W), VORONOI_LOG2N lanes (16 direct, 17
+voxel view), VORONOI_REFILL (32 direct, 256 poly, 128 mono).  The host
+build (tessellation, locate tables, gridding, voxel view) is timed and
+printed on a line of its own with the locate scheme and its table bytes
+and the field error; timing and counting as BENCH_MODEL=octree.  The
+validated import-scale row is VORONOI_DIRECT=1 VORONOI_SITES=33000
+VORONOI_NLAM=8 VORONOI_PEELP=64 VORONOI_REFILL=64.
 """
 
 import json
@@ -297,15 +318,100 @@ def _multi_model(polychromatic=True, refill_batches=128, max_level=4,
     return dsys.grid, dsys, ss, ins, opts, host
 
 
-def _octree_build(lanes, device="cpu", multi=False, **model_kw):
-    """`_octree_model` (or with multi=True `_multi_model`) with its
-    lifecycle built: (run_batch, zero_tallies, ell, L0, packets per call,
-    model) for `lanes` lanes at bench_octree.py's launch luminosities."""
+def _voronoi_model(nsites=4096, nlambda=2, polychromatic=True, direct=False,
+                   refill_batches=None, quadrature_panels=16, peel_panels=32,
+                   table_peel="exact", res=47, grid=None, clumpy=False,
+                   voxelize=True, site_seed=3,
+                   volume_samples=32, azimuth=0.0, max_scatt=64):
+    """experiments/bench_voronoi.py's config-4 model in table mode on the
+    port (module docstring): (grid, table dust system, stellar system,
+    instruments, options, host).  host holds the seconds of the host build
+    ("voronoi", "locate_tables", "gridding" and, for the voxel view,
+    "voxelize"), the "locate" scheme with its table bytes and the voxel
+    view's "field_error".  direct=True keeps the exact tessellation (the
+    direct table); `grid` reuses a tessellation built earlier; clumpy=True
+    multiplies the density of a random 3% of the cells by 1e3 (tests/
+    test_voronoi.py's clumpy import); voxelize=False returns the
+    tessellation's gridded system with options.voxelize="table", for
+    OligoSimulation, which makes the choice itself.  site_seed=11,
+    volume_samples=16, azimuth=0.7, max_scatt=48 with 300 sites and
+    table_peel="staged" give tests/test_poly.py's TestPolyDirect model."""
+    import time
+
+    from skirt_tpu_torch.constants import KPC
+    from skirt_tpu_torch.engine.lifecycle import LifecycleOptions
+    from skirt_tpu_torch.geometry import PointGeometry, UniformSphereGeometry
+    from skirt_tpu_torch.grids import VoronoiGrid
+    from skirt_tpu_torch.instruments import SEDInstrument
+    from skirt_tpu_torch.media import (DustComponent, DustMassNormalization,
+                                       DustSystem, SimpleOligoDustMix)
+    from skirt_tpu_torch.sources import (LuminosityStellarComponent,
+                                         StellarSystem)
+    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
+
+    half = 2.0 * KPC
+    host = {}
+    t0 = time.perf_counter()
+    if grid is None:
+        sites = np.random.default_rng(site_seed).uniform(
+            -0.98 * half, 0.98 * half, size=(nsites, 3))
+        grid = VoronoiGrid(sites, (-half, -half, -half, half, half, half),
+                           volume_samples=volume_samples)
+    host["voronoi"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host["locate"] = grid.locate_scheme()
+    host["locate_tables"] = time.perf_counter() - t0
+    lams = np.geomspace(0.55e-6, 2.2e-6, nlambda)
+    f = np.log(lams / 0.55e-6) / np.log(2.2 / 0.55)
+    wg = OligoWavelengthGrid(list(lams))
+    ss = StellarSystem([LuminosityStellarComponent(PointGeometry(), wg,
+                                                   [1e36] * nlambda)])
+    mix = SimpleOligoDustMix(wg, list(2600.0 * (600.0 / 2600.0) ** f),
+                             list(0.5 + (0.4 - 0.5) * f),
+                             list(0.4 + (0.2 - 0.4) * f))
+    mass = 2.0 / 2600.0 * (4 / 3 * np.pi * (1.8 * KPC) ** 3) / (1.8 * KPC)
+    comp = DustComponent(UniformSphereGeometry(1.8 * KPC), mix,
+                         DustMassNormalization(mass))
+    t0 = time.perf_counter()
+    dsys = DustSystem(grid, [comp], density_mode="gridded")
+    if clumpy:
+        hot = np.random.default_rng(3).random(grid.ncells) < 0.03
+        dsys.rho64[:, hot] *= 1e3
+        dsys.rho = np.asarray(dsys.rho64, np.float32)
+    host["gridding"] = time.perf_counter() - t0
+    if voxelize and not direct:
+        t0 = time.perf_counter()
+        dsys = dsys.voxelized(max_voxels=res ** 3 if res else 1 << 24)[0]
+        host["voxelize"] = time.perf_counter() - t0
+        host["field_error"] = dsys.voxelization_error
+    if voxelize:
+        dsys = dsys.as_table()
+    if refill_batches is None:
+        refill_batches = 32 if direct else 256 if polychromatic else 128
+    ins = [SEDInstrument("sed", 3.08e23, nlambda, inclination=1.2,
+                         azimuth=azimuth)]
+    opts = LifecycleOptions(store_absorption=True,
+                            max_scatt_events=max_scatt,
+                            polychromatic=polychromatic, deposition="sampled",
+                            quadrature_panels=quadrature_panels,
+                            peel_panels=peel_panels, table_peel=table_peel,
+                            refill_batches=refill_batches, fused=True,
+                            voxelize=None if voxelize else "table")
+    return dsys.grid, dsys, ss, ins, opts, host
+
+
+def _octree_build(lanes, device="cpu", multi=False, voronoi=False,
+                  **model_kw):
+    """`_octree_model` (or with multi=True `_multi_model`, with voronoi=True
+    `_voronoi_model`) with its lifecycle built: (run_batch, zero_tallies,
+    ell, L0, packets per call, model) for `lanes` lanes at
+    bench_octree.py's launch luminosities."""
     import torch
 
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
 
-    model = (_multi_model if multi else _octree_model)(**model_kw)
+    model = (_voronoi_model if voronoi else _multi_model if multi
+             else _octree_model)(**model_kw)
     grid, tds, ss, ins, opts, _ = model
     nlam = ss.wavelength_grid.nlambda
     K = max(opts.refill_batches, 1)
@@ -331,18 +437,41 @@ def _octree_build(lanes, device="cpu", multi=False, **model_kw):
     return run_batch, zero_tallies, ell, L0, packets, model
 
 
-def _octree_main(multi=False):
+def _voronoi_knobs():
+    """experiments/bench_voronoi.py's VORONOI_* knobs with its defaults:
+    (polychromatic, lanes, _voronoi_model keywords)."""
+    env = os.environ.get
+    direct = env("VORONOI_DIRECT", "0") == "1"
+    poly = env("VORONOI_POLY", "1") == "1"
+    lanes = 1 << int(env("VORONOI_LOG2N", "16" if direct else "17"))
+    kw = dict(nsites=int(env("VORONOI_SITES", "4096")), direct=direct,
+              nlambda=int(env("VORONOI_NLAM", "2")),
+              refill_batches=int(env("VORONOI_REFILL", "32" if direct else
+                                     "256" if poly else "128")),
+              quadrature_panels=int(env("VORONOI_PANELS", "16")),
+              peel_panels=int(env("VORONOI_PEELP", "32")),
+              table_peel=env("VORONOI_PEELMODE", "exact"),
+              res=int(env("VORONOI_RES", "47")))
+    return poly, lanes, kw
+
+
+def _octree_main(name="octree"):
     """BENCH_MODEL=octree: config 3 with experiments/bench_octree.py's
     OCTREE_* knobs; BENCH_MODEL=multi: the two-component model with
-    OCTREE_POLY, OCTREE_LOG2N and OCTREE_REFILL (module docstring)."""
+    OCTREE_POLY, OCTREE_LOG2N and OCTREE_REFILL; BENCH_MODEL=voronoi:
+    config 4 with bench_voronoi.py's VORONOI_* knobs (module docstring)."""
     import torch
 
     from skirt_tpu_torch import rng
 
     env = os.environ.get
+    multi = name == "multi"
     poly = env("OCTREE_POLY", "1") == "1"
     lanes = 1 << int(env("OCTREE_LOG2N", "17"))
-    if multi:
+    if name == "voronoi":
+        poly, lanes, kw = _voronoi_knobs()
+        kw["voronoi"] = True
+    elif multi:
         kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
     else:
         kw = dict(nlambda=int(env("OCTREE_NLAM", "2")),
@@ -355,9 +484,11 @@ def _octree_main(multi=False):
     run_batch, zero_tallies, ell, L0, packets, model = _octree_build(
         lanes, device="cuda", multi=multi, polychromatic=poly, **kw)
     grid, tds, *_, host = model
-    print(json.dumps({"host_build_s": host, "voxels": [grid.nx, grid.ny,
-                                                       grid.nz]}),
-          flush=True)
+    if hasattr(grid, "nx"):
+        view = {"voxels": [grid.nx, grid.ny, grid.nz]}
+    else:
+        view = {"direct_cells": grid.ncells}
+    print(json.dumps({"host_build_s": host, **view}), flush=True)
     key = rng.root_key(4357)
     run_batch(key, ell, L0, zero_tallies())             # warm-up + build
     torch.cuda.synchronize()
@@ -387,8 +518,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch: no CUDA device")
     bench_model = os.environ.get("BENCH_MODEL", "disc")
-    if bench_model in ("octree", "multi"):
-        return _octree_main(multi=bench_model == "multi")
+    if bench_model in ("octree", "multi", "voronoi"):
+        return _octree_main(bench_model)
     packets = 1 << int(os.environ.get("BENCH_LOG2_PACKETS", "15"))
     refill = int(os.environ.get("BENCH_REFILL", "128"))
     nlambda = int(os.environ.get("BENCH_NLAMBDA", "128"))

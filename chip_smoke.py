@@ -28,7 +28,10 @@ exits non-zero without printing a result):
      the ExpDisk sampler, labs on; three mono_event_case states, with
      min_scatt_events 1 and a weight cut that fires), then one two-
      component case and one 128-wavelength case (where the Pallas
-     driver feeds per-lane tables, lam_inputs) at 262,144 lanes
+     driver feeds per-lane tables, lam_inputs) at 262,144 lanes; then
+     the host builds of the octrees and tessellations, and the 33,000-
+     site tessellation's locate at the staged peel's 2^22 points for
+     chunk budgets of 64 MB to 1 GB (the same cells from each)
   6. K4 table_event kernel vs its plain version at capability config 3's
      monochromatic shapes (the octree AGN torus of
      experiments/bench_octree.py traced through its 32^3 voxel view,
@@ -37,7 +40,7 @@ exits non-zero without printing a result):
      10% dead lanes, lanes with optical depths below 1e-3, lanes past
      min_scatt_events 1 with a weight cut that fires, lanes whose deposit
      falls outside the grid), each chained over six events, the panels
-     re-staged on the card between events as the driver stages them
+     re-staged on the card between events as the lifecycle stages them
   7. K5 table_multi_event kernel vs its plain version the same way at the
      two-component model's monochromatic shapes (bench_torch._multi_model:
      the torus and a uniform sphere on a 16^3 voxel view, N = 2^17, 24
@@ -51,7 +54,16 @@ exits non-zero without printing a result):
      the two-component model at W = 2 (N = 2^17, three states), W = 24
      and W = 128 (N = 2^15; the model's optics interpolated in log
      lambda), H = 2
-  10. the main paths at full width, each with the launch counts of its
+  10. K4d, the direct-table variant of K4 (no in-kernel locate, the
+     deposit distance out), vs its plain version the same way at
+     capability config 4's shapes: experiments/bench_voronoi.py's model
+     on the exact tessellation of 33,000 sites (bench_torch.
+     _voronoi_model), N = 2^16 lanes, one of W = 8 wavelengths per lane,
+     16 panels, labs on, three states, six events each, the panels
+     re-staged on the card (the tessellation's locate) between events
+  11. K6d, the direct-table variant of K6, the same way at W = 8 (N =
+     2^16, three states) and W = 128 (N = 2^15)
+  12. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
      make_multibatch (bench_torch._build defaults); S2a, the mono
@@ -59,16 +71,26 @@ exits non-zero without printing a result):
      BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21, 2 batches instead of 8);
      config 3 monochromatic (K4, 2^17 lanes, K = 128) and polychromatic
      (K6, W = 2, 2^17 lanes, K = 256) through make_lifecycle +
-     make_multibatch, 2 batches each; one
+     make_multibatch, 1 batch each (cut from 2 to keep the script's
+     time); one
      OligoSimulation(voxelize="table") on the octree (one batch of 2^17
      polychromatic lanes, K = 256, labs folded back onto the leaves); the
      two-component model mono (K5) and poly (K7, W = 2) through
-     make_lifecycle + make_multibatch, 2^17 lanes, K = 128, 2 batches
+     make_lifecycle + make_multibatch, 2^17 lanes, K = 128, 1 batch
      each; and its OligoSimulation(voxelize="table") (one batch of 2^17
-     polychromatic lanes, K = 128, K7)
-  11. each path at a small size on the card against the same run on the
-     CPU
-  12. one JSON line of per-kernel results, the card line, and last
+     polychromatic lanes, K = 128, K7); config 4's voronoi-direct-mono
+     (K4d) and voronoi-direct-poly (K6d, W = 8) on the 33,000-site
+     tessellation through make_lifecycle + make_multibatch, one batch of
+     2^16 lanes each, 64 staged peel panels, refill depth cut to
+     VORONOI_K = 8 (the cells' own K = 32 and 64 are bench_torch.py's);
+     two OligoSimulation(voxelize="table") runs on 4,096 sites, W = 2,
+     K = 8: the smooth sphere passes the field-error bound and runs the
+     voxel view (K6, 2^17 lanes), the clumpy field (a random 3% of the
+     cells at 1e3) does not and runs the direct table (K6d, 2^16 lanes),
+     labs on the Voronoi cells either way
+  13. each path at a small size on the card against the same run on the
+     CPU (the direct table on tests/test_poly.py's 300-site model)
+  14. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
 
 Times: CUDA events around back-to-back calls after warm-up calls, with a
@@ -86,9 +108,10 @@ run's inputs.
 
 Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few thousand
 updates taken in another order by atomics; each order is within
-n * 2^-24 of the exact sum).  K1 and K3-K7 by skirt_tpu_torch.
-testing's criterion: the discrete outputs (deposit bin, alive, nscatt,
-bcount, fresh, K5's interaction cell, and for K1, K6 and K7 the
+n * 2^-24 of the exact sum).  K1, K3-K7, K4d and K6d by
+skirt_tpu_torch.testing's criterion: the discrete outputs (deposit bin,
+alive, nscatt, bcount, fresh, K5's interaction cell, whether K4d and K6d
+deposit and K6d's deposit wavelength, and for K1, K6 and K7 the
 wavelengths that survive the weight cut) agree on >= 99.9% of lanes
 (the CPU tests' bound), and no
 lane whose discrete outputs agree has a float output off by more than
@@ -108,7 +131,9 @@ tests/test_fused.py's (SED per wavelength and frame total 0.03, labs
 tests/test_poly.py's table tolerances (SED per wavelength 0.05 mono and
 0.06 poly, labs total 0.05), the two-component paths at the refill
 tolerance of tests/test_fused_table.py's multi-component test (SED per
-wavelength and labs total 0.08).
+wavelength and labs total 0.08), the direct table at tests/test_poly.py's
+direct-table tolerances (SED per wavelength 0.08, labs total 0.06, labs
+per wavelength 0.08).
 """
 
 import json
@@ -121,6 +146,10 @@ import numpy as np
 
 # the event kernels: events chained from each starting state
 EVENTS = 6
+
+# refill depth of the config-4 main paths here (the cells' own K, 32 to
+# 256, are bench_torch.py's)
+VORONOI_K = 8
 
 
 def log(msg):
@@ -226,6 +255,16 @@ def k6_ops(P, W):
     # log2 W adds and a compare, the Q / QH pass ~23, the weight pass ~27
     lg = max(1, (W - 1).bit_length())
     return 2 * P + 4 * (P - 1) + 120 + W * (59 + lg)
+
+
+def k4d_ops(P):
+    # K4 without the in-kernel deposit locate (~10 operations)
+    return k4_ops(P) - 10
+
+
+def k6d_ops(P, W):
+    # K6 without the in-kernel deposit locate (~10 operations)
+    return k6_ops(P, W) - 10
 
 
 def k5_ops(P):
@@ -604,37 +643,32 @@ def _bits(got, want):
         torch.equal(got[k], want[k]) for k in want if k != "state")
 
 
-def phase_k4(torch, results, octree):
-    import dataclasses
-
-    from bench_torch import _octree_build
+def _chain_k4(torch, label, spec, grid, ds, n, seeds):
+    """K4 (or K4d, spec.arith_locate False) against its plain version on
+    table_event_inputs states (about 10% dead lanes, lanes with optical
+    depths below 1e-3, lanes past min_scatt_events 1 with a weight cut
+    that fires, lanes whose deposit falls outside the grid), each chained
+    over six events, the panels re-staged on the card between events as
+    the lifecycle stages them.  Returns (worst scaled error, the timed inputs
+    (u, kr, state) of the first state's first event)."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table as tft
     from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
                                          table_restage, table_state)
 
-    n = 1 << 17
-    run_batch, *_, model = _octree_build(n, device="cuda",
-                                         polychromatic=False, grid=octree)
-    grid, ds = model[0], model[1]
-    # a weight cut that fires within the six events: min_weight_reduction
-    # 100 after one scattering
-    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
-                               inv_minred=float(np.float32(1 / 100)))
     P = spec.npanels
-    assert P == 16 and spec.nlambda == 2 and spec.want_labs
-    assert (grid.nx, grid.ny, grid.nz) == (32, 32, 32)
+    dep = "depi" if spec.arith_locate else "depd"
     worst = 0.0
-    for seed in (21, 22, 23):
-        inp = table_event_inputs(ds, n, spec.n_uniform, 2, seed=seed,
-                                 npanels=P, small_tau=0.02, outside=0.02,
-                                 device="cuda")
+    timed = None
+    for seed in seeds:
+        inp = table_event_inputs(ds, n, spec.n_uniform, spec.nlambda,
+                                 seed=seed, npanels=P, small_tau=0.02,
+                                 outside=0.02, device="cuda")
         kr, state = table_state(inp, ds)
         u = inp["u"]
-        ell = state[9]
-        kext_pk = ds.packet_kappas(ell)[1]
+        kext_pk = ds.packet_kappas(state[9])[1]
         alive_in = state[7] != 0
-        log(f"  K4 inputs (seed {seed}): {n} lanes, "
+        log(f"  {label} inputs (seed {seed}): {n} lanes, "
             f"{int((~alive_in).sum())} dead, "
             f"{int((alive_in & inp['small_tau']).sum())} live with tau < "
             f"1e-3, {int((alive_in & (state[8] >= spec.min_scatt)).sum())} "
@@ -644,56 +678,194 @@ def phase_k4(torch, results, octree):
             if it:
                 u = rng.uniform_open(rng.event_key(seed, it),
                                      (spec.n_uniform, n), "cuda")
-            if it == 0:
-                first = (u, kr, state)          # the timed inputs
+            if timed is None:
+                timed = (u, kr, state)
             got = tft.table_event(spec, u, kr, state)
             want = tft.table_event_plain(spec, u, kr, state)
             torch.cuda.synchronize()
             res = event_agreement(got, want)
             alive_in = state[7] != 0
             alive = got["state"][7] != 0
-            log(f"  K4 event {it}: discrete agree {res['discrete']:.6f}, "
-                f"float-disagreeing lanes {res['float_bad']}, scaled max "
+            log(f"  {label} event {it}: discrete agree {res['discrete']:.6f}"
+                f", float-disagreeing lanes {res['float_bad']}, scaled max "
                 f"err {res['scaled_err']:.3e}, bit-identical "
                 f"{_bits(got, want)}; alive "
                 f"{float(alive.float().mean()):.3f}, killed "
                 f"{int((alive_in & ~alive).sum())}, deposits "
-                f"{int((got['depi'] >= 0).sum())}")
+                f"{int((got[dep] >= 0).sum())}")
             if res["discrete"] < 0.999 or res["float_bad"] > 0:
-                raise AssertionError(f"K4 kernel disagrees with its plain "
-                                     f"version at event {it}: {res}")
+                raise AssertionError(f"{label} kernel disagrees with its "
+                                     f"plain version at event {it}: {res}")
             worst = max(worst, res["scaled_err"])
             st = got["state"]
             kr, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
-                                  torch.stack(st[3:6], -1), P, kext_pk)
+                                       torch.stack(st[3:6], -1), P, kext_pk)
             state = list(st) + [state[9], state[10], t0, dt, state[13],
                                 state[14]]
-    # timed on a state's first event (~90% live lanes; by the sixth event
-    # few are left)
-    u, kr, state = first
+    return worst, timed
+
+
+def _time_k4(torch, label, spec, timed, ops):
+    """Kernel, plain and bound times of one K4 / K4d event on its timed
+    inputs (a state's first event, ~90% live lanes; by the sixth event few
+    are left)."""
+    from skirt_tpu_torch.engine import fused_table as tft
+
+    u, kr, state = timed
+    n = state[0].shape[0]
     live = int((state[7] != 0).sum())
     ms = cuda_ms(lambda: tft.table_event(spec, u, kr, state))
     plain_ms = cuda_ms(lambda: tft.table_event_plain(spec, u, kr, state),
                        reps=5)
     # every lane reads position, direction, L, alive and nscatt; only a
-    # live one its uniforms, panels, ell, L0, t0, dt, albedo and g
-    bnd = event_bound([(state[:9], n), ([u, kr, state[9:]], live)],
-                      tft.table_event(spec, u, kr, state), n, live,
-                      k4_ops(P))
-    log(f"  K4 N={n} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
-    results["K4"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+    # live one its uniforms, panels, t0, dt, albedo and g, and with an
+    # in-kernel locate its wavelength ell (K4d's caller bins the deposit);
+    # only a live one past min_scatt the launch weight L0 (its weight cut)
+    live_reads = [u, kr] + ([state[9]] if spec.arith_locate else []) \
+        + state[11:]
+    cut = int(((state[7] != 0) & (state[8] >= spec.min_scatt)).sum())
+    bnd = event_bound([(state[:9], n), (live_reads, live), ([state[10]], cut)],
+                      tft.table_event(spec, u, kr, state), n, live, ops)
+    log(f"  {label} N={n} P={spec.npanels}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live "
+        f"lanes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
 
 
-def phase_k6(torch, results, octree):
+def _cut_spec(spec):
+    """The spec with a weight cut that fires within the six events:
+    min_weight_reduction 100 after one scattering."""
     import dataclasses
+    return dataclasses.replace(spec, min_scatt=1,
+                               inv_minred=float(np.float32(1 / 100)))
 
+
+def phase_k4(torch, results, octree):
     from bench_torch import _octree_build
+
+    n = 1 << 17
+    run_batch, *_, model = _octree_build(n, device="cuda",
+                                         polychromatic=False, grid=octree)
+    grid, ds = model[0], model[1]
+    spec = _cut_spec(run_batch.spec)
+    assert spec.npanels == 16 and spec.nlambda == 2 and spec.want_labs
+    assert spec.arith_locate and (grid.nx, grid.ny, grid.nz) == (32, 32, 32)
+    worst, timed = _chain_k4(torch, "K4", spec, grid, ds, n, (21, 22, 23))
+    results["K4"] = dict(_time_k4(torch, "K4", spec, timed,
+                                  k4_ops(spec.npanels)), max_abs_err=worst)
+
+
+def phase_k4d(torch, results, vgrid):
+    """K4d at voronoi-direct-mono's shapes: the 33,000-site tessellation,
+    N = 2^16 lanes, one of W = 8 wavelengths per lane, 16 panels, labs."""
+    from bench_torch import _octree_build
+
+    n = 1 << 16
+    run_batch, *_, model = _octree_build(
+        n, device="cuda", voronoi=True, grid=vgrid, direct=True,
+        polychromatic=False, nlambda=8, peel_panels=64)
+    grid, ds = model[0], model[1]
+    spec = _cut_spec(run_batch.spec)
+    assert grid is vgrid and not spec.arith_locate
+    assert spec.npanels == 16 and spec.nlambda == 8 and spec.want_labs
+    worst, timed = _chain_k4(torch, "K4d", spec, grid, ds, n, (71, 72, 73))
+    results["K4d"] = dict(_time_k4(torch, "K4d", spec, timed,
+                                   k4d_ops(spec.npanels)), max_abs_err=worst)
+
+
+def _chain_k6(torch, label, spec, grid, ds, n, seeds):
+    """K6 (or K6d) against its plain version the way _chain_k4 holds K4,
+    the lanes' luminosities carried from event to event.  Returns (worst
+    scaled error, the timed inputs (u, r, L, L0, state))."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table_poly as tftp
     from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
                                          table_poly_state, table_restage)
+
+    W, P = spec.W, spec.npanels
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    ones = [torch.ones(n, device="cuda")]
+    worst = 0.0
+    timed = None
+    for seed in seeds:
+        inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
+                                 npanels=P, small_tau=0.02, outside=0.02,
+                                 device="cuda")
+        state = table_poly_state(inp)
+        u, r, L, L0 = inp["u"], inp["rows"], inp["L"], inp["L0"]
+        alive_in = state[6] != 0
+        log(f"  {label} W={W} inputs (seed {seed}): {n} lanes, "
+            f"{int((~alive_in).sum())} dead, "
+            f"{int((alive_in & inp['small_tau']).sum())} live with "
+            f"panel densities x 1e-6, "
+            f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
+            f"live past min_scatt, "
+            f"{int((alive_in & inp['outside']).sum())} live with the "
+            f"deposit point outside the grid")
+        for it in range(EVENTS):
+            if it:
+                u = rng.uniform_open(rng.event_key(seed, it),
+                                     (spec.n_uniform, n), "cuda")
+            if timed is None:
+                timed = (u, r, L, L0, state)
+            got = tftp.table_poly_event(spec, u, r, oc, L, L0, state)
+            want = tftp.table_poly_event_plain(spec, u, r, oc, L, L0, state)
+            torch.cuda.synchronize()
+            res = event_agreement(got, want)
+            alive_in = state[6] != 0
+            alive = got["state"][6] != 0
+            cut = int(((got["Ln"] == 0) & alive[None]).sum())
+            log(f"  {label} W={W} event {it}: discrete agree "
+                f"{res['discrete']:.6f}, float-disagreeing lanes "
+                f"{res['float_bad']}, scaled max err "
+                f"{res['scaled_err']:.3e}, bit-identical "
+                f"{_bits(got, want)}; alive "
+                f"{float(alive.float().mean()):.3f}, killed "
+                f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
+                f"deposits {int((got['depi'] >= 0).sum())}")
+            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+                raise AssertionError(f"{label} kernel disagrees with its "
+                                     f"plain version (W={W}) at event "
+                                     f"{it}: {res}")
+            worst = max(worst, res["scaled_err"])
+            st = got["state"]
+            r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                      torch.stack(st[3:6], -1), P, ones)
+            state = list(st) + [t0, dt]
+            L = got["Ln"]
+    return worst, timed
+
+
+def _time_k6(torch, label, spec, timed, ops):
+    """Kernel, plain and bound times of one K6 / K6d event on its timed
+    inputs."""
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+
+    u, r, L, L0, state = timed
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    n = state[0].shape[0]
+    live = int((state[6] != 0).sum())
+    ms = cuda_ms(lambda: tftp.table_poly_event(spec, u, r, oc, L, L0, state))
+    plain_ms = cuda_ms(lambda: tftp.table_poly_event_plain(
+        spec, u, r, oc, L, L0, state), reps=5)
+    # every lane reads position, direction, alive and nscatt; only a live
+    # one its uniforms, panels, weights L, t0 and dt, and only a live one
+    # past min_scatt the launch weights L0 (its weight cut)
+    cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
+    bnd = event_bound([([oc] + state[:8], n), ([u, r, L, state[8:]], live),
+                       ([L0], cut)],
+                      tftp.table_poly_event(spec, u, r, oc, L, L0, state),
+                      n, live, ops)
+    log(f"  {label} N={n} W={spec.W} P={spec.npanels}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
+        f"live lanes)")
+    return {"lanes": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def phase_k6(torch, results, octree):
+    from bench_torch import _octree_build
 
     worst = 0.0
     by_w = {}
@@ -702,79 +874,37 @@ def phase_k6(torch, results, octree):
         run_batch, *_, model = _octree_build(n, device="cuda", nlambda=W,
                                              polychromatic=True, grid=octree)
         grid, ds = model[0], model[1]
-        spec = dataclasses.replace(run_batch.spec, min_scatt=1,
-                                   inv_minred=float(np.float32(1 / 100)))
-        P = spec.npanels
-        assert P == 16 and spec.W == W and spec.want_labs
-        oc = torch.as_tensor(spec.oc, device="cuda")
-        ones = [torch.ones(n, device="cuda")]
-        for seed in seeds:
-            inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
-                                     npanels=P, small_tau=0.02, outside=0.02,
-                                     device="cuda")
-            state = table_poly_state(inp)
-            u, r, L, L0 = inp["u"], inp["rows"], inp["L"], inp["L0"]
-            alive_in = state[6] != 0
-            log(f"  K6 W={W} inputs (seed {seed}): {n} lanes, "
-                f"{int((~alive_in).sum())} dead, "
-                f"{int((alive_in & inp['small_tau']).sum())} live with "
-                f"panel densities x 1e-6, "
-                f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
-                f"live past min_scatt, "
-                f"{int((alive_in & inp['outside']).sum())} live with the "
-                f"deposit point outside the grid")
-            for it in range(EVENTS):
-                if it:
-                    u = rng.uniform_open(rng.event_key(seed, it),
-                                         (spec.n_uniform, n), "cuda")
-                if it == 0:
-                    first = (u, r, L, state)    # the timed inputs
-                got = tftp.table_poly_event(spec, u, r, oc, L, L0, state)
-                want = tftp.table_poly_event_plain(spec, u, r, oc, L, L0,
-                                                   state)
-                torch.cuda.synchronize()
-                res = event_agreement(got, want)
-                alive_in = state[6] != 0
-                alive = got["state"][6] != 0
-                cut = int(((got["Ln"] == 0) & alive[None]).sum())
-                log(f"  K6 W={W} event {it}: discrete agree "
-                    f"{res['discrete']:.6f}, float-disagreeing lanes "
-                    f"{res['float_bad']}, scaled max err "
-                    f"{res['scaled_err']:.3e}, bit-identical "
-                    f"{_bits(got, want)}; alive "
-                    f"{float(alive.float().mean()):.3f}, killed "
-                    f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
-                    f"deposits {int((got['depi'] >= 0).sum())}")
-                if res["discrete"] < 0.999 or res["float_bad"] > 0:
-                    raise AssertionError(f"K6 kernel disagrees with its "
-                                         f"plain version (W={W}) at event "
-                                         f"{it}: {res}")
-                worst = max(worst, res["scaled_err"])
-                st = got["state"]
-                r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
-                                     torch.stack(st[3:6], -1), P, ones)
-                state = list(st) + [t0, dt]
-                L = got["Ln"]
-        u, r, L, state = first
-        live = int((state[6] != 0).sum())
-        ms = cuda_ms(lambda: tftp.table_poly_event(spec, u, r, oc, L, L0,
-                                                   state))
-        plain_ms = cuda_ms(lambda: tftp.table_poly_event_plain(
-            spec, u, r, oc, L, L0, state), reps=5)
-        # every lane reads position, direction, alive and nscatt; only a
-        # live one its uniforms, panels, weights L, t0 and dt, and only a
-        # live one past min_scatt the launch weights L0 (its weight cut)
-        cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
-        bnd = event_bound([([oc] + state[:8], n),
-                           ([u, r, L, state[8:]], live), ([L0], cut)],
-                          tftp.table_poly_event(spec, u, r, oc, L, L0, state),
-                          n, live, k6_ops(P, W))
-        log(f"  K6 N={n} W={W} P={P}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
-            f"live lanes)")
-        by_w[W] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bnd[0], "bound_by": bnd[1]}
+        spec = _cut_spec(run_batch.spec)
+        assert spec.npanels == 16 and spec.W == W and spec.want_labs
+        assert spec.arith_locate
+        err, timed = _chain_k6(torch, "K6", spec, grid, ds, n, seeds)
+        worst = max(worst, err)
+        by_w[W] = _time_k6(torch, "K6", spec, timed,
+                           k6_ops(spec.npanels, W))
     results["K6"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
+
+
+def phase_k6d(torch, results, vgrid):
+    """K6d at voronoi-direct-poly's shapes (the 33,000-site tessellation,
+    N = 2^16, W = 8, 16 panels, labs) and at W = 128 (N = 2^15; the
+    model's optics spread over 128 wavelengths)."""
+    from bench_torch import _octree_build
+
+    worst = 0.0
+    by_w = {}
+    for W, n, seeds in ((8, 1 << 16, (81, 82, 83)), (128, 1 << 15, (84,))):
+        run_batch, *_, model = _octree_build(
+            n, device="cuda", voronoi=True, grid=vgrid, direct=True,
+            polychromatic=True, nlambda=W, peel_panels=64)
+        grid, ds = model[0], model[1]
+        spec = _cut_spec(run_batch.spec)
+        assert grid is vgrid and not spec.arith_locate
+        assert spec.npanels == 16 and spec.W == W and spec.want_labs
+        err, timed = _chain_k6(torch, "K6d", spec, grid, ds, n, seeds)
+        worst = max(worst, err)
+        by_w[W] = _time_k6(torch, "K6d", spec, timed,
+                           k6d_ops(spec.npanels, W))
+    results["K6d"] = dict(by_w[8], max_abs_err=worst, by_W=by_w)
 
 
 def phase_k5(torch, results, multi_tree):
@@ -970,21 +1100,33 @@ def _table_engine(multi, poly):
                            tftp.table_poly_multi_event, "K7")}[multi, poly]
 
 
-def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
-                    multi=False, **model_kw):
-    """Config 3 (multi=False) or the two-component model (multi=True)
-    through make_lifecycle + make_multibatch: (seconds, packets, SED, labs
-    total, launched W, launches of the path's kernels)."""
+def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
+                    multi=False, voronoi=False, labs_by_wavelength=False,
+                    **model_kw):
+    """Config 3 (multi=False), the two-component model (multi=True) or
+    config 4 (voronoi=True) through make_lifecycle + make_multibatch on
+    `grid` (an octree or tessellation built earlier, or None): (seconds,
+    packets, SED, labs
+    total (per wavelength with labs_by_wavelength), launched W, launches
+    of the path's kernels; on the direct table K4d or K6d)."""
+    import warnings
+
     from bench_torch import _octree_build
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine.lifecycle import make_multibatch
     from skirt_tpu_torch.ops import binned
 
-    run_batch, zero, ell, L0, packets, model = _octree_build(
-        lanes, device=device, multi=multi, polychromatic=poly, grid=octree,
-        **model_kw)
+    with warnings.catch_warnings():
+        # the direct table's staged-peel downgrade, expected here; any
+        # other warning (the native builder's fallback) still shows
+        warnings.filterwarnings("ignore",
+                                message="table_peel='exact' needs")
+        run_batch, zero, ell, L0, packets, model = _octree_build(
+            lanes, device=device, multi=multi, voronoi=voronoi,
+            polychromatic=poly, grid=grid, **model_kw)
     spec_type, event, kname = _table_engine(multi, poly)
     assert type(run_batch.spec) is spec_type
+    direct = not getattr(run_batch.spec, "arith_locate", True)
     W = model[2].wavelength_grid.nlambda
     run_many = make_multibatch(run_batch, batches)
     tallies = zero()
@@ -992,18 +1134,27 @@ def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
         torch.cuda.synchronize()
     binned.binned_add.launches = 0
     event.launches = 0
+    if direct:
+        event.direct_launches = 0
     t0 = time.perf_counter()
     out = run_many(rng.root_key(4357), ell, L0, tallies)
     if device == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {kname: event.launches, "K2": binned.binned_add.launches}
+    if direct:
+        launches = {kname + "d": event.direct_launches,
+                    "K2": binned.binned_add.launches}
+        assert event.launches == event.direct_launches
+    else:
+        launches = {kname: event.launches, "K2": binned.binned_add.launches}
     for leaf in [v for d in out["instruments"] for v in d.values()] \
             + [out["labs"]]:
         if not bool(torch.isfinite(leaf).all()):
             raise AssertionError("non-finite tally")
     sed = out["instruments"][0]["Ftot"].double().cpu().numpy()
-    labs = float(out["labs"].double().sum())
+    labs = out["labs"].double().reshape(-1, W).sum(0).cpu().numpy()
+    if not labs_by_wavelength:
+        labs = float(labs.sum())
     # per batch every wavelength launches 1e36 W (poly) or all
     # wavelengths together do (mono: ell = lane % W)
     launched = batches * 1e36 * (W if poly else 1)
@@ -1013,7 +1164,7 @@ def _run_table_path(torch, poly, lanes, batches, octree, device="cuda",
 def phase_main_table(torch, results, octree):
     for poly in (False, True):
         name = "poly" if poly else "mono"
-        lanes, batches = 1 << 17, 2
+        lanes, batches = 1 << 17, 1
         K = 256 if poly else 128
         dt, packets, sed, labs, launched, launches = _run_table_path(
             torch, poly, lanes, batches, octree)
@@ -1107,11 +1258,11 @@ def phase_reference_table(torch):
 def phase_main_multi(torch, results, multi_tree):
     """The two-component model at full width through make_lifecycle +
     make_multibatch: mono (K5) and poly (K7, W = 2), 2^17 lanes, K = 128,
-    2 batches each."""
+    1 batch each."""
     for poly in (False, True):
         name = "poly" if poly else "mono"
         kname = "K7" if poly else "K5"
-        lanes, batches, K = 1 << 17, 2, 128
+        lanes, batches, K = 1 << 17, 1, 128
         dt, packets, sed, labs, launched, launches = _run_table_path(
             torch, poly, lanes, batches, multi_tree, multi=True,
             refill_batches=K)
@@ -1230,6 +1381,185 @@ def phase_reference_multi(torch, multi_tree):
         f"{', '.join(f'{r:.4f}' for r in g / c)}, labs {gl / cl:.4f}")
 
 
+def phase_main_voronoi(torch, results, vgrid):
+    """voronoi-direct-mono (K4d: one of 8 wavelengths per lane) and
+    voronoi-direct-poly (K6d: W = 8 per lane) on the 33,000-site
+    tessellation through make_lifecycle + make_multibatch, 2^16 lanes, 64
+    staged peel panels, one batch each at refill depth K = VORONOI_K
+    (bench_torch.py measures the cells at their own K)."""
+    for poly in (False, True):
+        name = "poly" if poly else "mono"
+        kname = "K6d" if poly else "K4d"
+        lanes, K, W = 1 << 16, VORONOI_K, 8
+        dt, packets, sed, labs, launched, launches = _run_table_path(
+            torch, poly, lanes, 1, vgrid, voronoi=True, direct=True,
+            nlambda=W, peel_panels=64, refill_batches=K)
+        pps = packets / dt
+        log(f"  voronoi-direct-{name}: {vgrid.ncells} cells, 1 batch x "
+            f"{lanes} lanes x K={K}"
+            f"{f' x W={W}' if poly else f', W={W} one per lane'} in "
+            f"{dt:.3f} s = {pps:.4e} packets/s; launches {launches}; SED "
+            f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
+            f"{launched:.4e} W launched")
+        if launches[kname] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        if not (sed > 0).all():
+            raise AssertionError("SED Ftot not positive")
+        if not 0 < labs < launched:
+            raise AssertionError(f"labs {labs} outside (0, {launched})")
+        results[f"launches_voronoi_{name}"] = launches
+        results[f"main_voronoi_{name}"] = {"seconds": dt,
+                                           "packets_per_s": pps}
+
+
+def time_locate_chunks(torch, vgrid):
+    """The tessellation's locate at the staged peel's size (2^16 lanes x
+    64 panels = 2^22 points, uniform in the domain) for chunk budgets of
+    64 MB to 1 GB of gathered rows: device ms (cuda_ms) and wall ms (mean
+    of 3 synchronized calls, launch gaps included); every budget must give
+    the same cells."""
+    from skirt_tpu_torch.grids import voronoi
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lo = torch.as_tensor(vgrid.extent[:3], dtype=torch.float32, device="cuda")
+    hi = torch.as_tensor(vgrid.extent[3:], dtype=torch.float32, device="cuda")
+    pts = lo + (hi - lo) * torch.rand((1 << 16, 64, 3), generator=gen,
+                                      device="cuda")
+    budgets = voronoi._LOCATE_CHUNK_FLOATS
+    default = budgets["cuda"]
+    ref = None
+    try:
+        for floats in (1 << 24, 1 << 26, 1 << 27, 1 << 28):
+            budgets["cuda"] = floats
+            torch.cuda.reset_peak_memory_stats()
+            cells = vgrid.locate_batched(pts)
+            if ref is None:
+                ref = cells
+            elif not torch.equal(cells, ref):
+                raise AssertionError(f"locate chunk {floats} floats moves "
+                                     "cells")
+            dev_ms = cuda_ms(lambda: vgrid.locate_batched(pts), reps=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                vgrid.locate_batched(pts)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+            log(f"  locate chunk {floats * 4 >> 20} MB"
+                f"{' (default)' if floats == default else ''}: 2^22 points "
+                f"on {vgrid.ncells} sites, device {dev_ms:.3f} ms, wall "
+                f"{wall_ms:.3f} ms, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    finally:
+        budgets["cuda"] = default
+
+
+def _voronoi_simulation(vgrid, clumpy, lanes, K, device):
+    """OligoSimulation(voxelize="table") on a Voronoi model (the gridded
+    system on the tessellation; polychromatic, W = 2): it measures the
+    voxel view's field error and runs the voxel view (K6) within 10%, the
+    direct table (K6d) above."""
+    from bench_torch import _voronoi_model
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+
+    grid, ds, ss, ins, opts, _ = _voronoi_model(
+        grid=vgrid, voxelize=False, clumpy=clumpy, refill_batches=K)
+    W = 2
+    sim = OligoSimulation(stellar_system=ss, instruments=ins, dust_system=ds,
+                          options=opts, packets=lanes * K,
+                          batch_size=lanes * W, dispatch_batches=1,
+                          log=SilentLog(), device=device)
+    assert sim._poly and sim.dust_system.table
+    assert len(list(sim._batches())) == 1
+    assert sim._lifecycle.spec.arith_locate is (not clumpy)
+    assert (sim._labs_fold is None) is clumpy
+    return sim
+
+
+def phase_simulation_voronoi(torch, results, vgrid4k):
+    """OligoSimulation(voxelize="table") on the 4,096-site tessellation:
+    the smooth sphere passes the field-error bound and runs the voxel view
+    (K6, 2^17 lanes); the clumpy field does not and runs the direct table
+    (K6d, 2^16 lanes); labs on the 4,096 Voronoi cells either way."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly
+    from skirt_tpu_torch.ops import binned
+
+    event = fused_table_poly.table_poly_event
+    for clumpy, lanes in ((False, 1 << 17), (True, 1 << 16)):
+        name = "direct" if clumpy else "voxel"
+        kname = "K6d" if clumpy else "K6"
+        K, W = VORONOI_K, 2
+        t0 = time.perf_counter()
+        sim = _voronoi_simulation(vgrid4k, clumpy, lanes, K, "cuda")
+        setup = time.perf_counter() - t0
+        err = getattr(sim.dust_system, "voxelization_error", None)
+        torch.cuda.synchronize()
+        binned.binned_add.launches = 0
+        event.launches = event.direct_launches = 0
+        t0 = time.perf_counter()
+        acc = sim._run_phase(rng.root_key(sim.seed), 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {kname: (event.direct_launches if clumpy
+                            else event.launches),
+                    "K2": binned.binned_add.launches}
+        results[f"launches_voronoi_sim_{name}"] = launches
+        launched = float(sim.stellar_system.Lv.sum())
+        sed, labs = _check_tallies(acc, launched,
+                                   f"Voronoi OligoSimulation ({name})")
+        if acc["labs"].shape != (vgrid4k.ncells * W,):
+            raise AssertionError(f"labs not on the {vgrid4k.ncells} cells: "
+                                 f"{acc['labs'].shape}")
+        view = (f"direct table on {vgrid4k.ncells} cells" if clumpy else
+                f"{sim.grid.nx}^3 voxels, field error {err:.4f}")
+        pps = lanes * K * W / dt
+        field = "clumpy" if clumpy else "smooth"
+        log(f"  OligoSimulation(voxelize='table'), {field}: {view} (set-up "
+            f"{setup:.2f} s), 1 batch x {lanes} "
+            f"lanes x K={K} x W={W} in {dt:.3f} s = {pps:.4e} packets/s; "
+            f"launches {launches}; SED "
+            f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
+            f"{launched:.4e} W launched")
+        if launches[kname] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        if not clumpy and event.direct_launches:
+            raise AssertionError("the voxel view launched K6d")
+        results[f"main_voronoi_sim_{name}"] = {"seconds": dt,
+                                               "packets_per_s": pps}
+
+
+def phase_reference_voronoi(torch):
+    """The direct table at a small size on the card against the same runs
+    on the CPU: tests/test_poly.py's 300-site TestPolyDirect model, mono
+    (K4d, 2^12 lanes) and poly (K6d, W = 2, 2^11 lanes), refill K = 4, at
+    tests/test_poly.py's direct-table tolerances (SED per wavelength 0.08,
+    labs total 0.06, labs per wavelength 0.08)."""
+    for poly, lanes in ((False, 1 << 12), (True, 1 << 11)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            _, _, sed, labs, launched, _ = _run_table_path(
+                torch, poly, lanes, 1, None, device=dev, voronoi=True,
+                nsites=300, site_seed=11, volume_samples=16, azimuth=0.7,
+                max_scatt=48, direct=True, table_peel="staged",
+                refill_batches=4, labs_by_wavelength=True)
+            if not (0 < labs.sum() < launched and (sed > 0).all()):
+                raise AssertionError(f"small direct run on {dev}: SED {sed}, "
+                                     f"labs {labs.sum()}")
+            outs[dev] = (sed, labs)
+        (g, gl), (c, cl) = outs["cuda"], outs["cpu"]
+        np.testing.assert_allclose(g, c, rtol=0.08)
+        np.testing.assert_allclose(gl, cl, rtol=0.08)
+        if abs(gl.sum() / cl.sum() - 1) > 0.06:
+            raise AssertionError(f"labs: cuda {gl} vs cpu {cl}")
+        log(f"  small direct {'poly' if poly else 'mono'} cuda/cpu: SED "
+            f"{', '.join(f'{r:.4f}' for r in g / c)}, labs per wavelength "
+            f"{', '.join(f'{r:.4f}' for r in gl / cl)}")
+
+
 def main():
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -1261,13 +1591,23 @@ def main():
     phase_k1(torch, results)
     log("phase 5: K3 mono_event kernel vs plain")
     phase_k3(torch, results)
-    from bench_torch import _multi_model, _octree_model
+    from bench_torch import _multi_model, _octree_model, _voronoi_model
     t0 = time.perf_counter()
     octree = _octree_model(voxelize=False)[0]
     multi_tree = _multi_model(voxelize=False)[0]
     log(f"  config 3 octree: {octree.ncells} leaves; two-component octree: "
         f"{multi_tree.ncells} leaves; host builds "
         f"{time.perf_counter() - t0:.2f} s")
+    vgrids = {}
+    for nsites in (33000, 4096):
+        vgrid, *_, host = _voronoi_model(nsites=nsites, voxelize=False)
+        scheme, nbyte = host["locate"]
+        log(f"  config 4 tessellation: {vgrid.ncells} sites, native "
+            f"{vgrid.used_native}, built in {host['voronoi']:.2f} s; locate "
+            f"{scheme}, table {nbyte / 2 ** 20:.1f} MB in "
+            f"{host['locate_tables']:.2f} s")
+        vgrids[nsites] = vgrid
+    time_locate_chunks(torch, vgrids[33000])
     log("phase 6: K4 table_event kernel vs plain")
     phase_k4(torch, results, octree)
     log("phase 7: K5 table_multi_event kernel vs plain")
@@ -1276,36 +1616,51 @@ def main():
     phase_k6(torch, results, octree)
     log("phase 9: K7 table_poly_multi_event kernel vs plain")
     phase_k7(torch, results, multi_tree)
-    log("phase 10: main paths (S1 poly: make_lifecycle + make_multibatch, "
+    log("phase 10: K4d table_event (direct table) kernel vs plain")
+    phase_k4d(torch, results, vgrids[33000])
+    log("phase 11: K6d table_poly_event (direct table) kernel vs plain")
+    phase_k6d(torch, results, vgrids[33000])
+    log("phase 12: main paths (S1 poly: make_lifecycle + make_multibatch, "
         "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
         "make_lifecycle + make_multibatch, W=2; config 3 "
         "OligoSimulation(voxelize='table'); the two-component model mono "
         "and poly: make_lifecycle + make_multibatch, W=2; its "
-        "OligoSimulation(voxelize='table'))")
+        "OligoSimulation(voxelize='table'); config 4 voronoi-direct-mono "
+        "and -poly: make_lifecycle + make_multibatch, W=8; its "
+        "OligoSimulation(voxelize='table') on the voxel view and on the "
+        "direct table)")
     phase_main_poly(torch, results)
     phase_main_mono(torch, results)
     phase_main_table(torch, results, octree)
     phase_simulation_table(torch, results, octree)
     phase_main_multi(torch, results, multi_tree)
     phase_simulation_multi(torch, results, multi_tree)
-    log("phase 11: small runs on the card against the CPU")
+    phase_main_voronoi(torch, results, vgrids[33000])
+    phase_simulation_voronoi(torch, results, vgrids[4096])
+    log("phase 13: small runs on the card against the CPU")
     phase_reference_poly(torch)
     phase_reference_mono(torch)
     phase_reference_table(torch)
     phase_reference_multi(torch, multi_tree)
+    phase_reference_voronoi(torch)
 
-    log(f"phase 12: results (phases 1-11 took "
+    log(f"phase 14: results (phases 1-13 took "
         f"{time.perf_counter() - t_start:.1f} s)")
     paths = ("poly", "mono", "table_mono", "table_poly", "table_sim",
-             "multi_mono", "multi_poly", "multi_sim")
+             "multi_mono", "multi_poly", "multi_sim", "voronoi_mono",
+             "voronoi_poly", "voronoi_sim_voxel", "voronoi_sim_direct")
     launches = {
         "K1": results["launches_poly"]["K1"],
         "K2": sum(results[f"launches_{p}"]["K2"] for p in paths),
         "K3": results["launches_mono"]["K3"],
         "K4": results["launches_table_mono"]["K4"],
+        "K4d": results["launches_voronoi_mono"]["K4d"],
         "K5": results["launches_multi_mono"]["K5"],
         "K6": results["launches_table_poly"]["K6"]
-        + results["launches_table_sim"]["K6"],
+        + results["launches_table_sim"]["K6"]
+        + results["launches_voronoi_sim_voxel"]["K6"],
+        "K6d": results["launches_voronoi_poly"]["K6d"]
+        + results["launches_voronoi_sim_direct"]["K6d"],
         "K7": results["launches_multi_poly"]["K7"]
         + results["launches_multi_sim"]["K7"]}
     meta = {
@@ -1323,6 +1678,13 @@ def main():
         "K6": ("K6 table_poly_event",
                "skirt_tpu_torch/csrc/fused_table_poly.cu",
                "skirt_tpu/engine/fused_table_poly.py:107"),
+        "K4d": ("K4d table_event (direct table)",
+                "skirt_tpu_torch/csrc/fused_table.cu",
+                "skirt_tpu/engine/fused_table.py:83 (arith_locate=False)"),
+        "K6d": ("K6d table_poly_event (direct table)",
+                "skirt_tpu_torch/csrc/fused_table_poly.cu",
+                "skirt_tpu/engine/fused_table_poly.py:107 "
+                "(arith_locate=False)"),
         "K7": ("K7 table_poly_multi_event",
                "skirt_tpu_torch/csrc/fused_table_poly_multi.cu",
                "skirt_tpu/engine/fused_table_poly.py:355")}
@@ -1343,7 +1705,7 @@ def main():
                                  in results["K2"]["times"].items()}
     k2["bound_ms_by_shape"] = {n: v[3][0] for n, v
                                in results["K2"]["times"].items()}
-    for k in ("K6", "K7"):
+    for k in ("K6", "K7", "K6d"):
         kern[k]["by_W"] = results[k]["by_W"]
     print(json.dumps({"kernels": list(kern.values()),
                       "main_path_packets_per_s": {

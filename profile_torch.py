@@ -5,6 +5,7 @@ Run on a CUDA machine from the repository root:
     python3 profile_torch.py [poly|mono ...]     (default: both)
     BENCH_MODEL=octree python3 profile_torch.py [poly|mono ...]
     BENCH_MODEL=multi python3 profile_torch.py [poly|mono ...]
+    BENCH_MODEL=voronoi python3 profile_torch.py [poly|mono ...]
 
 poly builds the polychromatic main path as bench_torch.py does by
 default (W = 128, 2^15 lanes, K = 128); mono builds the monochromatic
@@ -18,6 +19,10 @@ K6; mono: one of 2 wavelengths per lane, 2^17 lanes, K = 128, kernel
 K4).  BENCH_MODEL=multi builds the two-component model as
 `BENCH_MODEL=multi bench_torch.py` does (OCTREE_LOG2N, OCTREE_REFILL;
 poly: W = 2 per lane, kernel K7; mono: kernel K5; 2^17 lanes, K = 128).
+BENCH_MODEL=voronoi builds capability config 4 as `BENCH_MODEL=voronoi
+bench_torch.py` does (its VORONOI_* knobs: by default the voxel view of
+4,096 sites, K6 / K4; VORONOI_DIRECT=1 the direct table, K6d / K4d,
+with the staged peel) and prints the host build on a line of its own.
 For each: one warm-up batch (it builds the kernels), 3 unprofiled
 batches timed with torch.cuda.synchronize() while nvidia-smi samples the
 SM clock and the power draw, then one batch under torch.profiler; it
@@ -29,14 +34,17 @@ prints:
     count, and the device's idle share: 1 - busy / best unprofiled wall;
   - on the table models, the device time of the table path's plain-torch
     stages, each wrapped in a profiler range for the profiled batch: the
-    staging gather (panel paths, arithmetic locate and rho gather of the
-    panel rows), the exact column-DDA peel and the detects; the rest of
-    the plain torch (refill, bookkeeping, the two-component model's
-    torch-side scatter and blended phase) is what remains;
+    staging gather (panel paths, locate and rho gather of the panel rows),
+    the exact column-DDA peel or the staged panel peel, the detects, and
+    on a Voronoi grid the point locates (the grid's locate_batched: the
+    staging locate, the deposit locate of the direct table, the staged
+    peel's locates).  A kernel inside a locate range counts as locate,
+    any other as the outermost range around it; the rest of the plain
+    torch (refill, bookkeeping, the two-component model's torch-side
+    scatter and blended phase) is what remains;
   - torch.profiler's table of the 40 largest device-time entries.
 """
 
-import bisect
 import statistics
 import subprocess
 import time
@@ -66,8 +74,9 @@ def layer_of(name: str) -> str:
     return "plain torch: detects, emission peel, bookkeeping"
 
 
-# config 3's plain-torch stages, each a profiler range in the profiled batch
-STAGES = ("stage gather", "exact peel", "detects")
+# the table paths' plain-torch stages, each a profiler range in the
+# profiled batch
+STAGES = ("stage gather", "exact peel", "staged peel", "locate", "detects")
 
 
 def _ranged(name, fn):
@@ -86,42 +95,58 @@ def _ranged_peel(taus):
     return inner
 
 
-def _build_octree(poly, multi=False):
-    """Config 3's (or with multi=True the two-component model's) lifecycle
+def _build_octree(poly, model="octree"):
+    """Config 3's (or the two-component model's, or config 4's) lifecycle
     with its stages wrapped in profiler ranges: (run_batch, zero_tallies,
-    ell, L0, restore)."""
+    ell, L0, restore, the stages it has)."""
     import os
 
-    from bench_torch import _octree_build
+    from bench_torch import _octree_build, _voronoi_knobs
     from skirt_tpu_torch.engine import (fused_table, fused_table_poly,
                                         vector_traversal)
 
     orig_peel = fused_table.make_exact_peel
+    orig_staged = fused_table.make_staged_peel
     orig_paths = vector_traversal.panel_paths
     orig_rows = fused_table_poly.component_rows
     fused_table.make_exact_peel = lambda *a, **kw: _ranged_peel(
         orig_peel(*a, **kw))
+    fused_table.make_staged_peel = lambda *a, **kw: _ranged(
+        "staged peel", orig_staged(*a, **kw))
     vector_traversal.panel_paths = _ranged("stage gather", orig_paths)
     fused_table_poly.component_rows = _ranged("stage gather", orig_rows)
     env = os.environ.get
-    if multi:
+    lanes = 1 << int(env("OCTREE_LOG2N", "17"))
+    if model == "voronoi":
+        _, lanes, kw = _voronoi_knobs()
+        kw["voronoi"] = True
+    elif model == "multi":
         kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
     else:
         kw = dict(nlambda=int(env("OCTREE_NLAM", "2")))
-    run_batch, zero, ell, L0, _, model = _octree_build(
-        1 << int(env("OCTREE_LOG2N", "17")), device="cuda", multi=multi,
-        polychromatic=poly, **kw)
-    ds, ins = model[1], model[3]
+    run_batch, zero, ell, L0, _, built = _octree_build(
+        lanes, device="cuda", multi=model == "multi", polychromatic=poly,
+        **kw)
+    grid, ds, ins = built[0], built[1], built[3]
     ds.analytic_rows = _ranged("stage gather", ds.analytic_rows)
     for i in ins:
         i.detect = _ranged("detects", i.detect)
         i.detect_poly = _ranged("detects", i.detect_poly)
+    stages = ["stage gather", "detects"]
+    if hasattr(grid, "nx"):
+        stages.append("exact peel")
+    else:
+        grid.locate_batched = _ranged("locate", grid.locate_batched)
+        stages += ["staged peel", "locate"]
+    if model == "voronoi":
+        print(f"host build: {built[-1]}", flush=True)
 
     def restore():
         fused_table.make_exact_peel = orig_peel
+        fused_table.make_staged_peel = orig_staged
         vector_traversal.panel_paths = orig_paths
         fused_table_poly.component_rows = orig_rows
-    return run_batch, zero, ell, L0, restore
+    return run_batch, zero, ell, L0, restore, stages
 
 
 def profile(path, model="disc"):
@@ -133,19 +158,21 @@ def profile(path, model="disc"):
                                         fused_table_poly)
 
     poly = path == "poly"
-    octree = model in ("octree", "multi")
-    label = {"disc": "", "octree": "config 3 ",
+    octree = model in ("octree", "multi", "voronoi")
+    label = {"disc": "", "octree": "config 3 ", "voronoi": "config 4 ",
              "multi": "two-component "}[model]
     print(f"== {label}{path} main path", flush=True)
     restore = None
+    stages_built = ()
     if model == "multi":
         event = (fused_table_poly.table_poly_multi_event if poly
                  else fused_table.table_multi_event)
-        run_batch, zero_tallies, ell, L0, restore = _build_octree(poly, True)
     elif octree:
         event = (fused_table_poly.table_poly_event if poly
                  else fused_table.table_event)
-        run_batch, zero_tallies, ell, L0, restore = _build_octree(poly)
+    if octree:
+        run_batch, zero_tallies, ell, L0, restore, stages_built = \
+            _build_octree(poly, model)
     else:
         event = fused_poly.poly_event if poly else fused.mono_event
         run_batch, zero_tallies, ell, L0 = _build(
@@ -198,9 +225,10 @@ def profile(path, model="disc"):
     if restore is not None:
         restore()
 
-    # device kernels and, on config 3, the stage ranges' spans on the
-    # device timeline; a kernel belongs to the stage whose span holds its
-    # start (the spans include idle gaps, the kernel sums do not)
+    # device kernels and, on the table models, the stage ranges' spans on
+    # the device timeline; a kernel belongs to a locate span that holds its
+    # start, else to the outermost span that does (the spans include idle
+    # gaps, the kernel sums do not)
     cuda = torch.autograd.DeviceType.CUDA
     kernels_, spans = [], []
     for e in prof.events():
@@ -214,19 +242,27 @@ def profile(path, model="disc"):
     if octree:
         # a stage whose hook the engines bypass would silently land in
         # "outside the stages"
-        lost = [s for s in STAGES if not any(sp[2] == s for sp in spans)]
+        lost = [s for s in stages_built
+                if not any(sp[2] == s for sp in spans)]
         if lost:
             raise SystemExit(f"profile_torch: no device range for the "
                              f"stages {lost}: a stage hook was bypassed")
-    starts = [sp[0] for sp in spans]
     layers, stages = {}, {}
+    kernels_.sort(key=lambda e: e.time_range.start)
+    open_spans, nxt = [], 0
     for e in kernels_:
         ms_e = e.time_range.elapsed_us() / 1e3
         ms, n = layers.get(layer_of(e.name), (0.0, 0))
         layers[layer_of(e.name)] = (ms + ms_e, n + 1)
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start < spans[i][1]:
-            stages[spans[i][2]] = stages.get(spans[i][2], 0.0) + ms_e
+        t = e.time_range.start
+        while nxt < len(spans) and spans[nxt][0] <= t:
+            open_spans.append(spans[nxt])
+            nxt += 1
+        open_spans = [sp for sp in open_spans if t < sp[1]]
+        if open_spans:
+            names = [sp[2] for sp in open_spans]
+            owner = "locate" if "locate" in names else names[0]
+            stages[owner] = stages.get(owner, 0.0) + ms_e
     busy = sum(ms for ms, _ in layers.values())
     if busy == 0:
         raise SystemExit("profile_torch: the profiler saw no device time")
@@ -238,9 +274,9 @@ def profile(path, model="disc"):
     for name, (ms, n) in sorted(layers.items(), key=lambda kv: -kv[1][0]):
         print(f"{name:52s} {ms:10.1f} {ms / busy:7.1%} {n:9d}")
     if octree:
-        print(f"{'config 3 stage (kernels inside its ranges)':52s} "
+        print(f"{'table path stage (kernels inside its ranges)':52s} "
               f"{'device ms':>10s} {'share':>7s} {'ranges':>9s}")
-        for name in STAGES:
+        for name in stages_built:
             ms = stages.get(name, 0.0)
             n = sum(1 for sp in spans if sp[2] == name)
             print(f"{name:52s} {ms:10.1f} {ms / busy:7.1%} {n:9d}")
@@ -267,7 +303,7 @@ def main():
         if path not in ("poly", "mono"):
             raise SystemExit(f"profile_torch: unknown path {path!r}")
     model = os.environ.get("BENCH_MODEL", "disc")
-    if model not in ("disc", "octree", "multi"):
+    if model not in ("disc", "octree", "multi", "voronoi"):
         raise SystemExit(f"profile_torch: unknown BENCH_MODEL {model!r}")
     for path in paths:
         profile(path, model)

@@ -8,7 +8,10 @@ are (`rho64`); everything else the port recomputes from the same
 parameters in float64, so `lscale`, `_mass_over_L3`, the event kernel's
 optical constants and the instrument frames come out identical.  An
 octree travels as its frozen host tree (node boxes, levels, children), so
-its leaves, cell numbers and voxel view are the JAX grid's.  The
+its leaves, cell numbers and voxel view are the JAX grid's.  A Voronoi
+grid travels as its host tables (sites, volumes, centroids, neighbours,
+boxes, the Monte Carlo samples and owners), not rebuilt; its float32 and
+device tables derive from them as skirt_tpu derives them.  The
 skirt_tpu wavelength grid object is carried across as it is: it is a
 JAX-free NumPy object with the attributes of the port's own grid.
 """
@@ -22,7 +25,7 @@ import numpy as np
 from .engine.lifecycle import LifecycleOptions
 from .geometry import (ExpDiskGeometry, PointGeometry, TorusGeometry,
                        UniformSphereGeometry)
-from .grids import CartesianGrid, OctreeGrid
+from .grids import CartesianGrid, OctreeGrid, TwoPhaseGrid, VoronoiGrid
 from .instruments import FrameInstrument, SEDInstrument, SimpleInstrument
 from .media import (DustComponent, DustMassNormalization, DustMix,
                     DustSystem, OpticalDepthNormalization)
@@ -51,6 +54,14 @@ def convert_grid(grid):
     kind = _name(grid)
     if kind == "CartesianGrid":
         return CartesianGrid(grid.xb64, grid.yb64, grid.zb64)
+    if kind == "TwoPhaseGrid":
+        # the weights carried across as they are (not redrawn)
+        g = TwoPhaseGrid.__new__(TwoPhaseGrid)
+        CartesianGrid.__init__(g, grid.xb64, grid.yb64, grid.zb64)
+        g.filling_factor = grid.filling_factor
+        g.contrast = grid.contrast
+        g.cell_weights = np.asarray(grid.cell_weights, np.float64)
+        return g
     if kind == "OctreeGrid":
         tree = OctreeGrid.__new__(OctreeGrid)
         tree.extent = np.asarray(grid.extent, np.float64)
@@ -58,6 +69,13 @@ def convert_grid(grid):
         tree.voxelize_exact = grid.voxelize_exact
         tree._finalize(grid.lo64, grid.hi64, grid.levels, grid.child64)
         return tree
+    if kind == "VoronoiGrid":
+        return VoronoiGrid.from_tables(
+            sites64=grid.sites64, extent=grid.extent,
+            volumes64=grid.volumes64, centroids64=grid.centroids64,
+            nbrs64=grid.nbrs64, bb_lo64=grid.bb_lo64, bb_hi64=grid.bb_hi64,
+            mc_pts=grid._mc_pts, mc_owner=grid._mc_owner,
+            used_native=grid.used_native)
     raise ValueError(f"grid {kind} is not ported yet")
 
 

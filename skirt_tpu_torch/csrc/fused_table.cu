@@ -1,7 +1,11 @@
-// K4: monochromatic table-mode scattering event, one thread per lane.
+// K4: monochromatic table-mode scattering event, one thread per lane, and
+// K4d, its variant for direct-table grids (the exact Voronoi tessellation,
+// an uneven Cartesian grid) that emits the deposit distance.
 //
 // Replaces: skirt_tpu/engine/fused_table.py:83 `_build_kernel` (the Pallas
-// body at :110-243, arith_locate), called at :672.  Same input/output
+// body at :110-243), called at :672: K4 with arith_locate, K4d with
+// arith_locate=False (:158-166, the float32 distance in the deposit slot,
+// :665).  Same input/output
 // contract: the staged (P, N) kappa_ext * rho panels and the (5, N)
 // uniforms come in as inputs and the kernel draws nothing itself, so the
 // plain PyTorch version (engine/fused_table.py::table_event_plain) and this
@@ -24,9 +28,14 @@
 //   keeps every index constant.  The C entry point refuses more.
 // - Dead lanes copy their state through and deposit nothing (the Pallas
 //   body computes them and masks every output back to its input).
-// - The deposit cell is the arithmetic locate floor((X - lo) * inv) with
-//   float32 lo and inv (common.cuh locate, the Pallas body's form).
-// - Labs on and off are template instantiations.
+// - K4: the deposit cell is the arithmetic locate floor((X - lo) * inv)
+//   with float32 lo and inv (common.cuh locate, the Pallas body's form).
+// - K4d (DIRECT): no locate here.  The deposit's distance along the
+//   pre-event ray, mid_dep, goes to odepd (-1 where nothing is deposited)
+//   in place of the bin, and the lifecycle locates pos + mid_dep * dir on
+//   the grid (engine/fused_table.py).  One float out instead of one int:
+//   the bound is K4's.
+// - Labs on and off, and K4 / K4d, are template instantiations.
 
 #include "common.cuh"
 
@@ -60,14 +69,15 @@ struct TableArgs {
   int* ons;
   int* odepi;
   float* odepv;
-  int N, nlambda, npanels, min_scatt;
+  float* odepd;
+  int N, nlambda, npanels, min_scatt, direct;
   float xi, one_m_xi, inv_minred;
   Geom geo;
 };
 
 namespace {
 
-template <bool LABS>
+template <bool LABS, bool DIRECT>
 __global__ void __launch_bounds__(128)
 table_event_kernel(const __grid_constant__ TableArgs a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -82,7 +92,7 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
   int nscatt = a.ns[n];
 
   int depi = -1;
-  float depv = 0.f;
+  float depv = 0.f, depd = -1.f;
   if (alive) {
     const float Lth = a.L0[n] * a.inv_minred;
     const float t0 = a.t0[n], delta = a.dt[n];
@@ -109,11 +119,18 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
       for (int k = 0; k < MAXP - 1; ++k)
         if (k < a.npanels - 1) i_dep += (cums[k] < tau_dep) ? 1 : 0;
       const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
-      const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
-                              Z + mid_dep * DZ);
-      if (D > 0.f && cell >= 0) {
-        depi = cell * a.nlambda + a.ell[n];
-        depv = D;
+      if (DIRECT) {
+        if (D > 0.f) {
+          depd = mid_dep;
+          depv = D;
+        }
+      } else {
+        const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
+                                Z + mid_dep * DZ);
+        if (D > 0.f && cell >= 0) {
+          depi = cell * a.nlambda + a.ell[n];
+          depv = D;
+        }
       }
     }
 
@@ -157,7 +174,10 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
     }
   }
   if (LABS) {
-    a.odepi[n] = depi;
+    if (DIRECT)
+      a.odepd[n] = depd;
+    else
+      a.odepi[n] = depi;
     a.odepv[n] = depv;
   }
   a.opx[n] = X;
@@ -171,11 +191,12 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
   a.ons[n] = nscatt;
 }
 
-template <bool LABS>
+template <bool LABS, bool DIRECT>
 int launch(const TableArgs& a, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (a.N + threads - 1) / threads;
-  if (blocks > 0) table_event_kernel<LABS><<<blocks, threads, 0, s>>>(a);
+  if (blocks > 0)
+    table_event_kernel<LABS, DIRECT><<<blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -187,5 +208,7 @@ extern "C" int skirt_table_event(const TableArgs* a, int labs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (a->npanels < 1 || a->npanels > MAXP || a->nlambda < 1)
     return (int)cudaErrorInvalidValue;
-  return labs ? launch<true>(*a, s) : launch<false>(*a, s);
+  // without labs the two variants write the same outputs
+  if (!labs) return launch<false, false>(*a, s);
+  return a->direct ? launch<true, true>(*a, s) : launch<true, false>(*a, s);
 }

@@ -1,7 +1,10 @@
-// K6: polychromatic table-mode scattering event, one thread per lane.
+// K6: polychromatic table-mode scattering event, one thread per lane, and
+// K6d, its variant for direct-table grids (the exact Voronoi tessellation,
+// an uneven Cartesian grid) that emits the deposit distance.
 //
 // Replaces: skirt_tpu/engine/fused_table_poly.py:107 `_build_kernel` (the
-// Pallas body at :160-350, arith_locate, no polarization), called at :924.
+// Pallas body at :160-350, no polarization), called at :924: K6 with
+// arith_locate, K6d with arith_locate=False (:228-239, :915-918).
 // Same input/output contract: the staged (P, N) raw rho panels and the
 // (7, N) uniforms come in as inputs and the kernel draws nothing itself, so
 // the plain PyTorch version (engine/fused_table_poly.py::
@@ -33,6 +36,12 @@
 //   same order (sum_block = B, from the wrapper).
 // - Dead lanes copy their state through with zero weights (the Pallas body
 //   computes them and masks them out).
+// - K6d (DIRECT): no locate here.  The deposit goes out as the sampled
+//   wavelength wsel in odepi, the total Dsum in odepv and the distance
+//   along the pre-event ray, mid_dep, in odepd (-1, 0 and -1 where nothing
+//   is deposited); the lifecycle locates pos + mid_dep * dir on the grid and
+//   forms the bin cell * W + wsel (engine/fused_table_poly.py).  One float
+//   out more than K6.
 
 #include "common.cuh"
 
@@ -71,14 +80,15 @@ struct TablePolyArgs {
   float* oLp;
   int* odepi;
   float* odepv;
-  int N, W, npanels, min_scatt, sum_block;
+  float* odepd;
+  int N, W, npanels, min_scatt, sum_block, direct;
   float xi, one_m_xi, inv_W, inv_minred;
   Geom geo;
 };
 
 namespace {
 
-template <bool LABS>
+template <bool LABS, bool DIRECT>
 __global__ void __launch_bounds__(128)
 table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   __shared__ float s_oc[3 * MAX_W];
@@ -99,7 +109,7 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   bool alive = false;
 
   int depi = -1;
-  float depv = 0.f;
+  float depv = 0.f, depd = -1.f;
   if (a.alive[n] != 0) {
     const float t0 = a.t0[n], delta = a.dt[n];
 
@@ -138,11 +148,19 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
       for (int k = 0; k < MAXP - 1; ++k)
         if (k < a.npanels - 1) i_dep += (cums[k] < I_dep) ? 1 : 0;
       const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
-      const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
-                              Z + mid_dep * DZ);
-      if (Dsum > 0.f && cell >= 0) {
-        depi = cell * W + wsel;
-        depv = Dsum;
+      if (DIRECT) {
+        if (Dsum > 0.f) {
+          depi = wsel;
+          depv = Dsum;
+          depd = mid_dep;
+        }
+      } else {
+        const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
+                                Z + mid_dep * DZ);
+        if (Dsum > 0.f && cell >= 0) {
+          depi = cell * W + wsel;
+          depv = Dsum;
+        }
       }
     }
 
@@ -226,6 +244,7 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   if (LABS) {
     a.odepi[n] = depi;
     a.odepv[n] = depv;
+    if (DIRECT) a.odepd[n] = depd;
   }
   a.opx[n] = X;
   a.opy[n] = Y;
@@ -237,11 +256,12 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   a.ons[n] = nscatt;
 }
 
-template <bool LABS>
+template <bool LABS, bool DIRECT>
 int launch(const TablePolyArgs& a, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (a.N + threads - 1) / threads;
-  if (blocks > 0) table_poly_event_kernel<LABS><<<blocks, threads, 0, s>>>(a);
+  if (blocks > 0)
+    table_poly_event_kernel<LABS, DIRECT><<<blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -257,5 +277,7 @@ extern "C" int skirt_table_poly_event(const TablePolyArgs* a, int labs,
   if (a->W < 1 || a->W > MAX_W || a->npanels < 1 || a->npanels > MAXP ||
       a->sum_block < 1 || a->W % a->sum_block != 0)
     return (int)cudaErrorInvalidValue;
-  return labs ? launch<true>(*a, s) : launch<false>(*a, s);
+  // without labs the two variants write the same outputs
+  if (!labs) return launch<false, false>(*a, s);
+  return a->direct ? launch<true, true>(*a, s) : launch<true, false>(*a, s);
 }

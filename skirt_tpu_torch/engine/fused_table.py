@@ -1,10 +1,12 @@
 """Monochromatic fused table events (kernels K4 and K5), the exact
 column-DDA peel and the table-mode lifecycle driver.
 
-Twin of skirt_tpu/engine/fused_table.py on a uniform Cartesian (voxel)
-grid: models without closed-form densities (an octree torus traced
-through its exact voxel view, `DustSystem.voxelized().as_table()`).  The
-event splits at the gather: torch stages the (P, N) panel-midpoint
+Twin of skirt_tpu/engine/fused_table.py: models without closed-form
+densities, on a uniform Cartesian (voxel) grid (an octree torus traced
+through its exact voxel view, `DustSystem.voxelized().as_table()`) or
+directly on a grid with device point location (the exact Voronoi
+tessellation, an uneven Cartesian grid: the direct table).  The event
+splits at the gather: torch stages the (P, N) panel-midpoint
 kappa * rho rows each iteration (`vector_traversal.panel_paths` +
 `DustSystem.analytic_rows`), and the event kernel consumes them:
 cumulative optical depth, sampled absorption deposit, forced propagation
@@ -20,6 +22,14 @@ blending, a deposit panel drawn by absorbed energy, and the interaction
 cell out; the component selection at that cell (by kappa_sca,h * rho_h),
 the HG scatter and the blended peel phase weight run torch-side.
 
+On a direct-table grid K4 runs as K4d (skirt_tpu's arith_locate=False):
+the kernel cannot locate the deposit cell, so it emits the deposit's
+distance along the pre-event ray instead of a bin, and the lifecycle locates
+pos + mid_dep * dir with one `grid.locate_batched` per iteration
+(`direct_deposits`).  The column-DDA peel needs a uniform grid, so
+table_peel='exact' downgrades to the staged panel peel with skirt_tpu's
+warning.  Several components need the uniform voxel view.
+
 Each event has two implementations with one input/output contract:
 - `table_event_plain` / `table_multi_event_plain`: plain PyTorch on (N,)
   tensors, any device.  They are the specs the CPU tests hold against the
@@ -33,13 +43,14 @@ tensors and launch the kernel (or raise) for CUDA tensors.
 Layouts (N lanes, no padding: the kernels bounds-check).  K4: u (5, N);
 kr (P, N); state px, py, pz, dx, dy, dz, L float32, alive, ns, ell int32,
 L0, t0, dt, albedo, g float32, each (N,); outputs state (7 float32 +
-alive, ns) and depi int32 / depv float32 (N,).  K5: u (3, N); kr, ks
+alive, ns) and depi int32 / depv float32 (N,); K4d depd float32 (the
+deposit distance, -1 for none) in place of depi.  K5: u (3, N); kr, ks
 (P, N); state px, py, pz, dx, dy, dz, L, alive, ns, ell, L0, t0, dt;
 outputs state px, py, pz, L, alive and the interaction cell, depi / depv.
 
 Not ported here, each refusing with its slice: table_peel='taumap'
-(density-path maps, S2b), non-uniform grids (direct-table locate, S4b),
-polarization (S5), the dust-emission launch (S3), io_state (S2b).
+(density-path maps, S2b), polarization (S5), the dust-emission launch
+(S3), io_state (S2b).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -75,13 +86,13 @@ def _validate(grid, ds, stellar_system, instruments, options, mueller,
 
     if ds is None or not getattr(ds, "table", False):
         bail("requires density_mode='table' (voxelized().as_table())")
+    if not (hasattr(grid, "ray_span") and hasattr(grid, "locate_batched")):
+        bail("requires a grid with ray_span + locate_batched (uniform "
+             "Cartesian voxel view, or Voronoi with device point location)")
     if ds.ncomp > 1 and not _uniform_grid(grid):
         bail("multi-component mode needs the uniform Cartesian voxel view")
     if ds.ncomp > 1 and mueller is not None:
         bail("polarized mode is single-component only")
-    if not _uniform_grid(grid):
-        bail("non-uniform grids (the direct-table locate) are not ported "
-             "yet (slice S4b)")
     if mueller is not None:
         bail("polarization is not ported yet (slice S5)")
     if launch_fn is not None:
@@ -116,7 +127,8 @@ def _validate(grid, ds, stellar_system, instruments, options, mueller,
 class TableEventSpec:
     """The constants the K4 event closes over (skirt_tpu
     fused_table._build_kernel): float32 values as Python floats, and the
-    uniform grid of the in-kernel deposit locate."""
+    grid: with arith_locate its uniform voxels are located in the kernel,
+    without (K4d) the deposit distance goes out instead."""
     npanels: int
     nlambda: int
     want_labs: bool
@@ -126,19 +138,22 @@ class TableEventSpec:
     inv_minred: float
     grid: object
     n_uniform: int = 5
+    arith_locate: bool = True
     locate: object = field(default=None, repr=False)
 
 
-def _build_kernel(grid, options, nlambda, npanels, want_labs):
-    """The event's constants (mirrors skirt_tpu fused_table._build_kernel
-    with arith_locate)."""
+def _build_kernel(grid, options, nlambda, npanels, want_labs,
+                  arith_locate=True):
+    """The event's constants (mirrors skirt_tpu
+    fused_table._build_kernel; arith_locate=False is K4d)."""
     xi = float(options.scatt_bias)
     return TableEventSpec(
         npanels=int(npanels), nlambda=int(nlambda), want_labs=bool(want_labs),
         min_scatt=int(options.min_scatt_events), xi=_f32(xi),
         one_m_xi=_f32(1.0 - xi),
         inv_minred=_f32(1.0 / options.min_weight_reduction), grid=grid,
-        locate=_make_locate(grid))
+        arith_locate=bool(arith_locate),
+        locate=_make_locate(grid) if arith_locate else None)
 
 
 def table_event_plain(spec: TableEventSpec, u, kr, state):
@@ -147,7 +162,8 @@ def table_event_plain(spec: TableEventSpec, u, kr, state):
     Mirrors the Pallas body (skirt_tpu/engine/fused_table.py:110-243)
     operation for operation.  kr: (P, N) staged kappa_ext * rho panels.
     Returns a dict: "state" (px, py, pz, dx, dy, dz, L, alive, ns) and
-    "depi"/"depv" with labs."""
+    with labs "depi"/"depv", or for K4d (arith_locate False) "depd"/"depv":
+    the deposit's distance along the pre-event ray, -1 for none."""
     P = spec.npanels
     X, Y, Z, DX, DY, DZ, L = state[:7]
     alive = state[7] != 0
@@ -175,10 +191,15 @@ def table_event_plain(spec: TableEventSpec, u, kr, state):
         i_dep = (torch.stack(cums[:P - 1]) < tau_dep[None]).sum(0) \
             .to(torch.int32) if P > 1 else torch.zeros_like(nscatt)
         mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
-        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
-                           Z + mid_dep * DZ)
-        okd = (D > 0) & alive & (cell >= 0)
-        out["depi"] = torch.where(okd, cell * spec.nlambda + ell, -1)
+        okd = (D > 0) & alive
+        if spec.arith_locate:
+            cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                               Z + mid_dep * DZ)
+            okd = okd & (cell >= 0)
+            out["depi"] = torch.where(okd, cell * spec.nlambda + ell, -1)
+        else:
+            # the caller locates pos + mid_dep * dir (direct_deposits)
+            out["depd"] = torch.where(okd, mid_dep, -1.0)
         out["depv"] = torch.where(okd, D, 0.0)
 
     # -- scattered-luminosity update + termination -------------------------
@@ -212,6 +233,20 @@ def table_event_plain(spec: TableEventSpec, u, kr, state):
 
     out["state"] = (X, Y, Z, DX, DY, DZ, L, alive.to(torch.int32), nscatt)
     return out
+
+
+def direct_deposits(grid, pos, direction, mid_dep, value, wl, width):
+    """Absorption bins and values of the deposits of a direct-table event
+    (K4d, K6d): the point pos + mid_dep * dir of the PRE-event position
+    and direction located with one grid.locate_batched, bins cell * width
+    + wl; none (-1, 0) where mid_dep < 0, wl < 0 or the point lies outside
+    the grid (skirt_tpu fused_table.py:868-879, fused_table_poly.py:
+    977-988)."""
+    cell = grid.locate_batched((pos + mid_dep[:, None] * direction)
+                               [:, None, :])[:, 0]
+    okd = (mid_dep >= 0) & (wl >= 0) & (cell >= 0)
+    return (torch.where(okd, cell * width + wl, -1),
+            torch.where(okd, value, 0.0))
 
 
 def _locate_args(a, grid):
@@ -255,35 +290,43 @@ def _table_event_cuda(spec, u, kr, state):
     a.xi = spec.xi
     a.one_m_xi = spec.one_m_xi
     a.inv_minred = spec.inv_minred
-    _locate_args(a.geo, spec.grid)
+    a.direct = int(not spec.arith_locate)
+    if spec.arith_locate:
+        _locate_args(a.geo, spec.grid)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     st_out = [torch.empty(N, **f32) for _ in range(7)] \
         + [torch.empty(N, **i32) for _ in range(2)]
     out = {"state": tuple(st_out)}
-    depi = depv = None
+    depi = depv = depd = None
     if spec.want_labs:
-        depi = out["depi"] = torch.empty(N, **i32)
+        if spec.arith_locate:
+            depi = out["depi"] = torch.empty(N, **i32)
+        else:
+            depd = out["depd"] = torch.empty(N, **f32)
         depv = out["depv"] = torch.empty(N, **f32)
     for name, t in zip(("u", "kr", "px", "py", "pz", "dx", "dy", "dz", "L",
                         "alive", "ns", "ell", "L0", "t0", "dt", "alb", "g"),
                        [u, kr, *state]):
         setattr(a, name, _ptr(t))
     for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oL",
-                        "oalive", "ons", "odepi", "odepv"),
-                       [*st_out, depi, depv]):
+                        "oalive", "ons", "odepi", "odepv", "odepd"),
+                       [*st_out, depi, depv, depd]):
         setattr(a, name, _ptr(t))
     lib = kernels.library()
     kernels.check(lib.skirt_table_event(ctypes.byref(a), int(spec.want_labs),
                                         kernels.stream_of(u)),
                   "table_event kernel")
     table_event.launches += 1
+    if not spec.arith_locate:
+        table_event.direct_launches += 1
     return out
 
 
 def table_event(spec: TableEventSpec, u, kr, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K4
-    kernel, counted in `table_event.launches`)."""
+    kernel, or K4d without arith_locate, counted in `table_event.launches`
+    and with K4d also in `table_event.direct_launches`)."""
     if u.device.type == "cpu":
         return table_event_plain(spec, u, kr, state)
     if u.device.type != "cuda":
@@ -292,6 +335,7 @@ def table_event(spec: TableEventSpec, u, kr, state):
 
 
 table_event.launches = 0
+table_event.direct_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -619,11 +663,32 @@ def make_exact_peel(grid, ds, leaders):
 # the lifecycle driver
 # ---------------------------------------------------------------------------
 
+def _warn_staged_peel(grid, np_peel=None):
+    """skirt_tpu's warning when table_peel='exact' meets a grid without the
+    column DDA (a direct-table grid) and the peel runs staged."""
+    import warnings
+
+    warnings.warn(
+        "table_peel='exact' needs a uniform Cartesian (voxel) grid; "
+        "downgrading to 'staged' "
+        + (f"({np_peel} panels) " if np_peel is not None else "")
+        + f"on {type(grid).__name__} — peel "
+        "flux carries a panel quadrature bias (use >=32 panels)",
+        stacklevel=3)
+
+
 def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel):
     """Peel optical depths toward each leader: the exact column DDA, or the
     P_peel panel quadrature of the staged rows ('staged')."""
     if peel_mode == "exact":
         return make_exact_peel(grid, ds, leaders)
+    return make_staged_peel(grid, ds, leaders, np_peel)
+
+
+def make_staged_peel(grid, ds, leaders, np_peel):
+    """Peel optical depths toward each leader by the np_peel-panel
+    quadrature of the table rows (one locate of every panel midpoint per
+    leader): taus(pos, kext_pk) -> list over leaders of (N,) tau."""
 
     def staged(pos, kext_pk):
         taus = []
@@ -672,12 +737,19 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     peel_mode = getattr(options, "table_peel", "exact")
+    arith_locate = _uniform_grid(grid)
+    if peel_mode == "exact" and not arith_locate:
+        _warn_staged_peel(grid, np_peel)
+        peel_mode = "staged"
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
     H = ds.ncomp
     multi = H > 1
-    spec = (_build_kernel_multi if multi else _build_kernel)(
-        grid, options, nlambda, npanels, want_labs)
+    if multi:
+        spec = _build_kernel_multi(grid, options, nlambda, npanels, want_labs)
+    else:
+        spec = _build_kernel(grid, options, nlambda, npanels, want_labs,
+                             arith_locate)
     peels = [make_peel_off(grid, ds, ins) for ins in instruments]
     staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel)
     mixes = [c.mix for c in ds.components]
@@ -778,7 +850,12 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                 out = table_event(spec, u, kr,
                                   state + [albedo_pk, g_pk[0]])
             if want_labs and labs is not None:
-                binned_add(labs, out["depi"], out["depv"])
+                if arith_locate:
+                    binned_add(labs, out["depi"], out["depv"])
+                else:
+                    binned_add(labs, *direct_deposits(
+                        grid, pos, direction, out["depd"], out["depv"], ell,
+                        nlambda))
             st = out["state"]
             if count_events:
                 nev = nev + alive.sum().to(torch.float32)

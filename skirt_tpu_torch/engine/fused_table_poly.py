@@ -2,7 +2,9 @@
 lifecycle driver.
 
 Twin of skirt_tpu/engine/fused_table_poly.py on a uniform Cartesian
-(voxel) grid.  Every lane carries the full W-wavelength vector on one
+(voxel) grid or, with one dust component, directly on a grid with device
+point location (the exact Voronoi tessellation, an uneven Cartesian
+grid).  Every lane carries the full W-wavelength vector on one
 mixture-sampled geometric path: the staged rho panels and the exact
 column-DDA peel integrals are wavelength-independent, so one gather
 serves all W wavelengths.  The estimator is the defensive-mixture
@@ -16,6 +18,13 @@ uniform-driver mixture, the deposit at a second forced-pdf point, and
 the scatter from the driver wavelength's component-blended HG.  The peel
 then weights each wavelength by the components' blended phase function at
 the located new cell.
+
+On a direct-table grid K6 runs as K6d (skirt_tpu's arith_locate=False):
+the kernel emits the sampled deposit wavelength, the deposit total and its
+distance along the pre-event ray, and the lifecycle locates pos + mid_dep *
+dir with one `grid.locate_batched` per iteration and forms the bin cell *
+W + wsel (fused_table.direct_deposits).  table_peel='exact' downgrades to
+the staged panel peel there, with skirt_tpu's warning.
 
 Each event has two implementations with one input/output contract:
 - `table_poly_event_plain` / `table_poly_multi_event_plain`: plain
@@ -31,11 +40,12 @@ Layouts (N lanes, no padding).  K6: u (7, N); r (P, N) raw rho panels; oc
 (3, W) = kext, albedo, g.  K7: u (8, N); r (H * P, N) raw rho panels,
 h-major; oc (3H, W) = kext rows, ksca rows, g rows.  Both: L, L0, Ln, Lp
 (W, N); state px, py, pz, dx, dy, dz float32, alive, ns int32, t0, dt
-float32, each (N,); depi int32 / depv float32 (N,).
+float32, each (N,); depi int32 / depv float32 (N,); K6d: depi is the
+deposit wavelength, plus depd float32 (N,), the deposit distance (-1 for
+none).
 
-Not ported here, each refusing with its slice: non-uniform grids
-(direct-table locate, S4b), polarization (S5), the dust-emission launch
-(S3), io_state (S2b).
+Not ported here, each refusing with its slice: polarization (S5), the
+dust-emission launch (S3), io_state (S2b).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -56,7 +66,7 @@ from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
                     _scatter_direction)
 from .fused_poly import _hg
 from .fused_table import (_check_tensors, _locate_args, _staged_taus_fn,
-                          _uniform_grid)
+                          _uniform_grid, _warn_staged_peel, direct_deposits)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -66,14 +76,15 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
 
     if ds is None or not getattr(ds, "table", False):
         bail("requires density_mode='table' (voxelized().as_table())")
+    if not (hasattr(grid, "ray_span") and hasattr(grid, "locate_batched")):
+        bail("requires a grid with ray_span + locate_batched (uniform "
+             "Cartesian voxel view, or a direct-table grid such as the "
+             "exact Voronoi tessellation)")
     if ds.ncomp != 1 and not _uniform_grid(grid):
         bail("multi-component mode needs the uniform Cartesian voxel "
              "view (per-component raw rows + in-kernel blending)")
     if mueller is not None and ds.ncomp != 1:
         bail("polarization supports a single dust component")
-    if not _uniform_grid(grid):
-        bail("non-uniform grids (the direct-table locate) are not ported "
-             "yet (slice S4b)")
     if mueller is not None:
         bail("polarization is not ported yet (slice S5)")
     if io_state:
@@ -136,7 +147,9 @@ def _cumsum_w(x):
 class TablePolyEventSpec:
     """The constants the K6 event closes over (skirt_tpu
     fused_table_poly._build_kernel): float32 values as Python floats, the
-    (3, W) optical constants, the uniform grid of the deposit locate."""
+    (3, W) optical constants, the grid: with arith_locate its uniform
+    voxels are located in the kernel, without (K6d) the deposit distance
+    goes out instead."""
     W: int
     npanels: int
     want_labs: bool
@@ -148,13 +161,15 @@ class TablePolyEventSpec:
     oc: np.ndarray                   # (3, W) float32
     grid: object
     n_uniform: int = 7
+    arith_locate: bool = True
     locate: object = field(default=None, repr=False)
 
 
-def _build_kernel(grid, ds, options, W, npanels, want_labs):
+def _build_kernel(grid, ds, options, W, npanels, want_labs,
+                  arith_locate=True):
     """The event's constants (mirrors skirt_tpu
-    fused_table_poly._build_kernel with arith_locate): oc = the float32
-    kappa_ext, albedo and g of the mix per wavelength."""
+    fused_table_poly._build_kernel; arith_locate=False is K6d): oc = the
+    float32 kappa_ext, albedo and g of the mix per wavelength."""
     mix = ds.components[0].mix
     oc = np.stack([np.asarray(ds.kappaext[0][:W], np.float32),
                    np.asarray(mix.albedo[:W], np.float32),
@@ -165,7 +180,9 @@ def _build_kernel(grid, ds, options, W, npanels, want_labs):
         min_scatt=int(options.min_scatt_events), xi=_f32(xi),
         one_m_xi=_f32(1.0 - xi), inv_W=_f32(1.0 / W),
         inv_minred=_f32(1.0 / options.min_weight_reduction),
-        oc=np.ascontiguousarray(oc), grid=grid, locate=_make_locate(grid))
+        oc=np.ascontiguousarray(oc), grid=grid,
+        arith_locate=bool(arith_locate),
+        locate=_make_locate(grid) if arith_locate else None)
 
 
 def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
@@ -173,7 +190,9 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
 
     Mirrors the Pallas body (skirt_tpu/engine/fused_table_poly.py:160-350)
     operation for operation.  Returns a dict: "state" (px, py, pz, dx, dy,
-    dz, alive, ns), "Ln", "Lp" and "depi"/"depv" with labs."""
+    dz, alive, ns), "Ln", "Lp" and with labs "depi"/"depv"; for K6d
+    (arith_locate False) depi is the deposit wavelength and "depd" the
+    deposit's distance along the pre-event ray (-1 for none)."""
     W = spec.W
     P = spec.npanels
     X, Y, Z, DX, DY, DZ = state[:6]
@@ -219,10 +238,17 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
         I_dep = _expon_cutoff(u[2], tau_sel) * kinv_sel
         i_dep = count_below(I_dep)
         mid_dep = t0 + (i_dep.to(torch.float32) + 0.5) * delta
-        cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
-                           Z + mid_dep * DZ)
-        okd = (Dsum > 0) & alive & (cell >= 0)
-        out["depi"] = torch.where(okd, cell * W + wsel, -1)
+        okd = (Dsum > 0) & alive
+        if spec.arith_locate:
+            cell = spec.locate(X + mid_dep * DX, Y + mid_dep * DY,
+                               Z + mid_dep * DZ)
+            okd = okd & (cell >= 0)
+            out["depi"] = torch.where(okd, cell * W + wsel, -1)
+        else:
+            # the bin cell * W + wsel is finished after a locate of
+            # pos + mid_dep * dir (direct_deposits)
+            out["depi"] = torch.where(okd, wsel, -1)
+            out["depd"] = torch.where(okd, mid_dep, -1.0)
         out["depv"] = torch.where(okd, Dsum, 0.0)
 
     Lab = alb * Lm * ome
@@ -320,7 +346,9 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     a.one_m_xi = spec.one_m_xi
     a.inv_W = spec.inv_W
     a.inv_minred = spec.inv_minred
-    _locate_args(a.geo, spec.grid)
+    a.direct = int(not spec.arith_locate)
+    if spec.arith_locate:
+        _locate_args(a.geo, spec.grid)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     st_out = [torch.empty(N, **f32) for _ in range(6)] \
@@ -328,17 +356,19 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     Ln = torch.empty((W, N), **f32)
     Lp = torch.empty((W, N), **f32)
     out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp}
-    depi = depv = None
+    depi = depv = depd = None
     if spec.want_labs:
         depi = out["depi"] = torch.empty(N, **i32)
         depv = out["depv"] = torch.empty(N, **f32)
+        if not spec.arith_locate:
+            depd = out["depd"] = torch.empty(N, **f32)
     for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
                         "dy", "dz", "alive", "ns", "t0", "dt"),
                        [u, r, oc, L, L0, *state]):
         setattr(a, name, _ptr(t))
     for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
-                        "ons", "oLn", "oLp", "odepi", "odepv"),
-                       [*st_out, Ln, Lp, depi, depv]):
+                        "ons", "oLn", "oLp", "odepi", "odepv", "odepd"),
+                       [*st_out, Ln, Lp, depi, depv, depd]):
         setattr(a, name, _ptr(t))
     lib = kernels.library()
     kernels.check(lib.skirt_table_poly_event(ctypes.byref(a),
@@ -346,12 +376,16 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
                                              kernels.stream_of(u)),
                   "table_poly_event kernel")
     table_poly_event.launches += 1
+    if not spec.arith_locate:
+        table_poly_event.direct_launches += 1
     return out
 
 
 def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K6
-    kernel, counted in `table_poly_event.launches`)."""
+    kernel, or K6d without arith_locate, counted in
+    `table_poly_event.launches` and with K6d also in
+    `table_poly_event.direct_launches`)."""
     if u.device.type == "cpu":
         return table_poly_event_plain(spec, u, r, oc, L, L0, state)
     if u.device.type != "cuda":
@@ -360,6 +394,7 @@ def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
 
 
 table_poly_event.launches = 0
+table_poly_event.direct_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -682,22 +717,28 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     np_peel = int(options.peel_panels or npanels)
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
+    peel_mode = getattr(options, "table_peel", "exact")
+    arith_locate = _uniform_grid(grid)
+    if peel_mode == "exact" and not arith_locate:
+        _warn_staged_peel(grid)
+        peel_mode = "staged"
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
     H = ds.ncomp
     multi = H > 1
-    spec = (_build_kernel_multi if multi else _build_kernel)(
-        grid, ds, options, W, npanels, want_labs)
+    if multi:
+        spec = _build_kernel_multi(grid, ds, options, W, npanels, want_labs)
+    else:
+        spec = _build_kernel(grid, ds, options, W, npanels, want_labs,
+                             arith_locate)
     # one wavelength-independent peel integral per leader (per component
     # with several) serves all W.  With several components the peel is the
     # exact one whatever table_peel says: skirt_tpu's multi branch sets
     # peel_mode = "exact" before it builds its peel
     # (skirt_tpu/engine/fused_table_poly.py:726-740), and the uniform grid
     # it needs is checked in _validate
-    peel_I_fn = _staged_taus_fn(
-        grid, ds, leaders,
-        "exact" if multi else getattr(options, "table_peel", "exact"),
-        np_peel)
+    peel_I_fn = _staged_taus_fn(grid, ds, leaders,
+                                "exact" if multi else peel_mode, np_peel)
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
     count_events = bool(getattr(options, "count_events", False))
@@ -794,7 +835,12 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             event = table_poly_multi_event if multi else table_poly_event
             out = event(spec, u, r, oc, L, l0, state)
             if want_labs and labs is not None:
-                binned_add(labs, out["depi"], out["depv"])
+                if arith_locate:
+                    binned_add(labs, out["depi"], out["depv"])
+                else:
+                    binned_add(labs, *direct_deposits(
+                        grid, pos, direction, out["depd"], out["depv"],
+                        out["depi"], W))
             if count_events:
                 nev = nev + alive.sum().to(torch.float32)
             st = out["state"]

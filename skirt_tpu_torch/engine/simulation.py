@@ -42,11 +42,14 @@ class OligoSimulation:
     exactly voxelizable grids, True any, False none; "table" also turns
     the gridded densities into table mode, which the fused table engines
     run); the returned absorption tallies fold back onto the leaf cells.
+    A Voronoi grid's approximate voxel view is measured and refused above
+    a 10% mass-weighted field error; with voxelize="table" the run then
+    keeps the exact tessellation in table mode (the direct table).
     Not ported yet, and raising with the slice that ports them: use_mesh
     True or "slab" (S8), compaction_iterations > 0 (S2b), a gridded dust
-    system left for the per-crossing walk (S2b), approximate voxelizations
-    (S4b), the write_convergence / write_density / write_depth_map /
-    write_grid / write_cells_crossed diagnostics (S2b).  use_mesh=None
+    system left for the per-crossing walk (S2b), the write_convergence /
+    write_density / write_depth_map / write_grid / write_cells_crossed
+    diagnostics (S2b).  use_mesh=None
     means one device here (skirt_tpu shards over every local device)."""
 
     def __init__(self, *, stellar_system, instruments, dust_system=None,
@@ -106,9 +109,11 @@ class OligoSimulation:
     # ------------------------------------------------------------------
 
     def _voxelized(self, dust_system):
-        """The dust system the run traces (skirt_tpu simulation.py:74-104):
-        a tree grid's exact voxel view, in table mode with
-        voxelize='table'; sets the voxel -> leaf fold of the labs."""
+        """The dust system the run traces (skirt_tpu simulation.py:74-109):
+        a tree grid's exact voxel view, or a Voronoi grid's approximate one
+        when its measured field error stays within 10% (else the exact
+        tessellation), in table mode with voxelize='table'; sets the voxel
+        -> cell fold of the labs."""
         self._labs_fold = None
         if dust_system is None:
             return None
@@ -116,7 +121,7 @@ class OligoSimulation:
         if vox_opt in (True, "table") or (
                 vox_opt is not False
                 and getattr(dust_system.grid, "voxelize_exact", False)):
-            v = dust_system.voxelized()
+            v = dust_system.voxelized(max_field_error=0.10, log=self.log)
             if v is not None:
                 dust_system, self._labs_fold = v
                 g = dust_system.grid

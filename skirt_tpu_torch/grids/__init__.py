@@ -1,4 +1,5 @@
 """Dust grids (twin of skirt_tpu.grids; ported subset)."""
 
-from .cartesian import CartesianGrid  # noqa: F401
+from .cartesian import CartesianGrid, TwoPhaseGrid  # noqa: F401
 from .octree import OctreeGrid  # noqa: F401
+from .voronoi import VoronoiGrid  # noqa: F401

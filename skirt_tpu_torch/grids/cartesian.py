@@ -3,8 +3,9 @@
 Twin of skirt_tpu/grids/cartesian.py: the host metadata, the
 uniform-spacing detection the event kernels' arithmetic locate relies
 on, the in-domain ray span of the panel quadrature (slice 1), and the
-point locates the table path gathers with (slice S4a).
-ref: SKIRTcore/CartesianDustGrid.cpp.
+point locates the table path gathers with (slice S4a), and the two-phase
+grid whose random cell weights scale the gridded densities.
+ref: SKIRTcore/CartesianDustGrid.cpp, TwoPhaseDustGrid.cpp.
 """
 
 from __future__ import annotations
@@ -143,3 +144,30 @@ class CartesianGrid:
         ix, iy, iz = idx
         ok = (ix >= 0) & (iy >= 0) & (iz >= 0)
         return torch.where(ok, (ix * self.ny + iy) * self.nz + iz, -1)
+
+
+class TwoPhaseGrid(CartesianGrid):
+    """Cartesian grid carrying random two-phase density weights.
+
+    ref: SKIRTcore/TwoPhaseDustGrid.cpp — each cell is drawn into the
+    high-density phase with probability `filling_factor`; the weights
+    contrast/norm (high) and 1/norm (low), with norm = contrast*ff + 1-ff,
+    keep the volume-averaged weight at exactly one so normalizations are
+    preserved.  `DustSystem` multiplies the sampled densities by
+    `cell_weights` (ref: DustSystem.cpp:159-170 applies grid->weight(m)).
+    """
+
+    def __init__(self, xborders, yborders, zborders, filling_factor: float,
+                 contrast: float, seed: int = 4357):
+        super().__init__(xborders, yborders, zborders)
+        if not 0.0 < filling_factor < 1.0:
+            raise ValueError("the volume filling factor of the high-density "
+                             "medium should be between 0 and 1")
+        if contrast <= 0.0:
+            raise ValueError("the density contrast should be positive")
+        self.filling_factor = float(filling_factor)
+        self.contrast = float(contrast)
+        X = np.random.default_rng(seed).random(self.ncells)
+        norm = contrast * filling_factor + 1.0 - filling_factor
+        self.cell_weights = np.where(X < filling_factor,
+                                     contrast / norm, 1.0 / norm)

@@ -153,15 +153,16 @@ class MonoArgs(ctypes.Structure):
 
 class TableArgs(ctypes.Structure):
     """Mirror of `struct TableArgs` in csrc/fused_table.cu (same order);
-    only the Geom's arithmetic-locate fields are read."""
+    only the Geom's arithmetic-locate fields are read (by K4; `direct`
+    selects K4d, which writes odepd instead of odepi)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "u", "kr", "px", "py", "pz", "dx", "dy", "dz", "L", "alive",
             "ns", "ell", "L0", "t0", "dt", "alb", "g",
             "opx", "opy", "opz", "odx", "ody", "odz", "oL", "oalive", "ons",
-            "odepi", "odepv")]
+            "odepi", "odepv", "odepd")]
         + [(name, ctypes.c_int) for name in (
-            "N", "nlambda", "npanels", "min_scatt")]
+            "N", "nlambda", "npanels", "min_scatt", "direct")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_minred")]
         + [("geo", Geom)])
@@ -169,16 +170,17 @@ class TableArgs(ctypes.Structure):
 
 class TablePolyArgs(ctypes.Structure):
     """Mirror of `struct TablePolyArgs` in csrc/fused_table_poly.cu (same
-    order); only the Geom's arithmetic-locate fields are read."""
+    order); only the Geom's arithmetic-locate fields are read (by K6;
+    `direct` selects K6d, which also writes odepd)."""
     MAX_W = 128
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "u", "r", "oc", "L", "L0", "px", "py", "pz", "dx", "dy", "dz",
             "alive", "ns", "t0", "dt",
             "opx", "opy", "opz", "odx", "ody", "odz", "oalive", "ons",
-            "oLn", "oLp", "odepi", "odepv")]
+            "oLn", "oLp", "odepi", "odepv", "odepd")]
         + [(name, ctypes.c_int) for name in (
-            "N", "W", "npanels", "min_scatt", "sum_block")]
+            "N", "W", "npanels", "min_scatt", "sum_block", "direct")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_W", "inv_minred")]
         + [("geo", Geom)])

@@ -26,6 +26,9 @@ class Log:
     def info(self, message: str) -> None:
         self._emit(message)
 
+    def warning(self, message: str) -> None:
+        self._emit("Warning: " + message)
+
     def success(self, message: str) -> None:
         self._emit(message)
 

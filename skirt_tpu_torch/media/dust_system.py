@@ -2,8 +2,9 @@
 
 Twin of skirt_tpu/media/dust_system.py: the components, the
 normalizations, the MC gridding of the densities, analytic mode (slice
-1), and the gridded and table modes with the exact voxel view of tree
-grids (slice S4a).
+1), the gridded and table modes with the exact voxel view of tree grids
+(slice S4a), and the approximate voxel view of Voronoi grids with its
+measured field error (slice S4b-2).
 ref: SKIRTcore/DustSystem.cpp:63-192 and the normalization family.
 
 Setup runs on the host in NumPy float64 with the same seed and sampling
@@ -87,7 +88,10 @@ class DustSystem:
         cells = np.arange(ncells)
         for h, comp in enumerate(self.components):
             m = comp.mass()
-            if samples_per_cell <= 1:
+            if hasattr(grid, "sample_cell_densities"):
+                # unstructured grids give a one-pass stratified estimate
+                rho[h] = m * grid.sample_cell_densities(comp.geometry.density)
+            elif samples_per_cell <= 1:
                 rho[h] = m * np.asarray(comp.geometry.density(grid.cell_centers()))
             else:
                 acc = np.zeros(ncells)
@@ -95,6 +99,11 @@ class DustSystem:
                     pos = grid.random_positions_in_cells(rng_np, cells)
                     acc += np.asarray(comp.geometry.density(pos))
                 rho[h] = m * acc / samples_per_cell
+        # two-phase (clumpy) media scale each cell's density by the grid's
+        # random phase weight (ref: DustSystem.cpp:159-170)
+        w = getattr(grid, "cell_weights", None)
+        if w is not None:
+            rho *= np.asarray(w)[None, :]
         self._set_rho(rho)
 
     @classmethod
@@ -161,7 +170,8 @@ class DustSystem:
         if not (hasattr(grid, "ray_span") and hasattr(grid, "locate_batched")):
             raise ValueError(
                 f"density_mode='table' needs a grid with ray_span + "
-                f"locate_batched (a Cartesian or voxelized grid); the device "
+                f"locate_batched (a Cartesian, voxelized or Voronoi grid); "
+                f"the device "
                 f"walk of {type(grid).__name__} is not ported yet (slice S2b)")
 
     def as_table(self) -> "DustSystem":
@@ -175,33 +185,49 @@ class DustSystem:
         t.table = True
         return t
 
-    def voxelized(self, max_voxels: int = 1 << 24):
-        """Uniform-voxel view of this system for tree grids.
+    def voxelized(self, max_voxels: int = 1 << 24,
+                  max_field_error: float | None = None, log=None):
+        """Uniform-voxel view of this system.
 
-        The gridded density field is piecewise constant on leaf cells and
-        leaves are unions of finest-level voxels, so the voxel view traces
-        the identical field through the Cartesian grid.  Returns
-        (voxel_dust_system, fold_labs), where fold_labs maps a flat
-        (nvox * nlambda,) absorption tally onto (ncells * nlambda,) leaf
+        Tree grids: the gridded field is piecewise constant on leaf cells
+        and leaves are unions of finest-level voxels, so the view traces
+        the identical field.  Voronoi grids (grid.voxelize_exact False):
+        the nearest-site rasterization approximates the field; its
+        mass-weighted error is measured (`voxelization_error` on the
+        result, and logged), and above `max_field_error` the view is
+        refused (None), so the caller keeps the exact tessellation.
+        Returns (voxel_dust_system, fold_labs), where fold_labs maps a
+        flat (nvox * nlambda,) absorption tally onto (ncells * nlambda,)
         cells; None when the grid has no voxelization or it would exceed
-        max_voxels.  Approximate voxelizations (Voronoi rasterization, with
-        skirt_tpu's field-error check) belong to slice S4b."""
+        max_voxels."""
         import copy
 
         if self.analytic or not hasattr(self.grid, "voxelize"):
             return None
-        if not getattr(self.grid, "voxelize_exact", True):
-            raise ValueError("approximate voxelization (field-error check) "
-                             "is not ported yet (slice S4b)")
         v = self.grid.voxelize(max_voxels=max_voxels)
         if v is None:
             return None
         cart, cell_of = v
+        field_error = None
+        if not getattr(self.grid, "voxelize_exact", True):
+            field_error = self._voxel_field_error(cart, cell_of)
+            if log is not None:
+                log.info(f"approximate voxelization: mass-weighted field "
+                         f"error {field_error * 100:.2f}%")
+            if max_field_error is not None and field_error > max_field_error:
+                if log is not None:
+                    log.warning(
+                        f"voxelization refused: field error "
+                        f"{field_error * 100:.2f}% exceeds the "
+                        f"{max_field_error * 100:.2f}% tolerance — "
+                        f"falling back to the exact walk")
+                return None
         vds = copy.copy(self)
         vds.grid = cart
         vds.rho64 = np.ascontiguousarray(self.rho64[:, cell_of])
         vds.rho = np.asarray(vds.rho64, np.float32)
         vds.volumes = cart.cell_volumes()
+        vds.voxelization_error = field_error
         vds._rho_dev = {}
         nl = self.wavelength_grid.nlambda
         ncells = self.grid.ncells
@@ -213,6 +239,32 @@ class DustSystem:
             return out.reshape(-1)
 
         return vds, fold_labs
+
+    def _voxel_field_error(self, cart, cell_of, n_samples: int = 200000,
+                           seed: int = 31):
+        """Mass-weighted relative field error of an approximate
+        rasterization, E = sum |rho_vox - rho_exact| dV / sum rho dV,
+        sampled at n_samples uniform points: rho_exact by the grid's own
+        point location (the exact tessellation), rho_vox by the voxel
+        assignment (skirt_tpu's estimate, the same draws)."""
+        rs = np.random.default_rng(seed)
+        lo = np.asarray([cart._lo[a] for a in range(3)])
+        dxv = np.asarray([cart._dx[a] for a in range(3)])
+        nv = np.asarray([cart.nx, cart.ny, cart.nz])
+        pts = lo + rs.uniform(size=(n_samples, 3)) * (nv * dxv)
+        exact_cells = self.grid.locate(
+            torch.as_tensor(pts.astype(np.float32))).numpy()
+        iv = np.clip(((pts - lo) / dxv).astype(np.int64), 0, nv - 1)
+        vox_flat = (iv[:, 0] * nv[1] + iv[:, 1]) * nv[2] + iv[:, 2]
+        vox_cells = np.asarray(cell_of)[vox_flat]
+        rho = self.rho64.sum(axis=0)
+        ok = exact_cells >= 0
+        re_ = rho[exact_cells[ok]]
+        rv = rho[vox_cells[ok]]
+        denom = re_.sum()
+        if denom <= 0:
+            return 0.0
+        return float(np.abs(rv - re_).sum() / denom)
 
     # -- diagnostics (host) -----------------------------------------------
 

@@ -1,14 +1,16 @@
-"""Parity helpers for the event kernels K1 and K3-K7: inputs and the
-lane-wise criterion.
+"""Parity helpers for the event kernels K1, K3-K7 and the direct-table
+variants K4d and K6d: inputs and the lane-wise criterion.
 
 Shared by tests/test_torch_fused_poly.py, tests/test_torch_fused.py and
 tests/test_torch_table*.py (the plain events against the Pallas kernels
-on the CPU), tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels
-against the plain events on the card).
+on the CPU; K4d and K6d in tests/test_torch_table_direct.py),
+tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernels against the
+plain events on the card).
 
 The criterion.  An event's discrete outputs are its integer outputs
-(alive, nscatt, the deposit bin, bcount, fresh, K5's interaction cell)
-and, for the polychromatic events, the set of wavelengths that survive
+(alive, nscatt, the deposit bin or K6d's deposit wavelength, bcount,
+fresh, K5's interaction cell), whether K4d / K6d deposit at all (depd >=
+0) and, for the polychromatic events, the set of wavelengths that survive
 the weight cut (Ln > 0).  Each is decided by
 comparing float32 values (panel picks against cumulative optical depths,
 the wavelength pick against a running sum, the cut against
@@ -109,8 +111,10 @@ def mono_event_case(spec, N, seed, device):
 
 def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
                        small_tau=0.0, outside=0.0, device="cpu"):
-    """numpy-made inputs of one table event (K4-K7) for N lanes on a
-    table-mode dust system `ds` (a uniform Cartesian grid), as tensors on
+    """numpy-made inputs of one table event (K4-K7, K4d, K6d) for N lanes
+    on a table-mode dust system `ds` (a uniform Cartesian voxel view, or
+    for K4d and K6d a direct-table grid such as a VoronoiGrid: the panel
+    rows come from the grid's own locate_batched), as tensors on
     `device`: a dict with u (n_uniform, N), the lanes' pos / dir (N, 3),
     alive and ns (int32), t0 and dt of the P equal panels, ell (one of W
     wavelengths per lane, for K4 and K5), L and L0 (W, N), and rows: the
@@ -124,7 +128,10 @@ def table_event_inputs(ds, N, n_uniform, W, seed=0, npanels=16,
     a `small_tau` fraction of lanes with panel densities scaled by 1e-6
     (optical depths below 1e-3), and an `outside` fraction whose panels
     start 10 box widths away, so their deposit point lies outside the
-    grid (panels kept dense)."""
+    grid (panels kept dense; K4d and K6d still emit its distance, and
+    the lifecycle's locate drops it).  Callers make the weight cut fire
+    with a spec past min_scatt_events 1 and a small
+    min_weight_reduction."""
     import torch
 
     from .engine import vector_traversal as vt
@@ -266,11 +273,13 @@ def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
     N = want["state"][0].shape[0]
     pairs = list(zip(got["state"], want["state"]))
     pairs += [(got[k], want[k]) for k in ("depi", "cell", "bc", "fresh",
-                                          "depv", "Ln", "Lp", "Ip", "tau",
-                                          "cos", "phase") if k in want]
+                                          "depv", "depd", "Ln", "Lp", "Ip",
+                                          "tau", "cos", "phase") if k in want]
     disc = [(a, b) for a, b in pairs if not b.is_floating_point()]
     if "Ln" in want:
         disc.append((got["Ln"] > 0, want["Ln"] > 0))
+    if "depd" in want:
+        disc.append((got["depd"] >= 0, want["depd"] >= 0))
     floats = [(a, b) for a, b in pairs if b.is_floating_point()]
     agree = torch.ones(N, dtype=torch.bool, device=want["state"][0].device)
     for a, b in disc:

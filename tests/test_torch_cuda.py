@@ -10,6 +10,7 @@ same comparisons at the main path's shapes.
 """
 
 import re
+import warnings
 
 import numpy as np
 import pytest
@@ -125,6 +126,42 @@ def _multi_model(lanes=64, **kw):
     return _octree_build(lanes, multi=True, **args)
 
 
+def _voronoi_model(lanes=64, **kw):
+    """Config 4 (bench_torch's Voronoi model) at 300 sites, on the exact
+    tessellation by default (the direct table: K4d, K6d)."""
+    from bench_torch import _octree_build
+    args = dict(voronoi=True, nsites=300, direct=True, polychromatic=False,
+                refill_batches=2, quadrature_panels=16, peel_panels=8)
+    args.update(kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the staged-peel downgrade
+        return _octree_build(lanes, **args)
+
+
+def test_direct_kernels_refuse_more_panels_than_registers():
+    """K4d and K6d keep their panels in registers (MAXP = 32): past it the
+    wrappers raise naming quadrature_panels and the limit, before any
+    launch and without running the plain version in its place."""
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_poly_state, table_state)
+
+    for poly, event in ((False, tft._table_event_cuda),
+                        (True, tftp._table_poly_event_cuda)):
+        run, *_, model = _voronoi_model(polychromatic=poly,
+                                        quadrature_panels=33)
+        spec, ds = run.spec, model[1]
+        assert spec.npanels == 33 and not spec.arith_locate
+        inp = table_event_inputs(ds, 64, spec.n_uniform, 2, npanels=33)
+        if poly:
+            args = (inp["rows"], torch.from_numpy(spec.oc), inp["L"],
+                    inp["L0"], table_poly_state(inp))
+        else:
+            kr, state = table_state(inp, ds)
+            args = (kr, state)
+        with pytest.raises(ValueError, match="quadrature_panels <= 32"):
+            event(spec, inp["u"], *args)
+
+
 def test_table_locate_args_pack_the_grid():
     """The K4 / K6 deposit locate reads the voxel grid's float32 lower
     corner and inverse spacing, as the plain locate does."""
@@ -154,8 +191,10 @@ def test_cpu_run_launches_no_kernel():
     def counts():
         return (binned.binned_add.launches, tfp.poly_event.launches,
                 tfm.mono_event.launches, tft.table_event.launches,
+                tft.table_event.direct_launches,
                 tft.table_multi_event.launches,
                 tftp.table_poly_event.launches,
+                tftp.table_poly_event.direct_launches,
                 tftp.table_poly_multi_event.launches)
 
     before = counts()
@@ -163,7 +202,7 @@ def test_cpu_run_launches_no_kernel():
         run, zero, ell, L0 = _model(packets=128, polychromatic=poly)
         t = run(7, ell, L0, zero())
         assert float(t["labs"].sum()) > 0
-        for build in (_table_model, _multi_model):
+        for build in (_table_model, _multi_model, _voronoi_model):
             run, zero, ell, L0, *_ = build(polychromatic=poly)
             t = run(7, ell, L0, zero())
             assert float(t["labs"].sum()) > 0
@@ -429,3 +468,82 @@ def test_table_poly_multi_event_kernel_matches_plain(W):
                         tftp.table_poly_multi_event_plain, spec, inp["u"],
                         inp["rows"], table_poly_state(inp),
                         lambda: (oc, lum["L"], inp["L0"]), restage)
+
+
+@pytest.mark.gpu
+def test_table_event_direct_kernel_matches_plain():
+    """K4d against its plain version on the 300-site tessellation (dead
+    lanes, optical depths below 1e-3, a weight cut that fires, deposits
+    outside the grid), chained over a few events; each launch counted as
+    a K4d launch too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs, table_restage,
+                                         table_state)
+
+    run, *_, model = _voronoi_model(device="cuda")
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    assert not spec.arith_locate
+    inp = table_event_inputs(ds, 4096, 5, 2, seed=3, npanels=16,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    kr, state = table_state(inp, ds)
+    kext_pk = ds.packet_kappas(state[9])[1]
+
+    def restage(got, state):
+        st = got["state"]
+        kr, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                   torch.stack(st[3:6], -1), 16, kext_pk)
+        return kr, list(st) + [state[9], state[10], t0, dt, state[13],
+                               state[14]]
+
+    before = tft.table_event.direct_launches
+    got = _chain_table_events(tft.table_event, tft.table_event_plain, spec,
+                              inp["u"], kr, state, lambda: (), restage)
+    assert tft.table_event.direct_launches == before + 4
+    assert "depi" not in got and (got["depd"] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 8])
+def test_table_poly_event_direct_kernel_matches_plain(W):
+    """K6d against its plain version on the 300-site tessellation, chained
+    over a few events, the lanes' luminosities carried from event to
+    event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    run, *_, model = _voronoi_model(device="cuda", nlambda=W,
+                                    polychromatic=True)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)))
+    assert not spec.arith_locate
+    n = 4096
+    inp = table_event_inputs(ds, n, 7, W, seed=W + 3, npanels=16,
+                             small_tau=0.02, outside=0.02, device="cuda")
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    lum = {"L": inp["L"]}
+    ones = [torch.ones(n, device="cuda")]
+
+    def restage(got, state):
+        st = got["state"]
+        lum["L"] = got["Ln"]
+        r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                  torch.stack(st[3:6], -1), 16, ones)
+        return r, list(st) + [t0, dt]
+
+    before = tftp.table_poly_event.direct_launches
+    got = _chain_table_events(tftp.table_poly_event,
+                              tftp.table_poly_event_plain, spec, inp["u"],
+                              inp["rows"], table_poly_state(inp),
+                              lambda: (oc, lum["L"], inp["L0"]), restage)
+    assert tftp.table_poly_event.direct_launches == before + 4
+    assert torch.equal(got["depd"] >= 0, got["depi"] >= 0)

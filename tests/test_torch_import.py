@@ -5,10 +5,14 @@ already imported jax, so an in-process check would prove nothing.  The
 subprocess imports every module of skirt_tpu_torch (the CUDA wrapper
 modules included) and chip_smoke.py with no nvcc on PATH, runs a tiny
 analytic slice, a monochromatic OligoSimulation, both table engines
-(config 3's octree torus at max_level 3) and both multi-component table
-engines (the two-component model, K5 and K7) on the CPU, writes the
-simulation's results, and reports which of jax / triton / skirt_tpu got
-imported and whether a kernel build was attempted.
+(config 3's octree torus at max_level 3), both multi-component table
+engines (the two-component model, K5 and K7) and config 4 (a 200-site
+Voronoi tessellation from the native cell builder: the direct table,
+K4d and K6d, and the voxel view) on the CPU, writes the simulation's
+results, and reports which of jax / triton / skirt_tpu got imported and
+whether a kernel build was attempted.  The native Voronoi library is
+built in the test process first (the subprocess has no compiler on PATH
+and loads it from the port's build cache).
 """
 
 import json
@@ -70,6 +74,18 @@ SCRIPT = textwrap.dedent("""
         tt = tr(rng.root_key(3), tell, tL0, tz())
         table.append([float(tt["instruments"][0]["Ftot"].sum()),
                       float(tt["labs"].sum())])
+    # config 4: the direct table (K4d, K6d) and the voxel view (K6)
+    voronoi = []
+    for direct, poly in ((True, False), (True, True), (False, True)):
+        tr, tz, tell, tL0, _, vm = _octree_build(
+            64, device="cpu", voronoi=True, nsites=200, direct=direct,
+            polychromatic=poly, refill_batches=2, quadrature_panels=8,
+            peel_panels=4, res=16)
+        tt = tr(rng.root_key(4), tell, tL0, tz())
+        voronoi.append([float(tt["instruments"][0]["Ftot"].sum()),
+                        float(tt["labs"].sum()), tr.spec.arith_locate])
+        if direct:
+            native_cells = vm[0].used_native
     reference = sorted(m for m in sys.modules
                        if m == "skirt_tpu" or m.startswith("skirt_tpu."))
     print(json.dumps({
@@ -81,8 +97,10 @@ SCRIPT = textwrap.dedent("""
                      fused_poly.poly_event.launches,
                      fused.mono_event.launches,
                      fused_table.table_event.launches,
+                     fused_table.table_event.direct_launches,
                      fused_table.table_multi_event.launches,
                      fused_table_poly.table_poly_event.launches,
+                     fused_table_poly.table_poly_event.direct_launches,
                      fused_table_poly.table_poly_multi_event.launches],
         "mono": isinstance(sim._lifecycle.spec, fused.MonoEventSpec),
         "mono_sed": float(acc["instruments"][0]["Ftot"].sum()),
@@ -91,11 +109,16 @@ SCRIPT = textwrap.dedent("""
         "sed": float(t["instruments"][0]["Ftot"].sum()),
         "labs": float(t["labs"].sum()),
         "table": table,
+        "voronoi": voronoi,
+        "native_cells": native_cells,
     }))
 """)
 
 
 def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
+    from skirt_tpu_torch import native
+
+    native_built = native.load() is not None
     env = dict(os.environ, PYTHONPATH=str(REPO), PATH=str(tmp_path),
                CUDA_VISIBLE_DEVICES="")
     env.pop("XLA_FLAGS", None)
@@ -108,14 +131,18 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     assert res["triton"] is False
     # a run, its writers and chip_smoke.py import nothing of the JAX package
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0] * 7
+    assert res["built"] is False and res["launches"] == [0] * 9
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
                 "engine.fused_table", "engine.fused_table_poly",
-                "grids.octree", "devices", "units", "fits", "kernels"):
+                "grids.octree", "grids.voronoi", "native", "devices", "units",
+                "fits", "kernels"):
         assert f"skirt_tpu_torch.{mod}" in res["modules"]
     assert res["sed"] > 0 and res["labs"] > 0
     assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
     assert len(res["table"]) == 4
     assert all(sed > 0 and labs > 0 for sed, labs in res["table"])
+    assert [arith for *_, arith in res["voronoi"]] == [False, False, True]
+    assert all(sed > 0 and labs > 0 for sed, labs, _ in res["voronoi"])
+    assert res["native_cells"] is native_built
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "run_img_sed.dat", "run_img_total.fits", "run_sed_sed.dat"]

@@ -360,7 +360,8 @@ def test_unported_table_branches_raise(models):
     with pytest.raises(ValueError, match="slice S5"):
         make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=object())
     # several dust components build (kernel K5); with polarization or on
-    # a non-uniform grid they raise in skirt_tpu's words
+    # a non-uniform grid they raise in skirt_tpu's words.  One component on
+    # the non-uniform grid builds the direct table (kernel K4d, staged peel)
     two = type(ds).from_state(grid, ds.components * 2,
                               np.concatenate([ds.rho64, ds.rho64]), "table")
     assert isinstance(make_lifecycle(grid, two, ss, ins, opts, 2).spec,
@@ -372,8 +373,9 @@ def test_unported_table_branches_raise(models):
     uneven = CartesianGrid(b, b, b)
     ds_u = type(ds).from_state(uneven, ds.components,
                                np.zeros((1, uneven.ncells)), "table")
-    with pytest.raises(ValueError, match="slice S4b"):
-        make_lifecycle(uneven, ds_u, ss, ins, opts, 2)
+    with pytest.warns(UserWarning, match="downgrading to 'staged'"):
+        spec = make_lifecycle(uneven, ds_u, ss, ins, opts, 2).spec
+    assert type(spec) is tft.TableEventSpec and not spec.arith_locate
     two_u = type(ds).from_state(uneven, ds.components * 2,
                                 np.zeros((2, uneven.ncells)), "table")
     with pytest.raises(ValueError, match="uniform Cartesian voxel view"):

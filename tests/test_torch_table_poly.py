@@ -265,7 +265,8 @@ def test_unported_poly_table_branches_raise(model):
     with pytest.raises(ValueError, match="slice S3"):
         make_lifecycle(grid, ds, ss, ins, opts, 2, launch_fn=lambda *a: 0)
     # several dust components build (kernel K7); with polarization or on
-    # a non-uniform grid they raise in skirt_tpu's words
+    # a non-uniform grid they raise in skirt_tpu's words.  One component on
+    # the non-uniform grid builds the direct table (kernel K6d, staged peel)
     two = type(ds).from_state(grid, ds.components * 2,
                               np.concatenate([ds.rho64, ds.rho64]), "table")
     assert isinstance(make_lifecycle(grid, two, ss, ins, opts, 2).spec,
@@ -282,5 +283,6 @@ def test_unported_poly_table_branches_raise(model):
         make_lifecycle(uneven, two_u, ss, ins, opts, 2)
     ds_u = type(ds).from_state(uneven, ds.components,
                                np.zeros((1, uneven.ncells)), "table")
-    with pytest.raises(ValueError, match="slice S4b"):
-        make_lifecycle(uneven, ds_u, ss, ins, opts, 2)
+    with pytest.warns(UserWarning, match="downgrading to 'staged'"):
+        spec = make_lifecycle(uneven, ds_u, ss, ins, opts, 2).spec
+    assert type(spec) is tftp.TablePolyEventSpec and not spec.arith_locate
