@@ -63,6 +63,20 @@ printed on a line of its own with the locate scheme and its table bytes
 and the field error; timing and counting as BENCH_MODEL=octree.  The
 validated import-scale row is VORONOI_DIRECT=1 VORONOI_SITES=33000
 VORONOI_NLAM=8 VORONOI_PEELP=64 VORONOI_REFILL=64.
+
+BENCH_MODEL=polarized runs experiments/bench_polarized.py's polarized
+chains (_polarized_model; its POL_* knobs and defaults): the Thomson
+Mueller tables, a polarized FullInstrument (16x16 over 26 kpc) and an SED
+instrument at inclination 1.2, POL_NLAM log-spaced wavelengths (2),
+POL_LOG2N lanes (17), refill POL_REFILL (64), POL_PEELP peel panels (8),
+the azimuth POL_AZ (0.7 on the table, 0 on the disc), max_scatt_events
+64.  Default: the mono analytic flagship (the ExpDisk disc on 32x32x16,
+32 panels, one wavelength per lane: kernel K3); POL_TABLE=1: the mono
+table on config 3's torus (16 panels, the exact peel: K4); POL_TABLE=1
+POL_POLY=1: the poly table (W = POL_NLAM per lane: K6p).  Packets counted
+as bench_polarized.py counts them: lanes x K (x W on the poly table);
+timing as BENCH_MODEL=octree.  POL_FUSED=0 (the polarized vector path)
+raises: slice S5b.
 """
 
 import json
@@ -400,6 +414,129 @@ def _voronoi_model(nsites=4096, nlambda=2, polychromatic=True, direct=False,
     return dsys.grid, dsys, ss, ins, opts, host
 
 
+def _polarized_model(table=False, poly=False, nlambda=2, refill_batches=64,
+                     peel_panels=8, azimuth=None, electron=False, grid=None,
+                     voxelize=True):
+    """experiments/bench_polarized.py's polarized chains on the port:
+    (grid, dust system, stellar system, instruments, options, host).
+
+    Default (table=False): the mono analytic flagship, an ExpDisk stellar
+    disc in an ExpDisk dust disc (tau_z = 1) on a 32x32x16 grid, 32
+    panels (kernel K3).  table=True: the config-3 torus (a point source,
+    TorusGeometry on an octree over +-2.2 kpc, levels 2-5, tau_x = 5)
+    through its exact 32^3 voxel view in table mode, 16 panels, mono (K4)
+    or with poly=True W = nlambda per lane (K6p).  Both: nlambda
+    log-spaced wavelengths 0.55-2.2 um with power-law optics, the Thomson
+    Mueller matrix, a polarized FullInstrument (16x16 over 26 kpc) and an
+    SED instrument at inclination 1.2 and the azimuth (0.7 on the table,
+    off the lattice planes; 0 on the disc), the exact peel, peel_panels
+    panels toward the observer, max_scatt_events 64, no labs, refill
+    refill_batches.  The Mueller tables (thomson_mueller, as the bench
+    passes them, or an ElectronDustMix's own) are host["mueller"].
+    electron=True replaces the dust by an ElectronDustMix (grey Thomson
+    scattering, tau_x = 1 on the torus), whose own Mueller
+    tables OligoSimulation picks up; voxelize=False keeps the octree's
+    gridded system with options.voxelize="table" for OligoSimulation.
+    `grid` reuses an octree built earlier."""
+    import time
+
+    from skirt_tpu_torch.constants import KPC
+    from skirt_tpu_torch.engine.lifecycle import LifecycleOptions
+    from skirt_tpu_torch.geometry import (ExpDiskGeometry, PointGeometry,
+                                          TorusGeometry)
+    from skirt_tpu_torch.grids import CartesianGrid, OctreeGrid
+    from skirt_tpu_torch.instruments import FullInstrument, SEDInstrument
+    from skirt_tpu_torch.media import (DustComponent, DustSystem,
+                                       ElectronDustMix,
+                                       OpticalDepthNormalization,
+                                       SimpleOligoDustMix)
+    from skirt_tpu_torch.media.polarization import thomson_mueller
+    from skirt_tpu_torch.sources import (LuminosityStellarComponent,
+                                         StellarSystem)
+    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
+
+    lams = np.geomspace(0.55e-6, 2.2e-6, nlambda)
+    fpl = np.log(lams / 0.55e-6) / np.log(2.2 / 0.55)
+    wg = OligoWavelengthGrid(list(lams))
+    if electron:
+        mix = ElectronDustMix(wg)
+    else:
+        mix = SimpleOligoDustMix(wg, list(2600.0 * (600.0 / 2600.0) ** fpl),
+                                 list(0.5 + (0.4 - 0.5) * fpl),
+                                 list(0.4 + (0.2 - 0.4) * fpl))
+    host = {"mueller": (mix.mueller if mix.mueller is not None
+                        else thomson_mueller(nlambda))}
+    t0 = time.perf_counter()
+    if table:
+        torus = TorusGeometry(1.0, 2.0, 0.7, 0.05 * KPC, 2 * KPC)
+        half = 2.2 * KPC
+        if grid is None:
+            grid = OctreeGrid((-half, -half, -half, half, half, half),
+                              torus.density, min_level=2, max_level=5)
+        ss = StellarSystem([LuminosityStellarComponent(
+            PointGeometry(), wg, [1e36] * nlambda)])
+        comp = DustComponent(torus, mix, OpticalDepthNormalization(
+            "x", wg.lambdav[0], 1.0 if electron else 5.0))
+        dsys = DustSystem(grid, [comp], samples_per_cell=8)
+        if voxelize:
+            dsys = dsys.voxelized()[0].as_table()
+    else:
+        ss = StellarSystem([LuminosityStellarComponent(
+            ExpDiskGeometry(4 * KPC, 0.35 * KPC), wg, [1e36] * nlambda)])
+        b = np.linspace(-12 * KPC, 12 * KPC, 33)
+        bz = np.linspace(-2 * KPC, 2 * KPC, 17)
+        comp = DustComponent(ExpDiskGeometry(4 * KPC, 0.2 * KPC), mix,
+                             OpticalDepthNormalization("z", wg.lambdav[0],
+                                                       1.0))
+        dsys = DustSystem(CartesianGrid(b, b, bz), [comp],
+                          density_mode="analytic")
+    host["build"] = time.perf_counter() - t0
+    az = azimuth if azimuth is not None else (0.7 if table else 0.0)
+    ins = [FullInstrument("pol", 3.08e23, nlambda, 16, 16, fov_x=26 * KPC,
+                          fov_y=26 * KPC, inclination=1.2, azimuth=az,
+                          polarization=True),
+           SEDInstrument("sed", 3.08e23, nlambda, inclination=1.2,
+                         azimuth=az)]
+    opts = LifecycleOptions(max_scatt_events=64, deposition="sampled",
+                            quadrature_panels=16 if table else 32,
+                            peel_panels=peel_panels, table_peel="exact",
+                            polychromatic=poly and table, fused=True,
+                            refill_batches=refill_batches,
+                            voxelize=None if voxelize else "table")
+    return dsys.grid, dsys, ss, ins, opts, host
+
+
+def _polarized_build(lanes, device="cpu", **model_kw):
+    """`_polarized_model` with its lifecycle built, as
+    experiments/bench_polarized.py builds it: (run_batch, zero_tallies,
+    ell, L0, packets per call, model); mono lanes take ell = lane % W."""
+    import torch
+
+    from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+
+    model = _polarized_model(**model_kw)
+    grid, ds, ss, ins, opts, host = model
+    nlam = ss.wavelength_grid.nlambda
+    K = max(opts.refill_batches, 1)
+    run_batch = make_lifecycle(grid, ds, ss, ins, opts, nlam,
+                               mueller=host["mueller"])
+
+    def zero_tallies():
+        return {"instruments": [i.zero_tallies(device) for i in ins]}
+
+    if opts.polychromatic:
+        packets = lanes * K * nlam
+        ell = torch.zeros((lanes,), dtype=torch.int32, device=device)
+        L0 = torch.full((lanes, nlam), 1e36 / (lanes * K),
+                        dtype=torch.float32, device=device)
+    else:
+        packets = lanes * K
+        ell = torch.arange(lanes, dtype=torch.int32, device=device) % nlam
+        L0 = torch.full((lanes,), 1e36 / packets, dtype=torch.float32,
+                        device=device)
+    return run_batch, zero_tallies, ell, L0, packets, model
+
+
 def _octree_build(lanes, device="cpu", multi=False, voronoi=False,
                   **model_kw):
     """`_octree_model` (or with multi=True `_multi_model`, with voronoi=True
@@ -509,6 +646,59 @@ def _octree_main(name="octree"):
     }))
 
 
+def _polarized_knobs():
+    """experiments/bench_polarized.py's POL_* knobs with its defaults:
+    (lanes, _polarized_model keywords).  POL_FUSED=0 (the vector path)
+    belongs to slice S5b."""
+    env = os.environ.get
+    if env("POL_FUSED", "1") != "1":
+        raise SystemExit("bench_torch: POL_FUSED=0 (the polarized vector "
+                         "path) is not ported yet (slice S5b)")
+    table = env("POL_TABLE", "0") == "1"
+    kw = dict(table=table, poly=env("POL_POLY", "0") == "1" and table,
+              nlambda=int(env("POL_NLAM", "2")),
+              refill_batches=int(env("POL_REFILL", "64")),
+              peel_panels=int(env("POL_PEELP", "8")))
+    if "POL_AZ" in os.environ:
+        kw["azimuth"] = float(env("POL_AZ"))
+    return 1 << int(env("POL_LOG2N", "17")), kw
+
+
+def _polarized_main():
+    """BENCH_MODEL=polarized: experiments/bench_polarized.py's chains with
+    its POL_* knobs (module docstring); timed as bench_polarized.py times
+    them: a warm-up call, then the best of 3 calls."""
+    import torch
+
+    from skirt_tpu_torch import rng
+
+    lanes, kw = _polarized_knobs()
+    run_batch, zero_tallies, ell, L0, packets, model = _polarized_build(
+        lanes, device="cuda", **kw)
+    print(json.dumps({"host_build_s": model[5]["build"],
+                      "chain": ("table-poly" if kw["poly"] else "table"
+                                if kw["table"] else "flagship")}),
+          flush=True)
+    key = rng.root_key(4357)
+    run_batch(key, ell, L0, zero_tallies())             # warm-up + build
+    torch.cuda.synchronize()
+    best_dt = float("inf")
+    for rep in range(3):
+        t0 = time.perf_counter()
+        out = run_batch(rng.fold_in(key, 1 + rep), ell, L0, zero_tallies())
+        torch.cuda.synchronize()
+        best_dt = min(best_dt, time.perf_counter() - t0)
+        assert np.isfinite(float(out["instruments"][0]["Ftot"].sum()))
+    pps = packets / best_dt
+    print(json.dumps({
+        "metric": "photon_packets_per_second_per_chip",
+        "value": round(pps, 1),
+        "unit": "packets/s",
+        "vs_baseline": round(pps / 1.6e6, 4),
+        "device": torch.cuda.get_device_name(0),
+    }))
+
+
 def main():
     import torch
 
@@ -520,6 +710,8 @@ def main():
     bench_model = os.environ.get("BENCH_MODEL", "disc")
     if bench_model in ("octree", "multi", "voronoi"):
         return _octree_main(bench_model)
+    if bench_model == "polarized":
+        return _polarized_main()
     packets = 1 << int(os.environ.get("BENCH_LOG2_PACKETS", "15"))
     refill = int(os.environ.get("BENCH_REFILL", "128"))
     nlambda = int(os.environ.get("BENCH_NLAMBDA", "128"))

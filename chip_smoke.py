@@ -63,7 +63,11 @@ exits non-zero without printing a result):
      re-staged on the card (the tessellation's locate) between events
   11. K6d, the direct-table variant of K6, the same way at W = 8 (N =
      2^16, three states) and W = 128 (N = 2^15)
-  12. the main paths at full width, each with the launch counts of its
+  12. K6p, K6 and K6d with the polarized driver's column densities out
+     (I_s, I_tot), the same way at W = 2 (N = 2^17), 24 and 128 (N =
+     2^15), on config 3's voxel view and on the 33,000-site tessellation,
+     one state each; every output bit-identical to the plain version
+  13. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
      make_multibatch (bench_torch._build defaults); S2a, the mono
@@ -87,10 +91,19 @@ exits non-zero without printing a result):
      K = 8: the smooth sphere passes the field-error bound and runs the
      voxel view (K6, 2^17 lanes), the clumpy field (a random 3% of the
      cells at 1e3) does not and runs the direct table (K6d, 2^16 lanes),
-     labs on the Voronoi cells either way
-  13. each path at a small size on the card against the same run on the
-     CPU (the direct table on tests/test_poly.py's 300-site model)
-  14. one JSON line of per-kernel results, the card line, and last
+     labs on the Voronoi cells either way; experiments/bench_polarized.py's
+     three polarized chains (bench_torch._polarized_model: a polarized
+     FullInstrument and an SED instrument, the Thomson Mueller tables,
+     W = 2, 2^17 lanes, K = 64) through make_lifecycle + make_multibatch,
+     one batch each: the mono analytic flagship (K3), the mono table on
+     the config-3 torus (K4) and the poly table (K6p); and a polarized
+     OligoSimulation(voxelize="table") on the torus filled with an
+     ElectronDustMix (tau_x = 1, K = 16, K6p), which picks up the mix's
+     Mueller tables and writes the Stokes frames
+  14. each path at a small size on the card against the same run on the
+     CPU (the direct table on tests/test_poly.py's 300-site model; the
+     polarized poly table on tests/test_polarization.py's Thomson sphere)
+  15. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
 
 Times: CUDA events around back-to-back calls after warm-up calls, with a
@@ -119,7 +132,8 @@ rtol 1e-4 with atol 1e-6 x the array's largest magnitude.  On the card
 the kernels and their plain versions round alike op for op (-fmad=false,
 float32 reciprocals of the scale lengths, sums in one fixed order,
 rsqrtf), so they agree to the bit in practice; the bounds leave room
-only for a compiler that rounds one op differently.  max_abs_err is
+only for a compiler that rounds one op differently.  K6p is held to the
+bit on every output, I_s and I_tot included.  max_abs_err is
 taken over the float outputs, each scaled by its array's largest
 magnitude, on the lanes whose discrete outputs agree.  The small-size
 cross-device checks hold the CUDA run to the CPU run at Monte Carlo
@@ -133,7 +147,10 @@ tests/test_poly.py's table tolerances (SED per wavelength 0.05 mono and
 tolerance of tests/test_fused_table.py's multi-component test (SED per
 wavelength and labs total 0.08), the direct table at tests/test_poly.py's
 direct-table tolerances (SED per wavelength 0.08, labs total 0.06, labs
-per wavelength 0.08).
+per wavelength 0.08), the polarized Thomson sphere at
+tests/test_polarization.py's poly tolerances (Ftot per wavelength 0.04,
+scattered 0.10; on the card the tangential ring, |q| > 0.15 with opposite
+signs, and the integrated |P| below 0.06 of the scattered flux).
 """
 
 import json
@@ -774,10 +791,11 @@ def phase_k4d(torch, results, vgrid):
                                    k4d_ops(spec.npanels)), max_abs_err=worst)
 
 
-def _chain_k6(torch, label, spec, grid, ds, n, seeds):
-    """K6 (or K6d) against its plain version the way _chain_k4 holds K4,
-    the lanes' luminosities carried from event to event.  Returns (worst
-    scaled error, the timed inputs (u, r, L, L0, state))."""
+def _chain_k6(torch, label, spec, grid, ds, n, seeds, exact=False):
+    """K6 (or K6d, K6p) against its plain version the way _chain_k4 holds
+    K4, the lanes' luminosities carried from event to event; exact=True
+    also requires every output bit-identical.  Returns (worst scaled
+    error, the timed inputs (u, r, L, L0, state))."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table_poly as tftp
     from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
@@ -824,7 +842,8 @@ def _chain_k6(torch, label, spec, grid, ds, n, seeds):
                 f"{float(alive.float().mean()):.3f}, killed "
                 f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
                 f"deposits {int((got['depi'] >= 0).sum())}")
-            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+            if res["discrete"] < 0.999 or res["float_bad"] > 0 or (
+                    exact and not _bits(got, want)):
                 raise AssertionError(f"{label} kernel disagrees with its "
                                      f"plain version (W={W}) at event "
                                      f"{it}: {res}")
@@ -905,6 +924,40 @@ def phase_k6d(torch, results, vgrid):
         by_w[W] = _time_k6(torch, "K6d", spec, timed,
                            k6d_ops(spec.npanels, W))
     results["K6d"] = dict(by_w[8], max_abs_err=worst, by_W=by_w)
+
+
+def phase_k6p(torch, results, octree, vgrid):
+    """K6p, K6 and K6d with the column densities of the polarized driver
+    (I_s, I_tot) out, bit-identical to its plain version: on config 3's
+    voxel view (arithmetic locate) at W = 2 (N = 2^17, the polarized poly
+    table cell's shapes), 24 and 128 (N = 2^15), and on the 33,000-site
+    tessellation (the direct table) at the same W, one state each."""
+    import dataclasses
+
+    from bench_torch import _octree_build
+
+    worst = 0.0
+    by_w = {}
+    for direct, grid0 in ((False, octree), (True, vgrid)):
+        for W, n, seed in ((2, 1 << 17, 91), (24, 1 << 15, 92),
+                           (128, 1 << 15, 93)):
+            kw = (dict(voronoi=True, direct=True, peel_panels=64)
+                  if direct else {})
+            run_batch, *_, model = _octree_build(
+                n, device="cuda", nlambda=W, polychromatic=True, grid=grid0,
+                **kw)
+            grid, ds = model[0], model[1]
+            spec = dataclasses.replace(_cut_spec(run_batch.spec),
+                                       want_pol=True)
+            assert spec.arith_locate is not direct and spec.want_labs
+            label = "K6p direct" if direct else "K6p"
+            err, timed = _chain_k6(torch, label, spec, grid, ds, n,
+                                   (seed + 10 * direct,), exact=True)
+            worst = max(worst, err)
+            ops = (k6d_ops if direct else k6_ops)(spec.npanels, W)
+            by_w[f"{'direct ' if direct else ''}W={W}"] = _time_k6(
+                torch, label, spec, timed, ops)
+    results["K6p"] = dict(by_w["W=2"], max_abs_err=worst, by_W=by_w)
 
 
 def phase_k5(torch, results, multi_tree):
@@ -1532,6 +1585,307 @@ def phase_simulation_voronoi(torch, results, vgrid4k):
                                                "packets_per_s": pps}
 
 
+# the polarized chains of experiments/bench_polarized.py: (path, model
+# keywords, kernel name)
+POLARIZED = (("pol_mono", {}, "K3"),
+             ("pol_table_mono", {"table": True}, "K4"),
+             ("pol_table_poly", {"table": True, "poly": True}, "K6p"))
+
+
+def _pol_launches(kname):
+    """The launch count of a polarized chain's event kernel (K6p apart from
+    K6 and K6d)."""
+    from skirt_tpu_torch.engine import fused, fused_table, fused_table_poly
+
+    if kname == "K3":
+        return fused.mono_event.launches
+    if kname == "K4":
+        return fused_table.table_event.launches
+    return fused_table_poly.table_poly_event.pol_launches
+
+
+def _reset_launches():
+    from skirt_tpu_torch.engine import fused, fused_table, fused_table_poly
+    from skirt_tpu_torch.ops import binned
+
+    binned.binned_add.launches = 0
+    fused.mono_event.launches = 0
+    fused_table.table_event.launches = 0
+    ev = fused_table_poly.table_poly_event
+    ev.launches = ev.direct_launches = ev.pol_launches = 0
+
+
+def _check_polarized(torch, t, launched, what):
+    """A polarized FullInstrument's tallies: finite, the total SED positive
+    and below the launched power, the scattered part and the Stokes Q / U
+    SEDs within it."""
+    for v in t.values():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite tally")
+    F = t["Ftot"].double().cpu().numpy()
+    Fsc = t["Fscastel"].double().cpu().numpy()
+    P = np.hypot(t["FQ"].double().cpu().numpy(),
+                 t["FU"].double().cpu().numpy())
+    if not ((F > 0).all() and F.sum() < launched and (Fsc > 0).all()
+            and (Fsc <= F).all() and (P <= Fsc).all()):
+        raise AssertionError(f"{what}: SED {F}, scattered {Fsc}, |P| {P}")
+    return F, Fsc, P
+
+
+def phase_main_polarized(torch, results, octree):
+    """experiments/bench_polarized.py's three chains at full width through
+    make_lifecycle + make_multibatch, 2^17 lanes, K = 64, W = 2, one
+    batch each: the mono analytic flagship (K3), the mono table on the
+    config-3 torus (K4) and the poly table (K6p).  A warm-up batch (the
+    Mueller tables' first copies to the card, the allocator's growth) runs
+    before the counts are set to 0 and the timed batch."""
+    from bench_torch import _polarized_build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine.lifecycle import make_multibatch
+    from skirt_tpu_torch.ops import binned
+
+    lanes = 1 << 17
+    for name, kw, kname in POLARIZED:
+        run_batch, zero, ell, L0, packets, model = _polarized_build(
+            lanes, device="cuda", grid=octree if kw else None, **kw)
+        assert run_batch.spec.want_pol if kname == "K6p" else True
+        run_many = make_multibatch(run_batch, 1)
+        run_many(rng.root_key(4357), ell, L0, zero())
+        tallies = zero()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = run_many(rng.root_key(4357), ell, L0, tallies)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {kname: _pol_launches(kname),
+                    "K2": binned.binned_add.launches}
+        W = model[2].wavelength_grid.nlambda
+        launched = 1e36 * (W if kw.get("poly") else 1)
+        F, Fsc, P = _check_polarized(torch, out["instruments"][0], launched,
+                                     name)
+        pps = packets / dt
+        log(f"  polarized {name}: 1 warm batch x {lanes} lanes x K="
+            f"{model[4].refill_batches}{' x W=2' if kw.get('poly') else ''}"
+            f" in {dt:.3f} s = {pps:.4e} packets/s; launches {launches}; "
+            f"SED {', '.join(f'{v:.4e}' for v in F)} W, scattered "
+            f"{', '.join(f'{v:.4e}' for v in Fsc)}, |P| "
+            f"{', '.join(f'{v:.3e}' for v in P)}")
+        if launches[kname] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"a kernel of the path never launched: "
+                                 f"{launches}")
+        results[f"launches_{name}"] = launches
+        results[f"main_{name}"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_simulation_polarized(torch, results, octree):
+    """OligoSimulation(voxelize="table") on the config-3 torus filled with
+    an ElectronDustMix (tau_x = 1, W = 2, one batch of 2^17 polarized
+    lanes, K = 16): the simulation picks up the mix's Mueller tables, runs
+    K6p, and writes the Stokes Q / U / V frames and SEDs."""
+    import os
+    import tempfile
+
+    from bench_torch import _polarized_model
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+    from skirt_tpu_torch.ops import binned
+
+    grid, ds, ss, ins, opts, _ = _polarized_model(
+        table=True, poly=True, electron=True, grid=octree, voxelize=False,
+        refill_batches=16)
+    W, lanes, K = 2, 1 << 17, opts.refill_batches
+    with tempfile.TemporaryDirectory() as out_dir:
+        sim = OligoSimulation(stellar_system=ss, instruments=ins,
+                              dust_system=ds, options=opts,
+                              packets=lanes * K, batch_size=lanes * W,
+                              dispatch_batches=1, log=SilentLog(),
+                              out_dir=out_dir, prefix="pol", device="cuda")
+        assert sim._poly and sim._mueller is ds.components[0].mix.mueller
+        assert sim._lifecycle.spec.want_pol
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        acc = sim._run_phase(rng.root_key(sim.seed), 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"K6p": _pol_launches("K6p"),
+                    "K2": binned.binned_add.launches}
+        sim.write(acc)
+        files = sorted(os.listdir(out_dir))
+    t = {k: torch.as_tensor(v) for k, v in acc["instruments"][0].items()}
+    F, Fsc, P = _check_polarized(torch, t, float(ss.Lv.sum()),
+                                 "polarized OligoSimulation")
+    for name in ("stokesQ", "stokesU", "stokesV"):
+        if f"pol_pol_{name}.fits" not in files:
+            raise AssertionError(f"no {name} frame written: {files}")
+    pps = lanes * K * W / dt
+    log(f"  polarized OligoSimulation(voxelize='table', ElectronDustMix): "
+        f"1 batch x {lanes} lanes x K={K} x W={W} in {dt:.3f} s = "
+        f"{pps:.4e} packets/s; launches {launches}; SED "
+        f"{', '.join(f'{v:.4e}' for v in F)} W, scattered "
+        f"{', '.join(f'{v:.4e}' for v in Fsc)}, |P| "
+        f"{', '.join(f'{v:.3e}' for v in P)}; wrote {len(files)} files")
+    if launches["K6p"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["launches_pol_sim"] = launches
+    results["main_pol_sim"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def _chromatic_mueller():
+    """Mueller tables that differ by wavelength (as
+    tests/test_torch_polarization.py's): wavelength 0 forward (HG g = 0.6 in
+    S11) and polarized across the scattering plane, wavelength 1 backward
+    (g = -0.5), polarized in it, with a retardance of 1 rad (S34 != 0).
+    Each row is a pure Mueller matrix."""
+    from skirt_tpu_torch.media.polarization import MuellerTables
+    theta = np.linspace(0.0, np.pi, 181)
+    c = np.cos(theta)
+    rows = []
+    for g, sign, delta in ((0.6, -1.0, 0.0), (-0.5, 1.0, 1.0)):
+        S11 = (1 - g * g) / (1 + g * g - 2 * g * c) ** 1.5
+        m = S11 * 2 * c / (1 + c * c)
+        rows.append((S11, sign * S11 * (1 - c * c) / (1 + c * c),
+                     m * np.cos(delta), m * np.sin(delta)))
+    return MuellerTables(theta, *(np.stack(x) for x in zip(*rows)))
+
+
+def _thomson_sphere(device, lanes, K, tau=0.2, chromatic=False, seed=5):
+    """tests/test_polarization.py's Thomson sphere (an electron sphere of
+    optical depth `tau` around a point source, seen edge-on by a polarized
+    9x9 FullInstrument) on the polychromatic table engine (K6p), W = 2: the
+    instrument's tallies after one batch of `lanes` lanes with K packets
+    each, 1 W per wavelength in all.  `chromatic` swaps the Thomson tables
+    for _chromatic_mueller's."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine.lifecycle import (LifecycleOptions,
+                                                  make_lifecycle)
+    from skirt_tpu_torch.geometry import PointGeometry, UniformSphereGeometry
+    from skirt_tpu_torch.grids import CartesianGrid
+    from skirt_tpu_torch.instruments import FullInstrument
+    from skirt_tpu_torch.media import (DustComponent, DustMassNormalization,
+                                       DustSystem, ElectronDustMix)
+    from skirt_tpu_torch.sources import (LuminosityStellarComponent,
+                                         StellarSystem)
+    from skirt_tpu_torch.wavelengths import OligoWavelengthGrid
+    import torch
+
+    wg = OligoWavelengthGrid([1e-6, 1.2e-6])
+    ss = StellarSystem([LuminosityStellarComponent(PointGeometry(), wg,
+                                                   [1.0, 1.0])])
+    b = np.linspace(-1, 1, 9)
+    grid = CartesianGrid(b, b, b)
+    mix = ElectronDustMix(wg)
+    R = 0.9
+    mass = tau / (float(mix.kappaext64[0]) * R) * (4 / 3 * np.pi * R ** 3)
+    ds = DustSystem(grid, [DustComponent(UniformSphereGeometry(R), mix,
+                                         DustMassNormalization(mass))],
+                    samples_per_cell=4, density_mode="gridded").as_table()
+    ins = FullInstrument("pol", 100.0, 2, 9, 9, fov_x=2.2, fov_y=2.2,
+                         inclination=np.pi / 2, polarization=True)
+    opts = LifecycleOptions(quadrature_panels=16, fused=True,
+                            polychromatic=True, table_peel="exact",
+                            refill_batches=K)
+    mt = _chromatic_mueller() if chromatic else ds.mueller
+    run = make_lifecycle(grid, ds, ss, [ins], opts, 2, mueller=mt)
+    out = run(rng.root_key(seed), torch.zeros(lanes, dtype=torch.int32,
+                                              device=device),
+              torch.full((lanes, 2), 1.0 / (lanes * K), device=device),
+              {"instruments": [ins.zero_tallies(device)]})
+    return {k: v.double().cpu().numpy()
+            for k, v in out["instruments"][0].items()}
+
+
+def _ring_amplitudes(t, npix=9):
+    """Per wavelength (sum fQ cos 2phi, sum fU sin 2phi, sum fQ sin 2phi,
+    sum fU cos 2phi) / sum fscastel over the 9x9 scattered frames, phi the
+    pixel's position angle: a tangential or radial ring loads the first
+    two, and a flipped U (or a flipped rotation into the instrument frame)
+    flips the second."""
+    y, x = np.mgrid[:npix, :npix] - (npix - 1) / 2
+    phi = np.arctan2(y, x).ravel()
+    c2, s2 = np.cos(2 * phi), np.sin(2 * phi)
+    fQ, fU = t["fQ"].reshape(2, -1), t["fU"].reshape(2, -1)
+    fs = t["fscastel"].reshape(2, -1).sum(1)[:, None]
+    return np.stack([fQ @ c2, fU @ s2, fQ @ s2, fU @ c2], axis=1) / fs
+
+
+def _stokes_deviation(g, c):
+    """The card's Stokes tallies against the CPU's, in the units that
+    tests/test_torch_polarization.py holds the port to skirt_tpu in: the
+    largest ring-amplitude difference (held at 0.03), the largest fQ / fU /
+    fV pixel difference over the wavelength's peak scattered pixel (0.05),
+    the largest fscastel pixel difference over it (0.10), and the largest
+    FQ / FU / FV difference over Fscastel (0.03).  Between CPU runs of
+    seeds 5 and 6-8 at the smoke's size (4,096 lanes, K = 4) these read at
+    most 0.008, 0.024, 0.042 and 0.0093 on either sphere."""
+    ring = float(np.abs(_ring_amplitudes(g) - _ring_amplitudes(c)).max())
+    peak = np.maximum(g["fscastel"].reshape(2, -1).max(1),
+                      c["fscastel"].reshape(2, -1).max(1))[:, None]
+
+    def pix(k):
+        return float((np.abs(g[k].reshape(2, -1) - c[k].reshape(2, -1))
+                      / peak).max())
+
+    tot = max(float(np.abs(g[k] / g["Fscastel"] - c[k] / c["Fscastel"]).max())
+              for k in ("FQ", "FU", "FV"))
+    dev = {"ring": ring, "stokes_pixel": max(pix(k) for k in ("fQ", "fU",
+                                                              "fV")),
+           "scattered_pixel": pix("fscastel"), "stokes_total": tot}
+    lim = {"ring": 0.03, "stokes_pixel": 0.05, "scattered_pixel": 0.10,
+           "stokes_total": 0.03}
+    bad = {k: v for k, v in dev.items() if not v <= lim[k]}
+    if bad:
+        raise AssertionError(f"card vs cpu Stokes tallies: {bad} over {lim}")
+    return dev
+
+
+def phase_reference_polarized(torch):
+    """The Thomson sphere on the poly table (K6p) on the card against the
+    same run on the CPU at tests/test_polarization.py's tolerances (Ftot
+    per wavelength 0.04, scattered 0.10), the card's tangential ring (|q| >
+    0.15, opposite signs on the two image axes) and integrated |P| /
+    scattered below 0.06; then, for it and for an optically thick sphere
+    (tau 1) with Mueller tables that differ by wavelength, the card's
+    Stokes frames and totals against the CPU's (_stokes_deviation).  The
+    two devices draw from their own streams (Philox, mt19937), so the
+    comparison is at Monte Carlo tolerance."""
+    g = _thomson_sphere("cuda", 4096, 4)
+    c = _thomson_sphere("cpu", 4096, 4)
+    np.testing.assert_allclose(g["Ftot"], c["Ftot"], rtol=0.04)
+    np.testing.assert_allclose(g["Fscastel"], c["Fscastel"], rtol=0.10)
+    for w in range(2):
+        fQ = g["fQ"].reshape(2, 9, 9)[w]
+        fs = g["fscastel"].reshape(2, 9, 9)[w]
+        qx, qy = fQ[4, 6] / fs[4, 6], fQ[6, 4] / fs[6, 4]
+        if not (abs(qx) > 0.15 and abs(qy) > 0.15
+                and np.sign(qx) == -np.sign(qy)):
+            raise AssertionError(f"no tangential ring at w={w}: {qx}, {qy}")
+    p = np.hypot(g["FQ"], g["FU"]) / g["Fscastel"]
+    if p.max() >= 0.06:
+        raise AssertionError(f"integrated polarization {p}")
+    dev = _stokes_deviation(g, c)
+    log(f"  small polarized poly table cuda/cpu: SED "
+        f"{', '.join(f'{r:.4f}' for r in g['Ftot'] / c['Ftot'])}, scattered "
+        f"{', '.join(f'{r:.4f}' for r in g['Fscastel'] / c['Fscastel'])}; "
+        f"card |P| / scattered {', '.join(f'{v:.4f}' for v in p)}; Stokes "
+        f"deviations {json.dumps(dev)}")
+    g = _thomson_sphere("cuda", 4096, 4, tau=1.0, chromatic=True)
+    c = _thomson_sphere("cpu", 4096, 4, tau=1.0, chromatic=True)
+    np.testing.assert_allclose(g["Fscastel"], c["Fscastel"], rtol=0.10)
+    rings = _ring_amplitudes(g)
+    if not ((np.sign(rings[0, :2]) == -np.sign(rings[1, :2])).all()
+            and (np.abs(rings[:, :2]) > 0.08).all()):
+        raise AssertionError(f"chromatic rings on the card: {rings}")
+    dev = _stokes_deviation(g, c)
+    log(f"  chromatic Mueller tables, tau 1, cuda/cpu: scattered "
+        f"{', '.join(f'{r:.4f}' for r in g['Fscastel'] / c['Fscastel'])}; "
+        f"card rings {np.round(rings[:, :2], 4).tolist()}; Stokes "
+        f"deviations {json.dumps(dev)}")
+
+
 def phase_reference_voronoi(torch):
     """The direct table at a small size on the card against the same runs
     on the CPU: tests/test_poly.py's 300-site TestPolyDirect model, mono
@@ -1620,7 +1974,9 @@ def main():
     phase_k4d(torch, results, vgrids[33000])
     log("phase 11: K6d table_poly_event (direct table) kernel vs plain")
     phase_k6d(torch, results, vgrids[33000])
-    log("phase 12: main paths (S1 poly: make_lifecycle + make_multibatch, "
+    log("phase 12: K6p table_poly_event (polarized) kernel vs plain")
+    phase_k6p(torch, results, octree, vgrids[33000])
+    log("phase 13: main paths (S1 poly: make_lifecycle + make_multibatch, "
         "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
         "make_lifecycle + make_multibatch, W=2; config 3 "
         "OligoSimulation(voxelize='table'); the two-component model mono "
@@ -1628,7 +1984,9 @@ def main():
         "OligoSimulation(voxelize='table'); config 4 voronoi-direct-mono "
         "and -poly: make_lifecycle + make_multibatch, W=8; its "
         "OligoSimulation(voxelize='table') on the voxel view and on the "
-        "direct table)")
+        "direct table; the polarized chains mono analytic, mono table and "
+        "poly table: make_lifecycle + make_multibatch, W=2; a polarized "
+        "OligoSimulation(voxelize='table') on an ElectronDustMix)")
     phase_main_poly(torch, results)
     phase_main_mono(torch, results)
     phase_main_table(torch, results, octree)
@@ -1637,23 +1995,29 @@ def main():
     phase_simulation_multi(torch, results, multi_tree)
     phase_main_voronoi(torch, results, vgrids[33000])
     phase_simulation_voronoi(torch, results, vgrids[4096])
-    log("phase 13: small runs on the card against the CPU")
+    phase_main_polarized(torch, results, octree)
+    phase_simulation_polarized(torch, results, octree)
+    log("phase 14: small runs on the card against the CPU")
     phase_reference_poly(torch)
     phase_reference_mono(torch)
     phase_reference_table(torch)
     phase_reference_multi(torch, multi_tree)
     phase_reference_voronoi(torch)
+    phase_reference_polarized(torch)
 
-    log(f"phase 14: results (phases 1-13 took "
+    log(f"phase 15: results (phases 1-14 took "
         f"{time.perf_counter() - t_start:.1f} s)")
     paths = ("poly", "mono", "table_mono", "table_poly", "table_sim",
              "multi_mono", "multi_poly", "multi_sim", "voronoi_mono",
-             "voronoi_poly", "voronoi_sim_voxel", "voronoi_sim_direct")
+             "voronoi_poly", "voronoi_sim_voxel", "voronoi_sim_direct",
+             "pol_mono", "pol_table_mono", "pol_table_poly", "pol_sim")
     launches = {
         "K1": results["launches_poly"]["K1"],
         "K2": sum(results[f"launches_{p}"]["K2"] for p in paths),
-        "K3": results["launches_mono"]["K3"],
-        "K4": results["launches_table_mono"]["K4"],
+        "K3": results["launches_mono"]["K3"]
+        + results["launches_pol_mono"]["K3"],
+        "K4": results["launches_table_mono"]["K4"]
+        + results["launches_pol_table_mono"]["K4"],
         "K4d": results["launches_voronoi_mono"]["K4d"],
         "K5": results["launches_multi_mono"]["K5"],
         "K6": results["launches_table_poly"]["K6"]
@@ -1661,6 +2025,8 @@ def main():
         + results["launches_voronoi_sim_voxel"]["K6"],
         "K6d": results["launches_voronoi_poly"]["K6d"]
         + results["launches_voronoi_sim_direct"]["K6d"],
+        "K6p": results["launches_pol_table_poly"]["K6p"]
+        + results["launches_pol_sim"]["K6p"],
         "K7": results["launches_multi_poly"]["K7"]
         + results["launches_multi_sim"]["K7"]}
     meta = {
@@ -1685,6 +2051,10 @@ def main():
                 "skirt_tpu_torch/csrc/fused_table_poly.cu",
                 "skirt_tpu/engine/fused_table_poly.py:107 "
                 "(arith_locate=False)"),
+        "K6p": ("K6p table_poly_event (polarized)",
+                "skirt_tpu_torch/csrc/fused_table_poly.cu",
+                "skirt_tpu/engine/fused_table_poly.py:107 (want_pol=True, "
+                ":175-179, :348-350)"),
         "K7": ("K7 table_poly_multi_event",
                "skirt_tpu_torch/csrc/fused_table_poly_multi.cu",
                "skirt_tpu/engine/fused_table_poly.py:355")}
@@ -1705,7 +2075,7 @@ def main():
                                  in results["K2"]["times"].items()}
     k2["bound_ms_by_shape"] = {n: v[3][0] for n, v
                                in results["K2"]["times"].items()}
-    for k in ("K6", "K7", "K6d"):
+    for k in ("K6", "K7", "K6d", "K6p"):
         kern[k]["by_W"] = results[k]["by_W"]
     print(json.dumps({"kernels": list(kern.values()),
                       "main_path_packets_per_s": {

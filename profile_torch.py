@@ -6,6 +6,7 @@ Run on a CUDA machine from the repository root:
     BENCH_MODEL=octree python3 profile_torch.py [poly|mono ...]
     BENCH_MODEL=multi python3 profile_torch.py [poly|mono ...]
     BENCH_MODEL=voronoi python3 profile_torch.py [poly|mono ...]
+    BENCH_MODEL=polarized [POL_TABLE=1] python3 profile_torch.py [poly|mono]
 
 poly builds the polychromatic main path as bench_torch.py does by
 default (W = 128, 2^15 lanes, K = 128); mono builds the monochromatic
@@ -23,7 +24,14 @@ BENCH_MODEL=voronoi builds capability config 4 as `BENCH_MODEL=voronoi
 bench_torch.py` does (its VORONOI_* knobs: by default the voxel view of
 4,096 sites, K6 / K4; VORONOI_DIRECT=1 the direct table, K6d / K4d,
 with the staged peel) and prints the host build on a line of its own.
-For each: one warm-up batch (it builds the kernels), 3 unprofiled
+BENCH_MODEL=polarized builds experiments/bench_polarized.py's chains as
+`BENCH_MODEL=polarized bench_torch.py` does (its POL_* knobs): mono the
+analytic flagship (K3), with POL_TABLE=1 the table on config 3's torus
+(K4); poly (POL_TABLE=1) the poly table (K6p); with a "mueller" range
+around the torch-side Mueller block (the default normals, the theta and
+phi samples, the Mueller lookups, the Stokes and normal updates of the
+scatter, the polarized peel's weights and frame rotations and the Stokes
+carry; not the poly engine's inline reweighting arithmetic).  For each: one warm-up batch (it builds the kernels), 3 unprofiled
 batches timed with torch.cuda.synchronize() while nvidia-smi samples the
 SM clock and the power draw, then one batch under torch.profiler; it
 prints:
@@ -56,7 +64,7 @@ def layer_of(name: str) -> str:
     if "table_multi_event_kernel" in name:
         return "K5 table_multi_event"
     if "table_poly_event_kernel" in name:
-        return "K6 table_poly_event"
+        return "K6 table_poly_event (or K6d, K6p)"
     if "table_event_kernel" in name:
         return "K4 table_event"
     if "poly_event_kernel" in name:
@@ -76,7 +84,13 @@ def layer_of(name: str) -> str:
 
 # the table paths' plain-torch stages, each a profiler range in the
 # profiled batch
-STAGES = ("stage gather", "exact peel", "staged peel", "locate", "detects")
+STAGES = ("stage gather", "exact peel", "staged peel", "locate", "detects",
+          "mueller")
+
+# the torch-side Mueller block of the polarized engines
+_MUELLER_FNS = ("polarization_of", "reference_normals", "scatter_stokes",
+                "peel_toward", "to_instrument_frame", "carry_stokes")
+_MUELLER_METHODS = ("sample_theta", "sample_phi", "lookup", "lookup_all")
 
 
 def _ranged(name, fn):
@@ -117,35 +131,63 @@ def _build_octree(poly, model="octree"):
     fused_table_poly.component_rows = _ranged("stage gather", orig_rows)
     env = os.environ.get
     lanes = 1 << int(env("OCTREE_LOG2N", "17"))
-    if model == "voronoi":
-        _, lanes, kw = _voronoi_knobs()
-        kw["voronoi"] = True
-    elif model == "multi":
-        kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
+    if model == "polarized":
+        from bench_torch import _polarized_build, _polarized_knobs
+        from skirt_tpu_torch.media import polarization as pol
+
+        saved = {n: getattr(pol, n) for n in _MUELLER_FNS}
+        saved.update({n: getattr(pol.MuellerTables, n)
+                      for n in _MUELLER_METHODS})
+        for n in _MUELLER_FNS:
+            setattr(pol, n, _ranged("mueller", saved[n]))
+        for n in _MUELLER_METHODS:
+            setattr(pol.MuellerTables, n, _ranged("mueller", saved[n]))
+        lanes, kw = _polarized_knobs()
+        kw["poly"] = poly
+        run_batch, zero, ell, L0, _, built = _polarized_build(
+            lanes, device="cuda", **kw)
     else:
-        kw = dict(nlambda=int(env("OCTREE_NLAM", "2")))
-    run_batch, zero, ell, L0, _, built = _octree_build(
-        lanes, device="cuda", multi=model == "multi", polychromatic=poly,
-        **kw)
+        if model == "voronoi":
+            _, lanes, kw = _voronoi_knobs()
+            kw["voronoi"] = True
+        elif model == "multi":
+            kw = dict(refill_batches=int(env("OCTREE_REFILL", "128")))
+        else:
+            kw = dict(nlambda=int(env("OCTREE_NLAM", "2")))
+        run_batch, zero, ell, L0, _, built = _octree_build(
+            lanes, device="cuda", multi=model == "multi",
+            polychromatic=poly, **kw)
     grid, ds, ins = built[0], built[1], built[3]
-    ds.analytic_rows = _ranged("stage gather", ds.analytic_rows)
+    if ds.table:
+        ds.analytic_rows = _ranged("stage gather", ds.analytic_rows)
     for i in ins:
         i.detect = _ranged("detects", i.detect)
         i.detect_poly = _ranged("detects", i.detect_poly)
     stages = ["stage gather", "detects"]
-    if hasattr(grid, "nx"):
+    if not ds.table:
+        stages = ["detects"]            # the analytic flagship: in K3
+    elif hasattr(grid, "nx"):
         stages.append("exact peel")
     else:
         grid.locate_batched = _ranged("locate", grid.locate_batched)
         stages += ["staged peel", "locate"]
+    if model == "polarized":
+        stages.append("mueller")
     if model == "voronoi":
         print(f"host build: {built[-1]}", flush=True)
+    if model == "polarized":
+        print(f"host build: {built[-1]['build']:.2f} s", flush=True)
 
     def restore():
         fused_table.make_exact_peel = orig_peel
         fused_table.make_staged_peel = orig_staged
         vector_traversal.panel_paths = orig_paths
         fused_table_poly.component_rows = orig_rows
+        if model == "polarized":
+            for n in _MUELLER_FNS:
+                setattr(pol, n, saved[n])
+            for n in _MUELLER_METHODS:
+                setattr(pol.MuellerTables, n, saved[n])
     return run_batch, zero, ell, L0, restore, stages
 
 
@@ -157,14 +199,24 @@ def profile(path, model="disc"):
     from skirt_tpu_torch.engine import (fused, fused_poly, fused_table,
                                         fused_table_poly)
 
+    import os
+
     poly = path == "poly"
-    octree = model in ("octree", "multi", "voronoi")
+    octree = model in ("octree", "multi", "voronoi", "polarized")
     label = {"disc": "", "octree": "config 3 ", "voronoi": "config 4 ",
-             "multi": "two-component "}[model]
+             "multi": "two-component ", "polarized": "polarized "}[model]
     print(f"== {label}{path} main path", flush=True)
     restore = None
     stages_built = ()
-    if model == "multi":
+    if model == "polarized":
+        table = os.environ.get("POL_TABLE", "0") == "1"
+        if poly and not table:
+            raise SystemExit("profile_torch: the polarized poly chain runs "
+                             "on the table (POL_TABLE=1)")
+        event = (fused_table_poly.table_poly_event if poly
+                 else fused_table.table_event if table
+                 else fused.mono_event)
+    elif model == "multi":
         event = (fused_table_poly.table_poly_multi_event if poly
                  else fused_table.table_multi_event)
     elif octree:
@@ -303,7 +355,7 @@ def main():
         if path not in ("poly", "mono"):
             raise SystemExit(f"profile_torch: unknown path {path!r}")
     model = os.environ.get("BENCH_MODEL", "disc")
-    if model not in ("disc", "octree", "multi", "voronoi"):
+    if model not in ("disc", "octree", "multi", "voronoi", "polarized"):
         raise SystemExit(f"profile_torch: unknown BENCH_MODEL {model!r}")
     for path in paths:
         profile(path, model)

@@ -1,7 +1,8 @@
 """Physical constants (SI) of the port's run path and its writers.
 
 Twin of skirt_tpu/constants.py: the lengths the models use and the
-constants of the output unit system (`units.py`).  The values are
+constants of the output unit system (`units.py`), and the electron's
+(`ElectronDustMix`).  The values are
 skirt_tpu's, digit for digit; the port keeps its own copy so that it
 imports no module of skirt_tpu.
 """
@@ -10,6 +11,10 @@ imports no module of skirt_tpu.
 C_LIGHT = 2.99792458e8
 # Boltzmann constant [J/K]
 K_BOLTZMANN = 1.3806488e-23
+# electron mass [kg]
+M_ELECTRON = 9.10938215e-31
+# Thomson cross section [m^2]
+SIGMA_THOMSON = 6.652458734e-29
 
 # astronomical unit [m]
 AU = 1.49597871e11

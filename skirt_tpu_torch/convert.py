@@ -26,9 +26,11 @@ from .engine.lifecycle import LifecycleOptions
 from .geometry import (ExpDiskGeometry, PointGeometry, TorusGeometry,
                        UniformSphereGeometry)
 from .grids import CartesianGrid, OctreeGrid, TwoPhaseGrid, VoronoiGrid
-from .instruments import FrameInstrument, SEDInstrument, SimpleInstrument
+from .instruments import (FrameInstrument, FullInstrument, SEDInstrument,
+                          SimpleInstrument)
 from .media import (DustComponent, DustMassNormalization, DustMix,
-                    DustSystem, OpticalDepthNormalization)
+                    DustSystem, ElectronDustMix, OpticalDepthNormalization)
+from .media.polarization import MuellerTables
 from .sources import LuminosityStellarComponent, StellarSystem
 
 
@@ -88,6 +90,33 @@ def _convert_normalization(norm):
     raise ValueError(f"normalization {kind} is not ported yet")
 
 
+def convert_mueller(m):
+    """A port MuellerTables with the float32 host tables of skirt_tpu's,
+    copied bit for bit (not rebuilt from the float64 angles)."""
+    t = MuellerTables.__new__(MuellerTables)
+    for name in ("thetav64", "ntheta", "nq", "S11", "S12", "S33", "S34",
+                 "thetav", "theta_cdf", "pfnorm", "theta_quantile",
+                 "S_packed", "S_theta_major"):
+        v = getattr(m, name)
+        t.__dict__[name] = np.array(v) if isinstance(v, np.ndarray) else v
+    t._dev = {}
+    return t
+
+
+def convert_mix(mix):
+    """A port mix with the JAX mix's float64 optics, its polarization flag
+    and its Mueller tables; an ElectronDustMix stays one."""
+    if _name(mix) == "ElectronDustMix":
+        out = ElectronDustMix(mix.wavelength_grid)
+    else:
+        out = DustMix(mix.wavelength_grid, mix.kappaabs64, mix.kappasca64,
+                      mix.g64)
+    out.polarization = bool(getattr(mix, "polarization", False))
+    m = getattr(mix, "mueller", None)
+    out.mueller = convert_mueller(m) if m is not None else None
+    return out
+
+
 def convert_dust_system(ds, grid):
     """A port DustSystem over the JAX system's discretised (Ncomp, Ncells)
     densities, in its density mode, with every component (geometry, mix,
@@ -96,9 +125,8 @@ def convert_dust_system(ds, grid):
             else "analytic" if ds.analytic else "gridded")
     comps = []
     for c in ds.components:
-        mix = DustMix(c.mix.wavelength_grid, c.mix.kappaabs64,
-                      c.mix.kappasca64, c.mix.g64)
-        comps.append(DustComponent(convert_geometry(c.geometry), mix,
+        comps.append(DustComponent(convert_geometry(c.geometry),
+                                   convert_mix(c.mix),
                                    _convert_normalization(c.normalization)))
     return DustSystem.from_state(grid, comps, np.asarray(ds.rho64), mode)
 
@@ -116,12 +144,17 @@ def convert_instrument(ins):
                   position_angle=ins.position_angle)
     if kind == "SEDInstrument":
         return SEDInstrument(ins.name, ins.distance, ins.nlambda, **angles)
-    if kind in ("FrameInstrument", "SimpleInstrument"):
-        cls = SimpleInstrument if kind == "SimpleInstrument" else FrameInstrument
-        return cls(ins.name, ins.distance, ins.nlambda, ins.nx, ins.ny,
-                   ins.fov_x, ins.fov_y, center_x=ins.center_x,
-                   center_y=ins.center_y, **angles)
-    raise ValueError(f"instrument {kind} is not ported yet")
+    frames = {"FrameInstrument": FrameInstrument,
+              "SimpleInstrument": SimpleInstrument,
+              "FullInstrument": FullInstrument}
+    if kind not in frames:
+        raise ValueError(f"instrument {kind} is not ported yet")
+    kw = dict(center_x=ins.center_x, center_y=ins.center_y, **angles)
+    if kind == "FullInstrument":
+        kw.update(nscatt_levels=ins.nscatt_levels,
+                  polarization=ins.polarization)
+    return frames[kind](ins.name, ins.distance, ins.nlambda, ins.nx, ins.ny,
+                        ins.fov_x, ins.fov_y, **kw)
 
 
 def convert_options(options):

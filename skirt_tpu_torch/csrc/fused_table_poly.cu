@@ -1,10 +1,12 @@
-// K6: polychromatic table-mode scattering event, one thread per lane, and
-// K6d, its variant for direct-table grids (the exact Voronoi tessellation,
-// an uneven Cartesian grid) that emits the deposit distance.
+// K6: polychromatic table-mode scattering event, one thread per lane; K6d,
+// its variant for direct-table grids (the exact Voronoi tessellation, an
+// uneven Cartesian grid) that emits the deposit distance; and K6p, either
+// of them with the two column densities the polarized driver needs.
 //
 // Replaces: skirt_tpu/engine/fused_table_poly.py:107 `_build_kernel` (the
-// Pallas body at :160-350, no polarization), called at :924: K6 with
-// arith_locate, K6d with arith_locate=False (:228-239, :915-918).
+// Pallas body at :160-350), called at :924: K6 with arith_locate, K6d with
+// arith_locate=False (:228-239, :915-918), K6p with want_pol=True
+// (:175-179, :348-350; built at :721-734).
 // Same input/output contract: the staged (P, N) raw rho panels and the
 // (7, N) uniforms come in as inputs and the kernel draws nothing itself, so
 // the plain PyTorch version (engine/fused_table_poly.py::
@@ -16,7 +18,8 @@
 // it reads P panel values, 2 x W luminosities and ~17 words, writes 2 x W
 // luminosities and 10 words, and evaluates ~5 exp per wavelength (three
 // passes over w recompute exp(-kappa_w I)).  At W = 24, N = 2^15 lanes
-// that is ~15 MB and ~4 x 10^7 operations per event.
+// that is ~15 MB and ~4 x 10^7 operations per event.  K6p writes 8 bytes
+// per lane more.
 //
 // Design:
 // - One thread per lane with a loop over W inside the thread (not the
@@ -42,6 +45,13 @@
 //   is deposited); the lifecycle locates pos + mid_dep * dir on the grid and
 //   forms the bin cell * W + wsel (engine/fused_table_poly.py).  One float
 //   out more than K6.
+// - K6p (POL): the raw column density at the sampled interaction point,
+//   I_s = tau_smp / kappa_ext(c) at the driver wavelength c, in oIs, and
+//   the whole path's, I_tot, in oIt, both before the position update.  The
+//   driver rebuilds the per-wavelength mixture ratios from them and swaps
+//   the HG weights for the Mueller ones.  The Pallas body writes both for
+//   every lane, dead ones included, so a dead lane sums its panels and
+//   draws I_s too (nothing else).
 
 #include "common.cuh"
 
@@ -81,14 +91,51 @@ struct TablePolyArgs {
   int* odepi;
   float* odepv;
   float* odepd;
-  int N, W, npanels, min_scatt, sum_block, direct;
+  float* oIs;
+  float* oIt;
+  int N, W, npanels, min_scatt, sum_block, direct, pol;
   float xi, one_m_xi, inv_W, inv_minred;
   Geom geo;
 };
 
 namespace {
 
-template <bool LABS, bool DIRECT>
+// The whole path's column density: the panels' running sum I_k, kept in
+// cums (the deposit and the interaction point invert it).
+__device__ __forceinline__ float path_column(const TablePolyArgs& a, int n,
+                                             float delta, float* cums) {
+  const long long N = a.N;
+  float cum = 0.f;
+#pragma unroll
+  for (int k = 0; k < MAXP; ++k) {
+    if (k < a.npanels) cum = cum + a.r[k * N + n] * delta;
+    cums[k] = cum;
+  }
+  return cum;
+}
+
+// The driver wavelength c, uniform in [0, W) from the uniform row u[5].
+__device__ __forceinline__ int driver_wavelength(const TablePolyArgs& a,
+                                                 int n) {
+  return min((int)(a.u[5LL * a.N + n] * (float)a.W), a.W - 1);
+}
+
+// The column density at the interaction point, drawn at the driver
+// wavelength c from the uniform-driver mixture: I_s = tau_smp / kappa_c.
+__device__ __forceinline__ float interaction_column(const TablePolyArgs& a,
+                                                    const float* kext, int n,
+                                                    int c, float I_tot) {
+  const long long N = a.N;
+  const float tau_c = kext[c] * I_tot;
+  const float kinv_cc = 1.f / kext[c];
+  const float u1 = a.u[n], u2 = a.u[N + n];
+  const float tau_exp = expon_cutoff(u2, tau_c);
+  const float tau_smp =
+      a.xi == 0.f ? tau_exp : (u1 < a.xi ? u2 * tau_c : tau_exp);
+  return tau_smp * kinv_cc;
+}
+
+template <bool LABS, bool DIRECT, bool POL>
 __global__ void __launch_bounds__(128)
 table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   __shared__ float s_oc[3 * MAX_W];
@@ -110,18 +157,13 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
 
   int depi = -1;
   float depv = 0.f, depd = -1.f;
+  float I_s = 0.f, I_tot = 0.f;
   if (a.alive[n] != 0) {
     const float t0 = a.t0[n], delta = a.dt[n];
 
     // -- cumulative column density I_k (lambda-independent) -------------
     float cums[MAXP];
-    float cum = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k < a.npanels) cum = cum + a.r[k * N + n] * delta;
-      cums[k] = cum;
-    }
-    const float I_tot = cum;
+    I_tot = path_column(a, n, delta, cums);
 
     // -- absorption deposit: one sampled wavelength per event -----------
     if (LABS) {
@@ -165,14 +207,8 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
     }
 
     // -- mixture-driver forced propagation -------------------------------
-    const int c = min((int)(u[5 * N + n] * (float)W), W - 1);
-    const float tau_c = kext[c] * I_tot;
-    const float kinv_cc = 1.f / kext[c];
-    const float u1 = u[n], u2 = u[N + n];
-    const float tau_exp = expon_cutoff(u2, tau_c);
-    const float tau_smp =
-        a.xi == 0.f ? tau_exp : (u1 < a.xi ? u2 * tau_c : tau_exp);
-    const float I_s = tau_smp * kinv_cc;
+    const int c = driver_wavelength(a, n);
+    I_s = interaction_column(a, kext, n, c, I_tot);
     int i_hit = 0;
 #pragma unroll
     for (int k = 0; k < MAXP - 1; ++k)
@@ -234,6 +270,10 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
       scatter_direction(costheta, u[4 * N + n], DX, DY, DZ);
       nscatt += 1;
     }
+  } else if (POL) {
+    float cums[MAXP];
+    I_tot = path_column(a, n, a.dt[n], cums);
+    I_s = interaction_column(a, kext, n, driver_wavelength(a, n), I_tot);
   }
   if (!alive) {
     for (int w = 0; w < W; ++w) {
@@ -254,15 +294,28 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   a.odz[n] = DZ;
   a.oalive[n] = alive ? 1 : 0;
   a.ons[n] = nscatt;
+  if (POL) {
+    a.oIs[n] = I_s;
+    a.oIt[n] = I_tot;
+  }
 }
 
-template <bool LABS, bool DIRECT>
+template <bool LABS, bool DIRECT, bool POL>
 int launch(const TablePolyArgs& a, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (a.N + threads - 1) / threads;
   if (blocks > 0)
-    table_poly_event_kernel<LABS, DIRECT><<<blocks, threads, 0, s>>>(a);
+    table_poly_event_kernel<LABS, DIRECT, POL><<<blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool POL>
+int launch_pol(const TablePolyArgs& a, int labs, cudaStream_t s) {
+  // without labs the direct and arithmetic-locate variants write the same
+  // outputs
+  if (!labs) return launch<false, false, POL>(a, s);
+  return a.direct ? launch<true, true, POL>(a, s)
+                  : launch<true, false, POL>(a, s);
 }
 
 }  // namespace
@@ -277,7 +330,6 @@ extern "C" int skirt_table_poly_event(const TablePolyArgs* a, int labs,
   if (a->W < 1 || a->W > MAX_W || a->npanels < 1 || a->npanels > MAXP ||
       a->sum_block < 1 || a->W % a->sum_block != 0)
     return (int)cudaErrorInvalidValue;
-  // without labs the two variants write the same outputs
-  if (!labs) return launch<false, false>(*a, s);
-  return a->direct ? launch<true, true>(*a, s) : launch<true, false>(*a, s);
+  return a->pol ? launch_pol<true>(*a, labs, s)
+                : launch_pol<false>(*a, labs, s);
 }

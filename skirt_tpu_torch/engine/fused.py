@@ -8,7 +8,10 @@ weight cut, in-kernel relaunch, per-leader peel optical depth and cosine,
 Henyey-Greenstein scatter) runs in one kernel; single- or two-component
 dust (H = 2: per-panel albedo blending, a deposit drawn by absorbed
 energy, the component picked at the interaction point, a blended peel
-phase).
+phase).  With a Mueller table (one component) the kernel runs unchanged
+and the driver adds polarization torch-side: the Stokes state, the
+Mueller scatter overriding the kernel's direction and the polarized peel
+from the kernel's per-leader cosines.
 
 The event has two implementations with one input/output contract:
 - `mono_event_plain`: plain PyTorch on (N,) tensors, any device.  It is
@@ -44,11 +47,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
 
 from .. import kernels, rng
+from ..media import polarization as pol
 from ..ops import binned_add
 
 _BIG = 3.4e38
@@ -190,14 +195,21 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
     if ds is None or not getattr(ds, "analytic", False):
         bail("requires density_mode='analytic'")
     if getattr(ds, "table", False):
-        bail("table (gathered) densities are not ported yet (slice S4)")
+        bail("table (gathered) densities are not supported in-kernel; "
+             "use the XLA panel path (fused=False)")
     if mueller is not None:
-        bail("polarization is not ported yet (slice S5)")
+        if ds.ncomp != 1:
+            bail("polarized fused path supports a single dust component "
+                 "(multi-component polarization runs the vector path)")
+        if pol.first_table(mueller) is None:
+            bail("polarized fused path needs a Mueller table")
+        if max(int(getattr(options, "tally_flush", 1) or 1), 1) != 1:
+            bail("polarized fused path requires tally_flush=1")
     if launch_fn is not None:
         bail("launch_fn (the dust-emission launch of the panchromatic loop) "
              "is not ported yet (slice S3)")
     if io_state:
-        bail("io_state (survivor compaction) is not ported yet (slice S2b)")
+        bail("io_state not supported")
     if max(int(getattr(options, "tally_flush", 1) or 1), 1) != 1:
         bail("tally_flush > 1 (buffered tally streams) is not ported yet "
              "(slice S2b)")
@@ -770,7 +782,6 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
     ds = dust_system
     _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
               stellar_system, launch_fn)
-    del is_dust_emission   # the ported instruments keep no provenance
     npanels = int(options.quadrature_panels
                   or getattr(grid, "max_steps", 96))
     np_peel = int(options.peel_panels or npanels)
@@ -787,6 +798,13 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
     mix = ds.components[0].mix
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
+    # polarized: K3 runs unchanged; its per-leader cosines feed a
+    # torch-side Mueller peel, and the direction it scattered to is
+    # overridden by the torch-side Mueller sample, the Stokes ratios and
+    # the reference normal riding as loop state (skirt_tpu fused.py:615-628,
+    # :798-990; ref: DustMix.cpp:584-620 and peeloffscattering's polarized
+    # branch)
+    mt = pol.first_table(mueller)
 
     def leader_taus(pos, kext_pk):
         """Panel quadrature toward each leader (emission peel-off)."""
@@ -808,13 +826,16 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
         alive = L > 0
         ins = tallies["instruments"]
         labs = tallies.get("labs")
+        dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
         if emission_peeloff:
             _, kext_pk = ds.packet_kappas(ell)
             taus0 = leader_taus(pos, kext_pk)
             contribution = torch.where(alive, L, 0.0)
+            tags = {"nscatt": torch.zeros(n, dtype=torch.int32, device=dev),
+                    "is_dust": dust}
             for i, peel in enumerate(peels):
-                peel(ins[i], pos, ell, contribution, None,
+                peel(ins[i], pos, ell, contribution, tags,
                      tau=taus0[lead_of[i]])
 
         ell = ell.to(torch.int32).contiguous()
@@ -826,6 +847,15 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                  L0.to(torch.float32).contiguous()]
         if refill:
             state.append(torch.ones(n, dtype=torch.int32, device=dev))
+        if mt is not None:
+            # normalized Stokes ratios and the reference normal; packets
+            # launch unpolarized (a zero normal: no reference yet)
+            stokes = (torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+                      torch.zeros(n, device=dev),
+                      torch.zeros((n, 3), device=dev))
+            pf = mt.table("pfnorm", dev)[ell.long()]
+            kobs_lead = pol.observer_rows(leaders, n, dev)
+            ky_ins = pol.frame_axes(instruments, n, dev)
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
@@ -837,26 +867,54 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
             u = rng.uniform_open(rng.event_key(k_cycle, it),
                                  (spec.n_uniform, n), dev)
             out = mono_event(spec, u, state)
-            st = out["state"]
+            st = list(out["state"])
             if want_labs and labs is not None:
                 binned_add(labs, out["depi"], out["depv"])
+            alive_new = st[7] != 0
+            fresh = out["fresh"] != 0 if refill else None
+            if mt is not None:
+                # -- the Mueller scatter: the pre-event Stokes ratios and
+                # direction feed both the scatter and the peel
+                dir_old = torch.stack(state[3:6], dim=-1)
+                pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
+                    mt, rng.event_key(k_cycle, it, 13), ell, stokes, dir_old)
+                # the kernel relaunched fresh lanes in place: they keep
+                # their launch direction
+                scat = alive_new if fresh is None else alive_new & ~fresh
+                for a in range(3):
+                    st[3 + a] = torch.where(scat, nd[:, a], st[3 + a]) \
+                        .contiguous()
             if scattering_peeloff:
                 pos_new = torch.stack(st[:3], dim=-1)
-                alive_new = st[7] != 0
+                tags = {"nscatt": st[8], "is_dust": dust}
+                if mt is not None:
+                    speel = pol.StokesPeel(partial(mt.lookup, ell), pf,
+                                           stokes, pdeg, pang, nrm0, dir_old,
+                                           fresh)
                 for i, peel in enumerate(peels):
                     j = lead_of[i]
-                    if multi:
+                    tg = tags
+                    if mt is not None:
+                        # the Mueller peel toward the leader, in this
+                        # instrument's frame
+                        w, stk = speel(j, out["cos"][j], kobs_lead[j],
+                                       ky_ins[i])
+                        tg = dict(tags, stokes=stk)
+                    elif multi:
                         # blended in the kernel (DustSystem.phase_value form)
                         w = out["phase"][j]
                     else:
                         w = mix.phase_function(ell, out["cos"][j])
                     if refill:
-                        # relaunched lanes: isotropic emission peel-off,
-                        # from the same quadrature at the fresh position
-                        w = torch.where(out["fresh"] != 0, 1.0, w)
+                        # relaunched lanes: isotropic (unpolarized) emission
+                        # peel-off, from the same quadrature at the fresh
+                        # position
+                        w = torch.where(fresh, 1.0, w)
                     con = torch.where(alive_new, st[6] * w, 0.0)
-                    peel(ins[i], pos_new, ell, con, None, tau=out["tau"][j])
-            state = list(st) + state[9:11]
+                    peel(ins[i], pos_new, ell, con, tg, tau=out["tau"][j])
+            if mt is not None:
+                stokes = pol.carry_stokes(stokes, new, scat, fresh)
+            state = st + state[9:11]
             if refill:
                 state.append(out["bc"])
         return tallies

@@ -53,9 +53,10 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if ds.ncomp != 1:
         bail("single dust component only")
     if mueller is not None:
-        bail("polarization is not ported yet (slice S5)")
+        bail("polarization not supported (vector/fused-mono paths carry "
+             "the Stokes machinery)")
     if io_state:
-        bail("io_state is not ported yet (slice S2b)")
+        bail("io_state not supported")
     if launch_fn is not None:
         bail("launch_fn (dust-emission launch with refill between kernel "
              "calls) belongs to the panchromatic loop, not ported yet "
@@ -503,6 +504,7 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
             np.asarray(ds.kappaext, np.float32)[0, :W], device=dev)[:, None]
         ins = tallies["instruments"]
         labs = tallies.get("labs")
+        dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
         if emission_peeloff:
             # emission peel: panel quadrature toward each leader once
@@ -519,9 +521,11 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
                 rows = ds.analytic_rows(pos, kobs, midp, None, ones,
                                         want_sca=False)
                 Ipe.append((rows * dsg).sum(1))
+            tags = {"nscatt": torch.zeros(n, dtype=torch.int32, device=dev),
+                    "is_dust": dust, "transparent": Lw}
             for i, ins_obj in enumerate(instruments):
                 ext = Lw * torch.exp(-kext_t_col * Ipe[lead_of[i]][None])
-                ins_obj.detect_poly(ins[i], pos, wls, ext)
+                ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
 
         state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
                  pos[:, 2].contiguous(), direction[:, 0].contiguous(),
@@ -561,7 +565,9 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
                         cw = torch.where(out["fresh"][None] != 0, Ln, cw)
                     cw = torch.where(alive_new[None], cw, 0.0)
                     ext = cw * torch.exp(-kext_col * Ii[None])
-                    ins_obj.detect_poly(ins[i], pos_new, wls, ext)
+                    ins_obj.detect_poly(ins[i], pos_new, wls, ext,
+                                        {"nscatt": st[7], "is_dust": dust,
+                                         "transparent": cw})
             state = list(st)
             if refill:
                 state.append(out["bc"])

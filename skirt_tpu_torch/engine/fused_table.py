@@ -48,9 +48,13 @@ deposit distance, -1 for none) in place of depi.  K5: u (3, N); kr, ks
 (P, N); state px, py, pz, dx, dy, dz, L, alive, ns, ell, L0, t0, dt;
 outputs state px, py, pz, L, alive and the interaction cell, depi / depv.
 
+With a Mueller table (one dust component) K4 and K4d run unchanged: the
+driver carries the Stokes ratios and the reference normal, overrides the
+kernel's HG direction with the Mueller sample and peels with the Mueller
+phase weights and Stokes tags, torch-side (make_fused_table_lifecycle).
+
 Not ported here, each refusing with its slice: table_peel='taumap'
-(density-path maps, S2b), polarization (S5), the dust-emission launch
-(S3), io_state (S2b).
+(density-path maps, S2b), the dust-emission launch (S3).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -59,11 +63,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
 
 from .. import kernels, rng
+from ..media import polarization as pol
 from ..ops import binned_add
 from . import vector_traversal as vt
 from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
@@ -93,13 +99,11 @@ def _validate(grid, ds, stellar_system, instruments, options, mueller,
         bail("multi-component mode needs the uniform Cartesian voxel view")
     if ds.ncomp > 1 and mueller is not None:
         bail("polarized mode is single-component only")
-    if mueller is not None:
-        bail("polarization is not ported yet (slice S5)")
     if launch_fn is not None:
         bail("launch_fn (the dust-emission launch) is not ported yet "
              "(slice S3)")
     if io_state:
-        bail("io_state is not ported yet (slice S2b)")
+        bail("io_state not supported")
     if options.continuous_scattering:
         bail("continuous_scattering not supported")
     if options.store_absorption and options.deposition != "sampled":
@@ -712,7 +716,9 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                                io_state: bool = False,
                                max_iterations: int | None = None):
     """Build run_batch(key, ell, L0, tallies) for table densities with the
-    event in kernel K4 (one dust component) or K5 (several).
+    event in kernel K4 (one dust component) or K5 (several); polarized
+    with a Mueller table `mueller` (one component, skirt_tpu
+    fused_table.py:623-635, :774-1046).
 
     ell (N,) int32 wavelength indices and L0 (N,) float32 launch
     luminosities on the run's device; the tallies (float32 tensors on the
@@ -730,12 +736,12 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     ds = dust_system
     _validate(grid, ds, stellar_system, instruments, options, mueller,
               io_state, launch_fn)
-    del is_dust_emission   # the ported instruments keep no provenance
     npanels = int(options.quadrature_panels
                   or getattr(grid, "max_steps", 96))
     np_peel = int(options.peel_panels or npanels)
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
+    mt = pol.first_table(mueller)
     peel_mode = getattr(options, "table_peel", "exact")
     arith_locate = _uniform_grid(grid)
     if peel_mode == "exact" and not arith_locate:
@@ -772,6 +778,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                 for m in mixes]
         ins = tallies["instruments"]
         labs = tallies.get("labs")
+        dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
         def component_scatter(it, cell, alive_b, dir_old):
             """K5's scatter, torch-side: the component drawn by
@@ -806,20 +813,30 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             return torch.where(total > 0, w / torch.clamp(total, min=1e-30),
                                0.0)
 
-        def emission_peel(pos_p, contribution):
+        def emission_peel(pos_p, contribution, ns_p):
             taus0 = staged_taus(pos_p, kext_pk)
+            tags = {"nscatt": ns_p, "is_dust": dust}
             for i, peel in enumerate(peels):
-                peel(ins[i], pos_p, ell, contribution, None,
+                peel(ins[i], pos_p, ell, contribution, tags,
                      tau=taus0[lead_of[i]])
 
+        ns = torch.zeros(n, dtype=torch.int32, device=dev)
         if emission_peeloff:
-            emission_peel(pos, torch.where(alive, L, 0.0))
+            emission_peel(pos, torch.where(alive, L, 0.0), ns)
 
         pos = pos.contiguous()
         direction = direction.contiguous()
         L = L.to(torch.float32).contiguous()
         alive = alive.to(torch.int32)
-        ns = torch.zeros(n, dtype=torch.int32, device=dev)
+        if mt is not None:
+            # normalized Stokes ratios and the reference normal; packets
+            # launch unpolarized (a zero normal: no reference yet)
+            stokes = (torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+                      torch.zeros(n, device=dev),
+                      torch.zeros((n, 3), device=dev))
+            pf = mt.table("pfnorm", dev)[ell.long()]
+            kobs_lead = pol.observer_rows(leaders, n, dev)
+            ky_ins = pol.frame_axes(instruments, n, dev)
         bc = torch.ones(n, dtype=torch.int32, device=dev)
         nev = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -872,6 +889,15 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                 direction = torch.stack(st[3:6], dim=-1)
                 L, alive, ns = st[6], st[7], st[8]
 
+            if mt is not None:
+                # -- the Mueller scatter overriding the kernel's HG
+                # direction; the pre-event Stokes ratios and direction feed
+                # both the scatter and the peel (ref: DustMix.cpp:584-620)
+                pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
+                    mt, rng.event_key(k_cycle, it, 13), ell, stokes, dir_old)
+                scat = alive != 0
+                direction = torch.where(scat[:, None], nd, direction)
+
             # -- torch-side relaunch (refill) ------------------------------
             fresh = None
             if refill:
@@ -892,17 +918,33 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             alive_b = alive != 0
             if scattering_peeloff:
                 taus0 = staged_taus(pos, kext_pk)
+                tags = {"nscatt": ns, "is_dust": dust}
+                if mt is not None:
+                    speel = pol.StokesPeel(partial(mt.lookup, ell), pf,
+                                           stokes, pdeg, pang, nrm0, dir_old,
+                                           fresh)
                 for i, peel in enumerate(peels):
-                    kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
+                    j = lead_of[i]
+                    kx, ky, kz = (_f32(v) for v in leaders[j])
                     cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
                             + dir_old[:, 2] * kz)
-                    w = phase_weight(cosj, wv_h)
+                    tg = tags
+                    if mt is not None:
+                        # the Mueller peel toward the leader, in this
+                        # instrument's frame
+                        w, stk = speel(j, cosj, kobs_lead[j], ky_ins[i])
+                        tg = dict(tags, stokes=stk)
+                    else:
+                        w = phase_weight(cosj, wv_h)
                     if refill:
                         w = torch.where(fresh, 1.0, w)
                     con = torch.where(alive_b, L * w, 0.0)
-                    peel(ins[i], pos, ell, con, None, tau=taus0[lead_of[i]])
+                    peel(ins[i], pos, ell, con, tg, tau=taus0[j])
             elif refill and emission_peeloff:
-                emission_peel(pos, torch.where(fresh, L, 0.0))
+                emission_peel(pos, torch.where(fresh, L, 0.0), ns)
+
+            if mt is not None:
+                stokes = pol.carry_stokes(stokes, new, scat, fresh)
         if count_events:
             tallies["nevents"] = tallies.get("nevents", 0.0) + nev
         return tallies

@@ -42,10 +42,15 @@ h-major; oc (3H, W) = kext rows, ksca rows, g rows.  Both: L, L0, Ln, Lp
 (W, N); state px, py, pz, dx, dy, dz float32, alive, ns int32, t0, dt
 float32, each (N,); depi int32 / depv float32 (N,); K6d: depi is the
 deposit wavelength, plus depd float32 (N,), the deposit distance (-1 for
-none).
+none); K6p: I_s and I_tot float32 (N,), on every lane.
 
-Not ported here, each refusing with its slice: polarization (S5), the
-dust-emission launch (S3), io_state (S2b).
+With a Mueller table K6 runs as K6p (skirt_tpu's want_pol): it also
+emits the raw column densities at the sampled interaction point and over
+the whole path, and the driver carries the Stokes state and runs the
+Mueller scatter and the polarized peel torch-side (see
+make_fused_table_poly_lifecycle).
+
+Not ported here, refusing with its slice: the dust-emission launch (S3).
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain.
 """
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import kernels, rng
+from ..media import polarization as pol
 from ..ops import binned_add
 from . import vector_traversal as vt
 from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
@@ -83,12 +89,15 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if ds.ncomp != 1 and not _uniform_grid(grid):
         bail("multi-component mode needs the uniform Cartesian voxel "
              "view (per-component raw rows + in-kernel blending)")
-    if mueller is not None and ds.ncomp != 1:
+    polarized = pol.first_table(mueller) is not None
+    if polarized and ds.ncomp != 1:
         bail("polarization supports a single dust component")
-    if mueller is not None:
-        bail("polarization is not ported yet (slice S5)")
+    if polarized and launch_fn is not None:
+        bail("polarization with launch_fn (dust phases) not supported (dust "
+             "re-emission launches unpolarized; use the monochromatic "
+             "kernel)")
     if io_state:
-        bail("io_state is not ported yet (slice S2b)")
+        bail("io_state not supported")
     if launch_fn is not None:
         bail("launch_fn (the dust-emission launch) is not ported yet "
              "(slice S3)")
@@ -101,6 +110,9 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if nlambda > 128:
         bail("nlambda <= 128 (split wider grids into blocks of <= 128 "
              "wavelengths)")
+    if polarized and not stellar_system.is_isotropic:
+        bail("polarized mode with anisotropic stellar emission is not "
+             "supported")
     if stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
         bail("requires a single isotropic stellar component")
     for ins in instruments:
@@ -163,13 +175,15 @@ class TablePolyEventSpec:
     n_uniform: int = 7
     arith_locate: bool = True
     locate: object = field(default=None, repr=False)
+    want_pol: bool = False
 
 
 def _build_kernel(grid, ds, options, W, npanels, want_labs,
-                  arith_locate=True):
+                  arith_locate=True, want_pol=False):
     """The event's constants (mirrors skirt_tpu
-    fused_table_poly._build_kernel; arith_locate=False is K6d): oc = the
-    float32 kappa_ext, albedo and g of the mix per wavelength."""
+    fused_table_poly._build_kernel; arith_locate=False is K6d, want_pol
+    K6p): oc = the float32 kappa_ext, albedo and g of the mix per
+    wavelength."""
     mix = ds.components[0].mix
     oc = np.stack([np.asarray(ds.kappaext[0][:W], np.float32),
                    np.asarray(mix.albedo[:W], np.float32),
@@ -182,7 +196,8 @@ def _build_kernel(grid, ds, options, W, npanels, want_labs,
         inv_minred=_f32(1.0 / options.min_weight_reduction),
         oc=np.ascontiguousarray(oc), grid=grid,
         arith_locate=bool(arith_locate),
-        locate=_make_locate(grid) if arith_locate else None)
+        locate=_make_locate(grid) if arith_locate else None,
+        want_pol=bool(want_pol))
 
 
 def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
@@ -192,7 +207,9 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     operation for operation.  Returns a dict: "state" (px, py, pz, dx, dy,
     dz, alive, ns), "Ln", "Lp" and with labs "depi"/"depv"; for K6d
     (arith_locate False) depi is the deposit wavelength and "depd" the
-    deposit's distance along the pre-event ray (-1 for none)."""
+    deposit's distance along the pre-event ray (-1 for none); for K6p
+    (want_pol) "I_s" and "I_tot", the raw column densities at the sampled
+    interaction point and over the whole path, on every lane."""
     W = spec.W
     P = spec.npanels
     X, Y, Z, DX, DY, DZ = state[:6]
@@ -314,6 +331,9 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
     out["Ln"] = torch.where(alive[None], Ln, 0.0)
     out["Lp"] = torch.where(alive[None], Lp, 0.0)
+    if spec.want_pol:
+        out["I_s"] = I_s
+        out["I_tot"] = I_tot
     return out
 
 
@@ -347,6 +367,7 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     a.inv_W = spec.inv_W
     a.inv_minred = spec.inv_minred
     a.direct = int(not spec.arith_locate)
+    a.pol = int(spec.want_pol)
     if spec.arith_locate:
         _locate_args(a.geo, spec.grid)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -362,13 +383,18 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
         depv = out["depv"] = torch.empty(N, **f32)
         if not spec.arith_locate:
             depd = out["depd"] = torch.empty(N, **f32)
+    Is = It = None
+    if spec.want_pol:
+        Is = out["I_s"] = torch.empty(N, **f32)
+        It = out["I_tot"] = torch.empty(N, **f32)
     for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
                         "dy", "dz", "alive", "ns", "t0", "dt"),
                        [u, r, oc, L, L0, *state]):
         setattr(a, name, _ptr(t))
     for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
-                        "ons", "oLn", "oLp", "odepi", "odepv", "odepd"),
-                       [*st_out, Ln, Lp, depi, depv, depd]):
+                        "ons", "oLn", "oLp", "odepi", "odepv", "odepd",
+                        "oIs", "oIt"),
+                       [*st_out, Ln, Lp, depi, depv, depd, Is, It]):
         setattr(a, name, _ptr(t))
     lib = kernels.library()
     kernels.check(lib.skirt_table_poly_event(ctypes.byref(a),
@@ -378,14 +404,17 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     table_poly_event.launches += 1
     if not spec.arith_locate:
         table_poly_event.direct_launches += 1
+    if spec.want_pol:
+        table_poly_event.pol_launches += 1
     return out
 
 
 def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K6
-    kernel, or K6d without arith_locate, counted in
-    `table_poly_event.launches` and with K6d also in
-    `table_poly_event.direct_launches`)."""
+    kernel, K6d without arith_locate, K6p with want_pol, counted in
+    `table_poly_event.launches`, K6d also in
+    `table_poly_event.direct_launches` and K6p also in
+    `table_poly_event.pol_launches`)."""
     if u.device.type == "cpu":
         return table_poly_event_plain(spec, u, r, oc, L, L0, state)
     if u.device.type != "cuda":
@@ -395,6 +424,7 @@ def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
 
 table_poly_event.launches = 0
 table_poly_event.direct_launches = 0
+table_poly_event.pol_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -699,19 +729,30 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                     io_state: bool = False,
                                     max_iterations: int | None = None):
     """Build run_batch(key, ell, L0, tallies) for polychromatic table lanes
-    (kernel K6 with one dust component, K7 with several).
+    (kernel K6 with one dust component, K7 with several; K6p with a
+    Mueller table).
 
     `L0` must be (N, nlambda) per-lane launch luminosities on the run's
     device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
     packets.  Labs bins are voxel * nlambda + w.  With options.count_events
     the tallies gain "nevents" (events run: lanes alive at an iteration's
     start).  The tallies are updated in place and returned; the host reads
-    the stop condition every _CHECK_EVERY iterations."""
+    the stop condition every _CHECK_EVERY iterations.
+
+    Polarized (one component, a Mueller table `mueller`): every lane
+    carries per-wavelength Stokes ratios (W, N) and one reference normal
+    (N, 3), launched unpolarized.  K6p adds the column densities I_s and
+    I_tot to K6's outputs; torch-side the driver rebuilds the mixture
+    ratios from them, samples the scatter at the driver wavelength from
+    the Mueller tables (overriding the kernel's HG direction), replaces
+    Ln and Lp by the defensive-mixture Mueller weights with their
+    per-wavelength cut, and peels with the Mueller phase weights and the
+    Stokes ratios rotated into each instrument's frame (skirt_tpu
+    fused_table_poly.py:866-874, :1000-1080, :1127-1172, :1220-1235)."""
     ds = dust_system
     W = int(nlambda)
     _validate(grid, ds, stellar_system, instruments, options, W, mueller,
               io_state, launch_fn)
-    del is_dust_emission   # the ported instruments keep no provenance
     npanels = int(options.quadrature_panels
                   or getattr(grid, "max_steps", 96))
     np_peel = int(options.peel_panels or npanels)
@@ -726,11 +767,13 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     K = int(options.refill_batches) if refill else 1
     H = ds.ncomp
     multi = H > 1
+    mt = pol.first_table(mueller)
+    pol_mode = mt is not None
     if multi:
         spec = _build_kernel_multi(grid, ds, options, W, npanels, want_labs)
     else:
         spec = _build_kernel(grid, ds, options, W, npanels, want_labs,
-                             arith_locate)
+                             arith_locate, want_pol=pol_mode)
     # one wavelength-independent peel integral per leader (per component
     # with several) serves all W.  With several components the peel is the
     # exact one whatever table_peel says: skirt_tpu's multi branch sets
@@ -761,6 +804,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         oc = torch.as_tensor(spec.oc, device=dev)
         kext_col = oc[0][:, None]
         g_col = oc[2][:, None]
+        dust = torch.full((n,), bool(is_dust_emission), device=dev)
         ins = tallies["instruments"]
         labs = tallies.get("labs")
 
@@ -799,20 +843,35 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 den = den + kr
             return num / torch.clamp(den, min=1e-30)
 
-        def detect_all(pos_p, contrib, Ipeel):
+        def detect_all(pos_p, contrib, Ipeel, ns_p):
+            tags = {"nscatt": ns_p, "is_dust": dust, "transparent": contrib}
             for i, ins_obj in enumerate(instruments):
                 ext = contrib * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
-                ins_obj.detect_poly(ins[i], pos_p, wls, ext)
+                ins_obj.detect_poly(ins[i], pos_p, wls, ext, tags)
 
+        ns = torch.zeros(n, dtype=torch.int32, device=dev)
         if emission_peeloff:
-            detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos))
+            detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos),
+                       ns)
 
         pos = pos.contiguous()
         direction = direction.contiguous()
         alive = alive.to(torch.int32)
-        ns = torch.zeros(n, dtype=torch.int32, device=dev)
         bc = torch.ones(n, dtype=torch.int32, device=dev)
         nev = torch.zeros((), dtype=torch.float32, device=dev)
+        if pol_mode:
+            # per-wavelength normalized Stokes ratios (each wavelength's
+            # Mueller chain differs) and one geometric reference normal
+            # (the rotations are wavelength-free); packets launch
+            # unpolarized, a zero normal meaning no reference yet
+            stokes = (torch.zeros((W, n), device=dev),
+                      torch.zeros((W, n), device=dev),
+                      torch.zeros((W, n), device=dev),
+                      torch.zeros((n, 3), device=dev))
+            alb_col = oc[1][:, None]
+            pf_col = mt.table("pfnorm", dev)[:, None]
+            kobs_lead = pol.observer_rows(leaders, n, dev)
+            ky_ins = pol.frame_axes(instruments, n, dev)
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
@@ -845,10 +904,63 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 nev = nev + alive.sum().to(torch.float32)
             st = out["state"]
             dir_old = direction
+            alive_in, ns_in = alive != 0, ns
             pos = torch.stack(st[:3], dim=-1)
             direction = torch.stack(st[3:6], dim=-1)
             alive, ns = st[6], st[7]
             Ln, Lp = out["Ln"], out["Lp"]
+
+            if pol_mode:
+                # -- the Mueller scatter and the polarized reweighting
+                # around the unchanged event: the mixture ratios rebuilt
+                # from K6p's column densities, the HG direction and its HG
+                # weights in Ln replaced by the driver wavelength's
+                # polarized sample and its defensive-mixture weights
+                # (ref: DustMix.cpp:584-620).  As in skirt_tpu, the lane's
+                # alive bit stays the kernel's (decided on the HG weights;
+                # ROADMAP.md's watch list): the port is held to skirt_tpu
+                I_s, I_tot = out["I_s"], out["I_tot"]
+                tau_wv = kext_col * I_tot[None]
+                ome_v = 1.0 - torch.exp(-tau_wv)
+                Lab_v = alb_col * torch.where(alive_in[None], L, 0.0) * ome_v
+                F_v = kext_col * torch.exp(-kext_col * I_s[None]) \
+                    / torch.clamp(ome_v, min=1e-30)
+                if spec.xi == 0.0:
+                    Q_v = F_v
+                else:
+                    Q_v = spec.one_m_xi * F_v + spec.xi * kext_col \
+                        / torch.clamp(tau_wv, min=1e-30)
+                Qmix_v = Q_v.sum(0) * spec.inv_W
+                # the driver wavelength the kernel drew, from the same
+                # uniform row u[5]
+                c_drv = torch.clamp((u[5] * float(W)).to(torch.int32),
+                                    max=W - 1)
+                pdeg_w, pang_w = pol.polarization_of(*stokes[:2])
+                cix = c_drv.long()[None]
+                pdeg_c = pdeg_w.gather(0, cix)[0]
+                pang_c = pang_w.gather(0, cix)[0]
+                kpol = rng.event_key(k_cycle, it, 13)
+                nrm0 = pol.reference_normals(rng.fold_in(kpol, 2), stokes[3],
+                                             dir_old)
+                theta_s = mt.sample_theta(rng.fold_in(kpol, 0), c_drv)
+                phi_s = mt.sample_phi(rng.fold_in(kpol, 1), c_drv, theta_s,
+                                      pdeg_c, pang_c)
+                S_s = mt.lookup_all(theta_s)
+                wpol = pf_col * (S_s[0] + pdeg_w * S_s[1] * torch.cos(
+                    2.0 * (phi_s[None] - pang_w)))
+                QHpol = (Q_v * wpol).sum(0) * spec.inv_W
+                Lp = Lab_v * F_v / torch.clamp(Qmix_v[None], min=1e-30)
+                Ln = Lab_v * F_v * wpol / torch.clamp(QHpol[None], min=1e-30)
+                # the per-wavelength cut with the polarized weights
+                kill = (Ln <= l0 * spec.inv_minred) \
+                    & (ns_in >= spec.min_scatt)[None]
+                gone = kill | (alive == 0)[None]
+                Lp = torch.where(gone, 0.0, Lp)
+                Ln = torch.where(gone, 0.0, Ln)
+                *new, nd = pol.scatter_stokes(*stokes[:3], S_s, theta_s,
+                                              phi_s, nrm0, dir_old)
+                scat = alive != 0
+                direction = torch.where(scat[:, None], nd, direction)
 
             # -- torch-side relaunch (refill) ------------------------------
             fresh = None
@@ -878,19 +990,38 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                     safe_n = torch.clamp(cell_n, min=0)
                     rho_n_h = [torch.where(cell_n >= 0, ds.rho_at(h, safe_n),
                                            0.0) for h in range(H)]
+                if pol_mode:
+                    speel = pol.StokesPeel(mt.lookup_all, pf_col, stokes,
+                                           pdeg_w, pang_w, nrm0, dir_old,
+                                           fresh)
                 for i, ins_obj in enumerate(instruments):
-                    kx, ky, kz = (_f32(v) for v in leaders[lead_of[i]])
+                    j = lead_of[i]
+                    kx, ky, kz = (_f32(v) for v in leaders[j])
                     cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
                             + dir_old[:, 2] * kz)
-                    cw = Lp * phase_weights(cosj, rho_n_h)
+                    tags = {"nscatt": ns, "is_dust": dust}
+                    if pol_mode:
+                        # the Mueller phase weights at the incoming
+                        # direction (one theta-major row per lane for all
+                        # W) toward the leader, the Stokes ratios in this
+                        # instrument's frame
+                        pw, tags["stokes"] = speel(j, cosj, kobs_lead[j],
+                                                   ky_ins[i])
+                    else:
+                        pw = phase_weights(cosj, rho_n_h)
+                    cw = Lp * pw
                     if refill:
                         cw = torch.where(fresh[None], Ln, cw)
                     cw = torch.where(alive_b[None], cw, 0.0)
-                    ext = cw * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
-                    ins_obj.detect_poly(ins[i], pos, wls, ext)
+                    ext = cw * torch.exp(-peel_tau_w(Ipeel[j]))
+                    tags["transparent"] = cw
+                    ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
             elif refill and emission_peeloff:
                 detect_all(pos, torch.where(fresh[None], Ln, 0.0),
-                           peel_I(pos))
+                           peel_I(pos), ns)
+
+            if pol_mode:
+                stokes = pol.carry_stokes(stokes, new, scat, fresh)
             L = Ln.contiguous()
         if count_events:
             tallies["nevents"] = tallies.get("nevents", 0.0) + nev

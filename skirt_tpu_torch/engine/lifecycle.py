@@ -4,8 +4,9 @@ Twin of skirt_tpu/engine/lifecycle.py.  `LifecycleOptions` keeps the
 reference's field names and defaults so a configuration carries across
 unchanged; `make_lifecycle` has the fused branches (the polychromatic
 analytic engine, slice S1; the monochromatic analytic one, slice S2a; the
-monochromatic and polychromatic table engines, slice S4a) and names the
-missing slice for every other branch.
+monochromatic and polychromatic table engines, slice S4a; polarization on
+the fused engines, slice S5a) and names the missing slice for every other
+branch.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import rng
+from ..media import polarization as pol
 from .fused import _hg_costheta
 
 
@@ -137,8 +139,12 @@ def make_lifecycle(grid, dust_system, stellar_system, instruments,
     (engine/fused_poly.py, kernel K1) or monochromatic (engine/fused.py,
     kernel K3); fused + table densities, polychromatic
     (engine/fused_table_poly.py, kernel K6) or monochromatic
-    (engine/fused_table.py, kernel K4).  Every other branch of skirt_tpu's
-    dispatch raises ValueError naming the slice that will port it."""
+    (engine/fused_table.py, kernel K4).  A Mueller table `mueller` (one
+    per dust component, as `DustSystem.mueller` gives them) polarizes the
+    monochromatic engines and the polychromatic table engine (K6p); the
+    polychromatic analytic engine refuses it, as skirt_tpu's does.  Every
+    other branch of skirt_tpu's dispatch raises ValueError naming the
+    slice that will port it."""
     ds = dust_system
 
     def missing(what, slice_):
@@ -172,4 +178,9 @@ def make_lifecycle(grid, dust_system, stellar_system, instruments,
         return _fused.make_fused_lifecycle(
             grid, dust_system, stellar_system, instruments, options,
             nlambda, **kw)
+    if mueller is not None and ds is not None:
+        # skirt_tpu's check on the vector path (lifecycle.py:453-462)
+        if len(pol.mueller_list(mueller)) != ds.ncomp:
+            raise ValueError("mueller list must have one entry per dust "
+                             "component (None for unpolarized mixes)")
     missing("the general (unfused) vector lifecycle", "S2b")

@@ -101,6 +101,10 @@ class OligoSimulation:
         self.dust_system = self._voxelized(dust_system)
         self.grid = (self.dust_system.grid if self.dust_system is not None
                      else None)
+        # a polarizing mix's Mueller tables go to the lifecycle (skirt_tpu
+        # simulation.py:119)
+        self._mueller = (self.dust_system.mueller
+                         if self.dust_system is not None else None)
         self._build_main_lifecycle()
         # fold several launch batches into one dispatch; the tallies drain
         # to the host once per dispatch
@@ -157,7 +161,8 @@ class OligoSimulation:
             try:
                 self._lifecycle = make_lifecycle(
                     self.grid, self.dust_system, self.stellar_system,
-                    self.instruments, self.options, self.nlambda)
+                    self.instruments, self.options, self.nlambda,
+                    mueller=self._mueller)
                 self._poly = True
             except ValueError as e:
                 self.log.info(f"polychromatic lanes unavailable ({e}); "
@@ -166,7 +171,8 @@ class OligoSimulation:
         if not self._poly:
             self._lifecycle = make_lifecycle_with_fallback(
                 self.grid, self.dust_system, self.stellar_system,
-                self.instruments, self.options, self.nlambda, log=self.log)
+                self.instruments, self.options, self.nlambda, log=self.log,
+                mueller=self._mueller)
 
     def _batches(self):
         """Yield (batch index, ell, L0) per launch batch.

@@ -1,4 +1,4 @@
-"""Instruments (twin of skirt_tpu.instruments; slice 1 subset)."""
+"""Instruments (twin of skirt_tpu.instruments; the distant instruments)."""
 
 from .instruments import (DistantInstrument, FrameInstrument,  # noqa: F401
-                          SEDInstrument, SimpleInstrument)
+                          FullInstrument, SEDInstrument, SimpleInstrument)

@@ -1,10 +1,16 @@
 """Distant instruments with parallel projection.
 
 Twin of skirt_tpu/instruments/instruments.py (DistantInstrument,
-SEDInstrument, FrameInstrument, SimpleInstrument with the monochromatic
-and polychromatic detects, calibration and writers).  ref: SKIRTcore/DistantInstrument.cpp,
-SingleFrameInstrument.cpp (pixelondetector :119-145, calibration
-:151-226), SEDInstrument / FrameInstrument / SimpleInstrument.
+SEDInstrument, FrameInstrument, SimpleInstrument and FullInstrument with
+the monochromatic and polychromatic detects, calibration and writers).
+ref: SKIRTcore/DistantInstrument.cpp, SingleFrameInstrument.cpp
+(pixelondetector :119-145, calibration :151-226), SEDInstrument /
+FrameInstrument / SimpleInstrument / FullInstrument.cpp:107-230.
+
+The detects take skirt_tpu's `tags`: per-packet provenance (nscatt, 0
+for direct light; is_dust), the unextincted contribution ("transparent")
+and, for polarized packets, the Stokes ratios (q, u, v) in the
+instrument's frame.  Only FullInstrument reads them.
 
 Tallies are float32 tensors on the run's device, updated in place; the
 frame cube goes through the K2 binned scatter-add (ops.binned_add).
@@ -108,9 +114,10 @@ class SEDInstrument(DistantInstrument):
         tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
         return tallies
 
-    def detect_poly(self, tallies, pos, wls, contrib):
+    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
         """contrib (W, N): row i carries wavelength index wls[i] (a
-        (W,) int64 tensor) for the same N positions."""
+        (W,) int64 tensor) for the same N positions; a tag's
+        "transparent" is (W, N)."""
         tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
         return tallies
 
@@ -166,7 +173,7 @@ class FrameInstrument(DistantInstrument):
         return torch.where(pix[None, :] >= 0,
                            wcol * (self.nx * self.ny) + pix[None, :], -1)
 
-    def detect_poly(self, tallies, pos, wls, contrib):
+    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
         idx = self._poly_idx(pos, wls)
         binned_add(tallies["ftot"], idx.reshape(-1), contrib.reshape(-1))
         return tallies
@@ -191,8 +198,8 @@ class SimpleInstrument(FrameInstrument):
         tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
         return tallies
 
-    def detect_poly(self, tallies, pos, wls, contrib):
-        tallies = super().detect_poly(tallies, pos, wls, contrib)
+    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
+        tallies = super().detect_poly(tallies, pos, wls, contrib, tags)
         tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
         return tallies
 
@@ -202,6 +209,148 @@ class SimpleInstrument(FrameInstrument):
                     units, out_dir, prefix)
         _write_sed(self, {"total": accumulated["Ftot"]}, wavelength_grid,
                    units, out_dir, prefix)
+
+
+class FullInstrument(SimpleInstrument):
+    """Decomposed tallies: direct / scattered x stellar / dust emission,
+    the transparent (unextincted) direct light, per-scattering-level
+    frames and, with polarization, the Stokes Q, U, V frames and SEDs
+    (ref: SKIRTcore/FullInstrument.cpp:107-230).  Without tags a detect
+    adds to the total frame and SED only."""
+
+    def __init__(self, *args, nscatt_levels: int = 0,
+                 polarization: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.nscatt_levels = int(nscatt_levels)
+        self.polarization = bool(polarization)
+
+    def zero_tallies(self, device="cuda"):
+        t = super().zero_tallies(device)
+        dev = resolve(device)
+        npix = self.nlambda * self.nx * self.ny
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        for key in ("fdirstel", "fscastel", "fdirdust", "fscadust", "ftra"):
+            t[key] = z(npix)
+        for key in ("Fdirstel", "Fscastel", "Fdirdust", "Fscadust", "Ftra"):
+            t[key] = z(self.nlambda)
+        if self.nscatt_levels > 0:
+            t["fscatlev"] = z(self.nscatt_levels, npix)
+            t["Fscatlev"] = z(self.nscatt_levels, self.nlambda)
+        if self.polarization:
+            for key in ("fQ", "fU", "fV"):
+                t[key] = z(npix)
+            for key in ("FQ", "FU", "FV"):
+                t[key] = z(self.nlambda)
+        return t
+
+    def _decomposed(self, tags, contrib, add):
+        """The tallies both detects share: `add(key_f, key_F, mask,
+        value)` adds the masked values to a frame and its SED."""
+        nscatt = tags["nscatt"]
+        is_dust = tags.get("is_dust")
+        direct = nscatt == 0
+        if is_dust is None:
+            is_dust = torch.zeros_like(direct)
+        add("fdirstel", "Fdirstel", direct & ~is_dust, contrib)
+        add("fscastel", "Fscastel", ~direct & ~is_dust, contrib)
+        add("fdirdust", "Fdirdust", direct & is_dust, contrib)
+        add("fscadust", "Fscadust", ~direct & is_dust, contrib)
+        if tags.get("transparent") is not None:
+            add("ftra", "Ftra", direct & ~is_dust, tags["transparent"])
+
+    def detect(self, tallies, pos, ell, contribution, tags=None):
+        t = super().detect(tallies, pos, ell, contribution, tags)
+        if tags is None:
+            return t
+        pix = self.pixel(pos)
+        npix = self.nx * self.ny
+        idx = torch.where(pix >= 0, ell * npix + pix, -1)
+
+        def add(key_f, key_F, mask, value):
+            binned_add(t[key_f], torch.where(mask, idx, -1), value)
+            t[key_F] += _bin_sum(torch.where(mask, value, 0.0), ell,
+                                 self.nlambda)
+
+        self._decomposed(tags, contribution, add)
+        nscatt = tags["nscatt"]
+        if self.nscatt_levels > 0:
+            lev = torch.clamp(nscatt - 1, 0, self.nscatt_levels - 1)
+            in_lev = (nscatt >= 1) & (nscatt <= self.nscatt_levels)
+            level_idx = torch.where(in_lev,
+                                    lev * (self.nlambda * npix) + idx, -1)
+            binned_add(t["fscatlev"].view(-1),
+                       torch.where(idx >= 0, level_idx, -1), contribution)
+            binned_add(t["Fscatlev"].view(-1),
+                       torch.where(in_lev, lev * self.nlambda + ell, -1),
+                       contribution)
+        if self.polarization and tags.get("stokes") is not None:
+            for (key_f, key_F), ratio in zip(
+                    (("fQ", "FQ"), ("fU", "FU"), ("fV", "FV")),
+                    tags["stokes"]):
+                val = contribution * ratio
+                binned_add(t[key_f], idx, val)
+                t[key_F] += _bin_sum(val, ell, self.nlambda)
+        return t
+
+    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
+        t = super().detect_poly(tallies, pos, wls, contrib, tags)
+        if tags is None:
+            return t
+        idx = self._poly_idx(pos, wls)                 # (W, N)
+        npix = self.nx * self.ny
+
+        def add(key_f, key_F, mask, value):
+            binned_add(t[key_f], torch.where(mask[None], idx, -1).reshape(-1),
+                       value.reshape(-1))
+            t[key_F].index_add_(0, wls, torch.where(mask[None], value, 0.0)
+                                .sum(dim=1))
+
+        self._decomposed(tags, contrib, add)
+        nscatt = tags["nscatt"]
+        if self.nscatt_levels > 0:
+            lev = torch.clamp(nscatt - 1, 0, self.nscatt_levels - 1)
+            in_lev = (nscatt >= 1) & (nscatt <= self.nscatt_levels)
+            level_idx = torch.where(in_lev[None] & (idx >= 0),
+                                    lev[None] * (self.nlambda * npix) + idx,
+                                    -1)
+            binned_add(t["fscatlev"].view(-1), level_idx.reshape(-1),
+                       contrib.reshape(-1))
+            Fidx = torch.where(in_lev[None], lev[None] * self.nlambda
+                               + wls.to(torch.int32)[:, None], -1)
+            binned_add(t["Fscatlev"].view(-1), Fidx.reshape(-1),
+                       contrib.reshape(-1))
+        if self.polarization and tags.get("stokes") is not None:
+            # the ratios are (W, N), or (N,) where the Mueller matrix is
+            # the same at every wavelength
+            for (key_f, key_F), ratio in zip(
+                    (("fQ", "FQ"), ("fU", "FU"), ("fV", "FV")),
+                    tags["stokes"]):
+                val = (contrib * ratio).expand_as(contrib)
+                binned_add(t[key_f], idx.reshape(-1), val.reshape(-1))
+                t[key_F].index_add_(0, wls, val.sum(dim=1))
+        return t
+
+    def write(self, accumulated, wavelength_grid, units: Units, out_dir: str,
+              prefix: str):
+        a = accumulated
+        frames = {"total": a["ftot"],
+                  "direct": a["fdirstel"] + a["fdirdust"],
+                  "scattered": a["fscastel"] + a["fscadust"],
+                  "transparent": a["ftra"]}
+        seds = {"total": a["Ftot"],
+                "direct": a["Fdirstel"] + a["Fdirdust"],
+                "scattered": a["Fscastel"] + a["Fscadust"],
+                "transparent": a["Ftra"]}
+        if self.polarization:
+            for name, key in (("stokesQ", "Q"), ("stokesU", "U"),
+                              ("stokesV", "V")):
+                frames[name] = a["f" + key]
+                seds[name] = a["F" + key]
+        _write_cube(self, frames, wavelength_grid, units, out_dir, prefix)
+        _write_sed(self, seds, wavelength_grid, units, out_dir, prefix)
 
 
 # ---------------------------------------------------------------------------

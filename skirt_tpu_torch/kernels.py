@@ -171,16 +171,17 @@ class TableArgs(ctypes.Structure):
 class TablePolyArgs(ctypes.Structure):
     """Mirror of `struct TablePolyArgs` in csrc/fused_table_poly.cu (same
     order); only the Geom's arithmetic-locate fields are read (by K6;
-    `direct` selects K6d, which also writes odepd)."""
+    `direct` selects K6d, which also writes odepd; `pol` selects K6p,
+    which also writes oIs and oIt)."""
     MAX_W = 128
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "u", "r", "oc", "L", "L0", "px", "py", "pz", "dx", "dy", "dz",
             "alive", "ns", "t0", "dt",
             "opx", "opy", "opz", "odx", "ody", "odz", "oalive", "ons",
-            "oLn", "oLp", "odepi", "odepv", "odepd")]
+            "oLn", "oLp", "odepi", "odepv", "odepd", "oIs", "oIt")]
         + [(name, ctypes.c_int) for name in (
-            "N", "W", "npanels", "min_scatt", "sum_block", "direct")]
+            "N", "W", "npanels", "min_scatt", "sum_block", "direct", "pol")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_W", "inv_minred")]
         + [("geo", Geom)])

@@ -1,5 +1,6 @@
-"""Dust media (twin of skirt_tpu.media; slice 1 subset)."""
+"""Dust media (twin of skirt_tpu.media; the ported subset)."""
 
 from .dust_system import (DustComponent, DustMassNormalization,  # noqa: F401
                           DustSystem, OpticalDepthNormalization)
-from .mix import DustMix, SimpleOligoDustMix  # noqa: F401
+from .mix import (DustMix, ElectronDustMix,  # noqa: F401
+                  SimpleOligoDustMix)

@@ -266,6 +266,27 @@ class DustSystem:
             return 0.0
         return float(np.abs(rv - re_).sum() / denom)
 
+    # -- polarization -------------------------------------------------------
+
+    @property
+    def muellers(self):
+        """Per-component Mueller tables (None for unpolarized mixes), or
+        None when no component polarizes (skirt_tpu
+        dust_system.py:206-218)."""
+        tables = [getattr(c.mix, "mueller", None) for c in self.components]
+        if all(t is None for t in tables):
+            return None
+        return tables
+
+    @property
+    def mueller(self):
+        """The Mueller table of a one-component system (the list of
+        `muellers` with several components), or None."""
+        tables = self.muellers
+        if tables is None or self.ncomp != 1:
+            return tables
+        return tables[0]
+
     # -- diagnostics (host) -----------------------------------------------
 
     def gridded_mass(self) -> float:

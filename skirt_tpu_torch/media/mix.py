@@ -1,7 +1,8 @@
 """Dust mixes: per-wavelength optical properties.
 
 Twin of skirt_tpu/media/mix.py (DustMix with its HG phase function,
-SimpleOligoDustMix).  ref: SKIRTcore/DustMix.cpp, SimpleOligoDustMix.cpp.
+SimpleOligoDustMix, ElectronDustMix).  ref: SKIRTcore/DustMix.cpp,
+SimpleOligoDustMix.cpp, ElectronDustMix.cpp.
 """
 
 from __future__ import annotations
@@ -9,13 +10,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import M_ELECTRON, SIGMA_THOMSON
+
 
 class DustMix:
     """Optical properties on a wavelength grid: kappaabs/kappasca [m^2/kg]
     and the HG asymmetry g per wavelength bin (NumPy, host side)."""
 
     polarization = False
-    mueller = None
+    mueller = None      # media.polarization.MuellerTables when polarized
 
     def __init__(self, wavelength_grid, kappaabs, kappasca, g):
         self.wavelength_grid = wavelength_grid
@@ -58,3 +61,18 @@ class SimpleOligoDustMix(DustMix):
         if not (ke.size == al.size == gv.size == wavelength_grid.nlambda):
             raise ValueError("property lists must match the wavelength grid")
         super().__init__(wavelength_grid, ke * (1.0 - al), ke * al, gv)
+
+
+class ElectronDustMix(DustMix):
+    """Thomson scattering by free electrons: grey, pure scattering, g = 0,
+    kappa = sigma_T / m_e; always polarized, with the Thomson Mueller
+    matrix (ref: SKIRTcore/ElectronDustMix.cpp)."""
+
+    def __init__(self, wavelength_grid):
+        from .polarization import thomson_mueller
+
+        n = wavelength_grid.nlambda
+        super().__init__(wavelength_grid, np.zeros(n),
+                         np.full(n, SIGMA_THOMSON / M_ELECTRON), np.zeros(n))
+        self.polarization = True
+        self.mueller = thomson_mueller(n)

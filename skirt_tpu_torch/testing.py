@@ -1,5 +1,6 @@
-"""Parity helpers for the event kernels K1, K3-K7 and the direct-table
-variants K4d and K6d: inputs and the lane-wise criterion.
+"""Parity helpers for the event kernels K1, K3-K7, the direct-table
+variants K4d and K6d and K6p, K6's polarized form: inputs and the
+lane-wise criterion.
 
 Shared by tests/test_torch_fused_poly.py, tests/test_torch_fused.py and
 tests/test_torch_table*.py (the plain events against the Pallas kernels
@@ -238,6 +239,21 @@ def table_poly_state(inp):
         inp["alive"], inp["ns"], inp["t0"], inp["dt"])]
 
 
+def table_poly_case(spec, ds, N, seed, device="cpu", **kw):
+    """The inputs of one K6 / K6d / K6p event on `ds` for the plain version
+    and the kernel alike: table_event_inputs (seed, the spec's panels,
+    any of its keywords) as the call's arguments.  Returns (args, inp):
+    args = (u, r, oc, L, L0, state) in table_poly_event's order, inp the
+    whole input dict (its small_tau / outside lane families)."""
+    import torch
+
+    inp = table_event_inputs(ds, N, spec.n_uniform, spec.W, seed=seed,
+                             npanels=spec.npanels, device=device, **kw)
+    args = (inp["u"], inp["rows"], torch.as_tensor(spec.oc, device=device),
+            inp["L"], inp["L0"], table_poly_state(inp))
+    return args, inp
+
+
 def table_restage(grid, ds, pos, d, npanels, kext_pk, ksca_pk=None):
     """The staged panel rows, t0 and dt of lanes at pos, d (N, 3), as the
     table drivers stage them before each event (panel_paths and the table
@@ -274,7 +290,8 @@ def event_agreement(got, want, rtol=1e-4, atol_scale=1e-6):
     pairs = list(zip(got["state"], want["state"]))
     pairs += [(got[k], want[k]) for k in ("depi", "cell", "bc", "fresh",
                                           "depv", "depd", "Ln", "Lp", "Ip",
-                                          "tau", "cos", "phase") if k in want]
+                                          "tau", "cos", "phase", "I_s",
+                                          "I_tot") if k in want]
     disc = [(a, b) for a, b in pairs if not b.is_floating_point()]
     if "Ln" in want:
         disc.append((got["Ln"] > 0, want["Ln"] > 0))

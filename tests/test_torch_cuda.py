@@ -547,3 +547,49 @@ def test_table_poly_event_direct_kernel_matches_plain(W):
                               lambda: (oc, lum["L"], inp["L0"]), restage)
     assert tftp.table_poly_event.direct_launches == before + 4
     assert torch.equal(got["depd"] >= 0, got["depi"] >= 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W, direct", [(2, False), (24, False), (8, True)],
+                         ids=["W2", "W24", "direct-W8"])
+def test_table_poly_event_pol_kernel_matches_plain(W, direct):
+    """K6p (K6, or K6d on the 300-site tessellation, with I_s and I_tot
+    out) against its plain version, chained over a few events: every
+    output bit-identical, the column densities included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import table_poly_case, table_restage
+
+    build = _voronoi_model if direct else _table_model
+    run, *_, model = build(device="cuda", nlambda=W, polychromatic=True)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1, want_pol=True,
+                               inv_minred=float(np.float32(0.01)))
+    assert spec.arith_locate is not direct
+    n = 4096
+    (u, r, oc, L, L0, state), _ = table_poly_case(
+        spec, ds, n, seed=W + 5, device="cuda", small_tau=0.02,
+        outside=0.02)
+    ones = [torch.ones(n, device="cuda")]
+    for it in range(4):
+        if it:
+            u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
+        before = tftp.table_poly_event.pol_launches
+        got = tftp.table_poly_event(spec, u, r, oc, L, L0, state)
+        assert tftp.table_poly_event.pol_launches == before + 1
+        want = tftp.table_poly_event_plain(spec, u, r, oc, L, L0, state)
+        assert sorted(got) == sorted(want)
+        for a, b in zip(got["state"], want["state"]):
+            assert torch.equal(a, b), it
+        for k in want:
+            if k != "state":
+                assert torch.equal(got[k], want[k]), (it, k)
+        st = got["state"]
+        L = got["Ln"]
+        r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                  torch.stack(st[3:6], -1), 16, ones)
+        state = list(st) + [t0, dt]
+

@@ -8,7 +8,8 @@ analytic slice, a monochromatic OligoSimulation, both table engines
 (config 3's octree torus at max_level 3), both multi-component table
 engines (the two-component model, K5 and K7) and config 4 (a 200-site
 Voronoi tessellation from the native cell builder: the direct table,
-K4d and K6d, and the voxel view) on the CPU, writes the simulation's
+K4d and K6d, and the voxel view) and the three polarized chains (K3, K4
+and K6p with the Mueller machinery) on the CPU, writes the simulation's
 results, and reports which of jax / triton / skirt_tpu got imported and
 whether a kernel build was attempted.  The native Voronoi library is
 built in the test process first (the subprocess has no compiler on PATH
@@ -86,6 +87,16 @@ SCRIPT = textwrap.dedent("""
                         float(tt["labs"].sum()), tr.spec.arith_locate])
         if direct:
             native_cells = vm[0].used_native
+    # the three polarized chains of bench_polarized.py (K3, K4, K6p)
+    from bench_torch import _polarized_build
+    polarized = []
+    for kw in ({}, {"table": True}, {"table": True, "poly": True}):
+        tr, tz, tell, tL0, _, _ = _polarized_build(
+            64, device="cpu", refill_batches=2, **kw)
+        tt = tr(rng.root_key(5), tell, tL0, tz())["instruments"][0]
+        polarized.append([float(tt["Fscastel"].sum()),
+                          float(tt["FQ"].abs().sum()),
+                          getattr(tr.spec, "want_pol", None)])
     reference = sorted(m for m in sys.modules
                        if m == "skirt_tpu" or m.startswith("skirt_tpu."))
     print(json.dumps({
@@ -111,6 +122,7 @@ SCRIPT = textwrap.dedent("""
         "table": table,
         "voronoi": voronoi,
         "native_cells": native_cells,
+        "polarized": polarized,
     }))
 """)
 
@@ -135,7 +147,7 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
                 "engine.fused_table", "engine.fused_table_poly",
                 "grids.octree", "grids.voronoi", "native", "devices", "units",
-                "fits", "kernels"):
+                "fits", "kernels", "media.polarization"):
         assert f"skirt_tpu_torch.{mod}" in res["modules"]
     assert res["sed"] > 0 and res["labs"] > 0
     assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
@@ -144,5 +156,7 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     assert [arith for *_, arith in res["voronoi"]] == [False, False, True]
     assert all(sed > 0 and labs > 0 for sed, labs, _ in res["voronoi"])
     assert res["native_cells"] is native_built
+    assert [p[2] for p in res["polarized"]] == [None, None, True]
+    assert all(sca > 0 and q > 0 for sca, q, _ in res["polarized"])
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "run_img_sed.dat", "run_img_total.fits", "run_sed_sed.dat"]

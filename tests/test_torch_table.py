@@ -289,7 +289,7 @@ def test_event_wrapper_takes_plain_version_on_cpu(models):
 # the slice end to end
 # ---------------------------------------------------------------------------
 
-def _jax_run(model, n, refill=0):
+def _jax_run(model, n, refill=0, mueller=None):
     from skirt_tpu import rng as jrng
     from skirt_tpu.engine.lifecycle import make_lifecycle
 
@@ -297,19 +297,20 @@ def _jax_run(model, n, refill=0):
     opts = dataclasses.replace(opts, refill_batches=refill)
     ell = jnp.asarray(np.arange(n, dtype=np.int32) % 2)
     L0 = jnp.full((n,), 1e36 / N, jnp.float32)
-    run = jax.jit(make_lifecycle(grid, ds, ss, ins, opts, 2))
+    run = jax.jit(make_lifecycle(grid, ds, ss, ins, opts, 2,
+                                 mueller=mueller))
     t = run(jrng.root_key(4357), ell, L0, {
         "instruments": [ins[0].zero_tallies()],
         "labs": jnp.zeros((grid.ncells * 2,), jnp.float32)})
     return jax.tree.map(lambda a: np.asarray(a, np.float64), t)
 
 
-def _port_run(model, n, refill=0, seed=4357, **opt_kw):
+def _port_run(model, n, refill=0, seed=4357, mueller=None, **opt_kw):
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
 
     grid, ds, ss, ins, opts = model
     opts = dataclasses.replace(opts, refill_batches=refill, **opt_kw)
-    run = make_lifecycle(grid, ds, ss, ins, opts, 2)
+    run = make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=mueller)
     t = run(rng.root_key(seed), torch.arange(n, dtype=torch.int32) % 2,
             torch.full((n,), 1e36 / N), {
                 "instruments": [ins[0].zero_tallies("cpu")],
@@ -336,6 +337,23 @@ def test_slice_matches_skirt_tpu(models, refill):
     assert np.isfinite(tt["labs"]).all() and (tt["labs"] >= 0).all()
 
 
+def test_polarized_slice_matches_skirt_tpu(models):
+    """The polarized mono table engine (K4 with the torch-side Mueller
+    scatter and peel) on the torus with the Thomson Mueller tables, as
+    experiments/bench_polarized.py runs its table chain: SED and labs
+    against skirt_tpu's at the table tolerance (0.05)."""
+    from skirt_tpu.media.polarization import thomson_mueller as jthomson
+    from skirt_tpu_torch.media.polarization import thomson_mueller
+
+    jm, tm = models
+    tj = _jax_run(jm, N, mueller=jthomson(2))
+    run, tt = _port_run(tm, N, mueller=thomson_mueller(2))
+    assert isinstance(run.spec, tft.TableEventSpec)
+    np.testing.assert_allclose(tt["sed"], tj["instruments"][0]["Ftot"],
+                               rtol=0.05)
+    assert tt["labs"].sum() == pytest.approx(tj["labs"].sum(), rel=0.05)
+
+
 def test_count_events_and_staged_peel(models):
     """count_events adds the events run (at least one per launched packet,
     no more than max_scatt_events each); the staged peel at 64 panels
@@ -357,8 +375,11 @@ def test_unported_table_branches_raise(models):
         with pytest.raises(ValueError, match=f"slice {slice_}"):
             make_lifecycle(grid, ds, ss, ins,
                            dataclasses.replace(opts, **kw), 2)
-    with pytest.raises(ValueError, match="slice S5"):
-        make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=object())
+    # a Mueller table builds the polarized engine around the unchanged K4
+    from skirt_tpu_torch.media.polarization import thomson_mueller
+    run = make_lifecycle(grid, ds, ss, ins, opts, 2,
+                         mueller=thomson_mueller(2))
+    assert type(run.spec) is tft.TableEventSpec and run.spec.arith_locate
     # several dust components build (kernel K5); with polarization or on
     # a non-uniform grid they raise in skirt_tpu's words.  One component on
     # the non-uniform grid builds the direct table (kernel K4d, staged peel)

@@ -214,9 +214,13 @@ def model():
     return jax_poly_model(2)
 
 
-def _runs(jm, n, refill):
+def _runs(jm, n, refill, mueller=False):
     """skirt_tpu's and the port's polychromatic table runs, n lanes, K =
-    refill packets each, at N / 2 packets per wavelength of 1e36 / N W."""
+    refill packets each, at N / 2 packets per wavelength of 1e36 / N W;
+    mueller=True polarizes both with the Thomson Mueller tables."""
+    from skirt_tpu.media.polarization import thomson_mueller as jthomson
+    from skirt_tpu_torch.media.polarization import thomson_mueller
+
     from skirt_tpu import rng as jrng
     from skirt_tpu.engine.lifecycle import make_lifecycle as jax_lifecycle
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
@@ -224,15 +228,18 @@ def _runs(jm, n, refill):
     K = max(refill, 1)
     grid, ds, ss, ins, opts = jm
     opts = dataclasses.replace(opts, refill_batches=refill)
-    run = jax.jit(jax_lifecycle(grid, ds, ss, ins, opts, 2))
+    run = jax.jit(jax_lifecycle(grid, ds, ss, ins, opts, 2,
+                                mueller=jthomson(2) if mueller else None))
     tj = run(jrng.root_key(4357), jnp.zeros((n,), jnp.int32),
              jnp.full((n, 2), 5e35 / (n * K), jnp.float32),
              {"instruments": [ins[0].zero_tallies()],
               "labs": jnp.zeros((grid.ncells * 2,), jnp.float32)})
     tj = jax.tree.map(lambda a: np.asarray(a, np.float64), tj)
     grid, ds, ss, ins, opts = from_skirt_tpu(grid, ds, ss, ins, opts)
-    run = make_lifecycle(grid, ds, ss, ins, opts, 2)
+    run = make_lifecycle(grid, ds, ss, ins, opts, 2,
+                         mueller=thomson_mueller(2) if mueller else None)
     assert isinstance(run.spec, tftp.TablePolyEventSpec)
+    assert run.spec.want_pol is mueller
     tt = run(rng.root_key(4357), torch.zeros(n, dtype=torch.int32),
              torch.full((n, 2), 5e35 / (n * K)),
              {"instruments": [ins[0].zero_tallies("cpu")],
@@ -256,12 +263,29 @@ def test_slice_matches_skirt_tpu(model, refill):
     assert np.isfinite(tt["labs"]).all() and (tt["labs"] >= 0).all()
 
 
+def test_polarized_slice_matches_skirt_tpu(model):
+    """The polarized poly table engine (K6p, the torch-side Mueller
+    reweighting, scatter and peel) on the torus with the Thomson Mueller
+    tables, as experiments/bench_polarized.py runs its poly chain, against
+    skirt_tpu's at the table tolerances (SED 0.06, labs total 0.05)."""
+    tj, tt = _runs(model, N // 2, 0, mueller=True)
+    np.testing.assert_allclose(tt["sed"], tj["sed"], rtol=0.06)
+    assert tt["labs"].sum() == pytest.approx(tj["labs"].sum(), rel=0.05)
+    assert np.isfinite(tt["labs"]).all() and (tt["labs"] >= 0).all()
+
+
 def test_unported_poly_table_branches_raise(model):
     from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+    from skirt_tpu_torch.media.polarization import thomson_mueller
 
     grid, ds, ss, ins, opts = from_skirt_tpu(*model)
-    with pytest.raises(ValueError, match="slice S5"):
-        make_lifecycle(grid, ds, ss, ins, opts, 2, mueller=object())
+    # a Mueller table builds the polarized engine (kernel K6p): the
+    # arithmetic locate here, K6d's direct table on the uneven grid below
+    spec = make_lifecycle(grid, ds, ss, ins, opts, 2,
+                          mueller=thomson_mueller(2)).spec
+    assert type(spec) is tftp.TablePolyEventSpec and spec.want_pol
+    assert spec.arith_locate
+    assert not make_lifecycle(grid, ds, ss, ins, opts, 2).spec.want_pol
     with pytest.raises(ValueError, match="slice S3"):
         make_lifecycle(grid, ds, ss, ins, opts, 2, launch_fn=lambda *a: 0)
     # several dust components build (kernel K7); with polarization or on
@@ -286,3 +310,7 @@ def test_unported_poly_table_branches_raise(model):
     with pytest.warns(UserWarning, match="downgrading to 'staged'"):
         spec = make_lifecycle(uneven, ds_u, ss, ins, opts, 2).spec
     assert type(spec) is tftp.TablePolyEventSpec and not spec.arith_locate
+    with pytest.warns(UserWarning, match="downgrading to 'staged'"):
+        spec = make_lifecycle(uneven, ds_u, ss, ins, opts, 2,
+                              mueller=[thomson_mueller(2)]).spec
+    assert spec.want_pol and not spec.arith_locate
