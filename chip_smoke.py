@@ -67,7 +67,19 @@ exits non-zero without printing a result):
      (I_s, I_tot), the same way at W = 2 (N = 2^17), 24 and 128 (N =
      2^15), on config 3's voxel view and on the 33,000-site tessellation,
      one state each; every output bit-identical to the plain version
-  13. the main paths at full width, each with the launch counts of its
+  13. K8 (binned_add_lm) at experiments/microbench_blocked_tally.py's
+     flagship (2^17 lanes, 128 wavelength blocks, 16,384 cells) and at
+     nlambda = 20 (where skirt_tpu's tiles leave blocks 16-19 unwritten),
+     with K2 on the same lanes as the script's yardsticks; the probes
+     through their drivers (skirt_tpu_torch.experiments) at the JAX
+     scripts' shapes, one call per distinct function (the Pallas variants
+     that differ only in a TPU schedule are one call): PG through both
+     routes on P1-P10, on the 32,768-entry table with uniform indices
+     and on the 2^23 voxel ids config 3's mono table path stages for its
+     panel rows (event iterations 32-35 of one batch), PO at every stage
+     of P11-P14, PM at every shape and type of P15 (each timed over the
+     Pallas grid's G repeats)
+  14. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
      make_multibatch (bench_torch._build defaults); S2a, the mono
@@ -99,11 +111,13 @@ exits non-zero without printing a result):
      the config-3 torus (K4) and the poly table (K6p); and a polarized
      OligoSimulation(voxelize="table") on the torus filled with an
      ElectronDustMix (tau_x = 1, K = 16, K6p), which picks up the mix's
-     Mueller tables and writes the Stokes frames
-  14. each path at a small size on the card against the same run on the
+     Mueller tables and writes the Stokes frames; and the slice of the
+     lambda-blocked tally and the probes: the four drivers of phase 13
+     run once per distinct call (K8, PG, PO and PM counted)
+  15. each path at a small size on the card against the same run on the
      CPU (the direct table on tests/test_poly.py's 300-site model; the
      polarized poly table on tests/test_polarization.py's Thomson sphere)
-  15. one JSON line of per-kernel results, the card line, and last
+  16. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
 
 Times: CUDA events around back-to-back calls after warm-up calls, with a
@@ -117,11 +131,21 @@ and its float operations over 67 TFLOP/s (the float32 rate outside the
 tensor cores), operations counted per live lane from the kernel source
 (each transcendental one operation; approximate; work a kernel repeats by
 its own design, as K7's repeated panel walks, counted once), from this
-run's inputs.
+run's inputs.  PM's bf16 products, and the 8-row products that PO's
+"matmul" and "fixed_B" outputs keep, run on the tensor cores, so their
+operations count at 989 TFLOP/s (dense bf16); the line beside it gives
+the same operations at 67 TFLOP/s.  PO's bound is what its output needs
+(a gather: indices, output and tables); onehot_floor_ms is the one-hot
+formulation's own floor, every group's full (256, 128) @ (128, 1024)
+products at 989 TFLOP/s.  The probes' library yardsticks:
+index_add_ over the kept lanes (K8), tab[idx] (PG, PO's full gather),
+torch.matmul (PM; bf16 out for bf16 in).
 
-Tolerances: K2 per bin rtol 1e-4 (float32 sums of up to a few thousand
-updates taken in another order by atomics; each order is within
-n * 2^-24 of the exact sum).  K1, K3-K7, K4d and K6d by
+Tolerances: K2 and K8 per bin rtol 1e-4, atol 1e-6 (float32 sums of up
+to a few thousand updates taken in another order by atomics; each order
+is within n * 2^-24 of the exact sum).  PG and PO bit-identical; PM
+within skirt_tpu_torch.experiments.mm.tolerance (two float32 sums of the
+same K products in other orders, TF32 off).  K1, K3-K7, K4d and K6d by
 skirt_tpu_torch.testing's criterion: the discrete outputs (deposit bin,
 alive, nscatt, bcount, fresh, K5's interaction cell, whether K4d and K6d
 deposit and K6d's deposit wavelength, and for K1, K6 and K7 the
@@ -154,11 +178,15 @@ signs, and the integrated |P| below 0.06 of the scattered flux).
 """
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
+
+# bound() is the least-time model of bound_ms (module docstring) at the
+# H100 SXM's published rates; card_line is also profile_torch.py's
+from skirt_tpu_torch.experiments.common import (bound, card_line, cuda_ms,
+                                                line, nbytes)
 
 
 # the event kernels: events chained from each starting state
@@ -171,69 +199,6 @@ VORONOI_K = 8
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=120)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps=10, warmup=2):
-    """Mean device time of fn() over reps back-to-back calls, by CUDA
-    events.  A sleep kernel queued first holds the device while the host
-    enqueues the calls, so the wrappers' host time opens no gaps."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    # ~2e9 cycles per second; at most 2 s of sleep
-    torch.cuda._sleep(int(min(1.5 * reps * host, 2.0) * 2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-# the least-time model of bound_ms (module docstring): the H100 SXM's
-# published HBM3 rate and float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-
-
-def nbytes(*tensors):
-    """Bytes of tensors, lists of tensors and dicts of them (None skipped)."""
-    total = 0
-    for t in tensors:
-        if t is None:
-            continue
-        if isinstance(t, dict):
-            total += nbytes(*t.values())
-        elif isinstance(t, (list, tuple)):
-            total += nbytes(*t)
-        else:
-            total += t.numel() * t.element_size()
-    return total
-
-
-def bound(nbyte, ops):
-    """(bound_ms, bound_by) for a call that moves nbyte bytes and does ops
-    float operations."""
-    t_bytes = nbyte / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def event_bound(reads, out, n, live, ops_per_live_lane):
@@ -1914,6 +1879,153 @@ def phase_reference_voronoi(torch):
             f"{', '.join(f'{r:.4f}' for r in gl / cl)}")
 
 
+def _probe_wrappers():
+    """The slice's kernel wrappers, whose counts phase 14 reads."""
+    from skirt_tpu_torch.experiments import gather, mm, onehot_gather
+    from skirt_tpu_torch.ops import binned
+
+    return {"K8": binned.binned_add_lm, "PG": gather.table_gather,
+            "PO": onehot_gather.onehot_gather, "PM": mm.mm}
+
+
+def _probe_sweeps(timed):
+    """The four probe drivers' sweeps: {kernel: [records]}."""
+    from skirt_tpu_torch.experiments import (microbench_blocked_tally,
+                                             microbench_gather,
+                                             microbench_mxu_gather,
+                                             microbench_mxu_mm)
+
+    tally = microbench_blocked_tally.sweep(timed=timed)
+    po, pg_voxel = microbench_mxu_gather.sweep(timed=timed)
+    return {"K8": [r for r in tally if r["name"].startswith("K8")],
+            "K2": [r for r in tally if r["name"].startswith("K2")],
+            "PG": microbench_gather.sweep(timed=timed) + pg_voxel,
+            "PO": po, "PM": microbench_mxu_mm.sweep(timed=timed)}
+
+
+class _Captured(Exception):
+    pass
+
+
+def _config3_panel_cells(torch, octree, lanes=1 << 17, first=32, iters=4,
+                         device="cuda"):
+    """The voxel ids that config 3's mono table path stages for its panel
+    rows (the octree torus's 32^3 voxel view, 2^17 lanes, 16 panels) in
+    event iterations first .. first + iters - 1 of one batch, when
+    relaunched and scattered lanes are mixed: each iteration's (N, P)
+    locate transposed to the (P, N) rows the event kernel reads, clipped
+    to cell 0 outside the domain as the staging does, concatenated.
+    Returns (the voxel view's float32 densities, the flat indices)."""
+    from bench_torch import _octree_build
+    from skirt_tpu_torch import rng
+
+    run_batch, zero, ell, L0, _, model = _octree_build(
+        lanes, device=device, polychromatic=False, grid=octree)
+    tds = model[1]
+    grid, npanels = tds.grid, model[4].quadrature_panels
+    locate, seen = grid.locate_batched, []
+
+    def recording(points):
+        cells = locate(points)
+        if tuple(points.shape[:-1]) == (lanes, npanels):
+            seen.append(cells)
+            if len(seen) == first + iters:
+                raise _Captured
+        return cells
+
+    grid.locate_batched = recording
+    try:
+        run_batch(rng.root_key(4357), ell, L0, zero())
+    except _Captured:
+        pass
+    finally:
+        del grid.locate_batched
+    if len(seen) < first + iters:
+        raise AssertionError(f"config 3 staged {len(seen)} panel locates, "
+                             f"fewer than {first + iters}")
+    idx = torch.cat([c.T.clamp(min=0).reshape(-1)
+                     for c in seen[first:]]).to(torch.int32)
+    tab = torch.as_tensor(tds.rho[0], dtype=torch.float32, device=device)
+    return tab, idx
+
+
+def _panel_gathers(torch, octree):
+    """PG through both routes on config 3's staged panel cells: the gather
+    a K4-K7 fused with its panel densities would make."""
+    from skirt_tpu_torch.experiments import microbench_gather
+    from skirt_tpu_torch.experiments.gather import ROUTES
+
+    tab, idx = _config3_panel_cells(torch, octree)
+    distinct = int(torch.unique(idx).numel())
+    log(f"  config 3 panel cells: {idx.numel()} indices into "
+        f"{tab.numel()} voxels, {distinct} distinct")
+    return [microbench_gather.run(
+        "PG config-3 panel cells", "the panel rows K4-K7 read "
+        "(skirt_tpu_torch/engine/fused_table.py staging)", tab, idx, route)
+        for route in ROUTES]
+
+
+def phase_probes(torch, results, octree):
+    """K8 (at the flagship shape and on nlambda = 20, where skirt_tpu's
+    tiles leave blocks unwritten) and the probes PG (both routes, P1-P10,
+    the 32,768-entry table on uniform indices and on the panel cells that
+    config 3 stages), PO (every stage, P11-P14) and PM (every shape and
+    type of P15), each against its plain version at the JAX scripts'
+    shapes, timed: kernel, plain, library and bound ms."""
+    t0 = time.perf_counter()
+    sweeps = _probe_sweeps(timed=True)
+    sweeps["PG"] += _panel_gathers(torch, octree)
+    for kname, recs in sweeps.items():
+        for r in recs:
+            log(f"  {kname} {line(r)}")
+    # the row each kernel reports (its by_variant holds the rest)
+    head = {"K8": "K8 binned_add_lm flagship",
+            "PG": "PG T=32768 [l2]",
+            "PO": "PO full split",
+            "PM": "P15 (1024,1024)@(1024,1024) bf16 inner=1"}
+    for kname, name in head.items():
+        recs = sweeps[kname]
+        r, = [r for r in recs if r["name"] == name]
+        results[kname] = {
+            "max_abs_err": max(x["max_abs_err"] for x in recs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "shape": r["shape"],
+            "by_variant": {x["name"]: {k: x[k] for k in (
+                "pallas", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_ms_fp32", "onehot_floor_ms",
+                "max_abs_err") if k in x} for x in recs}}
+    by_name = {r["name"]: r for r in sweeps["PG"]}
+    results["PG"]["ms_smem"] = by_name["PG T=32768 [smem]"]["ms"]
+    results["PG"]["panel_cells_ms"] = {
+        route: by_name[f"PG config-3 panel cells [{route}]"]["ms"]
+        for route in ("l2", "smem")}
+    po, = [r for r in sweeps["PO"] if r["name"] == "PO full split"]
+    results["PO"]["onehot_floor_ms"] = po["onehot_floor_ms"]
+    results["PM"]["max_err_over_tol"] = max(
+        x["max_err_over_tol"] for x in sweeps["PM"])
+    log(f"  probes timed in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_main_probes(torch, results):
+    """The slice's own path: binned_add_lm and the probe drivers, run once
+    per distinct call (each held to its plain version), with the four
+    launch counts set to 0 just before and read just after."""
+    wrappers = _probe_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    sweeps = _probe_sweeps(timed=False)
+    dt = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"  probes: {sum(len(v) for v in sweeps.values())} calls in "
+        f"{dt:.1f} s; launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["launches_probes"] = launches
+
+
 def main():
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -1976,7 +2088,9 @@ def main():
     phase_k6d(torch, results, vgrids[33000])
     log("phase 12: K6p table_poly_event (polarized) kernel vs plain")
     phase_k6p(torch, results, octree, vgrids[33000])
-    log("phase 13: main paths (S1 poly: make_lifecycle + make_multibatch, "
+    log("phase 13: K8 binned_add_lm and the probes PG, PO, PM vs plain")
+    phase_probes(torch, results, octree)
+    log("phase 14: main paths (S1 poly: make_lifecycle + make_multibatch, "
         "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
         "make_lifecycle + make_multibatch, W=2; config 3 "
         "OligoSimulation(voxelize='table'); the two-component model mono "
@@ -1986,7 +2100,8 @@ def main():
         "OligoSimulation(voxelize='table') on the voxel view and on the "
         "direct table; the polarized chains mono analytic, mono table and "
         "poly table: make_lifecycle + make_multibatch, W=2; a polarized "
-        "OligoSimulation(voxelize='table') on an ElectronDustMix)")
+        "OligoSimulation(voxelize='table') on an ElectronDustMix; the "
+        "lambda-blocked tally and the probe drivers)")
     phase_main_poly(torch, results)
     phase_main_mono(torch, results)
     phase_main_table(torch, results, octree)
@@ -1997,7 +2112,8 @@ def main():
     phase_simulation_voronoi(torch, results, vgrids[4096])
     phase_main_polarized(torch, results, octree)
     phase_simulation_polarized(torch, results, octree)
-    log("phase 14: small runs on the card against the CPU")
+    phase_main_probes(torch, results)
+    log("phase 15: small runs on the card against the CPU")
     phase_reference_poly(torch)
     phase_reference_mono(torch)
     phase_reference_table(torch)
@@ -2005,7 +2121,7 @@ def main():
     phase_reference_voronoi(torch)
     phase_reference_polarized(torch)
 
-    log(f"phase 15: results (phases 1-14 took "
+    log(f"phase 16: results (phases 1-15 took "
         f"{time.perf_counter() - t_start:.1f} s)")
     paths = ("poly", "mono", "table_mono", "table_poly", "table_sim",
              "multi_mono", "multi_poly", "multi_sim", "voronoi_mono",
@@ -2028,7 +2144,8 @@ def main():
         "K6p": results["launches_pol_table_poly"]["K6p"]
         + results["launches_pol_sim"]["K6p"],
         "K7": results["launches_multi_poly"]["K7"]
-        + results["launches_multi_sim"]["K7"]}
+        + results["launches_multi_sim"]["K7"],
+        **results["launches_probes"]}
     meta = {
         "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
                "skirt_tpu/engine/fused_poly.py:85"),
@@ -2057,7 +2174,22 @@ def main():
                 ":175-179, :348-350)"),
         "K7": ("K7 table_poly_multi_event",
                "skirt_tpu_torch/csrc/fused_table_poly_multi.cu",
-               "skirt_tpu/engine/fused_table_poly.py:355")}
+               "skirt_tpu/engine/fused_table_poly.py:355"),
+        "K8": ("K8 binned_add_lm", "skirt_tpu_torch/csrc/binned_blocked.cu",
+               "skirt_tpu/ops/binned.py:146"),
+        "PG": ("PG table_gather", "skirt_tpu_torch/csrc/probe_gather.cu",
+               "experiments/microbench_gather.py:101, :128; "
+               "microbench_gather2.py:85; microbench_pallas_gather.py:65, "
+               ":91, :117; microbench_pallas_gather2.py:60; "
+               "microbench_pallas_gather3.py:42; "
+               "microbench_pallas_gather4.py:45, :88 (P1-P10)"),
+        "PO": ("PO onehot_gather",
+               "skirt_tpu_torch/csrc/probe_onehot_gather.cu",
+               "experiments/microbench_mxu_gather.py:62; "
+               "microbench_mxu_gather2.py:48; microbench_mxu_gather3.py:55; "
+               "microbench_mxu_gather4.py:91 (P11-P14)"),
+        "PM": ("PM mm", "skirt_tpu_torch/csrc/probe_mm.cu",
+               "experiments/microbench_mxu_mm.py:34 (P15)")}
     kern = {}
     for k, (name, source, replaces) in meta.items():
         r = results[k]
@@ -2077,6 +2209,13 @@ def main():
                                in results["K2"]["times"].items()}
     for k in ("K6", "K7", "K6d", "K6p"):
         kern[k]["by_W"] = results[k]["by_W"]
+    for k in ("K8", "PG", "PO", "PM"):
+        kern[k]["shape"] = results[k]["shape"]
+        kern[k]["by_variant"] = results[k]["by_variant"]
+    kern["PG"]["ms_smem"] = results["PG"]["ms_smem"]
+    kern["PG"]["panel_cells_ms"] = results["PG"]["panel_cells_ms"]
+    kern["PO"]["onehot_floor_ms"] = results["PO"]["onehot_floor_ms"]
+    kern["PM"]["max_err_over_tol"] = results["PM"]["max_err_over_tol"]
     print(json.dumps({"kernels": list(kern.values()),
                       "main_path_packets_per_s": {
                           p: results[f"main_{p}"]["packets_per_s"]

@@ -241,6 +241,27 @@ def library() -> ctypes.CDLL:
         lib.skirt_binned_add.restype = ctypes.c_int
         lib.skirt_binned_route.argtypes = [ctypes.c_int]
         lib.skirt_binned_route.restype = ctypes.c_int
+        lib.skirt_binned_blocked_add.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.skirt_binned_blocked_add.restype = ctypes.c_int
+        lib.skirt_binned_blocked_route.argtypes = [ctypes.c_int]
+        lib.skirt_binned_blocked_route.restype = ctypes.c_int
+        lib.skirt_probe_gather.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.skirt_probe_gather.restype = ctypes.c_int
+        lib.skirt_probe_onehot_gather.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.skirt_probe_onehot_gather.restype = ctypes.c_int
+        lib.skirt_probe_mm.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.skirt_probe_mm.restype = ctypes.c_int
         lib.skirt_poly_event.argtypes = [
             ctypes.POINTER(PolyArgs), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
@@ -270,6 +291,15 @@ def library() -> ctypes.CDLL:
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def aligned(t, nbytes: int):
+    """t itself when contiguous and its data nbytes-aligned (the kernels'
+    vector loads need it), else a contiguous copy (freshly allocated, so
+    aligned)."""
+    if t.is_contiguous() and t.data_ptr() % nbytes == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def stream_of(t) -> int:

@@ -593,3 +593,134 @@ def test_table_poly_event_pol_kernel_matches_plain(W, direct):
                                   torch.stack(st[3:6], -1), 16, ones)
         state = list(st) + [t0, dt]
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nl, ncells, rows_pb", [
+    (128, 16384, 8), (20, 1000, 8), (2, 60000, 16)],
+    ids=["flagship", "uneven", "global-route"])
+def test_binned_add_lm_kernel_matches_plain(nl, ncells, rows_pb):
+    """K8 against its plain version: the flagship layout (shared route),
+    one where skirt_tpu's tiles do not divide nlambda, and one whose slice
+    exceeds shared memory (global atomics); dropped lanes, a random
+    starting tally; rtol 1e-4 (atomics add in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rs = np.random.default_rng(nl)
+    n = nl * rows_pb * 128
+    cells = torch.from_numpy(rs.integers(-9, ncells + 9, n)
+                             .astype(np.int32)).cuda()
+    vals = torch.from_numpy(rs.random(n).astype(np.float32)).cuda()
+    Q, R, _ = binned.blocked_layout(nl, ncells, n)
+    start = torch.rand(nl * Q * R, device="cuda")
+    before = binned.binned_add_lm.launches
+    got = binned.binned_add_lm(start.clone(), cells, vals, nlambda=nl,
+                               ncells=ncells)
+    assert binned.binned_add_lm.launches == before + 1
+    want = binned.bincount_blocked_plain(start.clone(), cells, vals,
+                                         nlambda=nl, ncells=ncells)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    route = kernels.library().skirt_binned_blocked_route(Q * R)
+    assert route == (Q * R * 4 <= 227 * 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["l2", "smem"])
+@pytest.mark.parametrize("T, steps", [(16384, 0), (32768, 0), (128, 0),
+                                      (16384, 64)])
+def test_table_gather_kernel_matches_plain(route, T, steps):
+    """PG against its plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from skirt_tpu_torch.experiments import gather
+
+    tab = torch.from_numpy(gather.tables_like_jax(T)).cuda()
+    idx = torch.randint(0, T, (1 << 16,), device="cuda", dtype=torch.int32)
+    before = gather.table_gather.launches
+    got = gather.table_gather(tab, idx, steps=steps, route=route)
+    assert gather.table_gather.launches == before + 1
+    assert torch.equal(got, gather.table_gather_plain(tab, idx, steps=steps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "P11 split=False group8=True", "P11 split=True group8=True",
+    "P12 onehot", "P12 matmul", "P13 mm_pure", "P13 oh_slice",
+    "P14 kern_unroll1_mm4"])
+def test_onehot_gather_kernel_matches_plain(name):
+    """PO against its plain version at every stage, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from skirt_tpu_torch.experiments import onehot_gather as po
+
+    v = po.variant(name)
+    t = po.tables_like_jax()
+    th, tl, bfix = (torch.from_numpy(t[k]).cuda().to(torch.bfloat16)
+                    for k in ("tab_hi", "tab_lo", "bfix"))
+    idx = torch.randint(0, po.T, (2048, 128), device="cuda",
+                        dtype=torch.int32)
+    kw = dict(stage=v.stage, js=v.js, nmm=v.nmm,
+              tab_lo=tl if v.split else None,
+              bfix=bfix if v.stage == "fixed_B" else None)
+    before = po.onehot_gather.launches
+    got = po.onehot_gather(th, idx, **kw)
+    assert po.onehot_gather.launches == before + 1
+    assert torch.equal(got, po.onehot_gather_plain(th, idx, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, K, N, bf16, inner", [
+    (128, 128, 128, True, 1), (256, 128, 1024, True, 8),
+    (256, 128, 1024, False, 1), (512, 512, 512, True, 1)])
+def test_mm_kernel_matches_plain(M, K, N, bf16, inner):
+    """PM against its plain version within mm.tolerance (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from skirt_tpu_torch.experiments import mm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = torch.bfloat16 if bf16 else torch.float32
+    a, b = (t.cuda() for t in mm.tables_like_jax(M, K, N, dt))
+    before = mm.mm.launches
+    got = mm.mm(a, b, inner=inner)
+    assert mm.mm.launches == before + 1
+    err = (got - mm.mm_plain(a, b, inner=inner)).abs()
+    assert bool((err <= mm.tolerance(a, b, inner)).all())
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_wrong_dtype_or_device():
+    """K8, PG, PO and PM raise on a CUDA tensor of the wrong type and on
+    tensors split over the CPU and the card; none falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from skirt_tpu_torch.experiments import gather, mm, onehot_gather
+
+    Q, R, _ = binned.blocked_layout(8, 1000, 8 * 1024)
+    cells = torch.zeros(8 * 1024, dtype=torch.int32, device="cuda")
+    vals = torch.ones(8 * 1024, device="cuda")
+    tally = torch.zeros(8 * Q * R, device="cuda")
+    with pytest.raises(TypeError):
+        binned.binned_add_lm(tally, cells.long(), vals, nlambda=8,
+                             ncells=1000)
+    with pytest.raises(ValueError):
+        binned.binned_add_lm(tally, cells.cpu(), vals, nlambda=8,
+                             ncells=1000)
+    tab = torch.ones(64, device="cuda")
+    idx = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        gather.table_gather(tab.double(), idx)
+    with pytest.raises(ValueError):
+        gather.table_gather(tab, idx.cpu())
+    th = torch.ones(256, 128, dtype=torch.bfloat16, device="cuda")
+    rows = torch.zeros(8, 128, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        onehot_gather.onehot_gather(th.float(), rows)
+    with pytest.raises(ValueError):
+        onehot_gather.onehot_gather(th, rows.cpu())
+    a = torch.ones(64, 32, dtype=torch.bfloat16, device="cuda")
+    b = torch.ones(32, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):
+        mm.mm(a, b.float())
+    with pytest.raises(ValueError):
+        mm.mm(a, b.cpu())

@@ -8,10 +8,12 @@ analytic slice, a monochromatic OligoSimulation, both table engines
 (config 3's octree torus at max_level 3), both multi-component table
 engines (the two-component model, K5 and K7) and config 4 (a 200-site
 Voronoi tessellation from the native cell builder: the direct table,
-K4d and K6d, and the voxel view) and the three polarized chains (K3, K4
-and K6p with the Mueller machinery) on the CPU, writes the simulation's
+K4d and K6d, and the voxel view), the three polarized chains (K3, K4
+and K6p with the Mueller machinery), the lambda-blocked tally (K8) and
+the probes' plain versions (PG, PO, PM) on the CPU, writes the simulation's
 results, and reports which of jax / triton / skirt_tpu got imported and
-whether a kernel build was attempted.  The native Voronoi library is
+whether a kernel build was attempted, and that importing the probe
+drivers (skirt_tpu_torch.experiments) printed nothing.  The native Voronoi library is
 built in the test process first (the subprocess has no compiler on PATH
 and loads it from the port's build cache).
 """
@@ -22,6 +24,8 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -36,8 +40,29 @@ SCRIPT = textwrap.dedent("""
     import chip_smoke
     mods = sorted(m.name for m in pkgutil.walk_packages(
         skirt_tpu_torch.__path__, "skirt_tpu_torch."))
-    for m in mods:
-        importlib.import_module(m)
+    import contextlib, io
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        for m in mods:
+            importlib.import_module(m)
+    # the lambda-blocked tally (K8) and the probes (PG, PO, PM) on the CPU
+    from skirt_tpu_torch.ops import (binned_add_lm, bincount_blocked_plain,
+                                     blocked_layout, lm_to_cell_major)
+    from skirt_tpu_torch.experiments import gather, mm, onehot_gather
+    nl, nc = 4, 300
+    Q, R, _ = blocked_layout(nl, nc, nl * 1024)
+    cells = torch.arange(nl * 1024, dtype=torch.int32) % (nc + 10) - 5
+    lm = binned_add_lm(torch.zeros(nl * Q * R), cells,
+                       torch.ones(nl * 1024), nlambda=nl, ncells=nc)
+    blocked = float(lm_to_cell_major(lm, nlambda=nl, ncells=nc).sum())
+    probes = [
+        float(gather.table_gather(torch.arange(16.0),
+                                  torch.arange(8, dtype=torch.int32),
+                                  steps=2).sum()),
+        float(onehot_gather.onehot_gather(
+            torch.ones(256, 128, dtype=torch.bfloat16),
+            torch.arange(1024, dtype=torch.int32).reshape(8, 128)).sum()),
+        float(mm.mm(torch.ones(64, 32), torch.ones(32, 64), inner=2)[0, 0])]
     from bench_torch import _build, _model
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused
@@ -112,7 +137,14 @@ SCRIPT = textwrap.dedent("""
                      fused_table.table_multi_event.launches,
                      fused_table_poly.table_poly_event.launches,
                      fused_table_poly.table_poly_event.direct_launches,
-                     fused_table_poly.table_poly_multi_event.launches],
+                     fused_table_poly.table_poly_multi_event.launches,
+                     binned.binned_add_lm.launches,
+                     gather.table_gather.launches,
+                     onehot_gather.onehot_gather.launches,
+                     mm.mm.launches],
+        "printed_at_import": printed.getvalue(),
+        "blocked": blocked,
+        "probes": probes,
         "mono": isinstance(sim._lifecycle.spec, fused.MonoEventSpec),
         "mono_sed": float(acc["instruments"][0]["Ftot"].sum()),
         "mono_labs": float(acc["labs"].sum()),
@@ -143,12 +175,25 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     assert res["triton"] is False
     # a run, its writers and chip_smoke.py import nothing of the JAX package
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0] * 9
+    assert res["built"] is False and res["launches"] == [0] * 13
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
                 "engine.fused_table", "engine.fused_table_poly",
                 "grids.octree", "grids.voronoi", "native", "devices", "units",
-                "fits", "kernels", "media.polarization"):
+                "fits", "kernels", "media.polarization", "experiments.common",
+                "experiments.gather", "experiments.onehot_gather",
+                "experiments.mm", "experiments.microbench_blocked_tally",
+                "experiments.microbench_gather",
+                "experiments.microbench_mxu_gather",
+                "experiments.microbench_mxu_mm"):
         assert f"skirt_tpu_torch.{mod}" in res["modules"]
+    # importing the probe drivers runs nothing
+    assert res["printed_at_import"] == ""
+    # 4 x 1,024 lanes of value 1, cells -5..304 repeating: the kept ones
+    cells = np.arange(4 * 1024) % 310 - 5
+    assert res["blocked"] == ((cells >= 0) & (cells < 300)).sum()
+    # sum over 8 indices of tab[i] + tab[i + 1]; the one-hot gather of ones;
+    # twice a 32-long dot of ones
+    assert res["probes"] == [64.0, 1024.0, 64.0]
     assert res["sed"] > 0 and res["labs"] > 0
     assert res["mono"] and res["mono_sed"] > 0 and res["mono_labs"] > 0
     assert len(res["table"]) == 4
