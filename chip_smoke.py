@@ -4,6 +4,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+`python3 chip_smoke.py k2 k1` runs phases 1-2 and then only the named
+kernel phases (k1, k2), and prints their results and the card line
+but no "ok" line: the way to time two trees in one call (this script
+copied into the other tree's checkout).
+
 Phases (each prints one line first; any failure raises and the script
 exits non-zero without printing a result):
   1. the card (nvidia-smi name and power limit) and torch / CUDA versions;
@@ -15,7 +20,11 @@ exits non-zero without printing a result):
      updates into 32,768 bins, with dropped indices) and labs (32,768
      updates into 2,097,152 bins); the monochromatic frame (2,097,152
      updates into 1,024 bins) and labs (2,097,152 into 65,536); and one
-     index_add_ over the same (kept) updates as the library yardstick
+     index_add_ over the same (kept) updates as the library yardstick;
+     then the frame stream the S1 poly path really sends (the frame
+     detects of event iterations 32-35 of one batch at the main path's
+     shapes: w-banded bins w * 256 + pixel, ~17 hot pixels a
+     wavelength row on the edge-on frame), timed per call the same way
   4. K1 poly_event kernel vs its plain version on identical inputs at the
      polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
      2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
@@ -268,6 +277,57 @@ def k7_ops(P, W, H):
             + W * (P * (4 * H + 6) + 36 + 17 * H + lg))
 
 
+def _poly_frame_stream(torch, first=32, iters=4):
+    """The frame updates the S1 poly main path sends to K2 (bench_torch.
+    _build defaults: W = 128, 2^15 lanes, K = 128, 32 / 8 panels): the
+    (W, N) bins w * 256 + pixel and contributions of the frame
+    instrument's scattering detects in event iterations first .. first +
+    iters - 1 of one batch, flattened w-major as FrameInstrument.
+    detect_poly passes them.  Returns [(idx, val)], one per iteration."""
+    from bench_torch import _build
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.instruments import instruments
+
+    run_batch, zero, ell, L0 = _build(
+        nlambda=128, ncells=32, packets=1 << 15, refill_batches=128,
+        quadrature_panels=32, peel_panels=8, device="cuda")
+    calls = []
+    add = instruments.binned_add
+
+    def recording(tally, idx, values):
+        if tally.numel() == 128 * 256:
+            calls.append((idx.clone(), values.clone()))
+            # call 0 is the emission peel, call i + 1 event iteration i
+            if len(calls) == first + iters + 1:
+                raise _Captured
+        return add(tally, idx, values)
+
+    instruments.binned_add = recording
+    try:
+        run_batch(rng.root_key(4357), ell, L0, zero())
+    except _Captured:
+        pass
+    finally:
+        instruments.binned_add = add
+    if len(calls) < first + iters + 1:
+        raise AssertionError(f"the poly path made {len(calls)} frame "
+                             f"detects, fewer than {first + iters + 1}")
+    return calls[first + 1:]
+
+
+def _k2_check(torch, binned, nbins, pairs):
+    """binned_add against drop_add on each (idx, val) from zero tallies:
+    the largest absolute difference, after assert_close."""
+    worst = 0.0
+    for idx, val in pairs:
+        got = binned.binned_add(torch.zeros(nbins, device="cuda"), idx, val)
+        want = binned.drop_add(torch.zeros(nbins, device="cuda"), idx, val)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
 def phase_k2(torch, results):
     from skirt_tpu_torch.ops import binned
 
@@ -277,6 +337,7 @@ def phase_k2(torch, results):
     shapes = {"frame": (32768, 128 * 32768), "labs": (128 * 16384, 32768),
               "mono frame": (4 * 256, 1 << 21),
               "mono labs": (4 * 16384, 1 << 21)}
+    streams = {}
     for name, (nbins, n) in shapes.items():
         idx = rs.integers(0, nbins, n)
         drop = rs.random(n)
@@ -284,24 +345,50 @@ def phase_k2(torch, results):
         idx = np.where(drop > 0.995, nbins + 7, idx)      # out of range
         idx = torch.from_numpy(idx.astype(np.int32)).cuda()
         val = torch.from_numpy(rs.random(n).astype(np.float32)).cuda()
-        got = binned.binned_add(torch.zeros(nbins, device="cuda"), idx, val)
-        want = binned.drop_add(torch.zeros(nbins, device="cuda"), idx, val)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-        err = float((got - want).abs().max())
+        streams[name] = (nbins, [(idx, val)])
+    # the poly frame as the main path sends it: w-banded, a few hot
+    # pixels a wavelength row
+    path = _poly_frame_stream(torch)
+    streams["frame (path)"] = (32768, path)
+    idx = torch.cat([i for i, _ in path])
+    val = torch.cat([v for _, v in path])
+    kept = (idx >= 0) & (idx < 32768)
+    log(f"  K2 frame (path): event iterations 32-35 of one S1 batch, "
+        f"{idx.numel() // len(path)} updates each, kept "
+        f"{float(kept.float().mean()):.4f}, non-zero kept "
+        f"{float((kept & (val != 0)).float().mean()):.4f}, distinct bins "
+        f"{int(torch.unique(idx[kept]).numel())}")
+    for name, (nbins, pairs) in streams.items():
+        err = _k2_check(torch, binned, nbins, pairs)
         worst = max(worst, err)
         tally = torch.zeros(nbins, device="cuda")
-        ms = cuda_ms(lambda: binned.binned_add(tally, idx, val))
-        plain_ms = cuda_ms(lambda: binned.drop_add(tally, idx, val))
+        k = len(pairs)
+
+        def kernel():
+            for i, v in pairs:
+                binned.binned_add(tally, i, v)
+
+        def plain():
+            for i, v in pairs:
+                binned.drop_add(tally, i, v)
+
         # the library yardstick: one index_add_ over the kept updates
-        keep = (idx >= 0) & (idx < nbins)
-        kidx, kval = idx[keep].long(), val[keep]
-        lib_ms = cuda_ms(lambda: tally.index_add_(0, kidx, kval))
+        kpairs = [(i[(i >= 0) & (i < nbins)].long(),
+                   v[(i >= 0) & (i < nbins)]) for i, v in pairs]
+
+        def library():
+            for i, v in kpairs:
+                tally.index_add_(0, i, v)
+
+        ms = cuda_ms(kernel) / k
+        plain_ms = cuda_ms(plain) / k
+        lib_ms = cuda_ms(library) / k
         # each update read once (int32 + float32); the tally read and
         # written once, but no more of it than one 32-byte sector per kept
-        # update; one add per kept update
-        kept = int(keep.sum())
-        bnd = bound(nbytes(idx, val) + 2 * min(nbytes(tally), 32 * kept),
+        # update; one add per kept update (the mean call's)
+        n = sum(i.numel() for i, _ in pairs) // k
+        kept = sum(i.numel() for i, _ in kpairs) // k
+        bnd = bound(nbytes(pairs[0]) + 2 * min(nbytes(tally), 32 * kept),
                     kept)
         times[name] = (ms, plain_ms, lib_ms, bnd)
         route = "shared" if binned.kernels.library().skirt_binned_route(
@@ -2026,7 +2113,16 @@ def phase_main_probes(torch, results):
     results["launches_probes"] = launches
 
 
+# the kernel phases `python3 chip_smoke.py k2 k1` runs alone
+SUBSET = {"k2": phase_k2, "k1": phase_k1}
+
+
 def main():
+    only = sys.argv[1:]
+    unknown = [a for a in only if a not in SUBSET]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase {unknown}; the "
+                         f"phases run alone: {sorted(SUBSET)}")
     t_start = time.perf_counter()
     log("phase 1: device")
     import torch
@@ -2051,6 +2147,15 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     results = {}
+    if only:
+        # a subset of the kernel phases (to time two trees in one call):
+        # their results and the card line, no "ok" line
+        for name in only:
+            log(f"phase {name}")
+            SUBSET[name](torch, results)
+        print(json.dumps(results), flush=True)
+        print(card, flush=True)
+        return
     log("phase 3: K2 binned_add kernel vs plain")
     phase_k2(torch, results)
     log("phase 4: K1 poly_event kernel vs plain")
