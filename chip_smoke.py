@@ -4,10 +4,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 k1` runs phases 1-2 and then only the named
-kernel phases (k1, k2), and prints their results and the card line
-but no "ok" line: the way to time two trees in one call (this script
-copied into the other tree's checkout).
+`python3 chip_smoke.py k2 k1 k3 k7` runs phases 1-2 and then only the
+named kernel phases (k1 phase 4, k2 phase 3, k3 phase 5, k7 phase 9 on
+a two-component tree of its own), and prints their results and the card
+line but no "ok" line: the way to time two trees in one call (this
+script copied into the other tree's checkout).
 
 Phases (each prints one line first; any failure raises and the script
 exits non-zero without printing a result):
@@ -37,7 +38,8 @@ exits non-zero without printing a result):
      the ExpDisk sampler, labs on; three mono_event_case states, with
      min_scatt_events 1 and a weight cut that fires), then one two-
      component case and one 128-wavelength case (where the Pallas
-     driver feeds per-lane tables, lam_inputs) at 262,144 lanes; then
+     driver feeds per-lane tables, lam_inputs) at 262,144 lanes, each
+     timed; then
      the host builds of the octrees and tessellations, and the 33,000-
      site tessellation's locate at the staged peel's 2^22 points for
      chunk budgets of 64 MB to 1 GB (the same cells from each)
@@ -139,8 +141,20 @@ once; a table event reads its panels only for live lanes) over 3.35 TB/s
 and its float operations over 67 TFLOP/s (the float32 rate outside the
 tensor cores), operations counted per live lane from the kernel source
 (each transcendental one operation; approximate; work a kernel repeats by
-its own design, as K7's repeated panel walks, counted once), from this
-run's inputs.  PM's bf16 products, and the 8-row products that PO's
+its own design counted once), from this run's inputs.  K1, K3 and K7
+also print an issue floor in their phase lines (not in the kernels
+line, which carries measured times and bound_ms only), a floor nearer
+what their build can reach:
+they build with -fmad=false so as to round as their plain versions do,
+so no multiply-add fuses, and an H100 SXM then issues at most 128 float32
+operations per SM and clock, 33.5 T/s at 1,980 MHz (half the 67 TFLOP/s
+that counts an FMA as two); their exp, log, sqrt, rsqrt, sin, cos and
+the reciprocal of each division run on the SM's 16 MUFU lanes, 4.18 T/s.
+The issue floor is the larger of the counted operations over the first
+rate and those transcendentals, counted per live lane from the kernel
+source as the operations are, over the second; it is a model, not a
+measurement.  bound_ms stays as it was, so the rows compare with the
+earlier runs'.  PM's bf16 products, and the 8-row products that PO's
 "matmul" and "fixed_B" outputs keep, run on the tensor cores, so their
 operations count at 989 TFLOP/s (dense bf16); the line beside it gives
 the same operations at 67 TFLOP/s.  PO's bound is what its output needs
@@ -195,7 +209,7 @@ import numpy as np
 # bound() is the least-time model of bound_ms (module docstring) at the
 # H100 SXM's published rates; card_line is also profile_torch.py's
 from skirt_tpu_torch.experiments.common import (bound, card_line, cuda_ms,
-                                                line, nbytes)
+                                                issue_floor, line, nbytes)
 
 
 # the event kernels: events chained from each starting state
@@ -236,6 +250,31 @@ def k3_ops(spec):
             + nl * (40 + (6 + 24 * H) * pp))
 
 
+# MUFU operations per live lane (exp, log, sqrt, rsqrt, sin, cos and one
+# reciprocal per division), counted from the kernel sources as above: a
+# closed-form density a root and an exp; the span 3 divisions; the
+# deposit, bias, relaunch and HG scatter ~20 (K1 ~25)
+def k1_trans(spec):
+    P, W, pp, nl = spec.npanels, spec.W, spec.np_peel, len(spec.leaders)
+    # per wavelength: ~2 exp, 5 divisions and an HG root; the peel weight
+    # a division per leader
+    return 3 + 2 * (P + nl * pp) + 25 + W * (8 + nl)
+
+
+def k3_trans(spec):
+    P, pp, nl, H = spec.npanels, spec.np_peel, len(spec.leaders), spec.H
+    # with H > 1 each panel also an albedo division and an exp
+    return (3 + 2 * H * (P + nl * pp) + (2 * P if H > 1 else 0) + 20
+            + (nl * (2 * H + 1) if H > 1 else 0))
+
+
+def k7_trans(P, W, H):
+    # the two samples (2 exp, 2 log), two inversion divisions, the HG
+    # cosine (2 divisions) and scatter (~5); per wavelength 3 exp, 7
+    # divisions and H HG evaluations (a root and a division each)
+    return 13 + W * (10 + 2 * H)
+
+
 def k4_ops(P):
     # the cumulative sums (2 per panel), two panel picks, the event
     return 2 * P + 4 * (P - 1) + 120
@@ -266,8 +305,8 @@ def k5_ops(P):
 
 
 def k7_ops(P, W, H):
-    # what the function needs, not what K7 does (its three w passes walk
-    # the panels three times per wavelength): pass A (4H + 2 per panel),
+    # what the function needs (the first design walked the panels three
+    # times per wavelength): pass A (4H + 2 per panel),
     # two inversions (8 per panel), the interaction and deposit weights of
     # a panel (6 per panel); per wavelength one walk over the panels (4H + 6
     # per panel), the blended HG once (15 per component), and ~36 + 2H for
@@ -461,8 +500,10 @@ def phase_k1(torch, results):
                        ([l0], refill + cut)],
                       fused_poly.poly_event(spec, u, oc, L, l0, state), n,
                       live, k1_ops(spec))
+    floor = issue_floor(live * k1_ops(spec), live * k1_trans(spec))
     log(f"  K1 N={n} W=128: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes), issue floor "
+        f"{floor:.4f} ms")
     results["K1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
 
@@ -474,6 +515,7 @@ def phase_k3(torch, results):
     from skirt_tpu_torch.testing import event_agreement, mono_event_case
 
     worst = 0.0
+    by_case = {}
     cases = (("W=4", 4, 1, 1 << 21, (5, 6, 7)),
              ("W=4 H=2", 4, 2, 1 << 18, (8,)),
              ("W=128", 128, 1, 1 << 18, (9,)))
@@ -518,23 +560,24 @@ def phase_k3(torch, results):
                                          f"{it}: {res}")
                 worst = max(worst, res["scaled_err"])
                 state = list(got["state"]) + state[9:11] + [got["bc"]]
-        if label == "W=4":
-            ms = cuda_ms(lambda: fused.mono_event(spec, u, state))
-            plain_ms = cuda_ms(lambda: fused.mono_event_plain(spec, u, state),
-                               reps=5)
-            alive = state[7] != 0
-            live = int(alive.sum())
-            refill = int((~alive & (state[11] < spec.K)).sum())
-            # every lane reads its state, the uniforms only a live or a
-            # relaunched one
-            bnd = event_bound([([state], n), ([u], live + refill)],
-                              fused.mono_event(spec, u, state), n, live,
-                              k3_ops(spec))
-            log(f"  K3 N={n} W=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
-            k3 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                  "bound_by": bnd[1]}
-    results["K3"] = dict(k3, max_abs_err=worst)
+        ms = cuda_ms(lambda: fused.mono_event(spec, u, state))
+        plain_ms = cuda_ms(lambda: fused.mono_event_plain(spec, u, state),
+                           reps=5)
+        alive = state[7] != 0
+        live = int(alive.sum())
+        refill = int((~alive & (state[11] < spec.K)).sum())
+        # every lane reads its state, the uniforms only a live or a
+        # relaunched one
+        bnd = event_bound([([state], n), ([u], live + refill)],
+                          fused.mono_event(spec, u, state), n, live,
+                          k3_ops(spec))
+        floor = issue_floor(live * k3_ops(spec), live * k3_trans(spec))
+        log(f"  K3 N={n} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes), "
+            f"issue floor {floor:.4f} ms")
+        by_case[label] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bnd[0], "bound_by": bnd[1]}
+    results["K3"] = dict(by_case["W=4"], max_abs_err=worst, by_case=by_case)
 
 
 def phase_main_poly(torch, results):
@@ -1182,9 +1225,10 @@ def phase_k7(torch, results, multi_tree):
                           tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
                                                       state),
                           n, live, k7_ops(P, W, H))
+        floor = issue_floor(live * k7_ops(P, W, H), live * k7_trans(P, W, H))
         log(f"  K7 N={n} W={W} P={P} H={H}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
-            f"live lanes)")
+            f"live lanes), issue floor {floor:.4f} ms")
         by_w[W] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bnd[0], "bound_by": bnd[1]}
     results["K7"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
@@ -2113,8 +2157,14 @@ def phase_main_probes(torch, results):
     results["launches_probes"] = launches
 
 
-# the kernel phases `python3 chip_smoke.py k2 k1` runs alone
-SUBSET = {"k2": phase_k2, "k1": phase_k1}
+def phase_k7_alone(torch, results):
+    """Phase 9 on a two-component tree of its own (as main builds it)."""
+    from bench_torch import _multi_model
+    phase_k7(torch, results, _multi_model(voxelize=False)[0])
+
+
+# the kernel phases `python3 chip_smoke.py k2 k1 k3 k7` runs alone
+SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3, "k7": phase_k7_alone}
 
 
 def main():
@@ -2314,6 +2364,7 @@ def main():
                                in results["K2"]["times"].items()}
     for k in ("K6", "K7", "K6d", "K6p"):
         kern[k]["by_W"] = results[k]["by_W"]
+    kern["K3"]["by_case"] = results["K3"]["by_case"]
     for k in ("K8", "PG", "PO", "PM"):
         kern[k]["shape"] = results[k]["shape"]
         kern[k]["by_variant"] = results[k]["by_variant"]

@@ -5,25 +5,49 @@
 // (n_uniform, N) array and the kernel draws nothing itself, so the plain
 // PyTorch version (engine/fused.py::mono_event_plain) and this kernel see
 // identical inputs.  The arithmetic follows the Pallas body operation for
-// operation (built with -fmad=false, so no contraction into FMAs).
+// operation (built with -fmad=false, so no contraction into FMAs), and the
+// ordered sums (the panel cumulative sum, the peel sums, w_tot) run in the
+// plain version's order, so the two agree to the bit.
 //
-// What bounds it on the H100: arithmetic on the lane, not bytes.  Per
-// lane and event it evaluates the closed-form density (a sqrt, an exp and
-// a handful of multiplies) H x (npanels + nlead x np_peel) + H times
-// (32 + 2 x 8 = 48 on the main path at H = 1) and moves ~25 words: 12
-// state words in, 15 out.  At 2^21 lanes that is ~210 MB per event, ~63
-// us at 3.35 TB/s, against ~3 x 10^9 transcendental-heavy operations.
+// What bounds it on the H100: the issue of its instructions.  Per live
+// lane and event it evaluates the closed-form density (a root, an exp and
+// ~25 other operations: ~48 SASS instructions with the panel midpoint and
+// the sum) H x (npanels + nlead x np_peel) times (32 + 2 x 8 = 48 on the
+// main path at H = 1) and moves ~25 words: 12 state words in, 15 out.  At
+// 2^21 lanes that is ~210 MB per event, ~63 us at 3.35 TB/s, against
+// ~3,700 instructions a lane (the densities ~2,300, the deposit,
+// propagation, relaunch, peel set-up and scatter the rest): ~0.24 ms at
+// one instruction per clock on each of the card's 528 schedulers, which
+// this design issues at ~94% (experiments/phases.py counts them and
+// times each phase).  The -fmad=false build that keeps it bit-identical
+// to its plain version fuses no multiply-add.
 //
 // Design:
-// - One thread per lane; lanes are bounds-checked (the TPU driver pads to
-//   whole tiles instead).
-// - The lane's npanels cumulative optical depths live in registers: a
-//   compile-time maximum MAXP = 32 with guarded, fully unrolled loops
-//   keeps every index constant.  The wrapper raises above it.  With H > 1
-//   the cumulative absorbed fractions stay in registers beside them; the
-//   per-panel albedo is folded into them in the same loop (the Pallas
-//   body keeps it in a list for a second loop; each accumulator sees the
-//   same operations in the same order either way).
+// - One thread per lane, 128-thread blocks; lanes are bounds-checked (the
+//   TPU driver pads to whole tiles instead).
+// - Divisions and roots without the operators' slow-path branches
+//   (common.cuh div_rn, sqrt_rn): a lane's event runs once with them and,
+//   if any operand it used left their safe range, once more with the
+//   plain operators (a second, out-of-line copy of the same code).  The
+//   branches kept each density in a basic block of its own; without them
+//   the densities of a chunk of panels overlap.
+// - The propagation and peel quadratures in chunks of 8 panels: a chunk's
+//   densities first, then their contributions added in panel order; a
+//   tail of single panels takes any npanels and np_peel.  The chunk and
+//   leader loops stay loops: unrolled to MAXP and MAX_LEAD (with guards)
+//   the two copies of the lane's code reach 18,000 instructions, and the
+//   peel slows on instruction fetch.
+// - The lane's cumulative optical depths (and with H > 1 its cumulative
+//   absorbed fractions) in shared memory, [panel][thread], not in
+//   registers: the deposit and interaction panels are found by a binary
+//   search over the non-decreasing sums (the count of sums below the
+//   target, which the Pallas body takes), and the sums at the hit panel
+//   are two loads.  The cumulative absorbed fractions need not grow with
+//   the panel (an albedo above 1 would shrink them), so they are counted.
+// - The lane's uniforms by asynchronous copies (cp.async) into shared
+//   memory at the start: they land behind the quadrature instead of
+//   costing a DRAM round trip at each of the deposit, the propagation,
+//   the relaunch and the scatter.
 // - The per-wavelength tables, (kext*m/L^3, albedo, g) or
 //   (kext_h*m_h/L^3, ksca_h*m_h/L^3, g_h) for h < H, are one (3H, nlambda)
 //   array in dynamic shared memory, indexed by the lane's wavelength.  The
@@ -37,12 +61,16 @@
 //   sampler and the absorption tally; the C entry point raises on any
 //   other choice.
 
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int MAX_COMP = 2;
 constexpr int MAX_TABLE = 12288;   // floats: 48 KB of shared memory
+constexpr int THREADS = 128;
+constexpr int CHUNK = 8;           // panels whose densities overlap
 
 }  // namespace
 
@@ -87,20 +115,35 @@ struct MonoArgs {
 
 namespace {
 
-template <int DENS, int SAMP, bool LABS, int H>
-__global__ void __launch_bounds__(128)
-mono_event_kernel(const __grid_constant__ MonoArgs a) {
-  extern __shared__ float s_tab[];
+// the uniforms a lane reads: 5, the sampler's and two direction uniforms
+// with the relaunch, the component uniform with H > 1 (the wrapper's
+// n_uniform rows)
+template <int SAMP, int H>
+__host__ __device__ constexpr int n_uniform() {
+  return 5 + (SAMP != SAMP_NONE ? sampler_uniforms<SAMP>() + 2 : 0) +
+         (H > 1 ? 1 : 0);
+}
+
+// One lane's event; writes every output.  Returns false, without EXACT, if
+// an operand that mattered left the safe range of div_rn or sqrt_rn: the
+// caller then runs the lane again with EXACT.  s_cum: the thread's column
+// of the [2 * MAXP][THREADS] scratch (the cumulative optical depths, then
+// with H > 1 the cumulative absorbed fractions); u: its column of the
+// [n_uniform][THREADS] uniforms, copied in asynchronously (waited for
+// before the first read).
+template <int DENS, int SAMP, bool LABS, int H, bool EXACT>
+__device__ __forceinline__ bool lane_event(const MonoArgs& a,
+                                           const float* s_tab, float* s_cum,
+                                           const float* u, int n) {
   const int NL = a.nlambda;
-  for (int i = threadIdx.x; i < 3 * H * NL; i += blockDim.x)
-    s_tab[i] = a.tab[i];
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= a.N) return;
+  const int P = a.npanels;
   const long long N = a.N;
-  const float* u = a.u;
   const Geom& g = a.geo;
   const float* dens[MAX_COMP] = {g.dens, a.dens1};
+  float* s_cab = s_cum + MAXP * THREADS;
+  // panels whose densities are computed together (one in the redo)
+  constexpr int U = EXACT ? 1 : CHUNK;
+  bool ok = true;
 
   // -- the lane's wavelength tables (an out-of-range index reads the first
   //    column, as the Pallas select chain does) ---------------------------
@@ -132,65 +175,82 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
   int depi = -1;
   float depv = 0.f;
   if (alive) {
-    // -- traverse: equal-panel quadrature of the analytic density --------
+    // -- traverse: equal-panel quadrature of the analytic density, a chunk
+    //    of panel densities at a time ----------------------------------
     float t0, t1;
-    span(g, X, Y, Z, DX, DY, DZ, t0, t1);
+    span_rn<EXACT>(g, X, Y, Z, DX, DY, DZ, t0, t1, ok);
     const float delta = (t1 - t0) * a.inv_np;
-    float cums[MAXP];
-    float cumabs[H > 1 ? MAXP : 1];
     float cum = 0.f, Lsca_f = 0.f, cab = 0.f, e_prev = 1.f;
+    // the densities at the midpoint of panel k, kf = k + 0.5 (exact in
+    // float for any panel count)
+    auto panel_rho = [&](float kf, float (&rk)[H]) {
+      const float midk = t0 + kf * delta;
+      const float mx = X + midk * DX, my = Y + midk * DY, mz = Z + midk * DZ;
 #pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k < a.npanels) {
-        const float midk = t0 + ((float)k + 0.5f) * delta;
-        const float mx = X + midk * DX, my = Y + midk * DY,
-                    mz = Z + midk * DZ;
-        if (H == 1) {
-          const float rho = rho_s<DENS>(g, dens[0], mx, my, mz);
-          cum = cum + kext[0] * rho * delta;
-        } else {
-          float dke = 0.f, dks = 0.f;
+      for (int h = 0; h < H; ++h)
+        rk[h] = rho_s_rn<DENS, EXACT>(g, dens[h], mx, my, mz, ok);
+    };
+    // panel k's contribution to the cumulative sums, in panel order
+    auto panel_add = [&](int k, const float (&rk)[H]) {
+      if (H == 1) {
+        cum = cum + kext[0] * rk[0] * delta;
+      } else {
+        float dke = 0.f, dks = 0.f;
 #pragma unroll
-          for (int h = 0; h < H; ++h) {
-            const float rho = rho_s<DENS>(g, dens[h], mx, my, mz);
-            dke = dke + kext[h] * rho;
-            dks = dks + ksca[h] * rho;
-          }
-          const float alb_k = dke > 0.f ? dks / fmaxf(dke, 1e-37f) : 0.f;
-          cum = cum + dke * delta;
-          // per-panel absorbed/scattered split of the local albedo
-          const float e_k = expf(-cum);
-          const float seg = e_prev - e_k;
-          Lsca_f = Lsca_f + alb_k * seg;
-          cab = cab + (1.f - alb_k) * seg;
-          cumabs[k] = cab;
-          e_prev = e_k;
+        for (int h = 0; h < H; ++h) {
+          dke = dke + kext[h] * rk[h];
+          dks = dks + ksca[h] * rk[h];
         }
+        const float alb_q =
+            div_rn_if<EXACT>(dks, fmaxf(dke, 1e-37f), dke > 0.f, ok);
+        const float alb_k = dke > 0.f ? alb_q : 0.f;
+        cum = cum + dke * delta;
+        // per-panel absorbed/scattered split of the local albedo
+        const float e_k = expf(-cum);
+        const float seg = e_prev - e_k;
+        Lsca_f = Lsca_f + alb_k * seg;
+        cab = cab + (1.f - alb_k) * seg;
+        s_cab[k * THREADS] = cab;
+        e_prev = e_k;
       }
-      cums[k] = cum;
+      s_cum[k * THREADS] = cum;
+    };
+    int k = 0;
+#pragma unroll 1
+    for (; k + U <= P; k += U) {
+      const float kf = (float)k + 0.5f;
+      float rk[U][H];
+#pragma unroll
+      for (int i = 0; i < U; ++i) panel_rho(kf + (float)i, rk[i]);
+#pragma unroll
+      for (int i = 0; i < U; ++i) panel_add(k + i, rk[i]);
     }
+#pragma unroll 1
+    for (; k < P; ++k) {
+      float rk[H];
+      panel_rho((float)k + 0.5f, rk);
+      panel_add(k, rk);
+    }
+    __pipeline_wait_prior(0);
     const float taupath = cum;
     const float one_m_e = 1.f - expf(-taupath);
     const float Lm = L;
 
     // -- sampled absorption deposit ---------------------------------------
     if (LABS) {
-      const float u_dep = u[2 * N + n];
+      const float u_dep = u[2 * THREADS];
       float D;
       int i_dep = 0;
       if (H > 1) {
         // segment ~ its absorbed energy
         D = cab * Lm;
         const float target = u_dep * cab;
-#pragma unroll
-        for (int k = 0; k < MAXP - 1; ++k)
-          if (k < a.npanels - 1) i_dep += (cumabs[k] < target) ? 1 : 0;
+        for (int k = 0; k < P - 1; ++k)
+          i_dep += (s_cab[k * THREADS] < target) ? 1 : 0;
       } else {
         D = (1.f - albedo) * Lm * one_m_e;
         const float tau_dep = expon_cutoff(u_dep, taupath);
-#pragma unroll
-        for (int k = 0; k < MAXP - 1; ++k)
-          if (k < a.npanels - 1) i_dep += (cums[k] < tau_dep) ? 1 : 0;
+        i_dep = count_below(s_cum, THREADS, P - 1, tau_dep);
       }
       const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
       const int cell = locate(g, X + mid_dep * DX, Y + mid_dep * DY,
@@ -207,28 +267,26 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
             (taupath > 0.f);
 
     // -- forced propagation with the composite bias weight p/q -----------
-    const float u1 = u[n], u2 = u[N + n];
+    const float u1 = u[0], u2 = u[THREADS];
     const float tau_exp = expon_cutoff(u2, taupath);
     float tau = tau_exp;
     if (a.xi != 0.f) {
       tau = u1 < a.xi ? u2 * taupath : tau_exp;
-      const float p = expf(-tau) / fmaxf(one_m_e, 1e-30f);
-      const float qq = a.one_m_xi * p + a.xi / fmaxf(taupath, 1e-30f);
-      if (alive) L = L * (p / fmaxf(qq, 1e-37f));
+      const float p = div_rn_if<EXACT>(expf(-tau), fmaxf(one_m_e, 1e-30f),
+                                       alive, ok);
+      const float qq =
+          a.one_m_xi * p +
+          div_rn_if<EXACT>(a.xi, fmaxf(taupath, 1e-30f), alive, ok);
+      const float w = div_rn_if<EXACT>(p, fmaxf(qq, 1e-37f), alive, ok);
+      if (alive) L = L * w;
     }
-    int i_hit = 0;
-#pragma unroll
-    for (int k = 0; k < MAXP - 1; ++k)
-      if (k < a.npanels - 1) i_hit += (cums[k] < tau) ? 1 : 0;
-    float cum_h = 0.f, cum_prev = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k == i_hit) cum_h = cums[k];
-      if (k == i_hit - 1) cum_prev = cums[k];
-    }
+    const int i_hit = count_below(s_cum, THREADS, P - 1, tau);
+    const float cum_h = s_cum[i_hit * THREADS];
+    const float cum_prev = i_hit > 0 ? s_cum[(i_hit - 1) * THREADS] : 0.f;
     const float dtau_h = cum_h - cum_prev;
-    const float fr =
-        dtau_h > 0.f ? (tau - cum_prev) / fmaxf(dtau_h, 1e-30f) : 0.f;
+    const float fr_q = div_rn_if<EXACT>(tau - cum_prev, fmaxf(dtau_h, 1e-30f),
+                                        alive && dtau_h > 0.f, ok);
+    const float fr = dtau_h > 0.f ? fr_q : 0.f;
     const float frac = fminf(fmaxf(fr, 0.f), 1.f);
     const float s = t0 + ((float)i_hit + frac) * delta;
     if (alive) {
@@ -241,6 +299,7 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
     a.odepi[n] = depi;
     a.odepv[n] = depv;
   }
+  __pipeline_wait_prior(0);
 
   // -- persistent-lane relaunch (after the propagation, before the peel) --
   bool fresh = false;
@@ -248,10 +307,10 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
     int bcount = a.bc[n];
     if (!alive && bcount < a.K) {
       constexpr int nu = sampler_uniforms<SAMP>();
-      sample_position<SAMP>(g, u, N, n, 5, X, Y, Z);
-      const float ct = 2.f * u[(5 + nu) * N + n] - 1.f;
-      const float st = sqrtf(fmaxf(0.f, 1.f - ct * ct));
-      const float ph2 = TWO_PI * u[(6 + nu) * N + n];
+      sample_position<SAMP>(g, u, THREADS, 0, 5, X, Y, Z);
+      const float ct = 2.f * u[(5 + nu) * THREADS] - 1.f;
+      const float st = sqrt_rn<EXACT>(fmaxf(0.f, 1.f - ct * ct), ok);
+      const float ph2 = TWO_PI * u[(6 + nu) * THREADS];
       DX = st * cosf(ph2);
       DY = st * sinf(ph2);
       DZ = ct;
@@ -272,11 +331,12 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
   float w_tot = 0.f;
   if (H > 1) {
 #pragma unroll
-    for (int h = 0; h < H; ++h) w_h[h] = ksca[h] * rho_s<DENS>(g, dens[h], X, Y, Z);
+    for (int h = 0; h < H; ++h)
+      w_h[h] = ksca[h] * rho_s_rn<DENS, EXACT>(g, dens[h], X, Y, Z, ok);
     w_tot = w_h[0];
 #pragma unroll
     for (int h = 1; h < H; ++h) w_tot = w_tot + w_h[h];
-    const float u_c = u[a.u_comp * N + n] * fmaxf(w_tot, 1e-37f);
+    const float u_c = u[a.u_comp * THREADS] * fmaxf(w_tot, 1e-37f);
     float w_acc = w_h[0];
 #pragma unroll
     for (int h = 1; h < H; ++h) {
@@ -285,7 +345,10 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
     }
   }
 
-  // -- peel-off optical depth and cosine toward each leader --------------
+  // -- peel-off optical depth and cosine toward each leader, a chunk of
+  //    panel densities at a time ----------------------------------------
+  const int PP = a.np_peel;
+#pragma unroll 1
   for (int j = 0; j < a.nlead; ++j) {
     float cosj = 0.f, tau = 0.f, ph = 0.f;
     if (a.scattering_peeloff) {
@@ -300,22 +363,45 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
           const float t_ = 1.f + gg * gg - 2.f * gg * cosj;
           phs = phs + w_h[h] * ((1.f - gg) * (1.f + gg) * rsqrtf(t_ * t_ * t_));
         }
-        ph = w_tot > 0.f ? phs / fmaxf(w_tot, 1e-30f) : 0.f;
+        const float ph_q = div_rn_if<EXACT>(phs, fmaxf(w_tot, 1e-30f),
+                                            w_tot > 0.f, ok);
+        ph = w_tot > 0.f ? ph_q : 0.f;
       }
       float pt0, pt1;
       span_const(g, j, X, Y, Z, pt0, pt1);
       const float pd = (pt1 - pt0) * a.inv_pp;
-      float rsum = 0.f;
-      for (int k = 0; k < a.np_peel; ++k) {
-        const float mk = pt0 + ((float)k + 0.5f) * pd;
+      // the densities at peel panel k's midpoint, then their sum in order
+      auto peel_rho = [&](float kf, float (&rk)[H]) {
+        const float mk = pt0 + kf * pd;
         const float mx = X + mk * kx, my = Y + mk * ky, mz = Z + mk * kz;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          rk[h] = rho_s_rn<DENS, EXACT>(g, dens[h], mx, my, mz, ok);
+      };
+      float rsum = 0.f;
+      auto peel_add = [&](const float (&rk)[H]) {
         if (H > 1) {
 #pragma unroll
-          for (int h = 0; h < H; ++h)
-            rsum = rsum + kext[h] * rho_s<DENS>(g, dens[h], mx, my, mz);
+          for (int h = 0; h < H; ++h) rsum = rsum + kext[h] * rk[h];
         } else {
-          rsum = rsum + rho_s<DENS>(g, dens[0], mx, my, mz);
+          rsum = rsum + rk[0];
         }
+      };
+      int k = 0;
+#pragma unroll 1
+      for (; k + U <= PP; k += U) {
+        const float kf = (float)k + 0.5f;
+        float rk[U][H];
+#pragma unroll
+        for (int i = 0; i < U; ++i) peel_rho(kf + (float)i, rk[i]);
+#pragma unroll
+        for (int i = 0; i < U; ++i) peel_add(rk[i]);
+      }
+#pragma unroll 1
+      for (; k < PP; ++k) {
+        float rk[H];
+        peel_rho((float)k + 0.5f, rk);
+        peel_add(rk);
       }
       tau = (H > 1 ? rsum : kext[0] * rsum) * pd;
     }
@@ -326,8 +412,8 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
 
   // -- Henyey-Greenstein scatter; fresh lanes keep their launch direction -
   if (alive && !fresh) {
-    const float costheta = hg_costheta(g_sel, u[3 * N + n]);
-    scatter_direction(costheta, u[4 * N + n], DX, DY, DZ);
+    const float costheta = hg_costheta_rn<EXACT>(g_sel, u[3 * THREADS], ok);
+    scatter_direction_rn<EXACT>(costheta, u[4 * THREADS], DX, DY, DZ, ok);
     nscatt += 1;
   }
 
@@ -340,15 +426,63 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
   a.oL[n] = L;
   a.oalive[n] = alive ? 1 : 0;
   a.ons[n] = nscatt;
+  return EXACT || ok;
+}
+
+// the lane again with the plain operators, out of line (rarely called)
+template <int DENS, int SAMP, bool LABS, int H>
+__device__ __noinline__ void lane_event_exact(const MonoArgs& a,
+                                              const float* s_tab,
+                                              float* s_cum, const float* u,
+                                              int n) {
+  lane_event<DENS, SAMP, LABS, H, true>(a, s_tab, s_cum, u, n);
+}
+
+// floats of dynamic shared memory before the tables: the cumulative sums
+// and the uniforms
+template <int SAMP, int H>
+__host__ __device__ constexpr int scratch_floats() {
+  return ((H > 1 ? 2 : 1) * MAXP + n_uniform<SAMP, H>()) * THREADS;
+}
+
+template <int DENS, int SAMP, bool LABS, int H>
+__global__ void __launch_bounds__(THREADS)
+mono_event_kernel(const __grid_constant__ MonoArgs a) {
+  constexpr int NU = n_uniform<SAMP, H>();
+  extern __shared__ float dyn[];
+  // [MAXP or 2 MAXP][THREADS] cumulative sums (the second half with H > 1),
+  // [NU][THREADS] the lanes' uniforms, then the (3H, nlambda) wavelength
+  // tables
+  float* s_cum = dyn + threadIdx.x;
+  float* s_u = dyn + (H > 1 ? 2 : 1) * MAXP * THREADS + threadIdx.x;
+  float* s_tab = dyn + scratch_floats<SAMP, H>();
+  const long long N = a.N;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  // the uniforms by asynchronous copies, which land behind the quadrature
+  if (n < a.N)
+    for (int k = 0; k < NU; ++k)
+      __pipeline_memcpy_async(s_u + k * THREADS, a.u + k * N + n, 4);
+  __pipeline_commit();
+  const int NL = a.nlambda;
+  for (int i = threadIdx.x; i < 3 * H * NL; i += blockDim.x)
+    s_tab[i] = a.tab[i];
+  __syncthreads();
+  if (n >= a.N) return;
+  if (!lane_event<DENS, SAMP, LABS, H, false>(a, s_tab, s_cum, s_u, n))
+    lane_event_exact<DENS, SAMP, LABS, H>(a, s_tab, s_cum, s_u, n);
 }
 
 template <int DENS, int SAMP, bool LABS, int H>
 int launch(const MonoArgs& a, cudaStream_t s) {
-  const int threads = 128;
-  const int blocks = (a.N + threads - 1) / threads;
-  const size_t smem = (size_t)3 * H * a.nlambda * sizeof(float);
-  if (blocks > 0)
-    mono_event_kernel<DENS, SAMP, LABS, H><<<blocks, threads, smem, s>>>(a);
+  const int blocks = (a.N + THREADS - 1) / THREADS;
+  if (blocks <= 0) return (int)cudaGetLastError();
+  constexpr size_t scratch = scratch_floats<SAMP, H>();
+  static bool raised[64];
+  const int e = raise_smem_limit(mono_event_kernel<DENS, SAMP, LABS, H>,
+                                 (scratch + MAX_TABLE) * sizeof(float), raised);
+  if (e) return e;
+  const size_t smem = (scratch + (size_t)3 * H * a.nlambda) * sizeof(float);
+  mono_event_kernel<DENS, SAMP, LABS, H><<<blocks, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,37 +1,48 @@
-"""Two trees on one card: the poly path's kernels (K1, K2) and cells.
+"""Two trees on one card: kernel phases of chip_smoke.py, cells, profiles.
 
 On a CUDA machine, from the repository root, with the other tree (for
 example the parent commit: `git archive <commit> | tar -x -C
 _smoke_checkout`, a directory .gitignore lists) unpacked beside it:
 
-    python -m skirt_tpu_torch.experiments.ab_trees _smoke_checkout
+    python -m skirt_tpu_torch.experiments.ab_trees _smoke_checkout [OUT]
+        [--smoke k2,k1] [--cells poly,mono,host] [--profile poly]
+        [--pairs 2]
 
-It copies this tree's chip_smoke.py into the other tree, so that both
-run the same phase code against their own kernels, then runs in turns
-(other, this, this, other):
-  - `chip_smoke.py k2 k1`: K2 on its four uniform shapes and on the frame
-    stream the S1 poly path sends, K1 at N = 32,768, W = 128;
-  - the poly cell, `bench_torch.py` (best of 3);
-  - the mono cell, `bench_torch.py` with BENCH_POLY=0 BENCH_NLAMBDA=4
-    BENCH_LOG2_PACKETS=21 BENCH_DISPATCH_BATCHES=8 (best of 3);
-  - the wrappers' host time per call (HOST_COST): binned_add on 4,096
-    updates into the 32,768 frame bins and poly_event on 256 lanes at W =
-    128, each 2,000 calls back to back after 50 warm-up calls, where the
-    host and not the device sets the pace;
-and then `profile_torch.py poly` once in each tree (this one first).
+It copies this tree's chip_smoke.py and experiments/common.py into the
+other tree, so that both run the same phase and timing code against their
+own kernels, then runs --pairs pairs of turns, each pair's order the
+reverse of the last (other, this, this, other, other, this, ...):
+  - `chip_smoke.py <--smoke phases>` (none if empty; default k2 and k1:
+    K2 on its four uniform shapes and on the frame stream the S1 poly
+    path sends, K1 at N = 32,768, W = 128; k3: K3 at 2^21 lanes, W = 4, and its H = 2 and
+    W = 128 cases; k7: K7 at W = 2, 24, 128);
+  - each of --cells (default poly, mono, host), `bench_torch.py` (best of
+    3) with the cell's environment (CELLS): poly the default poly cell;
+    mono BENCH_POLY=0 BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21
+    BENCH_DISPATCH_BATCHES=8; multi BENCH_MODEL=multi (multi-poly, K7 at
+    W = 2); polarized BENCH_MODEL=polarized (pol-mono, K3); host the
+    wrappers' host time per call (HOST_COST): binned_add on 4,096 updates
+    into the 32,768 frame bins and poly_event on 256 lanes at W = 128,
+    each 2,000 calls back to back after 50 warm-up calls, where the host
+    and not the device sets the pace;
+and then `profile_torch.py <mode>` once in each tree (this one first)
+for each of --profile (default poly; mono the mono cell).
 Every run's output lands in OUT/<tree>-<what>-<turn>.log (OUT the
 second argument, default ab_trees_out, which .gitignore lists); the
-summary, one JSON line of every number from both trees and both turns,
-is printed after the card line.  Any run that fails makes the command
-exit non-zero after the rest have run.
+summary, one JSON line of every number from both trees and all turns,
+is printed after the card line, with each number's quartiles and median
+by tree (`stats`: [first quartile, median, third quartile]).  Any run
+that fails makes the command exit non-zero after the rest have run.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
 import subprocess
+import statistics
 import sys
 from pathlib import Path
 
@@ -71,10 +82,13 @@ print(json.dumps({"host_us": {
     "poly_event": per_call(lambda: fused_poly.poly_event(
         spec, u, oc, L, l0, state))}}))
 """
-RUNS = (("smoke", ["chip_smoke.py", "k2", "k1"], {}),
-        ("poly", ["bench_torch.py"], {}),
-        ("mono", ["bench_torch.py"], MONO),
-        ("host", ["-c", HOST_COST], {}))
+# the cells of --cells: bench_torch.py's environment, or the host-cost
+# script
+CELLS = {"poly": (["bench_torch.py"], {}),
+         "mono": (["bench_torch.py"], MONO),
+         "multi": (["bench_torch.py"], {"BENCH_MODEL": "multi"}),
+         "polarized": (["bench_torch.py"], {"BENCH_MODEL": "polarized"}),
+         "host": (["-c", HOST_COST], {})}
 
 
 def numbers(what: str, text: str) -> dict:
@@ -85,17 +99,29 @@ def numbers(what: str, text: str) -> dict:
         if not line.startswith("{"):
             continue
         r = json.loads(line)
-        if what == "smoke" and "K1" in r:
-            for name, (ms, plain, lib, (bnd, _)) in r["K2"]["times"].items():
-                for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("index_add_ms", lib), ("bound_ms", bnd)):
-                    out[f"K2 {name} {key}"] = v
-            for key in ("ms", "plain_ms", "bound_ms"):
-                out[f"K1 {key}"] = r["K1"][key]
+        if what == "smoke" and "ok" not in r:
+            for kern, rec in r.items():
+                if kern == "K2":
+                    for name, (ms, plain, lib, (bnd, _)) in \
+                            rec["times"].items():
+                        for key, v in (("ms", ms), ("plain_ms", plain),
+                                       ("index_add_ms", lib),
+                                       ("bound_ms", bnd)):
+                            out[f"K2 {name} {key}"] = v
+                    continue
+                cases = {"": rec}
+                cases.update({f" {c}": v for c, v in
+                              rec.get("by_case", {}).items()})
+                cases.update({f" W={w}": v for w, v in
+                              rec.get("by_W", {}).items()})
+                for c, v in cases.items():
+                    for key in ("ms", "plain_ms", "bound_ms"):
+                        if key in v:
+                            out[f"{kern}{c} {key}"] = v[key]
         elif what == "host" and "host_us" in r:
             for name, us in r["host_us"].items():
                 out[f"{name} host us per call"] = us
-        elif what in ("poly", "mono") and "metric" in r:
+        elif "metric" in r:
             out[f"{what} packets/s"] = r["value"]
     return out
 
@@ -111,21 +137,39 @@ def run(tree: Path, what: str, argv, env_extra, log: Path) -> dict:
     return numbers(what, proc.stdout)
 
 
+def quartiles(values: list) -> list:
+    """[first quartile, median, third quartile] of the values."""
+    if len(values) < 2:
+        return [values[0]] * 3 if values else []
+    q1, q2, q3 = statistics.quantiles(values, n=4, method="inclusive")
+    return [q1, q2, q3]
+
+
 def main(argv=None):
-    args = list(sys.argv[1:] if argv is None else argv)
-    if not args:
-        raise SystemExit("usage: python -m skirt_tpu_torch.experiments."
-                         "ab_trees OTHER_TREE [OUT]")
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("other")
+    p.add_argument("out", nargs="?", default="ab_trees_out")
+    p.add_argument("--smoke", default="k2,k1")
+    p.add_argument("--cells", default="poly,mono,host")
+    p.add_argument("--profile", default="poly")
+    p.add_argument("--pairs", type=int, default=2)
+    args = p.parse_args(argv)
     this = Path.cwd()
-    other = Path(args[0]).resolve()
-    out = Path(args[1] if len(args) > 1 else "ab_trees_out").resolve()
+    other = Path(args.other).resolve()
+    out = Path(args.out).resolve()
     out.mkdir(parents=True, exist_ok=True)
-    shutil.copy(this / "chip_smoke.py", other / "chip_smoke.py")
+    for f in ("chip_smoke.py", "skirt_tpu_torch/experiments/common.py"):
+        shutil.copy(this / f, other / f)
     card = card_line()
     trees = {"other": other, "this": this}
+    runs = [("smoke", ["chip_smoke.py", *args.smoke.split(",")], {})
+            ] if args.smoke else []
+    runs += [(c, *CELLS[c]) for c in args.cells.split(",") if c]
     summary, failed = {}, []
-    for what, cmd, env in RUNS:
-        for turn, name in enumerate(("other", "this", "this", "other")):
+    order = [t for i in range(args.pairs)
+             for t in (("other", "this"), ("this", "other"))[i % 2]]
+    for what, cmd, env in runs:
+        for turn, name in enumerate(order):
             log = out / f"{name}-{what}-{turn}.log"
             try:
                 got = run(trees[name], what, cmd, env, log)
@@ -136,16 +180,20 @@ def main(argv=None):
                 row = summary.setdefault(k, {"other": [], "this": []})
                 row[name].append(v)
             print(f"{name} {what} (turn {turn}): {got}", flush=True)
-    for name in ("this", "other"):
-        log = out / f"{name}-profile.log"
-        try:
-            run(trees[name], "profile", ["profile_torch.py", "poly"], {}, log)
-        except RuntimeError as e:
-            failed.append(str(e))
-        print(f"{name} profile: {log}", flush=True)
+    for mode in [m for m in args.profile.split(",") if m]:
+        for name in ("this", "other"):
+            log = out / f"{name}-profile-{mode}.log"
+            try:
+                run(trees[name], "profile", ["profile_torch.py", mode], {},
+                    log)
+            except RuntimeError as e:
+                failed.append(str(e))
+            print(f"{name} profile {mode}: {log}", flush=True)
     print(card, flush=True)
+    stats = {k: {name: quartiles(v) for name, v in row.items()}
+             for k, row in summary.items()}
     print(json.dumps({"this": str(this), "other": str(other),
-                      "numbers": summary}), flush=True)
+                      "numbers": summary, "stats": stats}), flush=True)
     if failed:
         raise SystemExit("\n".join(failed))
 

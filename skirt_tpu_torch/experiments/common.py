@@ -11,6 +11,13 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+# what a kernel built with -fmad=false can issue (issue_floor): 128 float32
+# operations per SM and clock with no multiply-add fused, and 16 MUFU
+# operations (exp, log, sqrt, rsqrt, sin, cos, reciprocal), on 132 SMs at
+# 1,980 MHz
+SMS, CLOCK_HZ = 132, 1.98e9
+FP32_NOFMA_OPS_PER_S = 128 * SMS * CLOCK_HZ
+MUFU_OPS_PER_S = 16 * SMS * CLOCK_HZ
 
 
 def card_line() -> str:
@@ -76,6 +83,13 @@ def bound(nbyte, ops, ops_per_s=FP32_OPS_PER_S):
     t_ops = ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def issue_floor(ops, trans):
+    """The issue floor (ms) of a call that does ops float operations,
+    trans of them on the MUFU lanes, with no multiply-add fused: a model
+    for the phase logs, not a measured time."""
+    return max(ops / FP32_NOFMA_OPS_PER_S, trans / MUFU_OPS_PER_S) * 1e3
 
 
 def measure(record, kernel, plain, library=None, reps=10):

@@ -348,41 +348,86 @@ def test_poly_event_kernel_matches_plain(nlambda, npanels, labs, refill):
         L = got["Ln"]
 
 
+def _mono_cases():
+    """(sampler, H, labs, npanels, nlambda) of the K3 GPU test: every
+    sampler the wrapper reaches, one and two components, labs on and off,
+    7 and 32 panels at W = 4, and the 128-wavelength table (the Pallas
+    driver's per-lane tables, lam_inputs)."""
+    cases = [(samp, H, labs, P, 4) for samp in ("none", "point", "expdisk")
+             for H in (1, 2) for labs in (True, False) for P in (7, 32)]
+    return cases + [("expdisk", 1, True, 32, 128)]
+
+
+def _mono_spec(samp, H, labs, P, nlambda):
+    """The K3 spec of the dusty disc with the given sampler (the ExpDisk
+    stars relaunch dead lanes, or a point source at the centre, or no
+    relaunch), components, labs and panels."""
+    import dataclasses
+
+    from skirt_tpu_torch.geometry import PointGeometry
+
+    run, *_ = _model(nlambda=nlambda, ncomp=H, polychromatic=False,
+                     store_absorption=labs, quadrature_panels=P,
+                     refill_batches=0 if samp == "none" else 4,
+                     device="cuda")
+    spec = run.spec
+    if samp == "point":
+        geom = PointGeometry()
+        nu_pos = geom.device_sampler_xyz()[0]
+        spec = dataclasses.replace(
+            spec, sampler_geometry=geom, nu_pos=nu_pos,
+            n_uniform=5 + nu_pos + 2 + (1 if H > 1 else 0),
+            u_comp=5 + nu_pos + 2)
+    assert (spec.refill, spec.H, spec.want_labs, spec.npanels) == (
+        samp != "none", H, labs, P)
+    return spec
+
+
+def _assert_bits(got, want, it):
+    """Every output of an event kernel equal to its plain version's."""
+    assert sorted(got) == sorted(want)
+    for a, b in zip(got["state"], want["state"]):
+        assert torch.equal(a, b), it
+    for k in want:
+        if k != "state":
+            assert torch.equal(got[k], want[k]), (it, k)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nlambda, ncomp", [(4, 1), (2, 2), (128, 1)],
-                         ids=["W4", "two-components", "lam-inputs-128"])
-def test_mono_event_kernel_matches_plain(nlambda, ncomp):
+@pytest.mark.parametrize("samp, H, labs, npanels, nlambda", _mono_cases(),
+                         ids=[f"{s}-H{h}-{'labs' if l else 'nolabs'}-P{p}-W{w}"
+                              for s, h, l, p, w in _mono_cases()])
+def test_mono_event_kernel_matches_plain(samp, H, labs, npanels, nlambda):
     """K3 against its plain version on identical inputs (dead lanes,
     used-up launch budgets, axis-parallel directions, a weight cut that
-    fires), chained over a few events, with one or two dust components
-    and compile-time or per-lane tables: discrete outputs as in
-    test_torch_fused, floats on every discretely agreeing lane."""
+    fires), chained over a few events, for every template instance the
+    wrapper reaches and both table branches: every output bit-identical
+    (the kernel keeps the plain version's sum orders, and its branch-free
+    divisions and roots round as the operators do)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from skirt_tpu_torch import rng
-    from skirt_tpu_torch.testing import event_agreement, mono_event_case
+    from skirt_tpu_torch.testing import mono_event_case
 
-    run, *_ = _model(nlambda=nlambda, ncomp=ncomp, polychromatic=False,
-                     device="cuda")
-    n = 4096
-    spec, u, state = mono_event_case(run.spec, n, 1, "cuda")
+    n = 4096 + 17
+    spec, u, state = mono_event_case(_mono_spec(samp, H, labs, npanels,
+                                                nlambda), n, 1, "cuda")
     for it in range(4):
         if it:
             u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
         before = tfm.mono_event.launches
         got = tfm.mono_event(spec, u, state)
         assert tfm.mono_event.launches == before + 1
-        want = tfm.mono_event_plain(spec, u, state)
-        res = event_agreement(got, want)
-        assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
-        state = list(got["state"]) + state[9:11] + [got["bc"]]
+        _assert_bits(got, tfm.mono_event_plain(spec, u, state), it)
+        state = list(got["state"]) + state[9:11] + (
+            [got["bc"]] if spec.refill else [])
 
 
 def _chain_table_events(kernel, plain, spec, u, rows, state, args, restage,
-                        events=4):
+                        events=4, bits=False):
     """Hold a table event kernel against its plain version over a few
-    chained events, re-staging the panels between them; returns the
-    outputs of the last event."""
+    chained events, re-staging the panels between them (with bits, every
+    output to the bit); returns the outputs of the last event."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.testing import event_agreement
 
@@ -396,6 +441,8 @@ def _chain_table_events(kernel, plain, spec, u, rows, state, args, restage,
         want = plain(spec, u, rows, *args(), state)
         res = event_agreement(got, want)
         assert res["discrete"] >= 0.999 and res["float_bad"] == 0, (it, res)
+        if bits:
+            _assert_bits(got, want, it)
         rows, state = restage(got, state)
     return got
 
@@ -525,10 +572,15 @@ class _Counted:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [2, 24])
-def test_table_poly_multi_event_kernel_matches_plain(W):
+@pytest.mark.parametrize("W, H, labs", [
+    (W, H, labs) for W in (1, 2, 24, 33, 128) for H in (2, 3)
+    for labs in (True, False)])
+def test_table_poly_multi_event_kernel_matches_plain(W, H, labs):
     """K7 against its plain version on identical inputs, chained over a
-    few events, the lanes' luminosities carried from event to event."""
+    few events, the lanes' luminosities carried from event to event, at
+    ragged widths (W = 33 sums blocks of 11), two or three components
+    (the third a copy of the first's panels at half the density, with
+    1.3x its opacities) and labs on and off: every output bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -538,31 +590,42 @@ def test_table_poly_multi_event_kernel_matches_plain(W):
 
     run, *_, model = _multi_model(device="cuda", polychromatic=True)
     grid, ds = model[0], model[1]
-    spec = dataclasses.replace(run.spec, min_scatt=1,
-                               inv_minred=float(np.float32(0.01)))
-    if W != spec.W:
-        # the kernel at a wider W: the two mixes' constants repeated
-        spec = dataclasses.replace(
-            spec, W=W, inv_W=float(np.float32(1.0 / W)),
-            oc=np.ascontiguousarray(np.repeat(spec.oc, W // spec.W, 1)))
+    spec = run.spec
     P = spec.npanels
-    n = 4096
+    # W wavelengths from the model's two: the opacities scaled down the
+    # band, g as the model's
+    oc = np.asarray(spec.oc, np.float64).reshape(3, 2, spec.W)
+    scale = np.linspace(1.0, 0.5, W)
+    oc = oc[:, :, np.arange(W) % spec.W] * np.stack(
+        [scale, scale, np.ones(W)])[:, None]
+    if H == 3:
+        oc = np.concatenate([oc, oc[:, :1] * np.array(
+            [1.3, 1.3, 1.0])[:, None, None]], 1)
+    spec = dataclasses.replace(
+        spec, W=W, H=H, want_labs=labs, min_scatt=1,
+        inv_minred=float(np.float32(0.01)), inv_W=float(np.float32(1 / W)),
+        oc=np.ascontiguousarray(oc.reshape(3 * H, W), np.float32))
+    n = 4096 + 17
     inp = table_event_inputs(ds, n, 8, W, seed=W + 1, npanels=P,
                              small_tau=0.02, outside=0.02, device="cuda")
     oc = torch.as_tensor(spec.oc, device="cuda")
     lum = {"L": inp["L"]}
+
+    def rows_of(r):
+        return torch.cat([r, 0.5 * r[:P]]) if H == 3 else r
 
     def restage(got, state):
         st = got["state"]
         lum["L"] = got["Ln"]
         r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
                                   torch.stack(st[3:6], -1), P, None)
-        return r, list(st) + [t0, dt]
+        return rows_of(r), list(st) + [t0, dt]
 
-    _chain_table_events(tftp.table_poly_multi_event,
-                        tftp.table_poly_multi_event_plain, spec, inp["u"],
-                        inp["rows"], table_poly_state(inp),
-                        lambda: (oc, lum["L"], inp["L0"]), restage)
+    got = _chain_table_events(
+        tftp.table_poly_multi_event, tftp.table_poly_multi_event_plain,
+        spec, inp["u"], rows_of(inp["rows"]), table_poly_state(inp),
+        lambda: (oc, lum["L"], inp["L0"]), restage, bits=True)
+    assert (got["state"][6] != 0).any()
 
 
 @pytest.mark.gpu
