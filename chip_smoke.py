@@ -4,11 +4,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 k1 k3 k7` runs phases 1-2 and then only the
-named kernel phases (k1 phase 4, k2 phase 3, k3 phase 5, k7 phase 9 on
-a two-component tree of its own), and prints their results and the card
-line but no "ok" line: the way to time two trees in one call (this
-script copied into the other tree's checkout).
+`python3 chip_smoke.py k2 k1 k3 k5 k6 k6d k6p k7` runs phases 1-2 and
+then only the named kernel phases (k1 phase 4, k2 phase 3, k3 phase 5,
+k5 phase 7, k6 phase 8, k7 phase 9, k6d phase 11, k6p phase 12, each on
+the models main builds for it, built once per run), and prints their
+results and the card line but no "ok" line: the way to time two trees in
+one call (this script copied into the other tree's checkout).
 
 Phases (each prints one line first; any failure raises and the script
 exits non-zero without printing a result):
@@ -141,10 +142,10 @@ once; a table event reads its panels only for live lanes) over 3.35 TB/s
 and its float operations over 67 TFLOP/s (the float32 rate outside the
 tensor cores), operations counted per live lane from the kernel source
 (each transcendental one operation; approximate; work a kernel repeats by
-its own design counted once), from this run's inputs.  K1, K3 and K7
-also print an issue floor in their phase lines (not in the kernels
-line, which carries measured times and bound_ms only), a floor nearer
-what their build can reach:
+its own design counted once), from this run's inputs.  K1, K3, K5, K6
+(K6d, K6p) and K7 also print an issue floor in their phase lines (not in
+the kernels line, which carries measured times and bound_ms only), a
+floor nearer what their build can reach:
 they build with -fmad=false so as to round as their plain versions do,
 so no multiply-add fuses, and an H100 SXM then issues at most 128 float32
 operations per SM and clock, 33.5 T/s at 1,980 MHz (half the 67 TFLOP/s
@@ -179,8 +180,9 @@ rtol 1e-4 with atol 1e-6 x the array's largest magnitude.  On the card
 the kernels and their plain versions round alike op for op (-fmad=false,
 float32 reciprocals of the scale lengths, sums in one fixed order,
 rsqrtf), so they agree to the bit in practice; the bounds leave room
-only for a compiler that rounds one op differently.  K6p is held to the
-bit on every output, I_s and I_tot included.  max_abs_err is
+only for a compiler that rounds one op differently.  K5, K6, K6d and K6p
+are held to the bit on every output of every event (K6p's I_s and I_tot
+included).  max_abs_err is
 taken over the float outputs, each scaled by its array's largest
 magnitude, on the lanes whose discrete outputs agree.  The small-size
 cross-device checks hold the CUDA run to the CPU run at Monte Carlo
@@ -266,6 +268,22 @@ def k3_trans(spec):
     # with H > 1 each panel also an albedo division and an exp
     return (3 + 2 * H * (P + nl * pp) + (2 * P if H > 1 else 0) + 20
             + (nl * (2 * H + 1) if H > 1 else 0))
+
+
+def k5_trans(P):
+    # per panel an exp and the albedo division; the two samples' exp and
+    # log, exp(-taupath), the bias weight's exp and three divisions, the
+    # interaction fraction's division
+    return 2 * P + 8
+
+
+def k6_trans(W):
+    # the interaction sample (exp, log, 1 / kappa_c), the HG cosine (2
+    # divisions), the deposit sample (exp, log, 1 / kappa_w), the panel
+    # fraction's division, the scatter (root, division, cos, sin, rsqrt);
+    # per wavelength 2 exp, the F and Q divisions, the HG root and
+    # division, the Lp and Ln divisions
+    return 15 + 8 * W
 
 
 def k7_trans(P, W, H):
@@ -952,8 +970,8 @@ def _chain_k6(torch, label, spec, grid, ds, n, seeds, exact=False):
 
 
 def _time_k6(torch, label, spec, timed, ops):
-    """Kernel, plain and bound times of one K6 / K6d event on its timed
-    inputs."""
+    """Kernel, plain and bound times of one K6 / K6d / K6p event on its
+    timed inputs, and the modelled issue floor in the log line."""
     from skirt_tpu_torch.engine import fused_table_poly as tftp
 
     u, r, L, L0, state = timed
@@ -971,9 +989,10 @@ def _time_k6(torch, label, spec, timed, ops):
                        ([L0], cut)],
                       tftp.table_poly_event(spec, u, r, oc, L, L0, state),
                       n, live, ops)
+    floor = issue_floor(live * ops, live * k6_trans(spec.W))
     log(f"  {label} N={n} W={spec.W} P={spec.npanels}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
-        f"live lanes)")
+        f"live lanes), issue floor {floor:.4f} ms")
     return {"lanes": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1]}
 
@@ -991,7 +1010,8 @@ def phase_k6(torch, results, octree):
         spec = _cut_spec(run_batch.spec)
         assert spec.npanels == 16 and spec.W == W and spec.want_labs
         assert spec.arith_locate
-        err, timed = _chain_k6(torch, "K6", spec, grid, ds, n, seeds)
+        err, timed = _chain_k6(torch, "K6", spec, grid, ds, n, seeds,
+                               exact=True)
         worst = max(worst, err)
         by_w[W] = _time_k6(torch, "K6", spec, timed,
                            k6_ops(spec.npanels, W))
@@ -1014,7 +1034,8 @@ def phase_k6d(torch, results, vgrid):
         spec = _cut_spec(run_batch.spec)
         assert grid is vgrid and not spec.arith_locate
         assert spec.npanels == 16 and spec.W == W and spec.want_labs
-        err, timed = _chain_k6(torch, "K6d", spec, grid, ds, n, seeds)
+        err, timed = _chain_k6(torch, "K6d", spec, grid, ds, n, seeds,
+                               exact=True)
         worst = max(worst, err)
         by_w[W] = _time_k6(torch, "K6d", spec, timed,
                            k6d_ops(spec.npanels, W))
@@ -1108,7 +1129,8 @@ def phase_k5(torch, results, multi_tree):
                 f"{int((alive_in & ~alive).sum())}, deposits "
                 f"{int((got['depi'] >= 0).sum())}, interaction cells "
                 f"{int((got['cell'] >= 0).sum())}")
-            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+            if res["discrete"] < 0.999 or res["float_bad"] > 0 or not \
+                    _bits(got, want):
                 raise AssertionError(f"K5 kernel disagrees with its plain "
                                      f"version at event {it}: {res}")
             worst = max(worst, res["scaled_err"])
@@ -1133,8 +1155,10 @@ def phase_k5(torch, results, multi_tree):
                        ([u, kr, ks, state[3:6], state[8:]], live)],
                       tft.table_multi_event(spec, u, kr, ks, state), n, live,
                       k5_ops(P))
+    floor = issue_floor(live * k5_ops(P), live * k5_trans(P))
     log(f"  K5 N={n} P={P} H=2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes)")
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes), issue floor "
+        f"{floor:.4f} ms")
     results["K5"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
 
@@ -2157,14 +2181,31 @@ def phase_main_probes(torch, results):
     results["launches_probes"] = launches
 
 
-def phase_k7_alone(torch, results):
-    """Phase 9 on a two-component tree of its own (as main builds it)."""
-    from bench_torch import _multi_model
-    phase_k7(torch, results, _multi_model(voxelize=False)[0])
+# the models of the table kernel phases, built once per run (as main
+# builds them)
+_MODELS = {}
 
 
-# the kernel phases `python3 chip_smoke.py k2 k1 k3 k7` runs alone
-SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3, "k7": phase_k7_alone}
+def _model(name):
+    if name not in _MODELS:
+        from bench_torch import _multi_model, _octree_model, _voronoi_model
+        build = {"octree": lambda: _octree_model(voxelize=False),
+                 "multi": lambda: _multi_model(voxelize=False),
+                 "vgrid": lambda: _voronoi_model(nsites=33000,
+                                                 voxelize=False)}[name]
+        _MODELS[name] = build()[0]
+    return _MODELS[name]
+
+
+# the kernel phases `python3 chip_smoke.py k2 k1 k3 k5 k6 k6d k6p k7` runs
+# alone, each on the models main builds for it
+SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3,
+          "k5": lambda torch, res: phase_k5(torch, res, _model("multi")),
+          "k6": lambda torch, res: phase_k6(torch, res, _model("octree")),
+          "k6d": lambda torch, res: phase_k6d(torch, res, _model("vgrid")),
+          "k6p": lambda torch, res: phase_k6p(torch, res, _model("octree"),
+                                              _model("vgrid")),
+          "k7": lambda torch, res: phase_k7(torch, res, _model("multi"))}
 
 
 def main():

@@ -1,7 +1,8 @@
-// K6: polychromatic table-mode scattering event, one thread per lane; K6d,
-// its variant for direct-table grids (the exact Voronoi tessellation, an
-// uneven Cartesian grid) that emits the deposit distance; and K6p, either
-// of them with the two column densities the polarized driver needs.
+// K6: polychromatic table-mode scattering event, a group of threads per
+// lane; K6d, its variant for direct-table grids (the exact Voronoi
+// tessellation, an uneven Cartesian grid) that emits the deposit distance;
+// and K6p, either of them with the two column densities the polarized
+// driver needs.
 //
 // Replaces: skirt_tpu/engine/fused_table_poly.py:107 `_build_kernel` (the
 // Pallas body at :160-350), called at :924: K6 with arith_locate, K6d with
@@ -12,33 +13,60 @@
 // the plain PyTorch version (engine/fused_table_poly.py::
 // table_poly_event_plain) and this kernel see identical inputs.  The
 // arithmetic follows the Pallas body operation for operation (built with
-// -fmad=false; 1 - exp(-tau), never expm1; hg() as (1-g)(1+g)/sqrt(t t t)).
+// -fmad=false; 1 - exp(-tau), never expm1; hg() as (1-g)(1+g)/sqrt(t t t)),
+// and every ordered sum runs in the plain version's order, so the two
+// agree to the bit.
 //
-// What bounds it on the H100: arithmetic on the lane.  Per lane and event
-// it reads P panel values, 2 x W luminosities and ~17 words, writes 2 x W
-// luminosities and 10 words, and evaluates ~5 exp per wavelength (three
-// passes over w recompute exp(-kappa_w I)).  At W = 24, N = 2^15 lanes
-// that is ~15 MB and ~4 x 10^7 operations per event.  K6p writes 8 bytes
-// per lane more.
+// What bounds it on the H100: bytes.  Per live lane and event it reads P
+// panel values, 2 x W luminosities and 17 words of state and uniforms, and
+// writes 2 x W luminosities and 10 words; per wavelength it does ~60
+// operations (two exp, five divisions and the HG root among them).  At
+// W = 2, N = 2^17 that is ~25 MB (~7.5 us at 3.35 TB/s) against ~3 x 10^7
+// operations; at W = 128, N = 2^15 ~65 MB against ~2.8 x 10^8 operations
+// (~4 us at 67 TFLOP/s), bytes still (chip_smoke.py's k6_ops).  The first
+// design (one thread per lane, its W absorbed powers in a local-memory
+// array prefixed by one thread, three passes over w that recomputed the
+// same exponentials, 1,024 blocks of 128 threads at N = 2^17 of which ~924
+// fit at once) sat 2.5x off that bound at W = 2 and 17x at W = 128.  This
+// one runs W = 2's 4,096 blocks in one wave: a block waits ~6.7 us for its
+// rows, then computes ~7 us while 31 warps an SM issue at ~2/3 of the
+// schedulers' rate, and the two halves do not overlap; a variant that
+// walked two lane groups a block, the second's rows loading during the
+// first's compute, was slower at every W (experiments/phases.py; PERF.md
+// section 6).  At W = 24 and 128 the wavelength passes and the weight
+// pass's stores hold it.
 //
-// Design:
-// - One thread per lane with a loop over W inside the thread (not the
-//   TPU's (W, rows, 128) tile), as K1 does: L, L0, Ln, Lp are (W, N), so at
-//   a fixed w neighbouring threads touch neighbouring addresses.  The
-//   (3, W) optical constants sit in shared memory; the lane's P cumulative
-//   column densities in registers (MAXP = 32).
-// - The deposit wavelength is chosen against the Pallas body's cumsum_w, a
-//   Hillis-Steele prefix sum (log2 W shifted adds), not a running sum: the
-//   lane's W absorbed luminosities go to a per-thread array (local memory,
-//   W <= 128) and are prefixed in place, high index first, so each step
-//   adds the previous step's values as the shifted concatenation does.
-// - Sum D, Qmix and QHmix are jnp.sum over w in the Pallas body; XLA's CPU
-//   backend (the interpret-mode reference) sums blocks of B consecutive
-//   wavelengths in order, B the largest divisor of W not above 32, and then
-//   the block sums in order.  The kernel and its plain version take the
-//   same order (sum_block = B, from the wrapper).
+// Design: a block holds LANES = 32 consecutive lanes (threadIdx.x) and G
+// threads per lane (threadIdx.y, the lane's roles; one warp a role): G = 1
+// up to W = 4, 2 up to 8, 4 up to 32 and 16 above, each the fastest of
+// G = 1, 2, 4, 8, 16 at W = 2, 8, 24, 128 (a thread owns at most wpt<G>
+// wavelengths, w = r, r + G, ...).
+// - Every input row of the lane is staged into shared memory ([row][lane])
+//   by asynchronous copies, all in flight at once: its P panels (live
+//   lanes; K6p every lane), its uniforms, position, direction, t0 and dt,
+//   its W weights L and, past min_scatt, its W launch weights L0; with the
+//   (3, W) optical constants.
+// - Role 0 takes the lane's path column (the running sums I_k written over
+//   its panels, for the two inversions), the driver wavelength c, the
+//   interaction column I_s and the HG cosine; the other roles read them.
+// - One pass per (lane, w): 1 - e^-tau, e^{-kappa I_s}, F, the HG weight
+//   and Lab once; the terms of Qmix, QHmix and sum D go to shared memory
+//   ([slot][w][lane]), Lab F and Lab F HG stay in the thread's registers.
+// - The sums over w in BlockSum's order (XLA's CPU order, sum_block); with
+//   several blocks each block's in-order partial on a role of its own (Q's
+//   and QH's over the block's first term, D's beside the terms, which the
+//   prefix still needs), then one role per sum adds the partials in order.
+// - The deposit wavelength: the Hillis-Steele prefix of the D terms in
+//   shared memory (common.cuh prefix_smem), and the count of prefix values
+//   at or below the target, an integer sum over the roles.  The two
+//   inversions (deposit and interaction panel) are binary searches over
+//   the running sums I_k, which never decrease: rho >= 0 and dt >= 0.
+// - The weight pass per thread; the lane's alive bit is the OR of its
+//   threads' (a flag in shared memory); role 0 moves and scatters the lane.
 // - Dead lanes copy their state through with zero weights (the Pallas body
 //   computes them and masks them out).
+// - A launch runs N / 32 blocks; with G = 1 at W = 2, N = 2^17 all 4,096
+//   are resident at once (32 per SM at up to 64 registers a thread).
 // - K6d (DIRECT): no locate here.  The deposit goes out as the sampled
 //   wavelength wsel in odepi, the total Dsum in odepv and the distance
 //   along the pre-event ray, mid_dep, in odepd (-1, 0 and -1 where nothing
@@ -58,6 +86,20 @@
 namespace {
 
 constexpr int MAX_W = 128;
+constexpr int LANES = 32;
+// the lane's scalar rows staged beside its panels: the 7 uniforms, then
+// px, py, pz, dx, dy, dz, t0, dt
+constexpr int NSC = 15;
+
+// wavelengths a thread owns at most, and blocks per SM, by threads a lane
+template <int G>
+__host__ __device__ constexpr int wpt() {
+  return G == 1 ? 4 : 8;
+}
+template <int G>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return 1024 / (LANES * G);         // 64 registers a thread
+}
 
 }  // namespace
 
@@ -100,213 +142,312 @@ struct TablePolyArgs {
 
 namespace {
 
-// The whole path's column density: the panels' running sum I_k, kept in
-// cums (the deposit and the interaction point invert it).
-__device__ __forceinline__ float path_column(const TablePolyArgs& a, int n,
-                                             float delta, float* cums) {
-  const long long N = a.N;
-  float cum = 0.f;
-#pragma unroll
-  for (int k = 0; k < MAXP; ++k) {
-    if (k < a.npanels) cum = cum + a.r[k * N + n] * delta;
-    cums[k] = cum;
+// source of the lane's scalar row i (NSC of them)
+__device__ __forceinline__ const float* scalar_row(const TablePolyArgs& a,
+                                                   int i) {
+  switch (i - 7) {
+    case 0: return a.px;
+    case 1: return a.py;
+    case 2: return a.pz;
+    case 3: return a.dx;
+    case 4: return a.dy;
+    case 5: return a.dz;
+    case 6: return a.t0;
+    case 7: return a.dt;
+    default: return a.u + (long long)i * a.N;
   }
-  return cum;
 }
 
-// The driver wavelength c, uniform in [0, W) from the uniform row u[5].
-__device__ __forceinline__ int driver_wavelength(const TablePolyArgs& a,
-                                                 int n) {
-  return min((int)(a.u[5LL * a.N + n] * (float)a.W), a.W - 1);
-}
-
-// The column density at the interaction point, drawn at the driver
-// wavelength c from the uniform-driver mixture: I_s = tau_smp / kappa_c.
+// the interaction column I_s at the driver wavelength c, drawn from the
+// uniform-driver mixture: I_s = tau_smp / kappa_c; sc: the lane's scalar
+// rows (uniform k at sc[k * LANES])
 __device__ __forceinline__ float interaction_column(const TablePolyArgs& a,
-                                                    const float* kext, int n,
-                                                    int c, float I_tot) {
-  const long long N = a.N;
+                                                    const float* kext,
+                                                    const float* sc, int c,
+                                                    float I_tot) {
   const float tau_c = kext[c] * I_tot;
   const float kinv_cc = 1.f / kext[c];
-  const float u1 = a.u[n], u2 = a.u[N + n];
+  const float u1 = sc[0], u2 = sc[LANES];
   const float tau_exp = expon_cutoff(u2, tau_c);
   const float tau_smp =
       a.xi == 0.f ? tau_exp : (u1 < a.xi ? u2 * tau_c : tau_exp);
   return tau_smp * kinv_cc;
 }
 
-template <bool LABS, bool DIRECT, bool POL>
-__global__ void __launch_bounds__(128)
+// what a lane's roles share beyond its rows and the terms
+struct LaneShared {
+  float I_tot[LANES], I_s[LANES], costheta[LANES];
+  float Qmix[LANES], QHmix[LANES], Dsum[LANES];
+  int wsel[LANES], any_ln[LANES];
+};
+
+template <bool LABS, bool DIRECT, bool POL, int G>
+__global__ void __launch_bounds__(LANES * G, blocks_per_sm<G>())
 table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
-  __shared__ float s_oc[3 * MAX_W];
-  const int W = a.W;
-  for (int i = threadIdx.x; i < 3 * W; i += blockDim.x) s_oc[i] = a.oc[i];
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= a.N) return;
+  constexpr int WPT = wpt<G>();
+  extern __shared__ float dyn[];
+  __shared__ LaneShared s;
+  const int W = a.W, P = a.npanels, B = a.sum_block, nb = W / B;
+  const int l = threadIdx.x, r = threadIdx.y;
+  const int tid = r * LANES + l;
   const long long N = a.N;
+  const int n = blockIdx.x * LANES + l;
+  const bool valid = n < a.N;
+  float* s_oc = dyn;                          // (3, W)
+  float* sc = s_oc + 3 * W + l;               // [NSC][LANES]
+  float* rho = sc + NSC * LANES;              // [P][LANES], then the I_k
+  float* tL0 = rho + P * LANES;               // [W][LANES] each
+  float* tQ = tL0 + W * LANES;                // L, then Q's terms
+  float* tQH = tQ + W * LANES;
+  float* tD = tQH + W * LANES;                // with labs
+  float* tDp = tD + W * LANES;                // D's block partials [nb]
   const float* kext = s_oc;
   const float* alb = s_oc + W;
   const float* gw = s_oc + 2 * W;
-  const float* u = a.u;
 
-  float X = a.px[n], Y = a.py[n], Z = a.pz[n];
-  float DX = a.dx[n], DY = a.dy[n], DZ = a.dz[n];
-  int nscatt = a.ns[n];
-  bool alive = false;
+  // -- every input row of the lane by asynchronous copies, all in flight
+  //    at once; the constants ------------------------------------------------
+  if (valid)
+    for (int i = r; i < NSC; i += G)
+      __pipeline_memcpy_async(sc + i * LANES, scalar_row(a, i) + n, 4);
+  const bool live = valid && a.alive[n] != 0;
+  const int nscatt = valid ? a.ns[n] : 0;
+  const bool past_min = nscatt >= a.min_scatt;
+  if (POL ? valid : live) stage_rows<LANES>(rho, a.r, P, N, n, r, G);
+  if (live) stage_rows<LANES>(tQ, a.L, W, N, n, r, G);
+  if (live && past_min) stage_rows<LANES>(tL0, a.L0, W, N, n, r, G);
+  __pipeline_commit();
+  for (int i = tid; i < 3 * W; i += LANES * G) s_oc[i] = a.oc[i];
+  if (r == 0) {
+    s.any_ln[l] = 0;
+    s.wsel[l] = 0;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  int depi = -1;
-  float depv = 0.f, depd = -1.f;
-  float I_s = 0.f, I_tot = 0.f;
-  if (a.alive[n] != 0) {
-    const float t0 = a.t0[n], delta = a.dt[n];
-
-    // -- cumulative column density I_k (lambda-independent) -------------
-    float cums[MAXP];
-    I_tot = path_column(a, n, delta, cums);
-
-    // -- absorption deposit: one sampled wavelength per event -----------
-    if (LABS) {
-      float cD[MAX_W];
-      BlockSum dsum;
-      for (int w = 0; w < W; ++w) {
-        const float ome = 1.f - expf(-(kext[w] * I_tot));
-        cD[w] = (1.f - alb[w]) * a.L[w * N + n] * ome;
-        dsum.add(cD[w], a.sum_block);
-      }
-      const float Dsum = dsum.total;
-      int wsel = 0;
-      if (W > 1) {
-        for (int s = 1; s < W; s *= 2)
-          for (int i = W - 1; i >= s; --i) cD[i] = cD[i] + cD[i - s];
-        const float target = u[6 * N + n] * Dsum;
-        for (int w = 0; w < W - 1; ++w) wsel += (cD[w] <= target) ? 1 : 0;
-      }
-      const float tau_sel = kext[wsel] * I_tot;
-      const float kinv_sel = 1.f / kext[wsel];
-      const float I_dep = expon_cutoff(u[2 * N + n], tau_sel) * kinv_sel;
-      int i_dep = 0;
-#pragma unroll
-      for (int k = 0; k < MAXP - 1; ++k)
-        if (k < a.npanels - 1) i_dep += (cums[k] < I_dep) ? 1 : 0;
-      const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
-      if (DIRECT) {
-        if (Dsum > 0.f) {
-          depi = wsel;
-          depv = Dsum;
-          depd = mid_dep;
-        }
-      } else {
-        const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
-                                Z + mid_dep * DZ);
-        if (Dsum > 0.f && cell >= 0) {
-          depi = cell * W + wsel;
-          depv = Dsum;
-        }
-      }
+  // -- role 0: the path column I_tot (the running sums I_k over the
+  //    panels, for the inversions), the driver wavelength c, the
+  //    interaction column I_s and the HG cosine (driver g) ---------------
+  if (r == 0 && (POL ? valid : live)) {
+    const float delta = sc[14 * LANES];
+    float cum = 0.f;
+    for (int k = 0; k < P; ++k) {
+      cum = cum + rho[k * LANES] * delta;
+      rho[k * LANES] = cum;
     }
+    const int c = min((int)(sc[5 * LANES] * (float)W), W - 1);
+    s.I_tot[l] = cum;
+    s.I_s[l] = interaction_column(a, kext, sc, c, cum);
+    if (live) s.costheta[l] = hg_costheta(gw[c], sc[3 * LANES]);
+  }
+  __syncthreads();
 
-    // -- mixture-driver forced propagation -------------------------------
-    const int c = driver_wavelength(a, n);
-    I_s = interaction_column(a, kext, n, c, I_tot);
-    int i_hit = 0;
-#pragma unroll
-    for (int k = 0; k < MAXP - 1; ++k)
-      if (k < a.npanels - 1) i_hit += (cums[k] < I_s) ? 1 : 0;
-    float cum_h = 0.f, cum_prev = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k == i_hit) cum_h = cums[k];
-      if (k == i_hit - 1) cum_prev = cums[k];
-    }
-    const float dI_h = cum_h - cum_prev;
-    const float fr = dI_h > 0.f ? (I_s - cum_prev) / fmaxf(dI_h, TINY) : 0.f;
-    const float frac = fminf(fmaxf(fr, 0.f), 1.f);
-    const float s = t0 + ((float)i_hit + frac) * delta;
-    X = X + s * DX;
-    Y = Y + s * DY;
-    Z = Z + s * DZ;
-
-    // -- per-wavelength mixture ratios: Qmix, QHmix ----------------------
-    const float costheta = hg_costheta(gw[c], u[3 * N + n]);
+  // -- one pass per (lane, w): the terms of Qmix, QHmix and sum D; Lab F
+  //    and Lab F HG stay in registers -------------------------------------
+  float v_LF[WPT], v_LFH[WPT];
+  if (live) {
+    const float I_tot = s.I_tot[l], I_s = s.I_s[l];
+    const float costheta = s.costheta[l];
     const float xi = a.xi;
-    BlockSum qsum, qhsum;
-    for (int w = 0; w < W; ++w) {
-      const float kx = kext[w];
-      const float tau = kx * I_tot;
-      const float ome = 1.f - expf(-tau);
-      const float F = kx * expf(-kx * I_s) / fmaxf(ome, TINY);
-      const float Q =
-          xi == 0.f ? F : a.one_m_xi * F + xi * kx / fmaxf(tau, TINY);
-      qsum.add(Q, a.sum_block);
-      qhsum.add(Q * hg(gw[w], costheta), a.sum_block);
-    }
-    const float Qmix = fmaxf(qsum.total * a.inv_W, TINY);
-    const float QHmix = fmaxf(qhsum.total * a.inv_W, TINY);
-
-    // -- peel and onward weights, per-wavelength weight cut --------------
-    const bool past_min = nscatt >= a.min_scatt;
-    bool any_ln = false;
-    for (int w = 0; w < W; ++w) {
-      const float kx = kext[w];
-      const float tau = kx * I_tot;
-      const float ome = 1.f - expf(-tau);
-      const float F = kx * expf(-kx * I_s) / fmaxf(ome, TINY);
-      const float Lab = alb[w] * a.L[w * N + n] * ome;
-      float Lp = Lab * F / Qmix;
-      float Ln = Lab * F * hg(gw[w], costheta) / QHmix;
-      if (past_min && Ln <= a.L0[w * N + n] * a.inv_minred) {
-        Lp = 0.f;
-        Ln = 0.f;
+#pragma unroll
+    for (int j = 0; j < WPT; ++j) {
+      const int w = r + G * j;
+      if (w < W) {
+        const float kx = kext[w];
+        const float tau = kx * I_tot;
+        const float ome = 1.f - expf(-tau);
+        const float Lm = tQ[w * LANES];
+        const float F = kx * expf(-kx * I_s) / fmaxf(ome, TINY);
+        const float Q =
+            xi == 0.f ? F : a.one_m_xi * F + xi * kx / fmaxf(tau, TINY);
+        const float hgw = hg(gw[w], costheta);
+        tQ[w * LANES] = Q;
+        tQH[w * LANES] = Q * hgw;
+        if (LABS) tD[w * LANES] = (1.f - alb[w]) * Lm * ome;
+        const float LF = alb[w] * Lm * ome * F;
+        v_LF[j] = LF;
+        v_LFH[j] = LF * hgw;
       }
-      any_ln = any_ln || (Ln > 0.f);
-      a.oLn[w * N + n] = Ln;
-      a.oLp[w * N + n] = Lp;
     }
-    alive = any_ln && (I_tot > TINY);
+  }
+  __syncthreads();
 
-    // -- HG scatter about the old direction (driver g) -------------------
+  // -- the sums over w in BlockSum's order: with several blocks, each
+  //    block's in-order partial on a role of its own (Q's and QH's over the
+  //    block's first term, D's into tDp: the prefix needs D's terms), then
+  //    one role per sum adds the partials in order ------------------------
+  constexpr int NSUM = 2 + LABS;
+  if (nb > 1) {
+    if (live)
+      for (int t = r; t < NSUM * nb; t += G) {
+        const int q = t / nb, b = t - q * nb;
+        const float* terms =
+            (q == 0 ? tQ : (q == 1 ? tQH : tD)) + b * B * LANES;
+        float* part = q == 2 ? tDp + b * LANES : (float*)terms;
+        *part = block_part<LANES>(terms, B);
+      }
+    __syncthreads();
+  }
+  if (live)
+    for (int q = r; q < NSUM; q += G) {
+      const float* t = q == 0 ? tQ : (q == 1 ? tQH : tD);
+      const float* parts = nb > 1 ? (q == 2 ? tDp : t) : nullptr;
+      const float total =
+          block_total<LANES>(t, parts, q == 2 ? LANES : B * LANES, nb, B);
+      if (q == 0) s.Qmix[l] = fmaxf(total * a.inv_W, TINY);
+      else if (q == 1) s.QHmix[l] = fmaxf(total * a.inv_W, TINY);
+      else s.Dsum[l] = total;
+    }
+  __syncthreads();
+
+  // -- the deposit wavelength: the D terms' Hillis-Steele prefix and the
+  //    count of its values at or below u6 * Dsum -------------------------
+  if (LABS) prefix_smem<LANES, WPT>(tD, W, r, G, live);
+  if (LABS && live && W > 1) {
+    const float target = sc[6 * LANES] * s.Dsum[l];
+    const int cnt = count_le<LANES, WPT>(tD, W - 1, r, G, target);
+    if (cnt) atomicAdd(&s.wsel[l], cnt);
+  }
+
+  // -- peel and onward weights, per-wavelength weight cut -----------------
+  if (live) {
+    const float Qmix = s.Qmix[l], QHmix = s.QHmix[l];
+    bool any_ln = false;
+#pragma unroll
+    for (int j = 0; j < WPT; ++j) {
+      const int w = r + G * j;
+      if (w < W) {
+        float Lp = v_LF[j] / Qmix;
+        float Ln = v_LFH[j] / QHmix;
+        if (past_min && Ln <= tL0[w * LANES] * a.inv_minred) {
+          Lp = 0.f;
+          Ln = 0.f;
+        }
+        any_ln = any_ln || (Ln > 0.f);
+        a.oLn[w * N + n] = Ln;
+        a.oLp[w * N + n] = Lp;
+      }
+    }
+    if (any_ln) s.any_ln[l] = 1;
+  }
+  __syncthreads();
+
+  // -- the lane's state: the deposit, the move to the interaction point,
+  //    the HG scatter about the old direction; dead lanes' weights zero ---
+  const bool alive = live && s.any_ln[l] != 0 && s.I_tot[l] > TINY;
+  if (valid && !alive) {
+#pragma unroll
+    for (int j = 0; j < WPT; ++j) {
+      const int w = r + G * j;
+      if (w < W) {
+        a.oLn[w * N + n] = 0.f;
+        a.oLp[w * N + n] = 0.f;
+      }
+    }
+  }
+  if (valid && r == 0) {
+    float X = sc[7 * LANES], Y = sc[8 * LANES], Z = sc[9 * LANES];
+    float DX = sc[10 * LANES], DY = sc[11 * LANES], DZ = sc[12 * LANES];
+    const float t0 = sc[13 * LANES], delta = sc[14 * LANES];
+    const float* cums = rho;                  // the running sums I_k
+    int ns_out = nscatt;
+    if (LABS) {
+      int depi = -1;
+      float depv = 0.f, depd = -1.f;
+      if (live) {
+        const int wsel = s.wsel[l];
+        const float Dsum = s.Dsum[l];
+        const float tau_sel = kext[wsel] * s.I_tot[l];
+        const float kinv_sel = 1.f / kext[wsel];
+        const float I_dep = expon_cutoff(sc[2 * LANES], tau_sel) * kinv_sel;
+        const int i_dep = count_below(cums, LANES, P - 1, I_dep);
+        const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
+        if (DIRECT) {
+          if (Dsum > 0.f) {
+            depi = wsel;
+            depv = Dsum;
+            depd = mid_dep;
+          }
+        } else {
+          const int cell = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
+                                  Z + mid_dep * DZ);
+          if (Dsum > 0.f && cell >= 0) {
+            depi = cell * W + wsel;
+            depv = Dsum;
+          }
+        }
+      }
+      a.odepi[n] = depi;
+      a.odepv[n] = depv;
+      if (DIRECT) a.odepd[n] = depd;
+    }
+    if (live) {
+      const float I_s = s.I_s[l];
+      const int i_hit = count_below(cums, LANES, P - 1, I_s);
+      const float cum_h = cums[i_hit * LANES];
+      const float cum_prev = i_hit > 0 ? cums[(i_hit - 1) * LANES] : 0.f;
+      const float dI_h = cum_h - cum_prev;
+      const float fr =
+          dI_h > 0.f ? (I_s - cum_prev) / fmaxf(dI_h, TINY) : 0.f;
+      const float frac = fminf(fmaxf(fr, 0.f), 1.f);
+      const float sp = t0 + ((float)i_hit + frac) * delta;
+      X = X + sp * DX;
+      Y = Y + sp * DY;
+      Z = Z + sp * DZ;
+    }
     if (alive) {
-      scatter_direction(costheta, u[4 * N + n], DX, DY, DZ);
-      nscatt += 1;
+      scatter_direction(s.costheta[l], sc[4 * LANES], DX, DY, DZ);
+      ns_out += 1;
     }
-  } else if (POL) {
-    float cums[MAXP];
-    I_tot = path_column(a, n, a.dt[n], cums);
-    I_s = interaction_column(a, kext, n, driver_wavelength(a, n), I_tot);
-  }
-  if (!alive) {
-    for (int w = 0; w < W; ++w) {
-      a.oLn[w * N + n] = 0.f;
-      a.oLp[w * N + n] = 0.f;
+    a.opx[n] = X;
+    a.opy[n] = Y;
+    a.opz[n] = Z;
+    a.odx[n] = DX;
+    a.ody[n] = DY;
+    a.odz[n] = DZ;
+    a.oalive[n] = alive ? 1 : 0;
+    a.ons[n] = ns_out;
+    if (POL) {
+      a.oIs[n] = s.I_s[l];
+      a.oIt[n] = s.I_tot[l];
     }
   }
-  if (LABS) {
-    a.odepi[n] = depi;
-    a.odepv[n] = depv;
-    if (DIRECT) a.odepd[n] = depd;
-  }
-  a.opx[n] = X;
-  a.opy[n] = Y;
-  a.opz[n] = Z;
-  a.odx[n] = DX;
-  a.ody[n] = DY;
-  a.odz[n] = DZ;
-  a.oalive[n] = alive ? 1 : 0;
-  a.ons[n] = nscatt;
-  if (POL) {
-    a.oIs[n] = I_s;
-    a.oIt[n] = I_tot;
-  }
+}
+
+// dynamic shared memory of a launch: the constants, the scalar rows, the
+// panels, L0 and the term slots (with labs D's, and its nb block partials
+// where there are several)
+__host__ __device__ constexpr size_t smem_floats(bool LABS, int W, int P,
+                                                 int nb) {
+  return (size_t)3 * W + (size_t)(NSC + P) * LANES +
+         (size_t)(3 + LABS) * W * LANES +
+         (LABS && nb > 1 ? (size_t)nb * LANES : 0);
+}
+
+template <bool LABS, bool DIRECT, bool POL, int G>
+int launch_g(const TablePolyArgs& a, cudaStream_t s) {
+  const int blocks = (a.N + LANES - 1) / LANES;
+  if (blocks <= 0) return (int)cudaGetLastError();
+  static bool raised[64];
+  const int e = raise_smem_limit(
+      table_poly_event_kernel<LABS, DIRECT, POL, G>,
+      smem_floats(LABS, MAX_W, MAXP, MAX_W) * sizeof(float), raised);
+  if (e) return e;
+  const size_t smem =
+      smem_floats(LABS, a.W, a.npanels, a.W / a.sum_block) * sizeof(float);
+  table_poly_event_kernel<LABS, DIRECT, POL, G><<<blocks, dim3(LANES, G),
+                                                  smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool LABS, bool DIRECT, bool POL>
 int launch(const TablePolyArgs& a, cudaStream_t s) {
-  const int threads = 128;
-  const int blocks = (a.N + threads - 1) / threads;
-  if (blocks > 0)
-    table_poly_event_kernel<LABS, DIRECT, POL><<<blocks, threads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  // the fastest width at W = 2, 8, 24 and 128 (experiments/phases.py
+  // --threads; PERF.md section 6)
+  if (a.W <= 4) return launch_g<LABS, DIRECT, POL, 1>(a, s);
+  if (a.W <= 8) return launch_g<LABS, DIRECT, POL, 2>(a, s);
+  if (a.W <= 32) return launch_g<LABS, DIRECT, POL, 4>(a, s);
+  return launch_g<LABS, DIRECT, POL, 16>(a, s);
 }
 
 template <bool POL>

@@ -37,8 +37,8 @@
 // 4 or 8 wavelengths, w = r, r + G, ...
 // - The lane's H x P panel rows are staged into shared memory by all of
 //   its roles with asynchronous copies, all in flight at once ([row][lane],
-//   coalesced reads of the (H P, N) rows), with the (3H, W) constants; the
-//   panels leave the registers.
+//   coalesced reads of the (H P, N) rows; common.cuh stage_rows), with the
+//   (3H, W) constants; the panels leave the registers.
 // - Pass A, one role per ordered sum: the driver's cumulative optical
 //   depth (into shared memory, for the two inversions) and each
 //   component's integral I[h].  Then the two inversions on two roles
@@ -54,19 +54,18 @@
 //   terms in shared memory ([slot][w][lane]): Qmix, QHmix, the deposit
 //   normaliser qd, then sum D.  With several blocks (W / sum_block > 1)
 //   each block's in-order partial is taken on a role of its own, then one
-//   role per sum adds the partials in order from 0, as BlockSum does.
+//   role per sum adds the partials in order from 0, as BlockSum does
+//   (common.cuh block_part, block_total; K6 shares them).
 // - The deposit: each thread forms its wavelengths' absorbed powers D into
 //   the slot qd's terms left; the Hillis-Steele prefix runs in shared
 //   memory, each step's reads before its writes (the in-place descending
 //   loop of the plain version reads only un-updated values, so it is the
-//   same step), and the count of prefix values at or below the target is
-//   an integer sum taken in parallel.
+//   same step; common.cuh prefix_smem), and the count of prefix values at
+//   or below the target is an integer sum taken in parallel (count_le).
 // - The weight pass per thread; the lane's alive bit is the OR of its
 //   threads' (a flag in shared memory); one role moves and scatters.
 // - Dead lanes copy their state through with zero weights; the deposit's
 //   locate is the arithmetic one of common.cuh.
-
-#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -186,27 +185,6 @@ __device__ __forceinline__ void invert(const float* cums, int P, float target,
   frac = fminf(fmaxf(fr, 0.f), 1.f);
 }
 
-// BlockSum's partial of one block: its B terms t[w * LANES] in order,
-// starting from the first
-__device__ __forceinline__ float block_part(const float* t, int B) {
-  float part = t[0];
-  for (int w = 1; w < B; ++w) part = part + t[w * LANES];
-  return part;
-}
-
-// BlockSum of nb blocks of B terms t[w * LANES] (XLA's CPU order): the
-// block partials added in order, from 0; `parts`, where not null, holds
-// each block's partial at parts[b * B * LANES] already
-__device__ __forceinline__ float block_total(const float* t,
-                                            const float* parts, int nb,
-                                            int B) {
-  float total = 0.f;
-  for (int b = 0; b < nb; ++b)
-    total = total + (parts ? parts[b * B * LANES]
-                           : block_part(t + b * B * LANES, B));
-  return total;
-}
-
 // what a lane's roles share beyond the panels and the terms
 struct LaneShared {
   float I[MAX_H][LANES], rho_s[MAX_H][LANES];
@@ -241,9 +219,7 @@ table_poly_multi_event_kernel(const __grid_constant__ TablePolyMultiArgs a) {
   // -- the live lanes' panel rows by asynchronous copies, all in flight at
   //    once; the constants ------------------------------------------------
   const bool live = valid && a.alive[n] != 0;
-  if (live)
-    for (int i = r; i < H * P; i += G)
-      __pipeline_memcpy_async(rho + i * LANES, a.r + i * N + n, 4);
+  if (live) stage_rows<LANES>(rho, a.r, H * P, N, n, r, G);
   __pipeline_commit();
   for (int i = tid; i < 3 * H * W; i += LANES * G) s_oc[i] = a.oc[i];
   if (r == 0) {
@@ -386,15 +362,17 @@ table_poly_multi_event_kernel(const __grid_constant__ TablePolyMultiArgs a) {
       for (int t = r; t < (2 + LABS) * nb; t += G) {
         const int q = t / nb, b = t - q * nb;
         float* terms = (q == 0 ? tQ : (q == 1 ? tQH : tD)) + b * B * LANES;
-        terms[0] = block_part(terms, B);
+        terms[0] = block_part<LANES>(terms, B);
       }
     __syncthreads();
   }
   if (live) {
     for (int q = r; q < 2 + LABS; q += G) {
       const float* t = q == 0 ? tQ : (q == 1 ? tQH : tD);
-      const float m =
-          fmaxf(block_total(t, nb > 1 ? t : nullptr, nb, B) * a.inv_W, TINY);
+      const float m = fmaxf(
+          block_total<LANES>(t, nb > 1 ? t : nullptr, B * LANES, nb, B) *
+              a.inv_W,
+          TINY);
       if (q == 0) s.Qmix[l] = m;
       else if (q == 1) s.QHmix[l] = m;
       else s.qd[l] = m;
@@ -424,38 +402,16 @@ table_poly_multi_event_kernel(const __grid_constant__ TablePolyMultiArgs a) {
   if (LABS && nb > 1) {
     if (live)
       for (int b = r; b < nb; b += G)
-        tQ[b * B * LANES] = block_part(tD + b * B * LANES, B);
+        tQ[b * B * LANES] = block_part<LANES>(tD + b * B * LANES, B);
     __syncthreads();
   }
   if (LABS && live && r == 0)
-    s.Dsum[l] = block_total(tD, nb > 1 ? tQ : nullptr, nb, B);
-  for (int st = 1; LABS && st < W; st *= 2) {
-    float v[WPT];
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < WPT; ++j) {
-        const int w = r + G * j;
-        if (w < W && w >= st) v[j] = tD[w * LANES] + tD[(w - st) * LANES];
-      }
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < WPT; ++j) {
-        const int w = r + G * j;
-        if (w < W && w >= st) tD[w * LANES] = v[j];
-      }
-    }
-    __syncthreads();
-  }
+    s.Dsum[l] =
+        block_total<LANES>(tD, nb > 1 ? tQ : nullptr, B * LANES, nb, B);
+  if (LABS) prefix_smem<LANES, WPT>(tD, W, r, G, live);
   if (LABS && live && W > 1) {
     const float target = u[6 * N + n] * s.Dsum[l];
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      const int w = r + G * j;
-      if (w < W - 1) cnt += (tD[w * LANES] <= target) ? 1 : 0;
-    }
+    const int cnt = count_le<LANES, WPT>(tD, W - 1, r, G, target);
     if (cnt) atomicAdd(&s.wsel[l], cnt);
   }
 

@@ -456,8 +456,8 @@ def _table_multi_event_cuda(spec, u, kr, ks, state):
     P = spec.npanels
     if P > _CUDA_MAXP:
         raise ValueError(f"table_multi_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (the lane's running sums live in "
-                         "registers)")
+                         f"{_CUDA_MAXP} (MAXP: the kernel's unrolled panel "
+                         "loop)")
     if len(state) != 13:
         raise ValueError("table_multi_event: expected 13 state arrays")
     dts = [torch.float32] * 7 + [torch.int32] * 3 + [torch.float32] * 3

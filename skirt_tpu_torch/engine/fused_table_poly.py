@@ -345,8 +345,8 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
         raise ValueError("table_poly_event kernel: W <= 128")
     if P > _CUDA_MAXP:
         raise ValueError(f"table_poly_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (the lane's cumulative sums live in "
-                         "registers)")
+                         f"{_CUDA_MAXP} (MAXP: the kernel's binary "
+                         "searches and shared-memory rows)")
     if len(state) != 10:
         raise ValueError("table_poly_event: expected 10 state arrays")
     dts = [torch.float32] * 6 + [torch.int32] * 2 + [torch.float32] * 2
@@ -650,8 +650,8 @@ def _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state):
         raise ValueError("table_poly_multi_event kernel: W <= 128")
     if P > _CUDA_MAXP:
         raise ValueError(f"table_poly_multi_event kernel: quadrature_panels "
-                         f"<= {_CUDA_MAXP} (the lane's panels live in "
-                         "registers)")
+                         f"<= {_CUDA_MAXP} (MAXP: the kernel's binary "
+                         "searches and shared-memory rows)")
     if not 2 <= H <= _CUDA_MAX_H:
         raise ValueError(f"table_poly_multi_event kernel: 2 <= dust "
                          f"components <= {_CUDA_MAX_H}")

@@ -14,19 +14,28 @@ own kernels, then runs --pairs pairs of turns, each pair's order the
 reverse of the last (other, this, this, other, other, this, ...):
   - `chip_smoke.py <--smoke phases>` (none if empty; default k2 and k1:
     K2 on its four uniform shapes and on the frame stream the S1 poly
-    path sends, K1 at N = 32,768, W = 128; k3: K3 at 2^21 lanes, W = 4, and its H = 2 and
-    W = 128 cases; k7: K7 at W = 2, 24, 128);
+    path sends, K1 at N = 32,768, W = 128; k3: K3 at 2^21 lanes, W = 4,
+    and its H = 2 and W = 128 cases; k5: K5 at 2^17 lanes, P = 24, H = 2;
+    k6: K6 at W = 2, 24, 128; k6d: K6d at W = 8, 128; k6p: K6p at W = 2,
+    24, 128 on both routes; k7: K7 at W = 2, 24, 128);
   - each of --cells (default poly, mono, host), `bench_torch.py` (best of
-    3) with the cell's environment (CELLS): poly the default poly cell;
-    mono BENCH_POLY=0 BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21
-    BENCH_DISPATCH_BATCHES=8; multi BENCH_MODEL=multi (multi-poly, K7 at
-    W = 2); polarized BENCH_MODEL=polarized (pol-mono, K3); host the
+    3) with the cell's environment (CELLS; PERF.md section 4 names each
+    cell): poly the default poly cell; mono BENCH_POLY=0 BENCH_NLAMBDA=4
+    BENCH_LOG2_PACKETS=21 BENCH_DISPATCH_BATCHES=8; multi
+    BENCH_MODEL=multi (multi-poly, K7 at W = 2); multi-mono the same with
+    OCTREE_POLY=0 (K5); octree-poly BENCH_MODEL=octree (K6 at W = 2);
+    vor-voxel BENCH_MODEL=voronoi (K6 at W = 2 on the 4,096-site voxel
+    view); vor-direct-poly BENCH_MODEL=voronoi VORONOI_DIRECT=1
+    VORONOI_SITES=33000 VORONOI_NLAM=8 VORONOI_PEELP=64 VORONOI_REFILL=64
+    (K6d); polarized BENCH_MODEL=polarized (pol-mono, K3);
+    pol-table-poly the same with POL_TABLE=1 POL_POLY=1 (K6p); host the
     wrappers' host time per call (HOST_COST): binned_add on 4,096 updates
     into the 32,768 frame bins and poly_event on 256 lanes at W = 128,
     each 2,000 calls back to back after 50 warm-up calls, where the host
     and not the device sets the pace;
-and then `profile_torch.py <mode>` once in each tree (this one first)
-for each of --profile (default poly; mono the mono cell).
+and then `profile_torch.py` once in each tree (this one first) for each
+of --profile (default poly): poly and mono its own modes; a table cell of
+PROFILES (octree-poly, multi-mono) with the cell's environment.
 Every run's output lands in OUT/<tree>-<what>-<turn>.log (OUT the
 second argument, default ab_trees_out, which .gitignore lists); the
 summary, one JSON line of every number from both trees and all turns,
@@ -84,11 +93,26 @@ print(json.dumps({"host_us": {
 """
 # the cells of --cells: bench_torch.py's environment, or the host-cost
 # script
+OCTREE_POLY = {"BENCH_MODEL": "octree"}
+MULTI_MONO = {"BENCH_MODEL": "multi", "OCTREE_POLY": "0"}
 CELLS = {"poly": (["bench_torch.py"], {}),
          "mono": (["bench_torch.py"], MONO),
          "multi": (["bench_torch.py"], {"BENCH_MODEL": "multi"}),
+         "multi-mono": (["bench_torch.py"], MULTI_MONO),
+         "octree-poly": (["bench_torch.py"], OCTREE_POLY),
+         "vor-voxel": (["bench_torch.py"], {"BENCH_MODEL": "voronoi"}),
+         "vor-direct-poly": (["bench_torch.py"], {
+             "BENCH_MODEL": "voronoi", "VORONOI_DIRECT": "1",
+             "VORONOI_SITES": "33000", "VORONOI_NLAM": "8",
+             "VORONOI_PEELP": "64", "VORONOI_REFILL": "64"}),
          "polarized": (["bench_torch.py"], {"BENCH_MODEL": "polarized"}),
+         "pol-table-poly": (["bench_torch.py"], {
+             "BENCH_MODEL": "polarized", "POL_TABLE": "1", "POL_POLY": "1"}),
          "host": (["-c", HOST_COST], {})}
+# the profiles of --profile: profile_torch.py's mode and environment
+PROFILES = {"poly": ("poly", {}), "mono": ("mono", {}),
+            "octree-poly": ("poly", OCTREE_POLY),
+            "multi-mono": ("mono", MULTI_MONO)}
 
 
 def numbers(what: str, text: str) -> dict:
@@ -154,6 +178,11 @@ def main(argv=None):
     p.add_argument("--profile", default="poly")
     p.add_argument("--pairs", type=int, default=2)
     args = p.parse_args(argv)
+    for what, names, known in (("cell", args.cells, CELLS),
+                               ("profile", args.profile, PROFILES)):
+        bad = [c for c in names.split(",") if c and c not in known]
+        if bad:
+            p.error(f"unknown {what} {bad}; known: {sorted(known)}")
     this = Path.cwd()
     other = Path(args.other).resolve()
     out = Path(args.out).resolve()
@@ -181,10 +210,11 @@ def main(argv=None):
                 row[name].append(v)
             print(f"{name} {what} (turn {turn}): {got}", flush=True)
     for mode in [m for m in args.profile.split(",") if m]:
+        arg, env = PROFILES[mode]
         for name in ("this", "other"):
             log = out / f"{name}-profile-{mode}.log"
             try:
-                run(trees[name], "profile", ["profile_torch.py", mode], {},
+                run(trees[name], "profile", ["profile_torch.py", arg], env,
                     log)
             except RuntimeError as e:
                 failed.append(str(e))

@@ -2,20 +2,22 @@
 
 On a CUDA machine, from the repository root:
 
-    python -m skirt_tpu_torch.experiments.phases k1|k3|k7 [--csrc DIR]
-        [--width W[,W...]] [--comp H] [--threads G[,G...]]
+    python -m skirt_tpu_torch.experiments.phases k1|k3|k5|k6|k7
+        [--csrc DIR] [--width W[,W...]] [--comp H] [--threads G[,G...]]
 
 It copies the kernel's source (csrc/fused_poly.cu for K1, fused_mono.cu
-for K3, fused_table_poly_multi.cu for K7; from DIR, another tree's csrc/,
-when given) and csrc/common.cuh into a temporary directory, adds a `prof`
+for K3, fused_table_multi.cu for K5, fused_table_poly.cu for K6,
+fused_table_poly_multi.cu for K7; from DIR, another tree's csrc/, when
+given) and csrc/common.cuh into a temporary directory, adds a `prof`
 pointer at the end of the kernel's argument struct and stamps %globaltimer
 into it at fixed points of the kernel:
-  - a kernel with two or more top-level __syncthreads() (K1, K7): the
+  - a kernel with two or more top-level __syncthreads() (K1, K6, K7): the
     block's thread 0 after each of them, at the kernel's start and, after
     one more barrier, at its end;
   - a kernel that runs one thread per lane with at most the one barrier
-    of its table load (K3; K7 in its first design): each warp's first
-    active thread at the lines of ANCHORS, which mark the ends of the
+    of its table load (K3, K5; K6 and K7 in their first designs): each
+    warp's first active thread at the lines of the first of ANCHORS'
+    sets whose lines the source holds all of, which mark the ends of the
     design's phases.
 It builds that copy with the package's nvcc flags and runs it through the
 kernel's wrapper (the wrapper's struct and library swapped for the
@@ -25,17 +27,24 @@ stamped ones) on the inputs chip_smoke.py times:
   k3  N = 2^21, one of W = 4 wavelengths per lane (--width), H = 1
       (--comp 2: the two-component model), 32 / 8 panels, refill K = 128
       (seed 7, three events of the plain version chained first);
+  k5  the two-component model's mono lanes, N = 2^17, 24 panels, H = 2
+      (the first event of chip_smoke.py phase 7's first seed);
+  k6  config 3's torus at W = 2 on 2^17 lanes (--width 8: 2^16 lanes,
+      K6d's lane count; 24 or 128: 2^15 lanes), 16 panels (the first event
+      of phase 8's first seed at that width);
   k7  the two-component model at W = 2 on 2^17 lanes (--width 24 or 128:
       2^15 lanes), H = 2, 24 panels (the first event of phase 9's seed),
-      for each width of the list; with --threads, once for each G of the
-      list, the launch held to the instance of G threads a lane (K7's
-      `launch_g`; 0 the kernel's own choice; a G too narrow for W is
-      refused and reported so);
+      for each width of the list;
+  with --threads (k6, k7), once for each G of the list, the launch
+  held to the instance of G threads a lane (the kernel's `launch_g`; 0
+  the kernel's own choice; a G too narrow for W is refused and reported
+  so);
 checks every output bit for bit against the plain version; and prints
 the kernel's device ms (the stores of the stamps included), the mean
 life of a block (or warp), how many were resident at once (summed lives
-over the span), and each phase's mean duration in ns with the line that
-ends it.  Then it builds the unstamped source alone and prints, for each
+over the span), when they started and ended (percentiles from the first
+start), and each phase's mean duration in ns with the line that ends it.
+Then it builds the unstamped source alone and prints, for each
 instance of the kernel, what ptxas reports (registers, spills, stack
 frame) and what `cuobjdump -sass` shows: the instruction count, the MUFU,
 local-memory and CALL instructions among them, and each loop (a backward
@@ -67,6 +76,10 @@ KERNELS = {
            "skirt_poly_event"),
     "k3": ("fused_mono.cu", "MonoArgs", "mono_event_kernel(",
            "skirt_mono_event"),
+    "k5": ("fused_table_multi.cu", "TableMultiArgs",
+           "table_multi_event_kernel(", "skirt_table_multi_event"),
+    "k6": ("fused_table_poly.cu", "TablePolyArgs",
+           "table_poly_event_kernel(", "skirt_table_poly_event"),
     "k7": ("fused_table_poly_multi.cu", "TablePolyMultiArgs",
            "table_poly_multi_event_kernel(", "skirt_table_poly_multi_event"),
 }
@@ -75,26 +88,47 @@ KERNELS = {
 # with one of these (after it, for those marked "after"), in the order the
 # thread passes them; they are looked for between the argument struct and
 # the launch code, so a lane's code may sit in a device function of its own.
-# K7's match only its first design (one thread per lane); they serve
-# --csrc on a tree that still holds it, the later design being stamped at
-# its barriers.
+# A kernel may have several sets, one per design: the first set whose lines
+# the source holds all of is used.  K5's first set is its present design,
+# its second the first one; K6's and K7's match only their first designs
+# (one thread per lane): they serve --csrc on a tree that still holds them,
+# the later designs being stamped at their barriers.
 ANCHORS = {
-    "k3": (("  for (int i = threadIdx.x; i < 3 * H * NL; i += blockDim.x)",
-            "before"),
-           ("  if (n >= a.N) return;", "after"),
-           ("    const float taupath = cum;", "before"),
-           ("  if (LABS) {\n    a.odepi[n] = depi;", "before"),
-           ("  // -- local mixture", "before"),
-           ("  // -- Henyey-Greenstein scatter", "before"),
-           ("  a.ons[n] = nscatt;", "after")),
-    "k7": (("  const int W = a.W;", "before"),
-           ("  if (n >= a.N) return;", "after"),
-           ("    const float tau_c = cumc;", "before"),
-           ("    // -- w pass 1", "before"),
-           ("    // -- w pass 2", "before"),
-           ("    // -- w pass 3", "before"),
-           ("    alive = any_ln && (tau_c > TINY);", "before"),
-           ("  a.ons[n] = nscatt;", "after")),
+    "k3": ((("  for (int i = threadIdx.x; i < 3 * H * NL; i += blockDim.x)",
+             "before"),
+            ("  if (n >= a.N) return;", "after"),
+            ("    const float taupath = cum;", "before"),
+            ("  if (LABS) {\n    a.odepi[n] = depi;", "before"),
+            ("  // -- local mixture", "before"),
+            ("  // -- Henyey-Greenstein scatter", "before"),
+            ("  a.ons[n] = nscatt;", "after")),),
+    "k5": ((("  if (n >= a.N) return;", "after"),
+            ("    __pipeline_wait_prior(0);", "after"),
+            ("    lane_finish<LABS>(", "before"),
+            ("  if (LABS) {\n    a.odepi[n] = depi;", "before"),
+            ("  a.ocell[n] = cell;", "after")),
+           (("  if (n >= a.N) return;", "after"),
+            ("    const float taupath = cum;", "before"),
+            ("    // -- scattered-luminosity update", "before"),
+            ("    int i_hit = 0;", "before"),
+            ("  if (LABS) {\n    a.odepi[n] = depi;", "before"),
+            ("  a.ocell[n] = cell;", "after"))),
+    "k6": ((("  const int W = a.W;", "before"),
+            ("  if (n >= a.N) return;", "after"),
+            ("    I_tot = path_column(a, n, delta, cums);", "after"),
+            ("    // -- mixture-driver forced propagation", "before"),
+            ("    // -- per-wavelength mixture ratios", "before"),
+            ("    // -- peel and onward weights", "before"),
+            ("    alive = any_ln && (I_tot > TINY);", "before"),
+            ("  a.ons[n] = nscatt;", "after")),),
+    "k7": ((("  const int W = a.W;", "before"),
+            ("  if (n >= a.N) return;", "after"),
+            ("    const float tau_c = cumc;", "before"),
+            ("    // -- w pass 1", "before"),
+            ("    // -- w pass 2", "before"),
+            ("    // -- w pass 3", "before"),
+            ("    alive = any_ln && (tau_c > TINY);", "before"),
+            ("  a.ons[n] = nscatt;", "after")),),
 }
 
 TIMER = '''#include "common.cuh"
@@ -115,6 +149,18 @@ def _body_span(src: str, sig: str) -> tuple[int, int]:
     k0 = src.index(sig)
     k0 = src.index("{\n", k0) + 2
     return k0, src.index("\n}\n", k0) + 1
+
+
+def anchor_set(src: str, kernel: str, r0: int, k1: int):
+    """The first of the kernel's ANCHORS sets whose every line src holds
+    between r0 and k1."""
+    for anchors in ANCHORS.get(kernel, ()):
+        if all(src.find("\n" + text, r0, k1) >= 0 for text, _ in anchors):
+            return anchors
+    missing = [text for anchors in ANCHORS.get(kernel, ((),))
+               for text, _ in anchors if src.find("\n" + text, r0, k1) < 0]
+    raise RuntimeError(f"{kernel}: anchor {missing[0]!r} not found" if missing
+                       else f"{kernel}: no anchors")
 
 
 def stamped_source(src: str, kernel: str) -> tuple[str, list, bool]:
@@ -139,11 +185,10 @@ def stamped_source(src: str, kernel: str) -> tuple[str, list, bool]:
         src = src[:k0] + out + src[k1:]
     else:
         r0 = src.index("};", src.index(f"struct {struct} {{"))
+        anchors = anchor_set(src, kernel, r0, k1)
         at, lines = [], []
-        for p, (text, where) in enumerate(ANCHORS[kernel]):
+        for p, (text, where) in enumerate(anchors):
             i = src.find("\n" + text, r0, k1) + 1
-            if i == 0:
-                raise RuntimeError(f"{kernel}: anchor {text!r} not found")
             if where == "after":
                 i = src.index("\n", i + len(text)) + 1
             lines.append(src.count("\n", 0, i) + 1)
@@ -157,24 +202,33 @@ def stamped_source(src: str, kernel: str) -> tuple[str, list, bool]:
     return src, lines, per_block
 
 
-# K7's launch dispatch, where force_threads puts its choice of instance
-K7_LAUNCH = ("template <int H, bool LABS>\n"
-             "int launch(const TablePolyMultiArgs& a, cudaStream_t s) {\n")
+# each kernel's launch dispatch, where force_threads puts its choice of
+# instance: (the dispatch's first lines, launch_g's template arguments
+# before G)
+DISPATCH = {
+    "k6": ("template <bool LABS, bool DIRECT, bool POL>\n"
+           "int launch(const TablePolyArgs& a, cudaStream_t s) {\n",
+           "LABS, DIRECT, POL"),
+    "k7": ("template <int H, bool LABS>\n"
+           "int launch(const TablePolyMultiArgs& a, cudaStream_t s) {\n",
+           "H, LABS"),
+}
 
 
-def force_threads(src: str, threads) -> str:
-    """K7's source with a global `phases_threads` that, when set to one of
-    `threads`, sends every launch to the instance of that many threads a
-    lane (refused where W exceeds what it holds), and otherwise leaves the
-    kernel's own choice."""
-    if src.count(K7_LAUNCH) != 1:
-        raise RuntimeError("K7's launch dispatch not found")
+def force_threads(src: str, threads, kernel: str = "k7") -> str:
+    """The kernel's source with a global `phases_threads` that, when set to
+    one of `threads`, sends every launch to the instance of that many
+    threads a lane (refused where W exceeds the G * wpt<G>() wavelengths
+    it holds), and otherwise leaves the kernel's own choice."""
+    launch, targs = DISPATCH[kernel]
+    if src.count(launch) != 1:
+        raise RuntimeError(f"{kernel.upper()}'s launch dispatch not found")
     hook = "".join(
         f"  if (phases_threads == {g})\n"
         f"    return a.W > {g} * wpt<{g}>() ? (int)cudaErrorInvalidValue\n"
-        f"                                : launch_g<H, LABS, {g}>(a, s);\n"
+        f"                                : launch_g<{targs}, {g}>(a, s);\n"
         for g in threads if g)
-    src = src.replace(K7_LAUNCH, K7_LAUNCH + hook)
+    src = src.replace(launch, launch + hook)
     return src.replace('#include "common.cuh"',
                        '#include "common.cuh"\n'
                        'extern "C" {\nint phases_threads = 0;\n}', 1)
@@ -294,15 +348,48 @@ def _inputs(kernel, width, comp):
     import dataclasses
 
     from bench_torch import _octree_build
+    from ..engine import fused_table as mt
     from ..engine import fused_table_poly as m
-    from ..testing import table_event_inputs, table_poly_state
+    from ..testing import (table_event_inputs, table_multi_state,
+                           table_poly_state)
+
+    def cut(spec):
+        return dataclasses.replace(spec, min_scatt=1,
+                                   inv_minred=float(np.float32(1 / 100)))
+    if kernel == "k5":
+        n = 1 << 17
+        run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
+                                             polychromatic=False)
+        spec = cut(run_batch.spec)
+        inp = table_event_inputs(model[1], n, spec.n_uniform, 2, seed=51,
+                                 npanels=spec.npanels, small_tau=0.02,
+                                 outside=0.02, device="cuda")
+        kr, ks, state = table_multi_state(inp, model[1])
+        return (mt.table_multi_event, mt.table_multi_event_plain,
+                (spec, inp["u"], kr, ks, state),
+                f"N = {n}, P = {spec.npanels}, H = 2")
+    if kernel == "k6":
+        W = width or 2
+        n = 1 << {2: 17, 8: 16}.get(W, 15)
+        run_batch, *_, model = _octree_build(n, device="cuda", nlambda=W,
+                                             polychromatic=True)
+        spec = cut(run_batch.spec)
+        inp = table_event_inputs(model[1], n, spec.n_uniform, W,
+                                 seed={2: 31, 8: 81, 24: 34, 128: 35}.get(W,
+                                                                         31),
+                                 npanels=spec.npanels, small_tau=0.02,
+                                 outside=0.02, device="cuda")
+        oc = torch.as_tensor(spec.oc, device="cuda")
+        return (m.table_poly_event, m.table_poly_event_plain,
+                (spec, inp["u"], inp["rows"], oc, inp["L"], inp["L0"],
+                 table_poly_state(inp)),
+                f"N = {n}, W = {W}, P = {spec.npanels}")
     W = width or 2
     n = 1 << (17 if W <= 2 else 15)
     seed = {2: 61, 24: 64, 128: 65}.get(W, 61)
     run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
                                          nlambda=W, polychromatic=True)
-    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
-                               inv_minred=float(np.float32(1 / 100)))
+    spec = cut(run_batch.spec)
     inp = table_event_inputs(model[1], n, spec.n_uniform, W, seed=seed,
                              npanels=spec.npanels, small_tau=0.02,
                              outside=0.02, device="cuda")
@@ -328,10 +415,18 @@ def _report(t, lines, per_block, source):
     first, last = 0, nstamp - 1
     unit = "block" if per_block else "warp"
     full = t[(t[:, first] > 0) & (t[:, last] > 0)]
+    if len(full) == 0:
+        return [f"no {unit} stamped (this instance passes no stamp)"]
     life = full[:, last] - full[:, first]
     span = full[:, last].max() - full[:, first].min()
+    t0 = full[:, first].min()
+    starts = np.percentile(full[:, first] - t0, (50, 90, 100))
+    ends = np.percentile(full[:, last] - t0, (10, 50, 90, 100))
     out = [f"mean {unit} life {life.mean():.0f} ns, {unit}s resident "
-           f"{life.sum() / span:.1f} ({len(full)} {unit}s)"]
+           f"{life.sum() / span:.1f} ({len(full)} {unit}s); starts after "
+           f"the first (p50, p90, max) {', '.join(f'{v:.0f}' for v in starts)}"
+           f" ns, ends (p10, p50, p90, max) "
+           f"{', '.join(f'{v:.0f}' for v in ends)} ns"]
     for a in range(nstamp - 1):
         ok = (t[:, a] > 0) & (t[:, a + 1] > 0)
         d = t[ok, a + 1] - t[ok, a]
@@ -355,13 +450,13 @@ def main(argv=None):
                    help="wavelengths, a comma-separated list (0: default)")
     p.add_argument("--comp", type=int, default=1)
     p.add_argument("--threads", default="0",
-                   help="k7: threads a lane, a comma-separated list (0: the "
-                        "kernel's own choice)")
+                   help="k6, k7: threads a lane, a comma-separated list "
+                        "(0: the kernel's own choice)")
     args = p.parse_args(argv)
     widths = [int(w) for w in args.width.split(",")]
     threads = [int(g) for g in args.threads.split(",")]
-    if args.kernel != "k7" and threads != [0]:
-        p.error("--threads applies to k7 only")
+    if args.kernel not in DISPATCH and threads != [0]:
+        p.error(f"--threads applies to {', '.join(DISPATCH)} only")
     require_cuda()
     source, struct, sig, entry = KERNELS[args.kernel]
     csrc = Path(args.csrc)
@@ -369,7 +464,7 @@ def main(argv=None):
     common = (csrc / "common.cuh").read_text()
     src, lines, per_block = stamped_source(plain_src, args.kernel)
     if threads != [0]:
-        src = force_threads(src, threads)
+        src = force_threads(src, threads, args.kernel)
     work = Path(tempfile.mkdtemp(prefix="phases_"))
     so, _ = _build(work, source, src, common)
 

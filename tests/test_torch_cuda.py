@@ -480,10 +480,14 @@ def test_table_event_kernel_matches_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [2, 24])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 24, 33, 128])
 def test_table_poly_event_kernel_matches_plain(W):
-    """K6 against its plain version on identical inputs, chained over a
-    few events, the lanes' luminosities carried from event to event."""
+    """K6 against its plain version on identical inputs (dead lanes, lanes
+    with optical depths below 1e-3, a weight cut that fires, deposits
+    outside the grid), chained over a few events, the lanes' luminosities
+    carried from event to event, at widths that reach each of the
+    dispatch's thread-group routes (G = 1, 2, 8, 16; W = 33 sums blocks of
+    11): every output bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -512,7 +516,8 @@ def test_table_poly_event_kernel_matches_plain(W):
 
     _chain_table_events(tftp.table_poly_event, tftp.table_poly_event_plain,
                         spec, inp["u"], inp["rows"], table_poly_state(inp),
-                        lambda: (oc, lum["L"], inp["L0"]), restage)
+                        lambda: (oc, lum["L"], inp["L0"]), restage,
+                        bits=True)
 
 
 @pytest.mark.gpu
@@ -520,7 +525,7 @@ def test_table_multi_event_kernel_matches_plain():
     """K5 against its plain version on identical inputs (dead lanes, lanes
     with optical depths below 1e-3, a weight cut that fires, deposits
     outside the grid), chained over a few events with both panel sums
-    re-staged between them."""
+    re-staged between them: every output bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -554,7 +559,8 @@ def test_table_multi_event_kernel_matches_plain():
         return tft.table_multi_event_plain(spec, u, *rows, state)
 
     _chain_table_events(_Counted(kernel, tft.table_multi_event), plain, spec,
-                        inp["u"], (kr, ks), state, lambda: (), restage)
+                        inp["u"], (kr, ks), state, lambda: (), restage,
+                        bits=True)
 
 
 class _Counted:
@@ -670,7 +676,7 @@ def test_table_event_direct_kernel_matches_plain():
 def test_table_poly_event_direct_kernel_matches_plain(W):
     """K6d against its plain version on the 300-site tessellation, chained
     over a few events, the lanes' luminosities carried from event to
-    event."""
+    event: every output bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -702,7 +708,8 @@ def test_table_poly_event_direct_kernel_matches_plain(W):
     got = _chain_table_events(tftp.table_poly_event,
                               tftp.table_poly_event_plain, spec, inp["u"],
                               inp["rows"], table_poly_state(inp),
-                              lambda: (oc, lum["L"], inp["L0"]), restage)
+                              lambda: (oc, lum["L"], inp["L0"]), restage,
+                              bits=True)
     assert tftp.table_poly_event.direct_launches == before + 4
     assert torch.equal(got["depd"] >= 0, got["depi"] >= 0)
 
@@ -751,6 +758,181 @@ def test_table_poly_event_pol_kernel_matches_plain(W, direct):
                                   torch.stack(st[3:6], -1), 16, ones)
         state = list(st) + [t0, dt]
 
+
+
+# -- every thread-group route of K6, each instance forced -----------------
+
+# K6's instances: the widest W of G threads a lane (csrc/fused_table_poly.cu
+# wpt<G>)
+_K6_ROUTES = {1: 4, 2: 16, 4: 32, 16: 128}
+_K6_CASES = [(W, G) for W in (1, 2, 4, 8, 24, 33, 128)
+             for G, top in _K6_ROUTES.items() if W <= top]
+_K6_VARIANTS = ("K6", "K6 no labs", "K6d", "K6p", "K6p direct")
+
+
+@pytest.fixture(scope="module")
+def forced_routes(tmp_path_factory):
+    """K6's source with its dispatch held to one instance by
+    experiments.phases.force_threads, built with the package's flags:
+    {kernel: (library, entry point, its name)}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from skirt_tpu_torch.experiments import phases
+
+    common = (kernels.CSRC / "common.cuh").read_text()
+    libs = {}
+    for kernel, threads in (("k6", list(_K6_ROUTES)),):
+        source, struct, _, entry = phases.KERNELS[kernel]
+        src = phases.force_threads((kernels.CSRC / source).read_text(),
+                                   threads, kernel)
+        so, _ = phases._build(tmp_path_factory.mktemp(kernel), source, src,
+                              common)
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(getattr(kernels, struct)),
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[kernel] = (lib, fn, entry)
+    return libs
+
+
+class _Route:
+    """The package's library with one kernel's entry point swapped for the
+    forced build's, its dispatch held to G threads a lane."""
+
+    def __init__(self, libs, kernel, G):
+        self.lib, self.fn, self.entry = libs[kernel]
+        self.G = G
+
+    def __getattr__(self, name):
+        if name == self.entry:
+            return self.fn
+        return getattr(kernels.library(), name)
+
+    def __enter__(self):
+        import ctypes
+        ctypes.c_int.in_dll(self.lib, "phases_threads").value = self.G
+        kernels.library()
+        self.saved = kernels._lib
+        kernels._lib = self
+        return self
+
+    def __exit__(self, *exc):
+        kernels._lib = self.saved
+
+
+_route_models = {}
+
+
+def _route_model(variant, W):
+    """The spec, dust system and grid of a K6 variant at W wavelengths
+    (built once per module)."""
+    import dataclasses
+
+    key = (variant.endswith("direct") or variant == "K6d", W)
+    if key not in _route_models:
+        build = _voronoi_model if key[0] else _table_model
+        run, *_, model = build(device="cuda", nlambda=W, polychromatic=True)
+        _route_models[key] = (run.spec, model[1], model[0])
+    spec, ds, grid = _route_models[key]
+    spec = dataclasses.replace(spec, min_scatt=1,
+                               inv_minred=float(np.float32(0.01)),
+                               want_pol=variant.startswith("K6p"),
+                               want_labs=variant != "K6 no labs")
+    return spec, ds, grid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", _K6_VARIANTS)
+@pytest.mark.parametrize("W, G", _K6_CASES,
+                         ids=[f"W{w}-G{g}" for w, g in _K6_CASES])
+def test_table_poly_event_every_route_matches_plain(forced_routes, W, G,
+                                                    variant):
+    """K6, K6 without labs, K6d, K6p and K6p on the direct table, each
+    instance of G = 1, 2, 8, 16 threads a lane at every W it holds, held
+    to its plain version over three chained events on inputs with dead
+    lanes, lanes with optical depths below 1e-3, a weight cut that fires
+    and deposits outside the grid: every output bit-identical, K6p's I_s
+    and I_tot (dead lanes' too) included."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import table_poly_case, table_restage
+
+    spec, ds, grid = _route_model(variant, W)
+    n = 4096 + 17
+    (u, r, oc, L, L0, state), inp = table_poly_case(
+        spec, ds, n, seed=100 + W + G, device="cuda", small_tau=0.05,
+        outside=0.05)
+    assert (state[6] == 0).any() and inp["small_tau"].any()
+    ones = [torch.ones(n, device="cuda")]
+    with _Route(forced_routes, "k6", G):
+        for it in range(3):
+            if it:
+                u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
+            got = tftp.table_poly_event(spec, u, r, oc, L, L0, state)
+            _assert_bits(got, tftp.table_poly_event_plain(
+                spec, u, r, oc, L, L0, state), it)
+            st = got["state"]
+            L = got["Ln"]
+            r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                      torch.stack(st[3:6], -1), 16, ones)
+            state = list(st) + [t0, dt]
+
+
+@pytest.mark.gpu
+def test_table_poly_event_route_refuses_a_narrow_group(forced_routes):
+    """An instance too narrow for W (G = 1 holds 4 wavelengths) is
+    refused with an error, never run."""
+    from skirt_tpu_torch.testing import table_poly_case
+
+    spec, ds, _ = _route_model("K6", 8)
+    args, _ = table_poly_case(spec, ds, 256, seed=3, device="cuda")
+    with _Route(forced_routes, "k6", 1):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tftp.table_poly_event(spec, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("small", [0.05, 0.5], ids=["few-small", "half-small"])
+@pytest.mark.parametrize("labs", [True, False], ids=["labs", "no-labs"])
+def test_table_multi_event_kernel_edges_match_plain(small, labs):
+    """K5, labs on and off, held to the plain version over three chained
+    events (dead lanes, optical depths below 1e-3 on a few or half of the
+    lanes, so panel opacities below 2^-64 that the kernel scales before its
+    division, a weight cut that fires, deposits outside the grid, empty
+    panels where kr = ks = 0): every output bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_multi_state, table_restage)
+
+    run, *_, model = _multi_model(device="cuda")
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run.spec, min_scatt=1, want_labs=labs,
+                               inv_minred=float(np.float32(0.01)))
+    P, n = spec.npanels, 4096 + 17
+    inp = table_event_inputs(ds, n, 3, 2, seed=7 + int(labs), npanels=P,
+                             small_tau=small, outside=0.05, device="cuda")
+    kr, ks, state = table_multi_state(inp, ds)
+    assert bool((kr == 0).any())
+    ksca_pk, kext_pk = ds.packet_kappas(state[9])
+    u = inp["u"]
+    for it in range(3):
+        if it:
+            u = rng.uniform_open(it, (spec.n_uniform, n), "cuda")
+        got = tft.table_multi_event(spec, u, kr, ks, state)
+        _assert_bits(got, tft.table_multi_event_plain(spec, u, kr, ks,
+                                                      state), it)
+        st = got["state"]
+        kr, ks, t0, dt = table_restage(
+            grid, ds, torch.stack(st[:3], -1), torch.stack(state[3:6], -1),
+            P, kext_pk, ksca_pk)
+        state = list(st[:3]) + state[3:6] + [
+            st[3], st[4], state[8] + st[4], state[9], state[10], t0, dt]
 
 
 @pytest.mark.gpu
