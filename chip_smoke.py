@@ -4,10 +4,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 k1 k3 k5 k6 k6d k6p k7` runs phases 1-2 and
-then only the named kernel phases (k1 phase 4, k2 phase 3, k3 phase 5,
-k5 phase 7, k6 phase 8, k7 phase 9, k6d phase 11, k6p phase 12, each on
-the models main builds for it, built once per run), and prints their
+`python3 chip_smoke.py k2 k1 k3 k4 k4d k5 k6 k6d k6p k7 chunked` runs
+phases 1-2 and then only the named kernel phases (k1 phase 4, k2 phase 3,
+k3 phase 5, k4 phase 6, k5 phase 7, k6 phase 8, k7 phase 9, k4d phase 10,
+k6d phase 11, k6p phase 12, chunked phase 12b, each on the models main
+builds for it, built once per run), and prints their
 results and the card line but no "ok" line: the way to time two trees in
 one call (this script copied into the other tree's checkout).
 
@@ -79,6 +80,17 @@ exits non-zero without printing a result):
      (I_s, I_tot), the same way at W = 2 (N = 2^17), 24 and 128 (N =
      2^15), on config 3's voxel view and on the 33,000-site tessellation,
      one state each; every output bit-identical to the plain version
+  12b. every event kernel's chunked route (the template instance its C
+     entry point picks past 32 panels, 8 observer directions, K3's 2 and
+     K7's 3 dust components, K3's 12,288 table floats) against its plain
+     version, every output bit-identical, over three chained events from
+     one state at the kernel's main-path lanes: K1, K3, K4, K4d, K5, K6,
+     K6d, K6p and K7 at P = 33, 84 (the main 32x32x16 grid's max_steps)
+     and 280 (the 33,000-site tessellation's); K1 and K3 at 12 leaders;
+     K3 at H = 3 (2^18 lanes) and with 15,000 and 60,000 table floats
+     (shared memory and, past the card's opt-in limit, device memory);
+     K7 at H = 4 (P = 24); each timed against its bound with the shape's
+     panel count
   13. K8 (binned_add_lm) at experiments/microbench_blocked_tally.py's
      flagship (2^17 lanes, 128 wavelength blocks, 16,384 cells) and at
      nlambda = 20 (where skirt_tpu's tiles leave blocks 16-19 unwritten),
@@ -89,12 +101,15 @@ exits non-zero without printing a result):
      routes on P1-P10, on the 32,768-entry table with uniform indices
      and on the 2^23 voxel ids config 3's mono table path stages for its
      panel rows (event iterations 32-35 of one batch), PO at every stage
-     of P11-P14, PM at every shape and type of P15 (each timed over the
-     Pallas grid's G repeats)
+     of P11-P14 (its SASS must hold HGMMA: wgmma), PM at every shape and
+     type of P15 (each timed over the Pallas grid's G repeats)
   14. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
-     make_multibatch (bench_torch._build defaults); S2a, the mono
+     make_multibatch (bench_torch._build defaults); the same model
+     through OligoSimulation with quadrature_panels unset (P = 84 from
+     the grid, K1's chunked route; one batch of 2^15 lanes, W = 128,
+     K = 32); S2a, the mono
      flagship through OligoSimulation (bench.py BENCH_POLY=0
      BENCH_NLAMBDA=4 BENCH_LOG2_PACKETS=21, 2 batches instead of 8);
      config 3 monochromatic (K4, 2^17 lanes, K = 128) and polychromatic
@@ -127,7 +142,8 @@ exits non-zero without printing a result):
      lambda-blocked tally and the probes: the four drivers of phase 13
      run once per distinct call (K8, PG, PO and PM counted)
   15. each path at a small size on the card against the same run on the
-     CPU (the direct table on tests/test_poly.py's 300-site model; the
+     CPU (the P = 84 OligoSimulation at tests/test_poly.py's tolerances;
+     the direct table on tests/test_poly.py's 300-site model; the
      polarized poly table on tests/test_polarization.py's Thomson sphere)
   16. one JSON line of per-kernel results, the card line, and last
      {"ok": true, "device": {...}}
@@ -224,6 +240,24 @@ VORONOI_K = 8
 
 def log(msg):
     print(msg, flush=True)
+
+
+def sass_count(so, function, opcode):
+    """Instructions of `opcode` in the SASS of the library's functions
+    whose names hold `function` (cuobjdump -sass)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from skirt_tpu_torch import kernels
+
+    cuobjdump = str(Path(kernels.nvcc()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    return sum(len(re.findall(r"\b" + opcode + r"\b", body))
+               for name, body in zip(parts[1::2], parts[2::2])
+               if function in name)
 
 
 def event_bound(reads, out, n, live, ops_per_live_lane):
@@ -670,6 +704,94 @@ def phase_reference_poly(torch):
         f"frame {g['frame'] / c['frame']:.4f}, labs {g['labs'] / c['labs']:.4f}")
 
 
+def _poly_simulation(device, nlambda, lanes, batches, **model_kw):
+    """An OligoSimulation of the bench model with polychromatic lanes:
+    `lanes` lanes per batch (each carrying all nlambda wavelengths),
+    `batches` batches in one dispatch."""
+    from bench_torch import _model
+    from skirt_tpu_torch.engine.simulation import OligoSimulation
+    from skirt_tpu_torch.log import SilentLog
+
+    grid, ds, ss, ins, opts = _model(nlambda=nlambda, polychromatic=True,
+                                     **model_kw)
+    K = max(opts.refill_batches, 1)
+    return OligoSimulation(stellar_system=ss, instruments=ins,
+                           dust_system=ds, options=opts,
+                           packets=lanes * K * batches,
+                           batch_size=lanes * nlambda,
+                           dispatch_batches=batches, log=SilentLog(),
+                           device=device)
+
+
+def phase_main_poly_default(torch, results):
+    """The main-path analytic model through OligoSimulation with
+    quadrature_panels unset: the panels follow the grid (max_steps 84 on
+    its 32 x 32 x 16 cells), so K1 runs its chunked route.  W = 128, 2^15
+    lanes, one batch at K = 32 (depth cut from S1's 2 x 128)."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_poly
+    from skirt_tpu_torch.ops import binned
+
+    W, lanes, K = 128, 1 << 15, 32
+    sim = _poly_simulation("cuda", W, lanes, 1, ncells=32, refill_batches=K,
+                           peel_panels=8)
+    spec = sim._lifecycle.spec
+    assert isinstance(spec, fused_poly.PolyEventSpec)
+    assert sim.options.quadrature_panels is None and spec.npanels == 84
+    assert fused_poly.cuda_route(spec)[0]
+    torch.cuda.synchronize()
+    binned.binned_add.launches = 0
+    fused_poly.poly_event.launches = 0
+    t0 = time.perf_counter()
+    acc = sim._run_phase(rng.root_key(sim.seed), 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"K1": fused_poly.poly_event.launches,
+                "K2": binned.binned_add.launches}
+    results["launches_poly_p84"] = launches
+    pps = lanes * K * W / dt
+    launched = float(sim.stellar_system.Lv.sum())
+    sed, labs = _check_tallies(acc, launched, "poly P=84 main path")
+    log(f"  poly main path, quadrature_panels unset (OligoSimulation, "
+        f"P={spec.npanels}): 1 batch x {lanes} lanes x K={K} x W={W} in "
+        f"{dt:.3f} s = {pps:.4e} packets/s; launches {launches}; SED total "
+        f"{sed.sum():.4e} W, labs {labs:.4e} W of {launched:.4e} W launched")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    results["main_poly_p84"] = {"seconds": dt, "packets_per_s": pps}
+
+
+def phase_reference_poly_default(torch):
+    """The same OligoSimulation (quadrature_panels unset: P = 84, K1's
+    chunked route) at a small size on the card against the CPU, at
+    tests/test_poly.py's tolerances (SED per wavelength 0.15, totals
+    0.05)."""
+    from skirt_tpu_torch import rng
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = _poly_simulation(dev, 12, 4096, 1, ncells=32, refill_batches=4,
+                               peel_panels=8, max_scatt=32, vary_lambda=True)
+        assert sim._lifecycle.spec.npanels == 84
+        acc = sim._run_phase(rng.root_key(sim.seed), 0)
+        sed, labs = _check_tallies(acc, float(sim.stellar_system.Lv.sum()),
+                                   f"small poly P=84 run on {dev}")
+        outs[dev] = {"sed": sed,
+                     "frame": float(acc["instruments"][1]["ftot"].sum()),
+                     "labs": labs}
+    g, c = outs["cuda"], outs["cpu"]
+    np.testing.assert_allclose(g["sed"], c["sed"], rtol=0.15)
+    for k in ("frame", "labs"):
+        if abs(g[k] / c[k] - 1) > 0.05:
+            raise AssertionError(f"P=84 {k}: cuda {g[k]} vs cpu {c[k]}")
+    if abs(g["sed"].sum() / c["sed"].sum() - 1) > 0.05:
+        raise AssertionError("P=84 SED total differs between cuda and cpu")
+    log(f"  small poly OligoSimulation (P=84) cuda/cpu: SED "
+        f"{g['sed'].sum() / c['sed'].sum():.4f}, frame "
+        f"{g['frame'] / c['frame']:.4f}, labs {g['labs'] / c['labs']:.4f}")
+
+
 def _mono_simulation(device, nlambda, lanes, batches, **model_kw):
     """An OligoSimulation of the bench model with one wavelength per lane:
     `lanes` lanes per batch, `batches` batches in one dispatch."""
@@ -773,14 +895,16 @@ def _bits(got, want):
         torch.equal(got[k], want[k]) for k in want if k != "state")
 
 
-def _chain_k4(torch, label, spec, grid, ds, n, seeds):
+def _chain_k4(torch, label, spec, grid, ds, n, seeds, events=EVENTS,
+              exact=False):
     """K4 (or K4d, spec.arith_locate False) against its plain version on
     table_event_inputs states (about 10% dead lanes, lanes with optical
     depths below 1e-3, lanes past min_scatt_events 1 with a weight cut
     that fires, lanes whose deposit falls outside the grid), each chained
-    over six events, the panels re-staged on the card between events as
-    the lifecycle stages them.  Returns (worst scaled error, the timed inputs
-    (u, kr, state) of the first state's first event)."""
+    over six events (or `events`), the panels re-staged on the card
+    between events as the lifecycle stages them; exact=True also requires
+    every output bit-identical.  Returns (worst scaled error, the timed
+    inputs (u, kr, state) of the first state's first event)."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table as tft
     from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
@@ -804,7 +928,7 @@ def _chain_k4(torch, label, spec, grid, ds, n, seeds):
             f"1e-3, {int((alive_in & (state[8] >= spec.min_scatt)).sum())} "
             f"live past min_scatt, {int((alive_in & inp['outside']).sum())} "
             f"live with the deposit point outside the grid")
-        for it in range(EVENTS):
+        for it in range(events):
             if it:
                 u = rng.uniform_open(rng.event_key(seed, it),
                                      (spec.n_uniform, n), "cuda")
@@ -823,7 +947,8 @@ def _chain_k4(torch, label, spec, grid, ds, n, seeds):
                 f"{float(alive.float().mean()):.3f}, killed "
                 f"{int((alive_in & ~alive).sum())}, deposits "
                 f"{int((got[dep] >= 0).sum())}")
-            if res["discrete"] < 0.999 or res["float_bad"] > 0:
+            if res["discrete"] < 0.999 or res["float_bad"] > 0 or (
+                    exact and not _bits(got, want)):
                 raise AssertionError(f"{label} kernel disagrees with its "
                                      f"plain version at event {it}: {res}")
             worst = max(worst, res["scaled_err"])
@@ -904,7 +1029,8 @@ def phase_k4d(torch, results, vgrid):
                                    k4d_ops(spec.npanels)), max_abs_err=worst)
 
 
-def _chain_k6(torch, label, spec, grid, ds, n, seeds, exact=False):
+def _chain_k6(torch, label, spec, grid, ds, n, seeds, exact=False,
+              events=EVENTS):
     """K6 (or K6d, K6p) against its plain version the way _chain_k4 holds
     K4, the lanes' luminosities carried from event to event; exact=True
     also requires every output bit-identical.  Returns (worst scaled
@@ -934,7 +1060,7 @@ def _chain_k6(torch, label, spec, grid, ds, n, seeds, exact=False):
             f"live past min_scatt, "
             f"{int((alive_in & inp['outside']).sum())} live with the "
             f"deposit point outside the grid")
-        for it in range(EVENTS):
+        for it in range(events):
             if it:
                 u = rng.uniform_open(rng.event_key(seed, it),
                                      (spec.n_uniform, n), "cuda")
@@ -1076,26 +1202,20 @@ def phase_k6p(torch, results, octree, vgrid):
     results["K6p"] = dict(by_w["W=2"], max_abs_err=worst, by_W=by_w)
 
 
-def phase_k5(torch, results, multi_tree):
-    import dataclasses
-
-    from bench_torch import _octree_build
+def _chain_k5(torch, label, spec, grid, ds, n, seeds, events=EVENTS):
+    """K5 against its plain version the way _chain_k4 holds K4, every
+    output to the bit, both panel sums re-staged between events after a
+    torch-side direction change.  Returns (worst scaled error, the timed
+    inputs (u, kr, ks, state) of the last state's first event)."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table as tft
     from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
                                          table_multi_state, table_restage)
 
-    n = 1 << 17
-    run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
-                                         polychromatic=False, grid=multi_tree)
-    grid, ds = model[0], model[1]
-    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
-                               inv_minred=float(np.float32(1 / 100)))
     P = spec.npanels
-    assert isinstance(spec, tft.TableMultiEventSpec) and ds.ncomp == 2
-    assert P == 24 and spec.nlambda == 2 and spec.want_labs
     worst = 0.0
-    for seed in (51, 52, 53):
+    first = None
+    for seed in seeds:
         inp = table_event_inputs(ds, n, spec.n_uniform, 2, seed=seed,
                                  npanels=P, small_tau=0.02, outside=0.02,
                                  device="cuda")
@@ -1103,13 +1223,13 @@ def phase_k5(torch, results, multi_tree):
         u = inp["u"]
         ksca_pk, kext_pk = ds.packet_kappas(state[9])
         alive_in = state[7] != 0
-        log(f"  K5 inputs (seed {seed}): {n} lanes, H=2, "
+        log(f"  {label} inputs (seed {seed}): {n} lanes, H=2, "
             f"{int((~alive_in).sum())} dead, "
             f"{int((alive_in & inp['small_tau']).sum())} live with tau < "
             f"1e-3, {int((alive_in & (state[8] >= spec.min_scatt)).sum())} "
             f"live past min_scatt, {int((alive_in & inp['outside']).sum())} "
             f"live with the deposit point outside the grid")
-        for it in range(EVENTS):
+        for it in range(events):
             if it:
                 u = rng.uniform_open(rng.event_key(seed, it),
                                      (spec.n_uniform, n), "cuda")
@@ -1121,7 +1241,7 @@ def phase_k5(torch, results, multi_tree):
             res = event_agreement(got, want)
             alive_in = state[7] != 0
             alive = got["state"][4] != 0
-            log(f"  K5 event {it}: discrete agree {res['discrete']:.6f}, "
+            log(f"  {label} event {it}: discrete agree {res['discrete']:.6f}, "
                 f"float-disagreeing lanes {res['float_bad']}, scaled max "
                 f"err {res['scaled_err']:.3e}, bit-identical "
                 f"{_bits(got, want)}; alive "
@@ -1131,8 +1251,8 @@ def phase_k5(torch, results, multi_tree):
                 f"{int((got['cell'] >= 0).sum())}")
             if res["discrete"] < 0.999 or res["float_bad"] > 0 or not \
                     _bits(got, want):
-                raise AssertionError(f"K5 kernel disagrees with its plain "
-                                     f"version at event {it}: {res}")
+                raise AssertionError(f"{label} kernel disagrees with its "
+                                     f"plain version at event {it}: {res}")
             worst = max(worst, res["scaled_err"])
             # the driver scatters torch-side; here a new isotropic direction
             # for the lanes that go on, then the panels re-staged
@@ -1144,7 +1264,16 @@ def phase_k5(torch, results, multi_tree):
                                            d, P, kext_pk, ksca_pk)
             state = list(st[:3]) + [d[:, i].contiguous() for i in range(3)] \
                 + [st[3], st[4], state[8] + st[4]] + state[9:11] + [t0, dt]
-    u, kr, ks, state = first
+    return worst, first
+
+
+def _time_k5(torch, label, spec, timed):
+    """Kernel, plain and bound times of one K5 event on its timed inputs,
+    and the modelled issue floor in the log line."""
+    from skirt_tpu_torch.engine import fused_table as tft
+
+    u, kr, ks, state = timed
+    n, P = state[0].shape[0], spec.npanels
     live = int((state[7] != 0).sum())
     ms = cuda_ms(lambda: tft.table_multi_event(spec, u, kr, ks, state))
     plain_ms = cuda_ms(lambda: tft.table_multi_event_plain(spec, u, kr, ks,
@@ -1156,21 +1285,156 @@ def phase_k5(torch, results, multi_tree):
                       tft.table_multi_event(spec, u, kr, ks, state), n, live,
                       k5_ops(P))
     floor = issue_floor(live * k5_ops(P), live * k5_trans(P))
-    log(f"  K5 N={n} P={P} H=2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes), issue floor "
-        f"{floor:.4f} ms")
-    results["K5"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+    log(f"  {label} N={n} P={P} H=2: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live "
+        f"lanes), issue floor {floor:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def phase_k5(torch, results, multi_tree):
+    import dataclasses
+
+    from bench_torch import _octree_build
+    from skirt_tpu_torch.engine import fused_table as tft
+
+    n = 1 << 17
+    run_batch, *_, model = _octree_build(n, device="cuda", multi=True,
+                                         polychromatic=False, grid=multi_tree)
+    grid, ds = model[0], model[1]
+    spec = dataclasses.replace(run_batch.spec, min_scatt=1,
+                               inv_minred=float(np.float32(1 / 100)))
+    assert isinstance(spec, tft.TableMultiEventSpec) and ds.ncomp == 2
+    assert spec.npanels == 24 and spec.nlambda == 2 and spec.want_labs
+    worst, first = _chain_k5(torch, "K5", spec, grid, ds, n, (51, 52, 53))
+    results["K5"] = dict(_time_k5(torch, "K5", spec, first),
+                         max_abs_err=worst)
+
+
+def _k7_components(spec, H):
+    """The K7 spec at H components from the two-component model's: the
+    extra components copies of the first two (their panels at half the
+    density, their opacities 1.3x), g as theirs."""
+    import dataclasses
+
+    oc = np.asarray(spec.oc, np.float64).reshape(3, 2, spec.W)
+    extra = [oc[:, h % 2:h % 2 + 1] * np.array([1.3, 1.3, 1.0])[:, None, None]
+             for h in range(2, H)]
+    oc = np.concatenate([oc] + extra, 1)
+    return dataclasses.replace(spec, H=H, oc=np.ascontiguousarray(
+        oc.reshape(3 * H, spec.W), np.float32))
+
+
+def _k7_rows(torch, r, P, H):
+    """The (H P, N) panel rows of _k7_components from the model's two."""
+    return torch.cat([r] + [0.5 * r[(h % 2) * P:(h % 2 + 1) * P]
+                            for h in range(2, H)]) if H > 2 else r
+
+
+def _chain_k7(torch, label, spec, grid, ds, n, seeds, events=EVENTS,
+              exact=False):
+    """K7 against its plain version the way _chain_k6 holds K6 (at
+    spec.H components: _k7_components); exact=True also requires every
+    output bit-identical.  Returns (worst scaled error, the timed inputs
+    (u, r, L, L0, state) of the last state's first event)."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
+                                         table_poly_state, table_restage)
+
+    W, P, H = spec.W, spec.npanels, spec.H
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    worst = 0.0
+    first = None
+    for seed in seeds:
+        inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
+                                 npanels=P, small_tau=0.02, outside=0.02,
+                                 device="cuda")
+        state = table_poly_state(inp)
+        u, L, L0 = inp["u"], inp["L"], inp["L0"]
+        r = _k7_rows(torch, inp["rows"], P, H)
+        alive_in = state[6] != 0
+        log(f"  {label} W={W} inputs (seed {seed}): {n} lanes, H={H}, "
+            f"{int((~alive_in).sum())} dead, "
+            f"{int((alive_in & inp['small_tau']).sum())} live with "
+            f"panel densities x 1e-6, "
+            f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
+            f"live past min_scatt, "
+            f"{int((alive_in & inp['outside']).sum())} live with the "
+            f"deposit point outside the grid")
+        for it in range(events):
+            if it:
+                u = rng.uniform_open(rng.event_key(seed, it),
+                                     (spec.n_uniform, n), "cuda")
+            if it == 0:
+                first = (u, r, L, L0, state)    # the timed inputs
+            got = tftp.table_poly_multi_event(spec, u, r, oc, L, L0, state)
+            want = tftp.table_poly_multi_event_plain(spec, u, r, oc, L, L0,
+                                                     state)
+            torch.cuda.synchronize()
+            res = event_agreement(got, want)
+            alive_in = state[6] != 0
+            alive = got["state"][6] != 0
+            cut = int(((got["Ln"] == 0) & alive[None]).sum())
+            log(f"  {label} W={W} event {it}: discrete agree "
+                f"{res['discrete']:.6f}, float-disagreeing lanes "
+                f"{res['float_bad']}, scaled max err "
+                f"{res['scaled_err']:.3e}, bit-identical "
+                f"{_bits(got, want)}; alive "
+                f"{float(alive.float().mean()):.3f}, killed "
+                f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
+                f"deposits {int((got['depi'] >= 0).sum())}")
+            if res["discrete"] < 0.999 or res["float_bad"] > 0 or (
+                    exact and not _bits(got, want)):
+                raise AssertionError(f"{label} kernel disagrees with its "
+                                     f"plain version (W={W}) at event "
+                                     f"{it}: {res}")
+            worst = max(worst, res["scaled_err"])
+            st = got["state"]
+            r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
+                                      torch.stack(st[3:6], -1), P, None)
+            r = _k7_rows(torch, r, P, H)
+            state = list(st) + [t0, dt]
+            L = got["Ln"]
+    return worst, first
+
+
+def _time_k7(torch, label, spec, timed):
+    """Kernel, plain and bound times of one K7 event on its timed inputs,
+    and the modelled issue floor in the log line."""
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+
+    u, r, L, L0, state = timed
+    W, P, H = spec.W, spec.npanels, spec.H
+    oc = torch.as_tensor(spec.oc, device="cuda")
+    n = state[0].shape[0]
+    live = int((state[6] != 0).sum())
+    ms = cuda_ms(lambda: tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
+                                                     state))
+    plain_ms = cuda_ms(lambda: tftp.table_poly_multi_event_plain(
+        spec, u, r, oc, L, L0, state), reps=5)
+    # every lane reads position, direction, alive and nscatt; only a
+    # live one its uniforms, the H panel row sets, weights L, t0 and dt,
+    # and only a live one past min_scatt the launch weights L0
+    cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
+    bnd = event_bound([([oc] + state[:8], n),
+                       ([u, r, L, state[8:]], live), ([L0], cut)],
+                      tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
+                                                  state),
+                      n, live, k7_ops(P, W, H))
+    floor = issue_floor(live * k7_ops(P, W, H), live * k7_trans(P, W, H))
+    log(f"  {label} N={n} W={W} P={P} H={H}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
+        f"live lanes), issue floor {floor:.4f} ms")
+    return {"lanes": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
 
 
 def phase_k7(torch, results, multi_tree):
     import dataclasses
 
     from bench_torch import _octree_build
-    from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table_poly as tftp
-    from skirt_tpu_torch.testing import (event_agreement, table_event_inputs,
-                                         table_poly_state, table_restage)
 
     worst = 0.0
     by_w = {}
@@ -1182,80 +1446,251 @@ def phase_k7(torch, results, multi_tree):
         grid, ds = model[0], model[1]
         spec = dataclasses.replace(run_batch.spec, min_scatt=1,
                                    inv_minred=float(np.float32(1 / 100)))
-        P, H = spec.npanels, spec.H
         assert isinstance(spec, tftp.TablePolyMultiEventSpec)
-        assert P == 24 and H == 2 and spec.W == W and spec.want_labs
-        oc = torch.as_tensor(spec.oc, device="cuda")
-        for seed in seeds:
-            inp = table_event_inputs(ds, n, spec.n_uniform, W, seed=seed,
-                                     npanels=P, small_tau=0.02, outside=0.02,
-                                     device="cuda")
-            state = table_poly_state(inp)
-            u, r, L, L0 = inp["u"], inp["rows"], inp["L"], inp["L0"]
-            alive_in = state[6] != 0
-            log(f"  K7 W={W} inputs (seed {seed}): {n} lanes, H={H}, "
-                f"{int((~alive_in).sum())} dead, "
-                f"{int((alive_in & inp['small_tau']).sum())} live with "
-                f"panel densities x 1e-6, "
-                f"{int((alive_in & (state[7] >= spec.min_scatt)).sum())} "
-                f"live past min_scatt, "
-                f"{int((alive_in & inp['outside']).sum())} live with the "
-                f"deposit point outside the grid")
-            for it in range(EVENTS):
-                if it:
-                    u = rng.uniform_open(rng.event_key(seed, it),
-                                         (spec.n_uniform, n), "cuda")
-                if it == 0:
-                    first = (u, r, L, state)    # the timed inputs
-                got = tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
-                                                  state)
-                want = tftp.table_poly_multi_event_plain(spec, u, r, oc, L,
-                                                         L0, state)
-                torch.cuda.synchronize()
-                res = event_agreement(got, want)
-                alive_in = state[6] != 0
-                alive = got["state"][6] != 0
-                cut = int(((got["Ln"] == 0) & alive[None]).sum())
-                log(f"  K7 W={W} event {it}: discrete agree "
-                    f"{res['discrete']:.6f}, float-disagreeing lanes "
-                    f"{res['float_bad']}, scaled max err "
-                    f"{res['scaled_err']:.3e}, bit-identical "
-                    f"{_bits(got, want)}; alive "
-                    f"{float(alive.float().mean()):.3f}, killed "
-                    f"{int((alive_in & ~alive).sum())}, (lane, w) cut {cut}, "
-                    f"deposits {int((got['depi'] >= 0).sum())}")
-                if res["discrete"] < 0.999 or res["float_bad"] > 0:
-                    raise AssertionError(f"K7 kernel disagrees with its "
-                                         f"plain version (W={W}) at event "
-                                         f"{it}: {res}")
-                worst = max(worst, res["scaled_err"])
-                st = got["state"]
-                r, t0, dt = table_restage(grid, ds, torch.stack(st[:3], -1),
-                                          torch.stack(st[3:6], -1), P, None)
-                state = list(st) + [t0, dt]
-                L = got["Ln"]
-        u, r, L, state = first
-        live = int((state[6] != 0).sum())
-        ms = cuda_ms(lambda: tftp.table_poly_multi_event(spec, u, r, oc, L,
-                                                         L0, state))
-        plain_ms = cuda_ms(lambda: tftp.table_poly_multi_event_plain(
-            spec, u, r, oc, L, L0, state), reps=5)
-        # every lane reads position, direction, alive and nscatt; only a
-        # live one its uniforms, the H panel row sets, weights L, t0 and dt,
-        # and only a live one past min_scatt the launch weights L0
-        cut = int(((state[6] != 0) & (state[7] >= spec.min_scatt)).sum())
-        bnd = event_bound([([oc] + state[:8], n),
-                           ([u, r, L, state[8:]], live), ([L0], cut)],
-                          tftp.table_poly_multi_event(spec, u, r, oc, L, L0,
-                                                      state),
-                          n, live, k7_ops(P, W, H))
-        floor = issue_floor(live * k7_ops(P, W, H), live * k7_trans(P, W, H))
-        log(f"  K7 N={n} W={W} P={P} H={H}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {live} "
-            f"live lanes), issue floor {floor:.4f} ms")
-        by_w[W] = {"lanes": n, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bnd[0], "bound_by": bnd[1]}
+        assert spec.npanels == 24 and spec.H == 2 and spec.W == W
+        assert spec.want_labs
+        err, first = _chain_k7(torch, "K7", spec, grid, ds, n, seeds)
+        worst = max(worst, err)
+        by_w[W] = _time_k7(torch, "K7", spec, first)
     results["K7"] = dict(by_w[2], max_abs_err=worst, by_W=by_w)
+
+
+# the chunked routes' shapes (phase 12b): panel counts past MAXP = 32 (84:
+# the main 32x32x16 grid's max_steps; 280: the 33,000-site tessellation's)
+CHUNK_P = (33, 84, 280)
+CHUNK_EVENTS = 3
+
+
+def _leaders(count):
+    """`count` observer directions (unit vectors at spread inclinations
+    and azimuths)."""
+    out = []
+    for j, inc in enumerate(np.linspace(0.15, 3.0, count)):
+        out.append((float(np.sin(inc) * np.cos(0.7 * j)),
+                    float(np.sin(inc) * np.sin(0.7 * j)), float(np.cos(inc))))
+    return out
+
+
+def _chain_analytic(torch, label, kernel, plain, spec, n, seed, events,
+                    poly):
+    """K1 (poly) or K3 against its plain version over `events` chained
+    events from one testing.event_case / mono_event_case state, every
+    output to the bit.  Returns (worst scaled error, the timed inputs)."""
+    from skirt_tpu_torch import rng
+    from skirt_tpu_torch.testing import (event_agreement, event_case,
+                                         mono_event_case)
+
+    if poly:
+        spec, u, oc, L, l0, state = event_case(spec, n, seed, "cuda")
+    else:
+        spec, u, state = mono_event_case(spec, n, seed, "cuda")
+    worst, timed = 0.0, None
+    for it in range(events):
+        if it:
+            u = rng.uniform_open(rng.event_key(seed, it),
+                                 (spec.n_uniform, n), "cuda")
+        args = (spec, u, oc, L, l0, state) if poly else (spec, u, state)
+        if timed is None:
+            timed = args
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        res = event_agreement(got, want)
+        bits = _bits(got, want)
+        log(f"  {label} event {it}: discrete agree {res['discrete']:.6f}, "
+            f"float-disagreeing lanes {res['float_bad']}, bit-identical "
+            f"{bits}")
+        if not bits:
+            raise AssertionError(f"{label} kernel disagrees with its plain "
+                                 f"version at event {it}: {res}")
+        worst = max(worst, res["scaled_err"])
+        if poly:
+            state = list(got["state"]) + [got["bc"]]
+            L = got["Ln"]
+        else:
+            state = list(got["state"]) + state[9:11] + [got["bc"]]
+    return worst, timed
+
+
+def _time_analytic(torch, label, kernel, plain, args, poly):
+    """Kernel, plain and bound times of one K1 or K3 event, as phases 4
+    and 5 count them."""
+    spec, u, state = args[0], args[1], args[-1]
+    n = state[0].shape[0]
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), reps=5)
+    ia, ib = (6, 8) if poly else (7, 11)
+    alive = state[ia] != 0
+    live = int(alive.sum())
+    refill = int((~alive & (state[ib] < spec.K)).sum())
+    if poly:
+        oc, L, l0 = args[2:5]
+        cut = int((alive & (state[7] >= spec.min_scatt)).sum())
+        reads = [([oc, state], n), ([u], live + refill), ([L], live),
+                 ([l0], refill + cut)]
+        ops, trans = k1_ops(spec), k1_trans(spec)
+    else:
+        reads = [([state], n), ([u], live + refill)]
+        ops, trans = k3_ops(spec), k3_trans(spec)
+    bnd = event_bound(reads, kernel(*args), n, live, ops)
+    floor = issue_floor(live * ops, live * trans)
+    log(f"  {label} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}, {live} live lanes), issue floor "
+        f"{floor:.4f} ms")
+    return {"lanes": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def _k3_components(spec, H):
+    """The K3 spec at H components from the two-component one: the extra
+    components copies of the first two's densities, their opacities 1.3x,
+    their g halved."""
+    import dataclasses
+
+    NL = spec.nlambda
+    tab = np.asarray(spec.tab, np.float64).reshape(3, 2, NL)
+    extra = [tab[:, h % 2:h % 2 + 1] * np.array([1.3, 1.3, 0.5])[:, None,
+                                                                  None]
+             for h in range(2, H)]
+    tab = np.concatenate([tab] + extra, 1)
+    geoms = [spec.density_geometries[h % 2] for h in range(H)]
+    return dataclasses.replace(
+        spec, H=H, tab=np.ascontiguousarray(tab.reshape(3 * H, NL),
+                                            np.float32),
+        density_geometries=geoms, _tab_dev={})
+
+
+def _k3_wide_table(spec, NL):
+    """The K3 spec with an NL-wavelength table (3 NL floats), the model's
+    columns repeated."""
+    import dataclasses
+
+    tab = np.asarray(spec.tab)[:, np.arange(NL) % spec.nlambda]
+    return dataclasses.replace(spec, nlambda=NL, tab=np.ascontiguousarray(
+        tab, np.float32), _tab_dev={})
+
+
+def phase_chunked(torch, results, octree, multi_tree, vgrid):
+    """Every event kernel's chunked route (panel counts past MAXP = 32,
+    more than 8 observers, more dust components, K3's wide tables)
+    against its plain version, every output to the bit, over
+    CHUNK_EVENTS chained events from one state, at the kernel's main-path
+    lanes, each timed against its bound with the shape's panel count."""
+    import dataclasses
+
+    from bench_torch import _build, _octree_build
+    from skirt_tpu_torch.engine import fused, fused_poly
+
+    out = {}
+    t0 = time.perf_counter()
+
+    def took(what):
+        log(f"  {what} in {time.perf_counter() - t0:.1f} s of the phase")
+
+    def put(kname, shape, err, timing):
+        out.setdefault(kname, {})[shape] = dict(timing, max_abs_err=err)
+
+    def panels(spec, P):
+        return dataclasses.replace(spec, npanels=P,
+                                   inv_np=float(np.float32(1.0 / P)))
+
+    # K1: the poly path's shapes (N = 2^15, W = 128, 8 peel panels, refill)
+    run_batch, *_ = _build(nlambda=128, ncells=32, packets=32768,
+                           refill_batches=128, quadrature_panels=32,
+                           peel_panels=8, device="cuda")
+    base = run_batch.spec
+    k1 = (fused_poly.poly_event, fused_poly.poly_event_plain)
+    cases = [(f"P={P}", panels(base, P)) for P in CHUNK_P]
+    cases.append(("12 leaders", dataclasses.replace(base,
+                                                    leaders=_leaders(12))))
+    for shape, spec in cases:
+        assert fused_poly.cuda_route(spec)[0]
+        err, timed = _chain_analytic(torch, f"K1 {shape}", *k1, spec, 32768,
+                                     101, CHUNK_EVENTS, True)
+        put("K1", shape, err, _time_analytic(torch, f"K1 {shape}", *k1,
+                                             timed, True))
+    took("K1")
+    # K3: the mono path's shapes (N = 2^21, W = 4), then H = 3 and the
+    # wide tables at 2^18 lanes
+    k3 = (fused.mono_event, fused.mono_event_plain)
+    run_batch, *_ = _build(nlambda=4, ncells=32, packets=1 << 21,
+                           refill_batches=128, quadrature_panels=32,
+                           peel_panels=8, polychromatic=False, device="cuda")
+    base = run_batch.spec
+    cases = [(f"P={P}", panels(base, P), 1 << 21) for P in CHUNK_P]
+    cases.append(("12 leaders", dataclasses.replace(base,
+                                                    leaders=_leaders(12)),
+                  1 << 21))
+    cases += [(f"table {3 * NL} floats", _k3_wide_table(base, NL), 1 << 18)
+              for NL in (5000, 20000)]
+    run_batch, *_ = _build(nlambda=4, ncells=32, packets=1 << 18,
+                           refill_batches=128, quadrature_panels=32,
+                           peel_panels=8, polychromatic=False, ncomp=2,
+                           device="cuda")
+    cases.append(("H=3", _k3_components(run_batch.spec, 3), 1 << 18))
+    for shape, spec, n in cases:
+        assert fused.cuda_route(spec)[0]
+        err, timed = _chain_analytic(torch, f"K3 {shape}", *k3, spec, n, 102,
+                                     CHUNK_EVENTS, False)
+        put("K3", shape, err, _time_analytic(torch, f"K3 {shape}", *k3,
+                                             timed, False))
+    took("K3")
+    # K4 and K6 (and K6p) on config 3's voxel view, K4d and K6d on the
+    # 33,000-site tessellation, K5 and K7 on the two-component model
+    n17, n16 = 1 << 17, 1 << 16
+    rb = _octree_build(n17, device="cuda", polychromatic=False,
+                       grid=octree)
+    k4 = (_cut_spec(rb[0].spec), rb[-1])
+    rb = _octree_build(n16, device="cuda", voronoi=True, grid=vgrid,
+                       direct=True, polychromatic=False, nlambda=8,
+                       peel_panels=64)
+    k4d = (_cut_spec(rb[0].spec), rb[-1])
+    rb = _octree_build(n17, device="cuda", polychromatic=True, grid=octree)
+    k6 = (_cut_spec(rb[0].spec), rb[-1])
+    rb = _octree_build(n16, device="cuda", voronoi=True, grid=vgrid,
+                       direct=True, polychromatic=True, nlambda=8,
+                       peel_panels=64)
+    k6d = (_cut_spec(rb[0].spec), rb[-1])
+    rb = _octree_build(n17, device="cuda", multi=True, polychromatic=False,
+                       grid=multi_tree)
+    k5 = (_cut_spec(rb[0].spec), rb[-1])
+    rb = _octree_build(n17, device="cuda", multi=True, polychromatic=True,
+                       grid=multi_tree)
+    k7 = (_cut_spec(rb[0].spec), rb[-1])
+    took("the table models")
+    for P in CHUNK_P:
+        shape = f"P={P}"
+        for kname, (spec0, model), n, ops in (
+                ("K4", k4, n17, k4_ops(P)), ("K4d", k4d, n16, k4d_ops(P))):
+            spec = dataclasses.replace(spec0, npanels=P)
+            err, timed = _chain_k4(torch, f"{kname} {shape}", spec,
+                                   model[0], model[1], n, (103,),
+                                   events=CHUNK_EVENTS, exact=True)
+            put(kname, shape, err, _time_k4(torch, f"{kname} {shape}", spec,
+                                            timed, ops))
+        for kname, (spec0, model), n, pol in (
+                ("K6", k6, n17, False), ("K6p", k6, n17, True),
+                ("K6d", k6d, n16, False)):
+            spec = dataclasses.replace(spec0, npanels=P, want_pol=pol)
+            err, timed = _chain_k6(torch, f"{kname} {shape}", spec,
+                                   model[0], model[1], n, (104,), exact=True,
+                                   events=CHUNK_EVENTS)
+            ops = (k6d_ops if kname == "K6d" else k6_ops)(P, spec.W)
+            put(kname, shape, err, _time_k6(torch, f"{kname} {shape}", spec,
+                                            timed, ops))
+        spec = dataclasses.replace(k5[0], npanels=P)
+        err, timed = _chain_k5(torch, f"K5 {shape}", spec, k5[1][0],
+                               k5[1][1], n17, (105,), events=CHUNK_EVENTS)
+        put("K5", shape, err, _time_k5(torch, f"K5 {shape}", spec, timed))
+        took(f"K4, K4d, K6, K6p, K6d, K5 at P = {P}")
+    for shape, P, H in [(f"P={P}", P, 2) for P in CHUNK_P] + [("H=4", 24,
+                                                               4)]:
+        spec = _k7_components(dataclasses.replace(k7[0], npanels=P), H)
+        err, timed = _chain_k7(torch, f"K7 {shape}", spec, k7[1][0],
+                               k7[1][1], n17, (106,), events=CHUNK_EVENTS,
+                               exact=True)
+        put("K7", shape, err, _time_k7(torch, f"K7 {shape}", spec, timed))
+    took("K7")
+    results["chunked"] = out
 
 
 # (spec type, event wrapper, kernel name) of the table engines by
@@ -2127,6 +2562,14 @@ def phase_probes(torch, results, octree):
     config 3 stages), PO (every stage, P11-P14) and PM (every shape and
     type of P15), each against its plain version at the JAX scripts'
     shapes, timed: kernel, plain, library and bound ms."""
+    from skirt_tpu_torch import kernels
+
+    hgmma = sass_count(kernels.build(), "probe_onehot", "HGMMA")
+    log(f"  PO's SASS: {hgmma} HGMMA instructions (wgmma)")
+    if not hgmma:
+        raise AssertionError("PO's kernel issues no wgmma (no HGMMA in its "
+                             "SASS)")
+    results["PO_hgmma"] = hgmma
     t0 = time.perf_counter()
     sweeps = _probe_sweeps(timed=True)
     sweeps["PG"] += _panel_gathers(torch, octree)
@@ -2197,15 +2640,20 @@ def _model(name):
     return _MODELS[name]
 
 
-# the kernel phases `python3 chip_smoke.py k2 k1 k3 k5 k6 k6d k6p k7` runs
-# alone, each on the models main builds for it
+# the kernel phases `python3 chip_smoke.py k2 k1 k3 k4 k4d k5 k6 k6d k6p k7
+# chunked` runs alone, each on the models main builds for it
 SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3,
+          "k4": lambda torch, res: phase_k4(torch, res, _model("octree")),
+          "k4d": lambda torch, res: phase_k4d(torch, res, _model("vgrid")),
           "k5": lambda torch, res: phase_k5(torch, res, _model("multi")),
           "k6": lambda torch, res: phase_k6(torch, res, _model("octree")),
           "k6d": lambda torch, res: phase_k6d(torch, res, _model("vgrid")),
           "k6p": lambda torch, res: phase_k6p(torch, res, _model("octree"),
                                               _model("vgrid")),
-          "k7": lambda torch, res: phase_k7(torch, res, _model("multi"))}
+          "k7": lambda torch, res: phase_k7(torch, res, _model("multi")),
+          "chunked": lambda torch, res: phase_chunked(
+              torch, res, _model("octree"), _model("multi"),
+              _model("vgrid"))}
 
 
 def main():
@@ -2215,7 +2663,11 @@ def main():
         raise SystemExit(f"chip_smoke: unknown phase {unknown}; the "
                          f"phases run alone: {sorted(SUBSET)}")
     t_start = time.perf_counter()
-    log("phase 1: device")
+
+    def stamp(msg):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {msg}")
+
+    stamp("phase 1: device")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -2227,7 +2679,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("phase 2: build kernels")
+    stamp("phase 2: build kernels")
     from skirt_tpu_torch import kernels
     t0 = time.perf_counter()
     so = kernels.build()
@@ -2242,16 +2694,16 @@ def main():
         # a subset of the kernel phases (to time two trees in one call):
         # their results and the card line, no "ok" line
         for name in only:
-            log(f"phase {name}")
+            stamp(f"phase {name}")
             SUBSET[name](torch, results)
         print(json.dumps(results), flush=True)
         print(card, flush=True)
         return
-    log("phase 3: K2 binned_add kernel vs plain")
+    stamp("phase 3: K2 binned_add kernel vs plain")
     phase_k2(torch, results)
-    log("phase 4: K1 poly_event kernel vs plain")
+    stamp("phase 4: K1 poly_event kernel vs plain")
     phase_k1(torch, results)
-    log("phase 5: K3 mono_event kernel vs plain")
+    stamp("phase 5: K3 mono_event kernel vs plain")
     phase_k3(torch, results)
     from bench_torch import _multi_model, _octree_model, _voronoi_model
     t0 = time.perf_counter()
@@ -2270,23 +2722,26 @@ def main():
             f"{host['locate_tables']:.2f} s")
         vgrids[nsites] = vgrid
     time_locate_chunks(torch, vgrids[33000])
-    log("phase 6: K4 table_event kernel vs plain")
+    stamp("phase 6: K4 table_event kernel vs plain")
     phase_k4(torch, results, octree)
-    log("phase 7: K5 table_multi_event kernel vs plain")
+    stamp("phase 7: K5 table_multi_event kernel vs plain")
     phase_k5(torch, results, multi_tree)
-    log("phase 8: K6 table_poly_event kernel vs plain")
+    stamp("phase 8: K6 table_poly_event kernel vs plain")
     phase_k6(torch, results, octree)
-    log("phase 9: K7 table_poly_multi_event kernel vs plain")
+    stamp("phase 9: K7 table_poly_multi_event kernel vs plain")
     phase_k7(torch, results, multi_tree)
-    log("phase 10: K4d table_event (direct table) kernel vs plain")
+    stamp("phase 10: K4d table_event (direct table) kernel vs plain")
     phase_k4d(torch, results, vgrids[33000])
-    log("phase 11: K6d table_poly_event (direct table) kernel vs plain")
+    stamp("phase 11: K6d table_poly_event (direct table) kernel vs plain")
     phase_k6d(torch, results, vgrids[33000])
-    log("phase 12: K6p table_poly_event (polarized) kernel vs plain")
+    stamp("phase 12: K6p table_poly_event (polarized) kernel vs plain")
     phase_k6p(torch, results, octree, vgrids[33000])
-    log("phase 13: K8 binned_add_lm and the probes PG, PO, PM vs plain")
+    stamp("phase 12b: the event kernels' chunked routes vs plain (P = 33, 84, "
+        "280; 12 leaders; K3 at H = 3 and wide tables; K7 at H = 4)")
+    phase_chunked(torch, results, octree, multi_tree, vgrids[33000])
+    stamp("phase 13: K8 binned_add_lm and the probes PG, PO, PM vs plain")
     phase_probes(torch, results, octree)
-    log("phase 14: main paths (S1 poly: make_lifecycle + make_multibatch, "
+    stamp("phase 14: main paths (S1 poly: make_lifecycle + make_multibatch, "
         "W=128; S2a mono: OligoSimulation, W=4; config 3 mono and poly: "
         "make_lifecycle + make_multibatch, W=2; config 3 "
         "OligoSimulation(voxelize='table'); the two-component model mono "
@@ -2298,33 +2753,55 @@ def main():
         "poly table: make_lifecycle + make_multibatch, W=2; a polarized "
         "OligoSimulation(voxelize='table') on an ElectronDustMix; the "
         "lambda-blocked tally and the probe drivers)")
+    stamp("  phase_main_poly")
     phase_main_poly(torch, results)
+    stamp("  phase_main_poly_default")
+    phase_main_poly_default(torch, results)
+    stamp("  phase_main_mono")
     phase_main_mono(torch, results)
+    stamp("  phase_main_table")
     phase_main_table(torch, results, octree)
+    stamp("  phase_simulation_table")
     phase_simulation_table(torch, results, octree)
+    stamp("  phase_main_multi")
     phase_main_multi(torch, results, multi_tree)
+    stamp("  phase_simulation_multi")
     phase_simulation_multi(torch, results, multi_tree)
+    stamp("  phase_main_voronoi")
     phase_main_voronoi(torch, results, vgrids[33000])
+    stamp("  phase_simulation_voronoi")
     phase_simulation_voronoi(torch, results, vgrids[4096])
+    stamp("  phase_main_polarized")
     phase_main_polarized(torch, results, octree)
+    stamp("  phase_simulation_polarized")
     phase_simulation_polarized(torch, results, octree)
+    stamp("  phase_main_probes")
     phase_main_probes(torch, results)
-    log("phase 15: small runs on the card against the CPU")
+    stamp("phase 15: small runs on the card against the CPU")
+    stamp("  phase_reference_poly")
     phase_reference_poly(torch)
+    stamp("  phase_reference_poly_default")
+    phase_reference_poly_default(torch)
+    stamp("  phase_reference_mono")
     phase_reference_mono(torch)
+    stamp("  phase_reference_table")
     phase_reference_table(torch)
+    stamp("  phase_reference_multi")
     phase_reference_multi(torch, multi_tree)
+    stamp("  phase_reference_voronoi")
     phase_reference_voronoi(torch)
+    stamp("  phase_reference_polarized")
     phase_reference_polarized(torch)
 
     log(f"phase 16: results (phases 1-15 took "
         f"{time.perf_counter() - t_start:.1f} s)")
-    paths = ("poly", "mono", "table_mono", "table_poly", "table_sim",
+    paths = ("poly", "poly_p84", "mono", "table_mono", "table_poly", "table_sim",
              "multi_mono", "multi_poly", "multi_sim", "voronoi_mono",
              "voronoi_poly", "voronoi_sim_voxel", "voronoi_sim_direct",
              "pol_mono", "pol_table_mono", "pol_table_poly", "pol_sim")
     launches = {
-        "K1": results["launches_poly"]["K1"],
+        "K1": results["launches_poly"]["K1"]
+        + results["launches_poly_p84"]["K1"],
         "K2": sum(results[f"launches_{p}"]["K2"] for p in paths),
         "K3": results["launches_mono"]["K3"]
         + results["launches_pol_mono"]["K3"],
@@ -2406,12 +2883,15 @@ def main():
     for k in ("K6", "K7", "K6d", "K6p"):
         kern[k]["by_W"] = results[k]["by_W"]
     kern["K3"]["by_case"] = results["K3"]["by_case"]
+    for k, by_shape in results["chunked"].items():
+        kern[k]["chunked"] = by_shape
     for k in ("K8", "PG", "PO", "PM"):
         kern[k]["shape"] = results[k]["shape"]
         kern[k]["by_variant"] = results[k]["by_variant"]
     kern["PG"]["ms_smem"] = results["PG"]["ms_smem"]
     kern["PG"]["panel_cells_ms"] = results["PG"]["panel_cells_ms"]
     kern["PO"]["onehot_floor_ms"] = results["PO"]["onehot_floor_ms"]
+    kern["PO"]["hgmma_in_sass"] = results["PO_hgmma"]
     kern["PM"]["max_err_over_tol"] = results["PM"]["max_err_over_tol"]
     print(json.dumps({"kernels": list(kern.values()),
                       "main_path_packets_per_s": {

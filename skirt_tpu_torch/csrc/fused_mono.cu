@@ -58,8 +58,21 @@
 //   it and masks it out); every lane computes the peel quadrature, whose
 //   outputs the driver masks.
 // - H is a template parameter (1 or 2), as are the density, the refill
-//   sampler and the absorption tally; the C entry point raises on any
-//   other choice.
+//   sampler and the absorption tally.
+// - Past MAXP panels, MAX_LEAD observers, MAX_COMP components or MAX_TABLE
+//   table floats, the C entry point picks the chunked route
+//   (mono_event_chunked, lane_event_c): the same arithmetic with the
+//   division operator and sqrtf (no redo), H a run-time count (the
+//   components' density constants in the device buffer dens_h, H x 8), the
+//   observers from the device buffer lead, the uniforms read in place.
+//   The panels are walked in chunks of CH = 32: the first pass keeps each
+//   chunk's last optical depth in the scratch array cend, and the
+//   interaction inversion evaluates again only the chunk its target falls
+//   in (common.cuh chunk_invert); with H > 1 and labs the cumulative
+//   absorbed fractions (which need not grow) go whole into cend, after the
+//   chunk ends, and are counted there.  The tables sit in dynamic shared
+//   memory up to the card's opt-in limit, and past it are read through L2
+//   from device memory (TABG).
 
 #include <cuda_pipeline.h>
 
@@ -111,6 +124,9 @@ struct MonoArgs {
   float xi, one_m_xi, inv_np, inv_pp, inv_minred;
   float dens1[8];
   Geom geo;
+  float* cend;
+  const float* lead;
+  const float* dens_h;
 };
 
 namespace {
@@ -486,6 +502,310 @@ int launch(const MonoArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+
+// One lane's event on the chunked route (see the header); writes every
+// output.  tab: the (3H, nlambda) tables, in shared or device memory.
+template <int DENS, int SAMP, bool LABS>
+__device__ __forceinline__ void lane_event_c(const MonoArgs& a,
+                                             const float* tab, int n) {
+  const int NL = a.nlambda;
+  const int P = a.npanels;
+  const int H = a.H;
+  const bool multi = H > 1;
+  const long long N = a.N;
+  const Geom& g = a.geo;
+  const float* u = a.u + n;           // uniform k at u[k * N]
+  bool ok = true;                     // the exact forms never clear it
+
+  // -- the lane's wavelength tables --------------------------------------
+  const int ell = a.ell[n];
+  const int li = (ell >= 0 && ell < NL) ? ell : 0;
+  auto kext = [&](int h) { return tab[h * NL + li]; };
+  auto ksca = [&](int h) { return tab[(H + h) * NL + li]; };
+  auto gh = [&](int h) { return tab[(2 * H + h) * NL + li]; };
+  const float albedo = multi ? 0.f : tab[NL + li];
+  // component h's density at a point
+  auto rho = [&](int h, float mx, float my, float mz) {
+    return rho_s_rn<DENS, true>(g, a.dens_h + 8 * h, mx, my, mz, ok);
+  };
+
+  float X = a.px[n], Y = a.py[n], Z = a.pz[n];
+  float DX = a.dx[n], DY = a.dy[n], DZ = a.dz[n];
+  float L = a.L[n];
+  bool alive = a.alive[n] != 0;
+  int nscatt = a.ns[n];
+  const float L0 = a.L0[n];
+  const float Lth = L0 * a.inv_minred;
+
+  int depi = -1;
+  float depv = 0.f;
+  if (alive) {
+    // -- traverse: the panels in order, each chunk's last optical depth
+    //    into cend (with H > 1 and labs every cumulative absorbed fraction
+    //    after them) ---------------------------------------------------------
+    float t0, t1;
+    span_rn<true>(g, X, Y, Z, DX, DY, DZ, t0, t1, ok);
+    const float delta = (t1 - t0) * a.inv_np;
+    const int nc = nchunks(P);
+    float* ends = a.cend + n;
+    float* cabs = ends + nc * N;
+    // panel k's optical-depth step (H = 1: kext rho delta; else the blended
+    // kext rho, whose albedo split goes to dks)
+    auto panel_dke = [&](int k, float& dks) {
+      const float midk = t0 + ((float)k + 0.5f) * delta;
+      const float mx = X + midk * DX, my = Y + midk * DY, mz = Z + midk * DZ;
+      float dke = 0.f;
+      dks = 0.f;
+      if (!multi) return kext(0) * rho(0, mx, my, mz);
+      for (int h = 0; h < H; ++h) {
+        const float rk = rho(h, mx, my, mz);
+        dke = dke + kext(h) * rk;
+        dks = dks + ksca(h) * rk;
+      }
+      return dke;
+    };
+    float cum = 0.f, Lsca_f = 0.f, cab = 0.f, e_prev = 1.f;
+    for (int k = 0; k < P; ++k) {
+      float dks;
+      const float dke = panel_dke(k, dks);
+      if (!multi) {
+        cum = cum + dke * delta;
+      } else {
+        const float alb_k = dke > 0.f ? dks / fmaxf(dke, 1e-37f) : 0.f;
+        cum = cum + dke * delta;
+        const float e_k = expf(-cum);
+        const float seg = e_prev - e_k;
+        Lsca_f = Lsca_f + alb_k * seg;
+        cab = cab + (1.f - alb_k) * seg;
+        if (LABS) cabs[k * N] = cab;
+        e_prev = e_k;
+      }
+      if ((k & (CH - 1)) == CH - 1 || k == P - 1) ends[(k / CH) * N] = cum;
+    }
+    // the optical depth's walk: restart at chunk c, advance by panel k
+    float wc = 0.f;
+    auto restart = [&](int c) {
+      wc = c > 0 ? ends[(c - 1) * N] : 0.f;
+      return wc;
+    };
+    auto next = [&](int k) {
+      float dks;
+      wc = wc + panel_dke(k, dks) * delta;
+      return wc;
+    };
+    const float taupath = cum;
+    const float one_m_e = 1.f - expf(-taupath);
+    const float Lm = L;
+
+    // -- sampled absorption deposit ---------------------------------------
+    if (LABS) {
+      const float u_dep = u[2 * N];
+      float D;
+      int i_dep = 0;
+      if (multi) {
+        D = cab * Lm;
+        const float target = u_dep * cab;
+        for (int k = 0; k < P - 1; ++k)
+          i_dep += (cabs[k * N] < target) ? 1 : 0;
+      } else {
+        D = (1.f - albedo) * Lm * one_m_e;
+        const float tau_dep = expon_cutoff(u_dep, taupath);
+        float at, before;
+        i_dep = chunk_invert(ends, N, P - 1, tau_dep, restart, next, at,
+                             before);
+      }
+      const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
+      const int cell = locate(g, X + mid_dep * DX, Y + mid_dep * DY,
+                              Z + mid_dep * DZ);
+      if (cell >= 0 && D > 0.f) {
+        depi = cell * NL + ell;
+        depv = D;
+      }
+    }
+
+    // -- scattered-luminosity update + termination (on the pre-bias L) ---
+    L = multi ? Lsca_f * Lm : albedo * Lm * one_m_e;
+    alive = (L > 0.f) && !((L <= Lth) && (nscatt >= a.min_scatt)) &&
+            (taupath > 0.f);
+
+    // -- forced propagation with the composite bias weight p/q -----------
+    const float u1 = u[0], u2 = u[N];
+    const float tau_exp = expon_cutoff(u2, taupath);
+    float tau = tau_exp;
+    if (a.xi != 0.f) {
+      tau = u1 < a.xi ? u2 * taupath : tau_exp;
+      const float p = expf(-tau) / fmaxf(one_m_e, 1e-30f);
+      const float qq = a.one_m_xi * p + a.xi / fmaxf(taupath, 1e-30f);
+      const float w = p / fmaxf(qq, 1e-37f);
+      if (alive) L = L * w;
+    }
+    float cum_h, cum_prev;
+    const int i_hit =
+        chunk_invert(ends, N, P - 1, tau, restart, next, cum_h, cum_prev);
+    const float dtau_h = cum_h - cum_prev;
+    const float fr =
+        dtau_h > 0.f ? (tau - cum_prev) / fmaxf(dtau_h, 1e-30f) : 0.f;
+    const float frac = fminf(fmaxf(fr, 0.f), 1.f);
+    const float s = t0 + ((float)i_hit + frac) * delta;
+    if (alive) {
+      X = X + s * DX;
+      Y = Y + s * DY;
+      Z = Z + s * DZ;
+    }
+  }
+  if (LABS) {
+    a.odepi[n] = depi;
+    a.odepv[n] = depv;
+  }
+
+  // -- persistent-lane relaunch (after the propagation, before the peel) --
+  bool fresh = false;
+  if (SAMP != SAMP_NONE) {
+    int bcount = a.bc[n];
+    if (!alive && bcount < a.K) {
+      constexpr int nu = sampler_uniforms<SAMP>();
+      sample_position<SAMP>(g, a.u, N, n, 5, X, Y, Z);
+      const float ct = 2.f * u[(5 + nu) * N] - 1.f;
+      const float st = sqrtf(fmaxf(0.f, 1.f - ct * ct));
+      const float ph2 = TWO_PI * u[(6 + nu) * N];
+      DX = st * cosf(ph2);
+      DY = st * sinf(ph2);
+      DZ = ct;
+      L = L0;
+      nscatt = 0;
+      bcount += 1;
+      fresh = true;
+      alive = true;
+    }
+    a.obc[n] = bcount;
+    a.ofresh[n] = fresh ? 1 : 0;
+  }
+
+  // -- local mixture at the (post-refill) interaction point: component h
+  //    with probability ~ ksca_h rho_h; the peel phase is the blend --------
+  auto w_h = [&](int h) { return ksca(h) * rho(h, X, Y, Z); };
+  float g_sel = gh(0);
+  float w_tot = 0.f;
+  if (multi) {
+    w_tot = w_h(0);
+    for (int h = 1; h < H; ++h) w_tot = w_tot + w_h(h);
+    const float u_c = u[a.u_comp * N] * fmaxf(w_tot, 1e-37f);
+    float w_acc = w_h(0);
+    for (int h = 1; h < H; ++h) {
+      if (u_c > w_acc) g_sel = gh(h);
+      w_acc = w_acc + w_h(h);
+    }
+  }
+
+  // -- peel-off optical depth and cosine toward each leader --------------
+  const int PP = a.np_peel;
+#pragma unroll 1
+  for (int j = 0; j < a.nlead; ++j) {
+    float cosj = 0.f, tau = 0.f, ph = 0.f;
+    if (a.scattering_peeloff) {
+      const float* ld = a.lead + j * LEAD_FLOATS;
+      const float kx = ld[0], ky = ld[1], kz = ld[2];
+      cosj = DX * kx + DY * ky + DZ * kz;
+      if (multi) {
+        float phs = 0.f;
+        for (int h = 0; h < H; ++h) {
+          const float gg = gh(h);
+          const float t_ = 1.f + gg * gg - 2.f * gg * cosj;
+          phs = phs + w_h(h) * ((1.f - gg) * (1.f + gg) * rsqrtf(t_ * t_ * t_));
+        }
+        ph = w_tot > 0.f ? phs / fmaxf(w_tot, 1e-30f) : 0.f;
+      }
+      float pt0, pt1;
+      span_lead(g, ld, X, Y, Z, pt0, pt1);
+      const float pd = (pt1 - pt0) * a.inv_pp;
+      float rsum = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < PP; ++k) {
+        const float mk = pt0 + ((float)k + 0.5f) * pd;
+        const float mx = X + mk * kx, my = Y + mk * ky, mz = Z + mk * kz;
+        if (multi) {
+          for (int h = 0; h < H; ++h)
+            rsum = rsum + kext(h) * rho(h, mx, my, mz);
+        } else {
+          rsum = rsum + rho(0, mx, my, mz);
+        }
+      }
+      tau = (multi ? rsum : kext(0) * rsum) * pd;
+    }
+    a.ocos[j * N + n] = cosj;
+    a.otau[j * N + n] = tau;
+    if (multi) a.oph[j * N + n] = ph;
+  }
+
+  // -- Henyey-Greenstein scatter; fresh lanes keep their launch direction -
+  if (alive && !fresh) {
+    const float costheta = hg_costheta_rn<true>(g_sel, u[3 * N], ok);
+    scatter_direction_rn<true>(costheta, u[4 * N], DX, DY, DZ, ok);
+    nscatt += 1;
+  }
+
+  a.opx[n] = X;
+  a.opy[n] = Y;
+  a.opz[n] = Z;
+  a.odx[n] = DX;
+  a.ody[n] = DY;
+  a.odz[n] = DZ;
+  a.oL[n] = L;
+  a.oalive[n] = alive ? 1 : 0;
+  a.ons[n] = nscatt;
+}
+
+// The chunked route: the tables in dynamic shared memory, or with TABG
+// read in place through L2.
+template <int DENS, int SAMP, bool LABS, bool TABG>
+__global__ void __launch_bounds__(THREADS)
+mono_event_chunked(const __grid_constant__ MonoArgs a) {
+  extern __shared__ float dyn[];
+  const float* tab = a.tab;
+  if (!TABG) {
+    for (int i = threadIdx.x; i < 3 * a.H * a.nlambda; i += blockDim.x)
+      dyn[i] = a.tab[i];
+    __syncthreads();
+    tab = dyn;
+  }
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= a.N) return;
+  lane_event_c<DENS, SAMP, LABS>(a, tab, n);
+}
+
+template <int DENS, int SAMP, bool LABS, bool TABG>
+int launch_c(const MonoArgs& a, size_t smem, cudaStream_t s) {
+  const int blocks = (a.N + THREADS - 1) / THREADS;
+  if (blocks <= 0) return (int)cudaGetLastError();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mono_event_chunked<DENS, SAMP, LABS, TABG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+  }
+  mono_event_chunked<DENS, SAMP, LABS, TABG><<<blocks, THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the chunked route: its tables in shared memory up to the card's opt-in
+// limit, else in device memory
+template <int DENS, int SAMP>
+int launch_chunked(const MonoArgs& a, int labs, cudaStream_t s) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t smem = (size_t)3 * a.H * a.nlambda * sizeof(float);
+  if (smem <= (size_t)optin)
+    return labs ? launch_c<DENS, SAMP, true, false>(a, smem, s)
+                : launch_c<DENS, SAMP, false, false>(a, smem, s);
+  return labs ? launch_c<DENS, SAMP, true, true>(a, 0, s)
+              : launch_c<DENS, SAMP, false, true>(a, 0, s);
+}
+
 template <int DENS, int SAMP, int H>
 int launch_l(const MonoArgs& a, int labs, cudaStream_t s) {
   return labs ? launch<DENS, SAMP, true, H>(a, s)
@@ -494,6 +814,9 @@ int launch_l(const MonoArgs& a, int labs, cudaStream_t s) {
 
 template <int DENS, int SAMP>
 int launch_h(const MonoArgs& a, int labs, cudaStream_t s) {
+  if (a.H > MAX_COMP || 3 * a.H * a.nlambda > MAX_TABLE ||
+      a.nlead > MAX_LEAD || a.npanels > MAXP)
+    return launch_chunked<DENS, SAMP>(a, labs, s);
   return a.H == 1 ? launch_l<DENS, SAMP, 1>(a, labs, s)
                   : launch_l<DENS, SAMP, 2>(a, labs, s);
 }
@@ -505,9 +828,11 @@ extern "C" int skirt_mono_args_size() { return (int)sizeof(MonoArgs); }
 extern "C" int skirt_mono_event(const MonoArgs* a, int dens, int samp,
                                 int labs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (a->H < 1 || a->H > MAX_COMP || a->nlambda < 1 ||
-      3 * a->H * a->nlambda > MAX_TABLE || a->nlead > MAX_LEAD ||
-      a->npanels < 1 || a->npanels > MAXP || dens != DENS_EXPDISK)
+  if (a->H < 1 || a->nlambda < 1 || a->npanels < 1 || dens != DENS_EXPDISK)
+    return (int)cudaErrorInvalidValue;
+  if ((a->H > MAX_COMP || 3 * a->H * a->nlambda > MAX_TABLE ||
+       a->nlead > MAX_LEAD || a->npanels > MAXP) &&
+      (!a->cend || !a->dens_h || (a->nlead > 0 && !a->lead)))
     return (int)cudaErrorInvalidValue;
   switch (samp) {
     case SAMP_NONE:

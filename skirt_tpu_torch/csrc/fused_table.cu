@@ -23,9 +23,8 @@
 // - One thread per lane; lanes are bounds-checked (the TPU driver pads to
 //   whole tiles instead).  kr is panel-major, so at a fixed panel
 //   neighbouring threads read neighbouring addresses.
-// - The lane's P cumulative optical depths live in registers: a
-//   compile-time maximum MAXP = 32 with guarded, fully unrolled loops
-//   keeps every index constant.  The C entry point refuses more.
+// - Up to MAXP = 32 panels the lane's P cumulative optical depths live in
+//   registers: guarded, fully unrolled loops keep every index constant.
 // - Dead lanes copy their state through and deposit nothing (the Pallas
 //   body computes them and masks every output back to its input).
 // - K4: the deposit cell is the arithmetic locate floor((X - lo) * inv)
@@ -36,6 +35,13 @@
 //   the grid (engine/fused_table.py).  One float out instead of one int:
 //   the bound is K4's.
 // - Labs on and off, and K4 / K4d, are template instantiations.
+// - Past MAXP panels (CHUNKED, picked by the C entry point): the panels
+//   are walked in chunks of CH = 32 (common.cuh chunk_invert): the first
+//   pass sums them in order and keeps each chunk's last value in the
+//   scratch array cend ((nchunks, N), allocated by the wrapper); each
+//   inversion re-reads only the chunk its target falls in and walks it
+//   again from the previous chunk's end.  The sums are the one-pass
+//   route's to the bit; the panel bytes grow by at most two chunks a lane.
 
 #include "common.cuh"
 
@@ -73,11 +79,12 @@ struct TableArgs {
   int N, nlambda, npanels, min_scatt, direct;
   float xi, one_m_xi, inv_minred;
   Geom geo;
+  float* cend;
 };
 
 namespace {
 
-template <bool LABS, bool DIRECT>
+template <bool LABS, bool DIRECT, bool CHUNKED>
 __global__ void __launch_bounds__(128)
 table_event_kernel(const __grid_constant__ TableArgs a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -99,13 +106,35 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
     const float albedo = a.alb[n], g = a.g[n];
 
     // -- cumulative optical depth from the staged panels ------------------
-    float cums[MAXP];
+    constexpr int NC = CHUNKED ? 1 : MAXP;
+    float cums[NC];
     float cum = 0.f;
+    const float* kr = a.kr + n;
+    float* ends = CHUNKED ? a.cend + n : nullptr;
+    if constexpr (CHUNKED) {
+#pragma unroll 4
+      for (int k = 0; k < a.npanels; ++k) {
+        cum = cum + kr[k * N] * delta;
+        if ((k & (CH - 1)) == CH - 1 || k == a.npanels - 1)
+          ends[(k / CH) * N] = cum;
+      }
+    } else {
 #pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k < a.npanels) cum = cum + a.kr[k * N + n] * delta;
-      cums[k] = cum;
+      for (int k = 0; k < MAXP; ++k) {
+        if (k < a.npanels) cum = cum + a.kr[k * N + n] * delta;
+        cums[k] = cum;
+      }
     }
+    // the chunked route's walk: restart at chunk c, advance by panel k
+    float wc = 0.f;
+    auto restart = [&](int c) {
+      wc = c > 0 ? ends[(c - 1) * N] : 0.f;
+      return wc;
+    };
+    auto next = [&](int k) {
+      wc = wc + kr[k * N] * delta;
+      return wc;
+    };
     const float taupath = cum;
     const float one_m_e = 1.f - expf(-taupath);
     const float Lm = L;
@@ -115,9 +144,15 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
       const float D = (1.f - albedo) * Lm * one_m_e;
       const float tau_dep = expon_cutoff(u[2 * N + n], taupath);
       int i_dep = 0;
+      if constexpr (CHUNKED) {
+        float at, before;
+        i_dep = chunk_invert(ends, N, a.npanels - 1, tau_dep, restart, next,
+                             at, before);
+      } else {
 #pragma unroll
-      for (int k = 0; k < MAXP - 1; ++k)
-        if (k < a.npanels - 1) i_dep += (cums[k] < tau_dep) ? 1 : 0;
+        for (int k = 0; k < MAXP - 1; ++k)
+          if (k < a.npanels - 1) i_dep += (cums[k] < tau_dep) ? 1 : 0;
+      }
       const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
       if (DIRECT) {
         if (D > 0.f) {
@@ -150,14 +185,19 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
       if (alive) L = L * (p / fmaxf(qq, 1e-37f));
     }
     int i_hit = 0;
-#pragma unroll
-    for (int k = 0; k < MAXP - 1; ++k)
-      if (k < a.npanels - 1) i_hit += (cums[k] < tau) ? 1 : 0;
     float cum_h = 0.f, cum_prev = 0.f;
+    if constexpr (CHUNKED) {
+      i_hit = chunk_invert(ends, N, a.npanels - 1, tau, restart, next, cum_h,
+                           cum_prev);
+    } else {
 #pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      if (k == i_hit) cum_h = cums[k];
-      if (k == i_hit - 1) cum_prev = cums[k];
+      for (int k = 0; k < MAXP - 1; ++k)
+        if (k < a.npanels - 1) i_hit += (cums[k] < tau) ? 1 : 0;
+#pragma unroll
+      for (int k = 0; k < MAXP; ++k) {
+        if (k == i_hit) cum_h = cums[k];
+        if (k == i_hit - 1) cum_prev = cums[k];
+      }
     }
     const float dtau_h = cum_h - cum_prev;
     const float fr = dtau_h > 0.f ? (tau - cum_prev) / fmaxf(dtau_h, TINY) : 0.f;
@@ -191,13 +231,21 @@ table_event_kernel(const __grid_constant__ TableArgs a) {
   a.ons[n] = nscatt;
 }
 
-template <bool LABS, bool DIRECT>
+template <bool LABS, bool DIRECT, bool CHUNKED>
 int launch(const TableArgs& a, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (a.N + threads - 1) / threads;
   if (blocks > 0)
-    table_event_kernel<LABS, DIRECT><<<blocks, threads, 0, s>>>(a);
+    table_event_kernel<LABS, DIRECT, CHUNKED><<<blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool CHUNKED>
+int launch_c(const TableArgs& a, int labs, cudaStream_t s) {
+  // without labs the two variants write the same outputs
+  if (!labs) return launch<false, false, CHUNKED>(a, s);
+  return a.direct ? launch<true, true, CHUNKED>(a, s)
+                  : launch<true, false, CHUNKED>(a, s);
 }
 
 }  // namespace
@@ -206,9 +254,8 @@ extern "C" int skirt_table_args_size() { return (int)sizeof(TableArgs); }
 
 extern "C" int skirt_table_event(const TableArgs* a, int labs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (a->npanels < 1 || a->npanels > MAXP || a->nlambda < 1)
-    return (int)cudaErrorInvalidValue;
-  // without labs the two variants write the same outputs
-  if (!labs) return launch<false, false>(*a, s);
-  return a->direct ? launch<true, true>(*a, s) : launch<true, false>(*a, s);
+  if (a->npanels < 1 || a->nlambda < 1) return (int)cudaErrorInvalidValue;
+  if (a->npanels <= MAXP) return launch_c<false>(*a, labs, s);
+  if (!a->cend) return (int)cudaErrorInvalidValue;
+  return launch_c<true>(*a, labs, s);
 }

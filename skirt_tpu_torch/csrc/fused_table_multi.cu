@@ -56,6 +56,13 @@
 //   one inversion each; 4 P values a lane in shared memory, 64 lanes a
 //   block) ran 1.15x slower at N = 2^17, P = 24 (PERF.md section 6).
 // - Labs on and off are template instantiations.
+// - Past MAXP panels (CHUNKED, picked by the C entry point) nothing is
+//   staged: the lane walks its panels from device memory in chunks of
+//   CH = 32, with the division operator, keeping each chunk's last optical
+//   depth and absorbed energy in the scratch array cend ((2 nchunks, N));
+//   each inversion walks again only the chunk its target falls in, from
+//   the previous chunk's ends (common.cuh chunk_invert), or, where the
+//   absorbed energies decrease somewhere, every chunk, counting.
 
 #include "common.cuh"
 
@@ -88,6 +95,7 @@ struct TableMultiArgs {
   int N, nlambda, npanels, min_scatt;
   float xi, one_m_xi, inv_minred;
   Geom geo;
+  float* cend;
 };
 
 namespace {
@@ -161,13 +169,49 @@ __device__ __noinline__ void panel_sums_exact(const TableMultiArgs& a, int n,
                    taupath, Lsca, D, mono);
 }
 
+// The chunked route's walk over a lane's panels in device memory (kr[k *
+// N], ks[k * N]): panel_sums' arithmetic with the division operator, from
+// the start of any chunk.  ends: the lane's column of cend, the optical
+// depths' chunk ends in rows [0, nc), the absorbed energies' in [nc, 2 nc).
+struct ChunkWalk {
+  const float* kr;
+  const float* ks;
+  const float* ends;
+  long long N;
+  int nc;
+  float delta, Lm;
+  float cum, e_prev, sca, cw;
+  // the state at the start of chunk c
+  __device__ __forceinline__ void restart(int c) {
+    cum = c > 0 ? ends[(c - 1) * N] : 0.f;
+    cw = c > 0 ? ends[(nc + c - 1) * N] : 0.f;
+    e_prev = c > 0 ? expf(-cum) : 1.f;
+    sca = 0.f;
+  }
+  // advance by panel k; false where the absorbed energy decreased
+  __device__ __forceinline__ bool next(int k) {
+    const float krv = kr[k * N], ksv = ks[k * N];
+    cum = cum + krv * delta;
+    const float e_cur = expf(-cum);
+    const float dE = Lm * (e_prev - e_cur);
+    const float alb = ksv / fmaxf(krv, TINY);
+    sca = sca + alb * dE;
+    const float cw_next = cw + (1.f - alb) * dE;
+    const bool up = cw_next >= cw;
+    cw = cw_next;
+    e_prev = e_cur;
+    return up;
+  }
+};
+
 // The rest of a live lane's event from its sums: the deposit, the
 // termination, the biased forced propagation and the interaction cell.
 // cums / cws: the lane's running sums at stride LANES.
-template <bool LABS>
+template <bool LABS, bool CHUNKED>
 __device__ __forceinline__ void lane_finish(
     const TableMultiArgs& a, int n, const float* cums, const float* cws,
-    bool mono, float taupath, float Lsca, float D, float u0, float u1,
+    ChunkWalk& cw_walk, bool mono, float taupath, float Lsca, float D,
+    float u0, float u1,
     float u2, float X, float Y, float Z, float DX, float DY, float DZ,
     int nscatt, float Lth, float t0, float delta, int ell, float& oX,
     float& oY, float& oZ, float& oL, bool& alive, int& cell, int& depi,
@@ -175,7 +219,32 @@ __device__ __forceinline__ void lane_finish(
   const int P = a.npanels;
   if (LABS) {
     const float target = u2 * D;
-    const int i_dep = count_sums_below(cws, P - 1, target, mono);
+    int i_dep = 0;
+    if constexpr (CHUNKED) {
+      ChunkWalk& w = cw_walk;
+      if (mono) {
+        float at, before;
+        i_dep = chunk_invert(
+            w.ends + w.nc * w.N, w.N, P - 1, target,
+            [&](int c) {
+              w.restart(c);
+              return w.cw;
+            },
+            [&](int k) {
+              w.next(k);
+              return w.cw;
+            },
+            at, before);
+      } else {
+        w.restart(0);
+        for (int k = 0; k < P - 1; ++k) {
+          w.next(k);
+          i_dep += (w.cw < target) ? 1 : 0;
+        }
+      }
+    } else {
+      i_dep = count_sums_below(cws, P - 1, target, mono);
+    }
     const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
     const int c = locate(a.geo, X + mid_dep * DX, Y + mid_dep * DY,
                          Z + mid_dep * DZ);
@@ -198,9 +267,27 @@ __device__ __forceinline__ void lane_finish(
     const float qq = a.one_m_xi * p + a.xi / fmaxf(taupath, TINY);
     if (alive) L = L * (p / fmaxf(qq, 1e-37f));
   }
-  const int i_hit = count_below(cums, LANES, P - 1, tau);
-  const float cum_h = cums[i_hit * LANES];
-  const float cum_prev = i_hit > 0 ? cums[(i_hit - 1) * LANES] : 0.f;
+  int i_hit;
+  float cum_h, cum_prev;
+  if constexpr (CHUNKED) {
+    // the optical depth alone: each step adds kr * delta
+    ChunkWalk& w = cw_walk;
+    i_hit = chunk_invert(
+        w.ends, w.N, P - 1, tau,
+        [&](int c) {
+          w.cum = c > 0 ? w.ends[(c - 1) * w.N] : 0.f;
+          return w.cum;
+        },
+        [&](int k) {
+          w.cum = w.cum + w.kr[k * w.N] * w.delta;
+          return w.cum;
+        },
+        cum_h, cum_prev);
+  } else {
+    i_hit = count_below(cums, LANES, P - 1, tau);
+    cum_h = cums[i_hit * LANES];
+    cum_prev = i_hit > 0 ? cums[(i_hit - 1) * LANES] : 0.f;
+  }
   const float dtau_h = cum_h - cum_prev;
   const float fr =
       dtau_h > 0.f ? (tau - cum_prev) / fmaxf(dtau_h, TINY) : 0.f;
@@ -220,7 +307,7 @@ __device__ __forceinline__ void lane_finish(
   }
 }
 
-template <bool LABS>
+template <bool LABS, bool CHUNKED>
 __global__ void __launch_bounds__(128, 8)
 table_multi_event_kernel(const __grid_constant__ TableMultiArgs a) {
   extern __shared__ float dyn[];
@@ -235,7 +322,7 @@ table_multi_event_kernel(const __grid_constant__ TableMultiArgs a) {
   // -- the live lane's 2 P panel values by asynchronous copies, all in
   //    flight at once; its state and uniforms beside them -----------------
   const bool live = a.alive[n] != 0;
-  if (live) {
+  if (live && !CHUNKED) {
     stage_rows<LANES>(sk, a.kr, P, N, n, 0, 1);
     stage_rows<LANES>(ss, a.ks, P, N, n, 0, 1);
   }
@@ -254,15 +341,40 @@ table_multi_event_kernel(const __grid_constant__ TableMultiArgs a) {
     const float u0 = a.u[n], u1 = a.u[N + n], u2 = a.u[2 * N + n];
     __pipeline_wait_prior(0);
 
-    // -- the running sums, written over the lane's panels ----------------
+    // -- the running sums, written over the lane's panels; in chunks, the
+    //    chunks' ends into cend ---------------------------------------------
     float taupath, Lsca, D;
     bool mono;
-    if (!panel_sums<false>(sk, ss, LANES, sk, ss, P, delta, L, taupath,
-                           Lsca, D, mono))
-      panel_sums_exact(a, n, sk, ss, delta, L, taupath, Lsca, D, mono);
-    lane_finish<LABS>(a, n, sk, ss, mono, taupath, Lsca, D, u0, u1, u2, X,
-                      Y, Z, DX, DY, DZ, nscatt, Lth, t0, delta, ell, oX, oY,
-                      oZ, oL, alive, cell, depi, depv);
+    ChunkWalk w;
+    if constexpr (CHUNKED) {
+      w.kr = a.kr + n;
+      w.ks = a.ks + n;
+      w.ends = a.cend + n;
+      w.N = N;
+      w.nc = nchunks(P);
+      w.delta = delta;
+      w.Lm = L;
+      w.restart(0);
+      mono = true;
+      for (int k = 0; k < P; ++k) {
+        mono = w.next(k) && mono;
+        if ((k & (CH - 1)) == CH - 1 || k == P - 1) {
+          a.cend[(k / CH) * N + n] = w.cum;
+          a.cend[(w.nc + k / CH) * N + n] = w.cw;
+        }
+      }
+      taupath = w.cum;
+      Lsca = w.sca;
+      D = w.cw;
+    } else {
+      if (!panel_sums<false>(sk, ss, LANES, sk, ss, P, delta, L, taupath,
+                             Lsca, D, mono))
+        panel_sums_exact(a, n, sk, ss, delta, L, taupath, Lsca, D, mono);
+    }
+    lane_finish<LABS, CHUNKED>(a, n, sk, ss, w, mono, taupath, Lsca, D, u0,
+                               u1, u2, X, Y, Z, DX, DY, DZ, nscatt, Lth, t0,
+                               delta, ell, oX, oY, oZ, oL, alive, cell, depi,
+                               depv);
   }
   if (LABS) {
     a.odepi[n] = depi;
@@ -276,12 +388,13 @@ table_multi_event_kernel(const __grid_constant__ TableMultiArgs a) {
   a.ocell[n] = cell;
 }
 
-template <bool LABS>
+template <bool LABS, bool CHUNKED>
 int launch(const TableMultiArgs& a, cudaStream_t s) {
   const int blocks = (a.N + LANES - 1) / LANES;
   if (blocks <= 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)2 * a.npanels * LANES * sizeof(float);
-  table_multi_event_kernel<LABS><<<blocks, LANES, smem, s>>>(a);
+  const size_t smem =
+      CHUNKED ? 0 : (size_t)2 * a.npanels * LANES * sizeof(float);
+  table_multi_event_kernel<LABS, CHUNKED><<<blocks, LANES, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -294,7 +407,9 @@ extern "C" int skirt_table_multi_args_size() {
 extern "C" int skirt_table_multi_event(const TableMultiArgs* a, int labs,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (a->npanels < 1 || a->npanels > MAXP || a->nlambda < 1)
-    return (int)cudaErrorInvalidValue;
-  return labs ? launch<true>(*a, s) : launch<false>(*a, s);
+  if (a->npanels < 1 || a->nlambda < 1) return (int)cudaErrorInvalidValue;
+  if (a->npanels <= MAXP)
+    return labs ? launch<true, false>(*a, s) : launch<false, false>(*a, s);
+  if (!a->cend) return (int)cudaErrorInvalidValue;
+  return labs ? launch<true, true>(*a, s) : launch<false, true>(*a, s);
 }

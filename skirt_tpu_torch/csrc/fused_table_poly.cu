@@ -80,6 +80,12 @@
 //   the HG weights for the Mueller ones.  The Pallas body writes both for
 //   every lane, dead ones included, so a dead lane sums its panels and
 //   draws I_s too (nothing else).
+// - Past MAXP panels (CHUNKED, picked by the C entry point) the panels are
+//   not staged: role 0 sums them from device memory in chunks of CH = 32,
+//   keeping each chunk's last value in the scratch array cend ((nchunks,
+//   N)), and each inversion walks again only the chunk its target falls in
+//   (common.cuh chunk_invert).  Shared memory no longer grows with P, so a
+//   block holds what it holds at P = 0.
 
 #include "common.cuh"
 
@@ -138,6 +144,7 @@ struct TablePolyArgs {
   int N, W, npanels, min_scatt, sum_block, direct, pol;
   float xi, one_m_xi, inv_W, inv_minred;
   Geom geo;
+  float* cend;
 };
 
 namespace {
@@ -181,13 +188,14 @@ struct LaneShared {
   int wsel[LANES], any_ln[LANES];
 };
 
-template <bool LABS, bool DIRECT, bool POL, int G>
+template <bool LABS, bool DIRECT, bool POL, int G, bool CHUNKED>
 __global__ void __launch_bounds__(LANES * G, blocks_per_sm<G>())
 table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   constexpr int WPT = wpt<G>();
   extern __shared__ float dyn[];
   __shared__ LaneShared s;
   const int W = a.W, P = a.npanels, B = a.sum_block, nb = W / B;
+  const int Ps = CHUNKED ? 0 : P;             // panel rows staged
   const int l = threadIdx.x, r = threadIdx.y;
   const int tid = r * LANES + l;
   const long long N = a.N;
@@ -195,8 +203,8 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   const bool valid = n < a.N;
   float* s_oc = dyn;                          // (3, W)
   float* sc = s_oc + 3 * W + l;               // [NSC][LANES]
-  float* rho = sc + NSC * LANES;              // [P][LANES], then the I_k
-  float* tL0 = rho + P * LANES;               // [W][LANES] each
+  float* rho = sc + NSC * LANES;              // [Ps][LANES], then the I_k
+  float* tL0 = rho + Ps * LANES;              // [W][LANES] each
   float* tQ = tL0 + W * LANES;                // L, then Q's terms
   float* tQH = tQ + W * LANES;
   float* tD = tQH + W * LANES;                // with labs
@@ -213,7 +221,8 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   const bool live = valid && a.alive[n] != 0;
   const int nscatt = valid ? a.ns[n] : 0;
   const bool past_min = nscatt >= a.min_scatt;
-  if (POL ? valid : live) stage_rows<LANES>(rho, a.r, P, N, n, r, G);
+  if (!CHUNKED && (POL ? valid : live))
+    stage_rows<LANES>(rho, a.r, P, N, n, r, G);
   if (live) stage_rows<LANES>(tQ, a.L, W, N, n, r, G);
   if (live && past_min) stage_rows<LANES>(tL0, a.L0, W, N, n, r, G);
   __pipeline_commit();
@@ -231,9 +240,19 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
   if (r == 0 && (POL ? valid : live)) {
     const float delta = sc[14 * LANES];
     float cum = 0.f;
-    for (int k = 0; k < P; ++k) {
-      cum = cum + rho[k * LANES] * delta;
-      rho[k * LANES] = cum;
+    if constexpr (CHUNKED) {
+      const float* rg = a.r + n;
+#pragma unroll 4
+      for (int k = 0; k < P; ++k) {
+        cum = cum + rg[k * N] * delta;
+        if ((k & (CH - 1)) == CH - 1 || k == P - 1)
+          a.cend[(k / CH) * N + n] = cum;
+      }
+    } else {
+      for (int k = 0; k < P; ++k) {
+        cum = cum + rho[k * LANES] * delta;
+        rho[k * LANES] = cum;
+      }
     }
     const int c = min((int)(sc[5 * LANES] * (float)W), W - 1);
     s.I_tot[l] = cum;
@@ -350,6 +369,18 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
     float DX = sc[10 * LANES], DY = sc[11 * LANES], DZ = sc[12 * LANES];
     const float t0 = sc[13 * LANES], delta = sc[14 * LANES];
     const float* cums = rho;                  // the running sums I_k
+    // the chunked route's walk over the panels in device memory
+    const float* rg = a.r + n;
+    const float* ends = a.cend + n;
+    float wc = 0.f;
+    auto restart = [&](int c) {
+      wc = c > 0 ? ends[(c - 1) * N] : 0.f;
+      return wc;
+    };
+    auto next = [&](int k) {
+      wc = wc + rg[k * N] * delta;
+      return wc;
+    };
     int ns_out = nscatt;
     if (LABS) {
       int depi = -1;
@@ -360,7 +391,11 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
         const float tau_sel = kext[wsel] * s.I_tot[l];
         const float kinv_sel = 1.f / kext[wsel];
         const float I_dep = expon_cutoff(sc[2 * LANES], tau_sel) * kinv_sel;
-        const int i_dep = count_below(cums, LANES, P - 1, I_dep);
+        float at, before;
+        const int i_dep =
+            CHUNKED ? chunk_invert(ends, N, P - 1, I_dep, restart, next, at,
+                                   before)
+                    : count_below(cums, LANES, P - 1, I_dep);
         const float mid_dep = t0 + ((float)i_dep + 0.5f) * delta;
         if (DIRECT) {
           if (Dsum > 0.f) {
@@ -383,9 +418,16 @@ table_poly_event_kernel(const __grid_constant__ TablePolyArgs a) {
     }
     if (live) {
       const float I_s = s.I_s[l];
-      const int i_hit = count_below(cums, LANES, P - 1, I_s);
-      const float cum_h = cums[i_hit * LANES];
-      const float cum_prev = i_hit > 0 ? cums[(i_hit - 1) * LANES] : 0.f;
+      int i_hit;
+      float cum_h, cum_prev;
+      if constexpr (CHUNKED) {
+        i_hit = chunk_invert(ends, N, P - 1, I_s, restart, next, cum_h,
+                             cum_prev);
+      } else {
+        i_hit = count_below(cums, LANES, P - 1, I_s);
+        cum_h = cums[i_hit * LANES];
+        cum_prev = i_hit > 0 ? cums[(i_hit - 1) * LANES] : 0.f;
+      }
       const float dI_h = cum_h - cum_prev;
       const float fr =
           dI_h > 0.f ? (I_s - cum_prev) / fmaxf(dI_h, TINY) : 0.f;
@@ -424,39 +466,41 @@ __host__ __device__ constexpr size_t smem_floats(bool LABS, int W, int P,
          (LABS && nb > 1 ? (size_t)nb * LANES : 0);
 }
 
-template <bool LABS, bool DIRECT, bool POL, int G>
+template <bool LABS, bool DIRECT, bool POL, int G, bool CHUNKED>
 int launch_g(const TablePolyArgs& a, cudaStream_t s) {
   const int blocks = (a.N + LANES - 1) / LANES;
   if (blocks <= 0) return (int)cudaGetLastError();
   static bool raised[64];
   const int e = raise_smem_limit(
-      table_poly_event_kernel<LABS, DIRECT, POL, G>,
-      smem_floats(LABS, MAX_W, MAXP, MAX_W) * sizeof(float), raised);
+      table_poly_event_kernel<LABS, DIRECT, POL, G, CHUNKED>,
+      smem_floats(LABS, MAX_W, CHUNKED ? 0 : MAXP, MAX_W) * sizeof(float),
+      raised);
   if (e) return e;
-  const size_t smem =
-      smem_floats(LABS, a.W, a.npanels, a.W / a.sum_block) * sizeof(float);
-  table_poly_event_kernel<LABS, DIRECT, POL, G><<<blocks, dim3(LANES, G),
-                                                  smem, s>>>(a);
+  const size_t smem = smem_floats(LABS, a.W, CHUNKED ? 0 : a.npanels,
+                                  a.W / a.sum_block) *
+                      sizeof(float);
+  table_poly_event_kernel<LABS, DIRECT, POL, G, CHUNKED>
+      <<<blocks, dim3(LANES, G), smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool LABS, bool DIRECT, bool POL>
+template <bool LABS, bool DIRECT, bool POL, bool CHUNKED>
 int launch(const TablePolyArgs& a, cudaStream_t s) {
   // the fastest width at W = 2, 8, 24 and 128 (experiments/phases.py
   // --threads; PERF.md section 6)
-  if (a.W <= 4) return launch_g<LABS, DIRECT, POL, 1>(a, s);
-  if (a.W <= 8) return launch_g<LABS, DIRECT, POL, 2>(a, s);
-  if (a.W <= 32) return launch_g<LABS, DIRECT, POL, 4>(a, s);
-  return launch_g<LABS, DIRECT, POL, 16>(a, s);
+  if (a.W <= 4) return launch_g<LABS, DIRECT, POL, 1, CHUNKED>(a, s);
+  if (a.W <= 8) return launch_g<LABS, DIRECT, POL, 2, CHUNKED>(a, s);
+  if (a.W <= 32) return launch_g<LABS, DIRECT, POL, 4, CHUNKED>(a, s);
+  return launch_g<LABS, DIRECT, POL, 16, CHUNKED>(a, s);
 }
 
-template <bool POL>
+template <bool POL, bool CHUNKED>
 int launch_pol(const TablePolyArgs& a, int labs, cudaStream_t s) {
   // without labs the direct and arithmetic-locate variants write the same
   // outputs
-  if (!labs) return launch<false, false, POL>(a, s);
-  return a.direct ? launch<true, true, POL>(a, s)
-                  : launch<true, false, POL>(a, s);
+  if (!labs) return launch<false, false, POL, CHUNKED>(a, s);
+  return a.direct ? launch<true, true, POL, CHUNKED>(a, s)
+                  : launch<true, false, POL, CHUNKED>(a, s);
 }
 
 }  // namespace
@@ -468,9 +512,13 @@ extern "C" int skirt_table_poly_args_size() {
 extern "C" int skirt_table_poly_event(const TablePolyArgs* a, int labs,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (a->W < 1 || a->W > MAX_W || a->npanels < 1 || a->npanels > MAXP ||
-      a->sum_block < 1 || a->W % a->sum_block != 0)
+  if (a->W < 1 || a->W > MAX_W || a->npanels < 1 || a->sum_block < 1 ||
+      a->W % a->sum_block != 0)
     return (int)cudaErrorInvalidValue;
-  return a->pol ? launch_pol<true>(*a, labs, s)
-                : launch_pol<false>(*a, labs, s);
+  if (a->npanels <= MAXP)
+    return a->pol ? launch_pol<true, false>(*a, labs, s)
+                  : launch_pol<false, false>(*a, labs, s);
+  if (!a->cend) return (int)cudaErrorInvalidValue;
+  return a->pol ? launch_pol<true, true>(*a, labs, s)
+                : launch_pol<false, true>(*a, labs, s);
 }

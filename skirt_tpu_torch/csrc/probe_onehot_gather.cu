@@ -1,5 +1,5 @@
-// PO: the one-hot gather probe on Hopper's tensor cores (mma.sync
-// m16n8k16, bf16 in, float32 accumulate).
+// PO: the one-hot gather probe on Hopper's tensor cores: wgmma with the
+// one-hot as the register operand (bf16 in, float32 accumulate).
 //
 // Replaces the Pallas one-hot matrix-unit gathers of experiments/:
 // microbench_mxu_gather.py:62 (the full gather, with and without the hi/lo
@@ -27,23 +27,43 @@
 //            mxu_gather2.py:72-80, mxu_gather3.py:87-100)
 // Each non-zero output is a sum of a few bf16 values (every one-hot column
 // has one 1), exact in float32 in any order, so the kernel is bit-identical
-// to its plain version; the split adds th and tl once in float32 (two
-// accumulators, one FADD, as the Pallas body adds its two products).
+// to its plain version.  The split accumulates the th product and then the
+// tl product into the same registers: every product term but one is an
+// exact zero, and th + tl (8 significant bits each, tl at least 2^-8 of th
+// apart) is exact in float32, so the sum is the plain version's one
+// float32 add.
 //
 // What bounds it on the H100: the function is a gather (bytes: 8 per
 // element); the one-hot formulation spends 2 x 256 x 128 products per
 // element (twice with the split, nmm times for FIXED_B) on the tensor cores:
-// 65,536 flop per element, 0.55 ms per 2^23 elements at 989 TFLOP/s.
+// 65,536 flop per element, 0.56 ms per 2^23 elements at 989 TFLOP/s (1.11
+// ms with the split), which only wgmma reaches.  The first design
+// (mma.sync m16n8k16, 16 warps a block each owning 16 of the 256 rows, a
+// chain of 8 dependent mma.sync per 8 elements, every warp reloading the
+// same indices and rebuilding the same one-hot) ran at ~10% of that rate.
 //
-// Design: 16 warps per block; warp w owns row tile w (rows 16w..16w+15) of
-// every product and keeps its A fragments (th, and tl) for all 8 k-tiles in
-// registers.  For each 8-element n-tile the one-hot B fragment is built in
-// registers from hi (no memory), 8 mma.sync cover the depth of 128, and the
-// thread whose C fragment holds row lo writes the element: each output is
-// written by exactly one thread.  MATMUL and FIXED_B compute every row tile,
-// as the Pallas products do, and keep rows 0..7 (warp 0).  The full product
-// per element is what the probe measures; a gather that skips the zero
-// k-tiles is later work.
+// Design: the transposed product R^T = onehot(hi)^T th^T per 64 elements.
+// - A warpgroup (4 warps) takes 64 elements (M = 64), the depth K = 128 hi
+//   values as 8 k-steps of 16, and N = 256 lo rows: one wgmma m64n256k16
+//   per k-step, its A the one-hot built in registers from the elements'
+//   indices (the mma.sync A-fragment layout: each thread holds rows g and
+//   g + 8 of its warp's 16, each index loaded once), its B th^T (and tl^T)
+//   in shared memory, copied once per persistent block in the no-swizzle
+//   K-major layout of 8 x 8 core matrices (LBO: the next 8 k, SBO: the next
+//   8 rows).
+// - The thread whose accumulator holds (element, lo) writes the element:
+//   its value is picked from the 128 accumulators by a select tree on lo's
+//   bits (a template recursion, so every register index is a constant).
+//   Each element is written once.
+// - MATMUL and FIXED_B run the full product of every j of a group, as the
+//   Pallas products do, and keep columns 0..7 (r < 8) of the j in J, summed
+//   in order in registers.  FIXED_B's A is bfix^T, read through L2 (every
+//   block reads the same 256 KB); its nmm products accumulate in the
+//   tensor core (exact: a few bf16 terms).
+// - Two warpgroups a block, one block an SM (128 accumulators and 32 A
+//   registers a thread): one warpgroup's selects and index loads overlap
+//   the other's products.
+// - ONEHOT has no product: one thread per output, as before.
 
 #include <cuda_runtime.h>
 
@@ -53,136 +73,286 @@ constexpr int STAGE_ONEHOT = 0;
 constexpr int STAGE_MATMUL = 1;
 constexpr int STAGE_FIXED_B = 2;
 constexpr int STAGE_FULL = 3;
-constexpr int WARPS = 16;
+constexpr int WG = 2;                     // warpgroups a block
+constexpr int THREADS = 128 * WG;
+constexpr int TAB = 256 * 128;            // bf16 values of th (and tl)
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+// th's (n, k) value in the no-swizzle K-major layout: core matrix (k / 8,
+// n / 8) of 8 x 8 bf16 (128 bytes, row n % 8 at 16 bytes each), the k / 8
+// columns 32 core matrices (4,096 bytes) apart
+__device__ __forceinline__ int b_offset(int n, int k) {
+  return ((k >> 3) * 32 + (n >> 3)) * 64 + (n & 7) * 8 + (k & 7);
+}
+
+// wgmma shared-memory descriptor of the 16 x 256 slice at k-step ks
+__device__ __forceinline__ unsigned long long b_desc(const unsigned short* b,
+                                                     int ks) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(b)) + ks * 2 * 4096;
+  const unsigned long long lbo = 4096 >> 4, sbo = 128 >> 4;
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (lbo << 16) |
+         (sbo << 32);
+}
+
+// D (64 x 256 float32: this thread's 128 values) = A (64 x 16 bf16: this
+// thread's 4 registers) x B (16 x 256 bf16 in shared memory, descriptor
+// desc), + D unless scale_d is 0
+__device__ __forceinline__ void wgmma_256(float (&d)[128],
+                                          const unsigned (&a)[4],
+                                          unsigned long long desc,
+                                          int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// the 16 x 16 A fragment of rows r0..r0+15, depth k0..k0+15 of a (256, 128)
-// bf16 table (m16n8k16 row-major A: lane g = lane / 4, q = lane % 4)
-__device__ __forceinline__ void load_a(unsigned (&a)[4],
-                                       const unsigned short* t, int r0,
-                                       int k0, int g, int q) {
-  const int k = k0 + 2 * q;
-  a[0] = *reinterpret_cast<const unsigned*>(t + (r0 + g) * 128 + k);
-  a[1] = *reinterpret_cast<const unsigned*>(t + (r0 + g + 8) * 128 + k);
-  a[2] = *reinterpret_cast<const unsigned*>(t + (r0 + g) * 128 + k + 8);
-  a[3] = *reinterpret_cast<const unsigned*>(t + (r0 + g + 8) * 128 + k + 8);
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// one-hot B fragment for depth k0..k0+15 and the column whose hi is hv:
-// B[k, n] = [hv == k] in bf16 (1.0 = 0x3F80), two values per register,
-// the lower k in the low half
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// one-hot pair for depth k, k + 1 and the element whose hi is hv: bf16 1.0
+// (0x3F80) where hv matches, the lower k in the low half
 __device__ __forceinline__ unsigned onehot_pair(int hv, int k) {
   return (hv == k ? 0x3F80u : 0u) | (hv == k + 1 ? 0x3F800000u : 0u);
 }
 
+// the one-hot A fragments of the 8 k-steps for rows with hi h0 (row g) and
+// h1 (row g + 8)
+__device__ __forceinline__ void onehot_a(unsigned (&a)[8][4], int h0, int h1,
+                                         int q) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const int k = 16 * ks + 2 * q;
+    a[ks][0] = onehot_pair(h0, k);
+    a[ks][1] = onehot_pair(h1, k);
+    a[ks][2] = onehot_pair(h0, k + 8);
+    a[ks][3] = onehot_pair(h1, k + 8);
+  }
+}
+
+// the 8 k-steps' products into d, over one table; first: overwrite d
+__device__ __forceinline__ void product(float (&d)[128],
+                                        const unsigned (&a)[8][4],
+                                        const unsigned short* b, bool first) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    wgmma_256(d, a[ks], b_desc(b, ks), (first && ks == 0) ? 0 : 1);
+}
+
+// d[4 * b + OFF + odd] for the block b = lo >> 3 of column lo, among the
+// blocks [B0, B0 + NB) (NB a power of two, B0 a multiple of it): a tree of
+// selects on b's bits, every register index a constant
+template <int B0, int NB, int OFF>
+__device__ __forceinline__ float pick_blocks(const float (&d)[128], int b,
+                                             bool odd) {
+  if constexpr (NB == 1) {
+    return odd ? d[4 * B0 + OFF + 1] : d[4 * B0 + OFF];
+  } else {
+    constexpr int HALF = NB / 2;
+    const float lo = pick_blocks<B0, HALF, OFF>(d, b, odd);
+    const float hi = pick_blocks<B0 + HALF, HALF, OFF>(d, b, odd);
+    return (b & HALF) ? hi : lo;
+  }
+}
+
+// the accumulator of column lo in the row OFF / 2 (0: row g, 2: row g + 8)
+template <int OFF>
+__device__ __forceinline__ float pick(const float (&d)[128], int lo) {
+  return pick_blocks<0, 32, OFF>(d, lo >> 3, lo & 1);
+}
+
 template <int STAGE, bool SPLIT>
-__global__ void __launch_bounds__(WARPS * 32, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 probe_onehot(const unsigned short* __restrict__ th,
              const unsigned short* __restrict__ tl,
              const unsigned short* __restrict__ bfix,
              const int* __restrict__ idx, float* __restrict__ out,
              int ngroups, int jmask, int nmm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  unsigned ah[8][4], al[8][4];
-  if (STAGE != STAGE_ONEHOT) {
-#pragma unroll
-    for (int kt = 0; kt < 8; ++kt) {
-      load_a(ah[kt], th, 16 * warp, 16 * kt, g, q);
-      if (SPLIT) load_a(al[kt], tl, 16 * warp, 16 * kt, g, q);
-    }
+  extern __shared__ __align__(128) unsigned short sb[];   // th^T, tl^T
+  const int tid = threadIdx.x;
+  // -- B once per block: th (and tl) into the core-matrix layout ----------
+  for (int t = tid; t < TAB / 8; t += THREADS) {
+    const int n = t >> 4, k = (t & 15) * 8;
+    *reinterpret_cast<uint4*>(sb + b_offset(n, k)) =
+        *reinterpret_cast<const uint4*>(th + n * 128 + k);
+    if (SPLIT)
+      *reinterpret_cast<uint4*>(sb + TAB + b_offset(n, k)) =
+          *reinterpret_cast<const uint4*>(tl + n * 128 + k);
   }
+  // the generic-proxy stores made visible to the tensor cores' reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = tid >> 7, lane = tid & 31, wib = (tid >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+  const int row = 16 * wib + g;          // this thread's rows: row, row + 8
+  const int stride = gridDim.x * WG;
+  float d[128];
+  unsigned a[8][4];
+
+  if (STAGE == STAGE_FULL) {
+    // -- 64 elements a unit: the product, then each element's lo column --
+    const long long units = (long long)ngroups * 16;
+    for (long long t = (long long)blockIdx.x * WG + wg; t < units;
+         t += stride) {
+      const long long e0 = t * 64 + row;
+      const int v0 = idx[e0], v1 = idx[e0 + 8];
+      onehot_a(a, v0 >> 8, v1 >> 8, q);
+      wgmma_fence();
+      product(d, a, sb, true);
+      if (SPLIT) product(d, a, sb + TAB, false);
+      wgmma_commit_wait();
+      fence_regs(d);
+      const int lo0 = v0 & 255, lo1 = v1 & 255;
+      const float r0 = pick<0>(d, lo0), r1 = pick<2>(d, lo1);
+      if (((lo0 >> 1) & 3) == q) out[e0] = r0;
+      if (((lo1 >> 1) & 3) == q) out[e0 + 8] = r1;
+    }
+    return;
+  }
+
+  // -- MATMUL, FIXED_B: a unit is half a group's columns l (64 of 128);
+  //    the product of each j, its columns r < 8 summed over J in order ----
+  const long long units = (long long)ngroups * 2;
+  for (long long t = (long long)blockIdx.x * WG + wg; t < units;
+       t += stride) {
+    const long long s = t >> 1;
+    const int l0 = (int)(t & 1) * 64 + row;  // this thread's l: l0, l0 + 8
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    bool any = false;
+#pragma unroll 1
+    for (int j = 0; j < 8; ++j) {
+      const int c0 = j * 128 + l0;            // column of the group
+      if (STAGE == STAGE_MATMUL) {
+        const int* gidx = idx + s * 1024;
+        onehot_a(a, gidx[c0] >> 8, gidx[c0 + 8] >> 8, q);
+      } else {
+        // A = bfix^T: rows c0 and c0 + 8, depth k (bfix[k * 1024 + c])
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const int k = 16 * ks + 2 * q;
+          const unsigned short* b0 = bfix + k * 1024 + c0;
+          a[ks][0] = b0[0] | (unsigned)b0[1024] << 16;
+          a[ks][1] = b0[8] | (unsigned)b0[1024 + 8] << 16;
+          a[ks][2] = b0[8 * 1024] | (unsigned)b0[9 * 1024] << 16;
+          a[ks][3] = b0[8 * 1024 + 8] | (unsigned)b0[9 * 1024 + 8] << 16;
+        }
+      }
+      wgmma_fence();
+      const int reps = STAGE == STAGE_FIXED_B ? nmm : 1;
+#pragma unroll 1
+      for (int m = 0; m < reps; ++m) product(d, a, sb, m == 0);
+      wgmma_commit_wait();
+      fence_regs(d);
+      if ((jmask >> j) & 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] = any ? acc[i] + d[i] : d[i];
+        any = true;
+      }
+    }
+    // d[0], d[1]: (l0, r = 2q, 2q + 1); d[2], d[3]: (l0 + 8, the same r)
+    float* o = out + s * 1024;
+    o[(2 * q) * 128 + l0] = acc[0];
+    o[(2 * q + 1) * 128 + l0] = acc[1];
+    o[(2 * q) * 128 + l0 + 8] = acc[2];
+    o[(2 * q + 1) * 128 + l0 + 8] = acc[3];
+  }
+}
+
+// ONEHOT: no product, one thread per output
+__global__ void __launch_bounds__(512, 1)
+probe_onehot_counts(const int* __restrict__ idx, float* __restrict__ out,
+                    int ngroups, int jmask) {
   for (int s = blockIdx.x; s < ngroups; s += gridDim.x) {
     const int* gidx = idx + (long long)s * 1024;
     float* gout = out + (long long)s * 1024;
-    if (STAGE == STAGE_ONEHOT) {
-      for (int o = threadIdx.x; o < 1024; o += blockDim.x) {
-        const int h = o >> 7, l = o & 127;
-        float acc = 0.f;
-        for (int j = 0; j < 8; ++j)
-          if ((jmask >> j) & 1)
-            acc = acc + ((gidx[j * 128 + l] >> 8) == h ? 1.f : 0.f);
-        gout[o] = acc;
-      }
-      continue;
-    }
-#pragma unroll 1
-    for (int lt = 0; lt < 16; ++lt) {
-      float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll 1
-      for (int j = 0; j < 8; ++j) {
-        const int e0 = j * 128 + lt * 8;  // first element of the n-tile
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        if (STAGE == STAGE_FIXED_B) {
-          const unsigned short* bcol = bfix + e0 + g;
-#pragma unroll 1
-          for (int m = 0; m < nmm; ++m) {
-            float r[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int kt = 0; kt < 8; ++kt) {
-              const int k = 16 * kt + 2 * q;
-              const unsigned b0 = bcol[k * 1024] | (unsigned)bcol[(k + 1) * 1024]
-                                                       << 16;
-              const unsigned b1 = bcol[(k + 8) * 1024] |
-                                  (unsigned)bcol[(k + 9) * 1024] << 16;
-              mma_bf16(r, ah[kt], b0, b1);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) c[i] = m == 0 ? r[i] : c[i] + r[i];
-          }
-        } else {
-          const int hv = gidx[e0 + g] >> 8;
-          float cl[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kt = 0; kt < 8; ++kt) {
-            const int k = 16 * kt + 2 * q;
-            const unsigned b0 = onehot_pair(hv, k), b1 = onehot_pair(hv, k + 8);
-            mma_bf16(c, ah[kt], b0, b1);
-            if (SPLIT) mma_bf16(cl, al[kt], b0, b1);
-          }
-          if (SPLIT) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) c[i] = c[i] + cl[i];
-          }
-        }
-        if (STAGE == STAGE_FULL) {
-          const int2 lv = *reinterpret_cast<const int2*>(gidx + e0 + 2 * q);
-          const int lo0 = lv.x & 255, lo1 = lv.y & 255;
-          const int top = 16 * warp + g;
-          float* o = gout + e0 + 2 * q;
-          if (lo0 == top) o[0] = c[0];
-          if (lo0 == top + 8) o[0] = c[2];
-          if (lo1 == top) o[1] = c[1];
-          if (lo1 == top + 8) o[1] = c[3];
-        } else if (warp == 0 && ((jmask >> j) & 1)) {
-          acc0 = acc0 + c[0];
-          acc1 = acc1 + c[1];
-        }
-      }
-      if (STAGE != STAGE_FULL && warp == 0)
-        *reinterpret_cast<float2*>(gout + g * 128 + lt * 8 + 2 * q) =
-            make_float2(acc0, acc1);
+    for (int o = threadIdx.x; o < 1024; o += blockDim.x) {
+      const int h = o >> 7, l = o & 127;
+      float acc = 0.f;
+      for (int j = 0; j < 8; ++j)
+        if ((jmask >> j) & 1)
+          acc = acc + ((gidx[j * 128 + l] >> 8) == h ? 1.f : 0.f);
+      gout[o] = acc;
     }
   }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 template <int STAGE, bool SPLIT>
 int launch(const unsigned short* th, const unsigned short* tl,
            const unsigned short* bfix, const int* idx, float* out,
            int ngroups, int jmask, int nmm, cudaStream_t s) {
-  int dev = 0, sms = 0;
+  const long long units = (long long)ngroups * (STAGE == STAGE_FULL ? 16 : 2);
+  const long long want = (units + WG - 1) / WG;
+  const int blocks = (int)(want < sm_count() ? want : sm_count());
+  const size_t smem = (SPLIT ? 2 : 1) * TAB * sizeof(unsigned short);
+  static bool raised[64];
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks = ngroups < 2 * sms ? ngroups : 2 * sms;
-  probe_onehot<STAGE, SPLIT><<<blocks, WARPS * 32, 0, s>>>(
+  if (dev >= 64 || !raised[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        probe_onehot<STAGE, SPLIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+    if (dev < 64) raised[dev] = true;
+  }
+  probe_onehot<STAGE, SPLIT><<<blocks, THREADS, smem, s>>>(
       th, tl, bfix, idx, out, ngroups, jmask, nmm);
   return (int)cudaGetLastError();
 }
@@ -202,8 +372,11 @@ extern "C" int skirt_probe_onehot_gather(const void* th, const void* tl,
   const auto* b = static_cast<const unsigned short*>(bfix);
   const int ng = rows / 8;
   switch (stage) {
-    case STAGE_ONEHOT:
-      return launch<STAGE_ONEHOT, false>(h, l, b, idx, out, ng, jmask, nmm, s);
+    case STAGE_ONEHOT: {
+      const int blocks = ng < 2 * sm_count() ? ng : 2 * sm_count();
+      probe_onehot_counts<<<blocks, 512, 0, s>>>(idx, out, ng, jmask);
+      return (int)cudaGetLastError();
+    }
     case STAGE_MATMUL:
       return launch<STAGE_MATMUL, false>(h, l, b, idx, out, ng, jmask, nmm, s);
     case STAGE_FIXED_B:

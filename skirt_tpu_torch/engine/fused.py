@@ -58,7 +58,7 @@ from ..ops import binned_add
 
 _BIG = 3.4e38
 _TINY = 1e-30
-_CUDA_MAXP = 32          # MAXP in csrc/common.cuh (cumulative sums in registers)
+_CUDA_MAXP = kernels.MAXP   # panels of the kernels' one-pass routes
 _CUDA_DENSITY = {"expdisk": 1}
 _CUDA_SAMPLER = {None: 0, "point": 1, "expdisk": 2}
 _CHECK_EVERY = 16        # event iterations between host reads of the stop test
@@ -171,7 +171,9 @@ def _geom_args(a, box, grid, want_labs, leaders, invL, dens, samp):
         for i in range(3):
             a.loc_lo[i] = _f32(grid._lo[i])
             a.loc_inv[i] = _f32(1.0 / grid._dx[i])
-    for j, kvec in enumerate(leaders):
+    # the one-pass routes' observers (the chunked routes read them all from
+    # a device buffer, kernels.lead_rows)
+    for j, kvec in enumerate(leaders[:kernels.MAX_LEAD]):
         for i, d in enumerate(kvec):
             a.lead_k[j][i] = _f32(d)
             moving = abs(d) > 1e-30
@@ -628,22 +630,24 @@ def mono_event_plain(spec: MonoEventSpec, u, state, lam=None):
     return out
 
 
+def cuda_route(spec: MonoEventSpec):
+    """(chunked, scratch rows) of K3 for a spec: the one-pass route up to
+    MAXP panels, MAX_LEAD observers, MAX_COMP components and MAX_TABLE
+    table floats, else the chunked route (csrc/fused_mono.cu), whose
+    scratch holds each panel chunk's last optical depth and, with H > 1
+    and labs, every cumulative absorbed fraction."""
+    chunked = (spec.npanels > _CUDA_MAXP
+               or len(spec.leaders) > kernels.MonoArgs.MAX_LEAD
+               or spec.H > kernels.MonoArgs.MAX_COMP
+               or spec.tab.size > kernels.MonoArgs.MAX_TABLE)
+    rows = kernels.nchunks(spec.npanels)
+    if spec.H > 1 and spec.want_labs:
+        rows += spec.npanels
+    return chunked, rows if chunked else 0
+
+
 def _cuda_args(spec: MonoEventSpec):
     """The kernel's constant arguments and template choices for a spec."""
-    if len(spec.leaders) > kernels.MonoArgs.MAX_LEAD:
-        raise ValueError(f"mono_event kernel: at most "
-                         f"{kernels.MonoArgs.MAX_LEAD} observer directions")
-    if spec.H > kernels.MonoArgs.MAX_COMP:
-        raise ValueError(f"mono_event kernel: at most "
-                         f"{kernels.MonoArgs.MAX_COMP} dust components")
-    if spec.tab.size > kernels.MonoArgs.MAX_TABLE:
-        raise ValueError(f"mono_event kernel: 3 x H x nlambda <= "
-                         f"{kernels.MonoArgs.MAX_TABLE} (the wavelength "
-                         "tables sit in 48 KB of shared memory)")
-    if spec.npanels > _CUDA_MAXP:
-        raise ValueError(f"mono_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (the lane's cumulative sums live "
-                         "in registers)")
     dens = [geom.cuda_density(spec.lscale)
             for geom in spec.density_geometries]
     kinds = {d[0] if d else None for d in dens}
@@ -677,6 +681,8 @@ def _cuda_args(spec: MonoEventSpec):
     if spec.H > 1:
         for i, v in enumerate(dens[1][1]):
             a.dens1[i] = v
+    # the chunked route's components: 8 float32 constants each
+    a.dens_rows = [float(v) for d in dens for v in (list(d[1]) + [0.0] * 8)[:8]]
     return a, (_CUDA_DENSITY[dens[0][0]],
                _CUDA_SAMPLER[samp[0] if samp else None])
 
@@ -730,6 +736,14 @@ def _mono_event_cuda(spec, u, state):
                         "oalive", "ons", "odepi", "odepv", "otau", "ocos",
                         "oph", "obc", "ofresh"), outs):
         setattr(a, name, _ptr(t))
+    chunked, rows = cuda_route(spec)
+    if chunked:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
+        a.dens_h = kernels.device_floats(a.dens_rows, dev).data_ptr()
+        if nlead:
+            a.lead = kernels.device_floats(kernels.lead_rows(spec.leaders),
+                                           dev).data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_mono_event(ctypes.byref(a), dens, samp,
                                        int(spec.want_labs),

@@ -338,17 +338,21 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
     return out
 
 
+def cuda_route(spec: PolyEventSpec):
+    """(chunked, scratch rows) of K1 for a spec: the one-pass route up to
+    MAXP panels and MAX_LEAD observers, else the chunked route
+    (csrc/fused_poly.cu), whose scratch holds each panel chunk's last
+    column density."""
+    chunked = (spec.npanels > _CUDA_MAXP
+               or len(spec.leaders) > kernels.PolyArgs.MAX_LEAD)
+    return chunked, kernels.nchunks(spec.npanels) if chunked else 0
+
+
 def _cuda_args(spec: PolyEventSpec):
     """The kernel's constant arguments and template choices for a spec."""
-    if len(spec.leaders) > kernels.PolyArgs.MAX_LEAD:
-        raise ValueError(f"poly_event kernel: at most "
-                         f"{kernels.PolyArgs.MAX_LEAD} observer directions")
     if spec.W > kernels.PolyArgs.MAX_W:
-        raise ValueError("poly_event kernel: W <= 128")
-    if spec.npanels > _CUDA_MAXP:
-        raise ValueError(f"poly_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (the lane's cumulative sums live "
-                         "in registers)")
+        raise ValueError("poly_event kernel: nlambda <= 128 (split wider "
+                         "grids into blocks of <= 128 wavelengths)")
     dens = spec.density_geometry.cuda_density(spec.lscale)
     if dens is None or dens[0] not in _CUDA_DENSITY:
         raise ValueError(f"poly_event kernel: no CUDA device density for "
@@ -423,6 +427,13 @@ def _poly_event_cuda(spec, u, oc, L, L0, state):
                         "ons", "oLn", "oLp", "odepi", "odepv", "oIp", "ocos",
                         "obc", "ofresh"), outs):
         setattr(a, name, _ptr(t))
+    chunked, rows = cuda_route(spec)
+    if chunked:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
+        if nlead:
+            a.lead = kernels.device_floats(kernels.lead_rows(spec.leaders),
+                                           dev).data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_poly_event(ctypes.byref(a), dens, samp,
                                        int(spec.want_labs),

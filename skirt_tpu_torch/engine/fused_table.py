@@ -271,13 +271,16 @@ def _check_tensors(what, checks):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def chunk_rows(P: int) -> int:
+    """Scratch rows a table kernel's chunked route needs per running sum
+    (each panel chunk's last value), 0 on the one-pass route (at most
+    MAXP panels): K4, K4d, K6, K6d and K6p keep one sum, K5 two, K7 one."""
+    return kernels.nchunks(P) if P > _CUDA_MAXP else 0
+
+
 def _table_event_cuda(spec, u, kr, state):
     N = state[0].shape[0]
     P = spec.npanels
-    if P > _CUDA_MAXP:
-        raise ValueError(f"table_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (the lane's cumulative sums live in "
-                         "registers)")
     if len(state) != 15:
         raise ValueError("table_event: expected 15 state arrays")
     dts = [torch.float32] * 7 + [torch.int32] * 3 + [torch.float32] * 5
@@ -317,6 +320,10 @@ def _table_event_cuda(spec, u, kr, state):
                         "oalive", "ons", "odepi", "odepv", "odepd"),
                        [*st_out, depi, depv, depd]):
         setattr(a, name, _ptr(t))
+    rows = chunk_rows(P)
+    if rows:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_table_event(ctypes.byref(a), int(spec.want_labs),
                                         kernels.stream_of(u)),
@@ -454,10 +461,6 @@ def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
 def _table_multi_event_cuda(spec, u, kr, ks, state):
     N = state[0].shape[0]
     P = spec.npanels
-    if P > _CUDA_MAXP:
-        raise ValueError(f"table_multi_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (MAXP: the kernel's unrolled panel "
-                         "loop)")
     if len(state) != 13:
         raise ValueError("table_multi_event: expected 13 state arrays")
     dts = [torch.float32] * 7 + [torch.int32] * 3 + [torch.float32] * 3
@@ -492,6 +495,10 @@ def _table_multi_event_cuda(spec, u, kr, ks, state):
     for name, t in zip(("opx", "opy", "opz", "oL", "oalive", "ocell",
                         "odepi", "odepv"), [*st_out, cell, depi, depv]):
         setattr(a, name, _ptr(t))
+    rows = 2 * chunk_rows(P)
+    if rows:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_table_multi_event(ctypes.byref(a),
                                               int(spec.want_labs),

@@ -72,7 +72,8 @@ from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
                     _scatter_direction)
 from .fused_poly import _hg
 from .fused_table import (_check_tensors, _locate_args, _staged_taus_fn,
-                          _uniform_grid, _warn_staged_peel, direct_deposits)
+                          _uniform_grid, _warn_staged_peel, chunk_rows,
+                          direct_deposits)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -342,11 +343,8 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     W = spec.W
     P = spec.npanels
     if W > kernels.TablePolyArgs.MAX_W:
-        raise ValueError("table_poly_event kernel: W <= 128")
-    if P > _CUDA_MAXP:
-        raise ValueError(f"table_poly_event kernel: quadrature_panels <= "
-                         f"{_CUDA_MAXP} (MAXP: the kernel's binary "
-                         "searches and shared-memory rows)")
+        raise ValueError("table_poly_event kernel: nlambda <= 128 (split "
+                         "wider grids into blocks of <= 128 wavelengths)")
     if len(state) != 10:
         raise ValueError("table_poly_event: expected 10 state arrays")
     dts = [torch.float32] * 6 + [torch.int32] * 2 + [torch.float32] * 2
@@ -396,6 +394,10 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
                         "oIs", "oIt"),
                        [*st_out, Ln, Lp, depi, depv, depd, Is, It]):
         setattr(a, name, _ptr(t))
+    rows = chunk_rows(P)
+    if rows:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_table_poly_event(ctypes.byref(a),
                                              int(spec.want_labs),
@@ -431,9 +433,17 @@ table_poly_event.pol_launches = 0
 # kernel K7: the polychromatic multi-component table event
 # ---------------------------------------------------------------------------
 
-# the largest number of dust components the K7 kernel takes (a template
-# parameter of csrc/fused_table_poly_multi.cu)
+# the most dust components K7's one-pass route takes (a template parameter
+# of csrc/fused_table_poly_multi.cu); the chunked route takes any
 _CUDA_MAX_H = 3
+
+
+def k7_route(P: int, H: int):
+    """(chunked, scratch rows) of K7: the one-pass route up to MAXP panels
+    and _CUDA_MAX_H components, else the chunked route, whose scratch
+    holds each panel chunk's last driver optical depth."""
+    chunked = P > _CUDA_MAXP or H > _CUDA_MAX_H
+    return chunked, kernels.nchunks(P) if chunked else 0
 
 
 @dataclass
@@ -647,14 +657,12 @@ def _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state):
     N = state[0].shape[0]
     W, P, H = spec.W, spec.npanels, spec.H
     if W > kernels.TablePolyMultiArgs.MAX_W:
-        raise ValueError("table_poly_multi_event kernel: W <= 128")
-    if P > _CUDA_MAXP:
-        raise ValueError(f"table_poly_multi_event kernel: quadrature_panels "
-                         f"<= {_CUDA_MAXP} (MAXP: the kernel's binary "
-                         "searches and shared-memory rows)")
-    if not 2 <= H <= _CUDA_MAX_H:
-        raise ValueError(f"table_poly_multi_event kernel: 2 <= dust "
-                         f"components <= {_CUDA_MAX_H}")
+        raise ValueError("table_poly_multi_event kernel: nlambda <= 128 "
+                         "(split wider grids into blocks of <= 128 "
+                         "wavelengths)")
+    if H < 2:
+        raise ValueError("table_poly_multi_event kernel: two or more dust "
+                         "components (one takes table_poly_event)")
     if len(state) != 10:
         raise ValueError("table_poly_multi_event: expected 10 state arrays")
     dts = [torch.float32] * 6 + [torch.int32] * 2 + [torch.float32] * 2
@@ -696,6 +704,10 @@ def _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state):
                         "ons", "oLn", "oLp", "odepi", "odepv"),
                        [*st_out, Ln, Lp, depi, depv]):
         setattr(a, name, _ptr(t))
+    chunked, rows = k7_route(P, H)
+    if chunked:
+        cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        a.cend = cend.data_ptr()
     lib = kernels.library()
     kernels.check(lib.skirt_table_poly_multi_event(ctypes.byref(a),
                                                    int(spec.want_labs),

@@ -15,7 +15,8 @@ reverse of the last (other, this, this, other, other, this, ...):
   - `chip_smoke.py <--smoke phases>` (none if empty; default k2 and k1:
     K2 on its four uniform shapes and on the frame stream the S1 poly
     path sends, K1 at N = 32,768, W = 128; k3: K3 at 2^21 lanes, W = 4,
-    and its H = 2 and W = 128 cases; k5: K5 at 2^17 lanes, P = 24, H = 2;
+    and its H = 2 and W = 128 cases; k4: K4 at 2^17 lanes, P = 16; k4d:
+    K4d at 2^16 lanes, P = 16; k5: K5 at 2^17 lanes, P = 24, H = 2;
     k6: K6 at W = 2, 24, 128; k6d: K6d at W = 8, 128; k6p: K6p at W = 2,
     24, 128 on both routes; k7: K7 at W = 2, 24, 128);
   - each of --cells (default poly, mono, host), `bench_torch.py` (best of

@@ -105,10 +105,10 @@ def onehot_gather(tab_hi, idx, *, stage="full", tab_lo=None, bfix=None,
                            ("bfix", bfix, (128, 1024))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"onehot_gather: {name} must be {shape}")
-    # the kernel reads the tables and the indices in pairs
-    tab_hi, idx = kernels.aligned(tab_hi, 4), kernels.aligned(idx, 8)
+    # the kernel copies the tables in 16-byte vectors
+    tab_hi, idx = kernels.aligned(tab_hi, 16), idx.contiguous()
     if tab_lo is not None:
-        tab_lo = kernels.aligned(tab_lo, 4)
+        tab_lo = kernels.aligned(tab_lo, 16)
     if bfix is not None:
         bfix = bfix.contiguous()
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)

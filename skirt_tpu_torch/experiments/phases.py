@@ -104,7 +104,7 @@ ANCHORS = {
             ("  a.ons[n] = nscatt;", "after")),),
     "k5": ((("  if (n >= a.N) return;", "after"),
             ("    __pipeline_wait_prior(0);", "after"),
-            ("    lane_finish<LABS>(", "before"),
+            ("    lane_finish<LABS, CHUNKED>(", "before"),
             ("  if (LABS) {\n    a.odepi[n] = depi;", "before"),
             ("  a.ocell[n] = cell;", "after")),
            (("  if (n >= a.N) return;", "after"),
@@ -204,14 +204,14 @@ def stamped_source(src: str, kernel: str) -> tuple[str, list, bool]:
 
 # each kernel's launch dispatch, where force_threads puts its choice of
 # instance: (the dispatch's first lines, launch_g's template arguments
-# before G)
+# before G and after it)
 DISPATCH = {
-    "k6": ("template <bool LABS, bool DIRECT, bool POL>\n"
+    "k6": ("template <bool LABS, bool DIRECT, bool POL, bool CHUNKED>\n"
            "int launch(const TablePolyArgs& a, cudaStream_t s) {\n",
-           "LABS, DIRECT, POL"),
+           "LABS, DIRECT, POL", ", CHUNKED"),
     "k7": ("template <int H, bool LABS>\n"
            "int launch(const TablePolyMultiArgs& a, cudaStream_t s) {\n",
-           "H, LABS"),
+           "H, LABS", ""),
 }
 
 
@@ -220,13 +220,14 @@ def force_threads(src: str, threads, kernel: str = "k7") -> str:
     one of `threads`, sends every launch to the instance of that many
     threads a lane (refused where W exceeds the G * wpt<G>() wavelengths
     it holds), and otherwise leaves the kernel's own choice."""
-    launch, targs = DISPATCH[kernel]
+    launch, targs, tail = DISPATCH[kernel]
     if src.count(launch) != 1:
         raise RuntimeError(f"{kernel.upper()}'s launch dispatch not found")
     hook = "".join(
         f"  if (phases_threads == {g})\n"
         f"    return a.W > {g} * wpt<{g}>() ? (int)cudaErrorInvalidValue\n"
-        f"                                : launch_g<{targs}, {g}>(a, s);\n"
+        f"                                : launch_g<{targs}, {g}{tail}>"
+        f"(a, s);\n"
         for g in threads if g)
     src = src.replace(launch, launch + hook)
     return src.replace('#include "common.cuh"',

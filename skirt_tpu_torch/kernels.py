@@ -23,6 +23,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -88,7 +89,49 @@ def build() -> Path:
     return so
 
 
+# The event kernels' one-pass routes hold at most MAXP panels, MAX_LEAD
+# observer directions (Geom.lead_*), and K3 and K7 a few dust components
+# and (K3) a table of at most MAX_TABLE floats; past any of these the C entry
+# points take the kernels' chunked routes (csrc/common.cuh), which need
+# the scratch and buffers below.
 MAX_LEAD = 8
+MAXP = 32
+CH = 32                 # panels a chunk on the chunked routes
+LEAD_FLOATS = 9         # a leader's row of the chunked routes' lead buffer
+
+
+def nchunks(P: int) -> int:
+    return -(-int(P) // CH)
+
+
+_buffers: dict = {}
+
+
+def device_floats(values, device):
+    """A float32 tensor of `values` on `device`, copied once per distinct
+    tuple (the chunked routes' leader and density buffers)."""
+    key = (tuple(float(v) for v in values), str(device))
+    t = _buffers.get(key)
+    if t is None:
+        if len(_buffers) > 64:
+            _buffers.clear()
+        t = _buffers[key] = torch.tensor(key[0], dtype=torch.float32,
+                                         device=device)
+    return t
+
+
+def lead_rows(leaders) -> list:
+    """The chunked routes' leader buffer as a flat list: per direction
+    its float32 components, their inverses (0 where the component is
+    not moving) and the moving flags, as _geom_args fills Geom.lead_*."""
+    out = []
+    for kvec in leaders:
+        moving = [abs(d) > 1e-30 for d in kvec]
+        out += [float(np.float32(d)) for d in kvec]
+        out += [float(np.float32(1.0 / d)) if m else 0.0
+                for d, m in zip(kvec, moving)]
+        out += [1.0 if m else 0.0 for m in moving]
+    return out
 
 
 class Geom(ctypes.Structure):
@@ -124,16 +167,17 @@ class PolyArgs(ctypes.Structure):
             "scattering_peeloff")]
         + [(name, ctypes.c_float) for name in (
             "xi", "inv_np", "inv_pp", "inv_minred")]
-        + [("geo", Geom)])
+        + [("geo", Geom),
+           ("cend", ctypes.c_void_p), ("lead", ctypes.c_void_p)])
 
 
 class MonoArgs(ctypes.Structure):
     """Mirror of `struct MonoArgs` in csrc/fused_mono.cu (same order); the
     Geom's fields read and write as the struct's own."""
     MAX_LEAD = MAX_LEAD
+    # the one-pass route's components and table floats (its tables sit in
+    # 48 KB of shared memory); the chunked route takes any
     MAX_COMP = 2
-    # the (3H, nlambda) wavelength tables sit in a block's static shared
-    # memory window
     MAX_TABLE = 12288
     _anonymous_ = ("geo",)
     _fields_ = (
@@ -148,7 +192,9 @@ class MonoArgs(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_np", "inv_pp", "inv_minred")]
         + [("dens1", ctypes.c_float * 8),
-           ("geo", Geom)])
+           ("geo", Geom),
+           ("cend", ctypes.c_void_p), ("lead", ctypes.c_void_p),
+           ("dens_h", ctypes.c_void_p)])
 
 
 class TableArgs(ctypes.Structure):
@@ -165,7 +211,7 @@ class TableArgs(ctypes.Structure):
             "N", "nlambda", "npanels", "min_scatt", "direct")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_minred")]
-        + [("geo", Geom)])
+        + [("geo", Geom), ("cend", ctypes.c_void_p)])
 
 
 class TablePolyArgs(ctypes.Structure):
@@ -184,7 +230,7 @@ class TablePolyArgs(ctypes.Structure):
             "N", "W", "npanels", "min_scatt", "sum_block", "direct", "pol")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_W", "inv_minred")]
-        + [("geo", Geom)])
+        + [("geo", Geom), ("cend", ctypes.c_void_p)])
 
 
 class TableMultiArgs(ctypes.Structure):
@@ -199,7 +245,7 @@ class TableMultiArgs(ctypes.Structure):
             "N", "nlambda", "npanels", "min_scatt")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_minred")]
-        + [("geo", Geom)])
+        + [("geo", Geom), ("cend", ctypes.c_void_p)])
 
 
 class TablePolyMultiArgs(ctypes.Structure):
@@ -217,7 +263,7 @@ class TablePolyMultiArgs(ctypes.Structure):
             "N", "W", "H", "npanels", "min_scatt", "sum_block")]
         + [(name, ctypes.c_float) for name in (
             "xi", "one_m_xi", "inv_W", "inv_minred")]
-        + [("geo", Geom)])
+        + [("geo", Geom), ("cend", ctypes.c_void_p)])
 
 
 # (entry-point stem, argument struct, source) of the event kernels that take

@@ -138,28 +138,58 @@ def _voronoi_model(lanes=64, **kw):
         return _octree_build(lanes, **args)
 
 
-def test_direct_kernels_refuse_more_panels_than_registers():
-    """K4d and K6d keep their panels in registers (MAXP = 32): past it the
-    wrappers raise naming quadrature_panels and the limit, before any
-    launch and without running the plain version in its place."""
+class _RecordingLibrary:
+    """Stands in for the kernel library on the CPU: every entry point
+    records the argument struct it was handed and returns 0 without a
+    launch, so the wrappers' packing and route choice run here."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(args, *rest):
+            self.calls.append((name, getattr(args, "_obj", args), rest))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    return lib
+
+
+@pytest.mark.parametrize("P", [33, 84, 280])
+def test_direct_kernels_refuse_more_panels_than_registers(recorded, P):
+    """K4d and K6d past MAXP = 32 panels (84 on the main grid, 280 on
+    33,000 Voronoi sites): the wrappers no longer refuse; they pack the
+    panel count and a chunk scratch array of nchunks(P) rows for the
+    kernels' chunked route."""
     from skirt_tpu_torch.testing import (table_event_inputs,
                                          table_poly_state, table_state)
 
     for poly, event in ((False, tft._table_event_cuda),
                         (True, tftp._table_poly_event_cuda)):
         run, *_, model = _voronoi_model(polychromatic=poly,
-                                        quadrature_panels=33)
+                                        quadrature_panels=P)
         spec, ds = run.spec, model[1]
-        assert spec.npanels == 33 and not spec.arith_locate
-        inp = table_event_inputs(ds, 64, spec.n_uniform, 2, npanels=33)
+        assert spec.npanels == P and not spec.arith_locate
+        inp = table_event_inputs(ds, 64, spec.n_uniform, 2, npanels=P)
         if poly:
             args = (inp["rows"], torch.from_numpy(spec.oc), inp["L"],
                     inp["L0"], table_poly_state(inp))
         else:
             kr, state = table_state(inp, ds)
             args = (kr, state)
-        with pytest.raises(ValueError, match="quadrature_panels <= 32"):
-            event(spec, inp["u"], *args)
+        event(spec, inp["u"], *args)
+        name, a, _ = recorded.calls[-1]
+        assert name == ("skirt_table_poly_event" if poly
+                        else "skirt_table_event")
+        assert a.npanels == P and a.direct == 1 and a.cend
+        assert tft.chunk_rows(P) == kernels.nchunks(P) == -(-P // 32)
+    assert tft.chunk_rows(32) == 0
 
 
 def test_table_locate_args_pack_the_grid():
@@ -177,13 +207,151 @@ def test_table_locate_args_pack_the_grid():
     assert tftp._sum_block(48) == 24 and tftp._sum_block(7) == 7
 
 
-def test_kernel_args_raise_beyond_the_kernel():
-    run, *_ = _model(quadrature_panels=33)
-    with pytest.raises(ValueError, match="quadrature_panels <= 32"):
-        tfp._cuda_args(run.spec)
-    run, *_ = _model(quadrature_panels=33, nlambda=4, polychromatic=False)
-    with pytest.raises(ValueError, match="quadrature_panels <= 32"):
-        tfm._cuda_args(run.spec)
+@pytest.mark.parametrize("P", [33, 84, 280])
+def test_kernel_args_raise_beyond_the_kernel(P):
+    """K1 and K3 past MAXP = 32 panels pack the arguments and pick the
+    chunked route (scratch rows: the panel chunks, and K3's absorbed
+    fractions with two components and labs); the one refusal left is
+    the one skirt_tpu shares, more than 128 wavelengths, in its words."""
+    import dataclasses
+
+    run, *_ = _model(quadrature_panels=P)
+    a, _ = tfp._cuda_args(run.spec)
+    assert a.npanels == P
+    assert tfp.cuda_route(run.spec) == (True, -(-P // 32))
+    run, *_ = _model(quadrature_panels=P, nlambda=4, polychromatic=False)
+    a, _ = tfm._cuda_args(run.spec)
+    assert a.npanels == P
+    assert tfm.cuda_route(run.spec) == (True, -(-P // 32))
+    spec2 = dataclasses.replace(run.spec, H=2)
+    assert tfm.cuda_route(spec2) == (True, -(-P // 32) + P)
+    run, *_ = _model(quadrature_panels=32)
+    assert tfp.cuda_route(run.spec) == (False, 0)
+    with pytest.raises(ValueError, match=r"nlambda <= 128 \(split wider"):
+        tfp._cuda_args(dataclasses.replace(run.spec, W=129))
+
+
+def _route_case(kernel, P=16, nlead=2, H=None, table=None):
+    """A K1 or K3 spec of the test model at the given shape."""
+    import dataclasses
+
+    poly = kernel == "k1"
+    run, *_ = _model(quadrature_panels=P, nlambda=4 if not poly else W,
+                     polychromatic=poly, ncomp=2 if H else 1)
+    spec = run.spec
+    if nlead != 2:
+        inc = np.linspace(0.1, 3.0, nlead)
+        leaders = [(float(np.sin(i) * np.cos(0.3 * j)),
+                    float(np.sin(i) * np.sin(0.3 * j)), float(np.cos(i)))
+                   for j, i in enumerate(inc)]
+        spec = dataclasses.replace(spec, leaders=leaders)
+    if H:
+        spec = dataclasses.replace(
+            spec, H=H, tab=np.ones((3 * H, spec.nlambda), np.float32),
+            density_geometries=[spec.density_geometries[0]] * H)
+    if table:
+        spec = dataclasses.replace(
+            spec, nlambda=table // 3, tab=np.ones((3, table // 3), np.float32))
+    return spec
+
+
+@pytest.mark.parametrize("kernel, shape", [
+    ("k1", dict(nlead=12)), ("k3", dict(nlead=12)), ("k3", dict(H=3)),
+    ("k3", dict(table=15000)), ("k1", dict(P=84, nlead=12))],
+    ids=["k1-12-leaders", "k3-12-leaders", "k3-H3", "k3-table-15000",
+         "k1-P84-12-leaders"])
+def test_analytic_kernels_take_any_leaders_components_and_tables(
+        recorded, kernel, shape):
+    """K1 and K3 at 12 observer directions, K3 at 3 dust components and at
+    a 15,000-float table: the wrappers pick the chunked route and hand it
+    a scratch array, every direction in a device buffer (float32 k, 1 / k
+    where the component moves, the moving flags, as Geom.lead_* holds the
+    first 8) and K3 every component's density constants."""
+    spec = _route_case(kernel, **shape)
+    N = 64
+    if kernel == "k1":
+        from skirt_tpu_torch.testing import event_case
+        spec, u, oc, L, L0, state = event_case(spec, N, 1, "cpu")
+        tfp._poly_event_cuda(spec, u, oc, L, L0, state)
+    else:
+        from skirt_tpu_torch.testing import mono_event_case
+        spec, u, state = mono_event_case(spec, N, 1, "cpu")
+        tfm._mono_event_cuda(spec, u, state)
+    name, a, _ = recorded.calls[-1]
+    assert name == ("skirt_poly_event" if kernel == "k1"
+                    else "skirt_mono_event")
+    nlead = len(spec.leaders)
+    assert a.nlead == nlead and a.cend
+    assert a.lead            # the chunked route reads every direction there
+    rows = kernels.lead_rows(spec.leaders)
+    assert len(rows) == kernels.LEAD_FLOATS * nlead
+    for j in range(min(nlead, kernels.MAX_LEAD)):
+        assert rows[9 * j:9 * j + 3] == [a.lead_k[j][i] for i in range(3)]
+        assert rows[9 * j + 3:9 * j + 6] == [a.lead_inv[j][i]
+                                             for i in range(3)]
+    if kernel == "k3":
+        assert a.H == spec.H and a.dens_h
+        assert len(a.dens_rows) == 8 * spec.H
+        assert a.dens_rows[:7] == [a.dens[i] for i in range(7)]
+
+
+@pytest.mark.parametrize("P, H", [(33, 2), (84, 2), (280, 2), (24, 4)])
+def test_table_kernels_take_any_panels_and_components(recorded, P, H):
+    """K4, K5, K6 (and K6p) past 32 panels and K7 at 4 dust components: the
+    wrappers pack the shape and a chunk scratch array (K5: two running
+    sums) for the chunked routes; at 24 panels and 2 components the
+    one-pass routes, no scratch."""
+    import dataclasses
+
+    from skirt_tpu_torch.testing import (table_event_inputs,
+                                         table_multi_state,
+                                         table_poly_state, table_state)
+
+    nc = -(-P // 32) if P > 32 else 0
+    run, *_, model = _table_model(quadrature_panels=P)
+    ds = model[1]
+    inp = table_event_inputs(ds, 64, 5, 2, npanels=P)
+    kr, state = table_state(inp, ds)
+    tft._table_event_cuda(run.spec, inp["u"], kr, state)
+    name, a, _ = recorded.calls[-1]
+    assert (name, a.npanels, bool(a.cend)) == ("skirt_table_event", P,
+                                               bool(nc))
+    run, *_, model = _table_model(quadrature_panels=P, polychromatic=True)
+    spec = run.spec
+    for pol in (False, True):
+        spec = dataclasses.replace(spec, want_pol=pol)
+        inp = table_event_inputs(model[1], 64, 7, spec.W, npanels=P)
+        tftp._table_poly_event_cuda(spec, inp["u"], inp["rows"],
+                                    torch.from_numpy(spec.oc), inp["L"],
+                                    inp["L0"], table_poly_state(inp))
+        name, a, _ = recorded.calls[-1]
+        assert (name, a.npanels, a.pol, bool(a.cend)) == (
+            "skirt_table_poly_event", P, int(pol), bool(nc))
+    # the two-component model's specs at P panels (its builder fixes 24)
+    run, *_, model = _multi_model()
+    ds = model[1]
+    inp = table_event_inputs(ds, 64, 3, 2, npanels=P)
+    kr, ks, state = table_multi_state(inp, ds)
+    tft._table_multi_event_cuda(dataclasses.replace(run.spec, npanels=P),
+                                inp["u"], kr, ks, state)
+    name, a, _ = recorded.calls[-1]
+    assert (name, a.npanels, bool(a.cend)) == ("skirt_table_multi_event", P,
+                                               bool(nc))
+    run, *_, model = _multi_model(polychromatic=True)
+    spec = dataclasses.replace(run.spec, npanels=P)
+    oc = np.concatenate([spec.oc.reshape(3, 2, -1)] * (H // 2), 1)
+    spec = dataclasses.replace(spec, H=H, oc=np.ascontiguousarray(
+        oc.reshape(3 * H, -1)))
+    inp = table_event_inputs(model[1], 64, 8, spec.W, npanels=P)
+    rows = torch.cat([inp["rows"]] * (H // 2))
+    tftp._table_poly_multi_event_cuda(spec, inp["u"], rows,
+                                      torch.from_numpy(spec.oc), inp["L"],
+                                      inp["L0"], table_poly_state(inp))
+    name, a, _ = recorded.calls[-1]
+    chunked = P > 32 or H > 3
+    assert tftp.k7_route(P, H) == (chunked, -(-P // 32) if chunked else 0)
+    assert (name, a.npanels, a.H, bool(a.cend)) == (
+        "skirt_table_poly_multi_event", P, H, chunked)
 
 
 def test_cpu_run_launches_no_kernel():

@@ -48,10 +48,13 @@ K = 4
 FLOAT_BAD_LANES = 2         # of 1,024 (module docstring)
 
 
-def jax_model(nlambda, source="expdisk", K_refill=0, ncomp=1, **opt_kw):
+def jax_model(nlambda, source="expdisk", K_refill=0, ncomp=1, nlead=2,
+              **opt_kw):
     """A small dusty disc in skirt_tpu (as __graft_entry__._build, with
-    per-wavelength varying optics), two observer directions; with
-    ncomp=2 the two-component mix of tests/test_fused.py."""
+    per-wavelength varying optics), two observer directions (or nlead:
+    SED instruments at more inclinations); with ncomp=2 the two-component
+    mix of tests/test_fused.py, with ncomp=3 that mix and a third
+    component."""
     from skirt_tpu.constants import KPC
     from skirt_tpu.engine.lifecycle import LifecycleOptions
     from skirt_tpu.geometry import ExpDiskGeometry, PointGeometry
@@ -82,7 +85,7 @@ def jax_model(nlambda, source="expdisk", K_refill=0, ncomp=1, **opt_kw):
                                OpticalDepthNormalization(
                                    "z", wg.lambdav[0], 1.0))]
     else:
-        assert nlambda == 2
+        assert nlambda == 2 and ncomp in (2, 3)
         mix1 = SimpleOligoDustMix(wg, [2600.0, 800.0], [0.6, 0.3],
                                   [0.5, 0.2])
         mix2 = SimpleOligoDustMix(wg, [1000.0, 1500.0], [0.2, 0.8],
@@ -93,10 +96,19 @@ def jax_model(nlambda, source="expdisk", K_refill=0, ncomp=1, **opt_kw):
                  DustComponent(ExpDiskGeometry(2 * KPC, 0.5 * KPC), mix2,
                                OpticalDepthNormalization(
                                    "z", wg.lambdav[0], 0.5))]
+        if ncomp == 3:
+            mix3 = SimpleOligoDustMix(wg, [1800.0, 1200.0], [0.4, 0.5],
+                                      [0.3, -0.1])
+            comps.append(DustComponent(
+                ExpDiskGeometry(3 * KPC, 0.3 * KPC), mix3,
+                OpticalDepthNormalization("z", wg.lambdav[0], 0.4)))
     ds = DustSystem(grid, comps, samples_per_cell=2, density_mode="analytic")
     ins = [SEDInstrument("sed", 3.08e23, nlambda, inclination=1.0),
            SimpleInstrument("img", 3.08e23, nlambda, 16, 16, fov_x=24 * KPC,
                             fov_y=24 * KPC, inclination=np.pi / 2)]
+    ins += [SEDInstrument(f"sed{i}", 3.08e23, nlambda, inclination=inc,
+                          azimuth=0.3 * i)
+            for i, inc in enumerate(np.linspace(0.2, 2.9, nlead - 2))]
     kw = dict(store_absorption=True, deposition="sampled",
               quadrature_panels=NPANELS, peel_panels=NP_PEEL,
               max_scatt_events=16, fused=True, refill_batches=K_refill)
@@ -131,8 +143,9 @@ def jax_event(model, nlambda, refill, inputs):
                if refill else None)
     want_labs = bool(options.store_absorption)
     lam_inputs = nlambda > jfused._MAX_CHAIN_AUTO
-    kern = jfused._build_kernel(grid, ds, leaders, NPANELS, NP_PEEL, options,
-                                nlambda, want_labs, True, sampler=sampler,
+    kern = jfused._build_kernel(grid, ds, leaders, options.quadrature_panels,
+                                options.peel_panels, options, nlambda,
+                                want_labs, True, sampler=sampler,
                                 lam_inputs=lam_inputs)
     multi = ds.ncomp > 1
     nlead = len(leaders)
@@ -185,7 +198,8 @@ def torch_event(model, nlambda, refill, inputs):
     grid, ds, ss, ins, options = from_skirt_tpu(*model)
     leaders, _ = tfused._group_leaders(ins)
     spec = tfused._build_kernel(
-        grid, ds, leaders, NPANELS, NP_PEEL, options, nlambda,
+        grid, ds, leaders, options.quadrature_panels, options.peel_panels,
+        options, nlambda,
         bool(options.store_absorption), True,
         ss.components[0].geometry if refill else None)
     u, state = inputs
@@ -216,6 +230,11 @@ CASES = {
     "nolabs": (4, "expdisk", False, 1, {"store_absorption": False}),
     "two-components": (2, "expdisk", True, 2, {}),
     "lam-inputs-17": (17, "expdisk", False, 1, {}),
+    # shapes past the card's one-pass route (the chunked route's: more than
+    # 32 panels, more than 8 observers, more than 2 components)
+    "panels-40": (4, "expdisk", True, 1, {"quadrature_panels": 40}),
+    "leaders-10": (4, "expdisk", False, 1, {"nlead": 10}),
+    "three-components": (2, "expdisk", True, 3, {}),
 }
 
 
@@ -225,6 +244,7 @@ def test_event_matches_pallas(case):
     model = jax_model(nlambda, source, K_refill=K if refill else 0,
                       ncomp=ncomp, min_weight_reduction=4.0,
                       min_scatt_events=1, **extra)
+    assert len(tfused._group_leaders(model[3])[0]) == extra.get("nlead", 2)
     nu = 4 if source == "expdisk" else 1
     n_uniform = 5 + (nu + 2 if refill else 0) + (1 if ncomp > 1 else 0)
     inputs = mono_event_inputs(R * 128, nlambda, n_uniform,

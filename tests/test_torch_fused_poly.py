@@ -48,9 +48,10 @@ K = 4
 FLOAT_BAD_LANES = 2         # of 1,024 (module docstring)
 
 
-def jax_model(W, source="expdisk", K_refill=0, **opt_kw):
+def jax_model(W, source="expdisk", K_refill=0, nlead=2, **opt_kw):
     """A small dusty disc in skirt_tpu (as __graft_entry__._build, with
-    per-wavelength varying optics) and two observer directions."""
+    per-wavelength varying optics) and two observer directions (or nlead:
+    SED instruments at more inclinations)."""
     from skirt_tpu.constants import KPC
     from skirt_tpu.engine.lifecycle import LifecycleOptions
     from skirt_tpu.geometry import ExpDiskGeometry, PointGeometry
@@ -82,6 +83,9 @@ def jax_model(W, source="expdisk", K_refill=0, **opt_kw):
     ins = [SEDInstrument("sed", 3.08e23, W, inclination=1.0),
            SimpleInstrument("img", 3.08e23, W, 16, 16, fov_x=24 * KPC,
                             fov_y=24 * KPC, inclination=np.pi / 2)]
+    ins += [SEDInstrument(f"sed{i}", 3.08e23, W, inclination=inc,
+                          azimuth=0.3 * i)
+            for i, inc in enumerate(np.linspace(0.2, 2.9, nlead - 2))]
     kw = dict(store_absorption=True, deposition="sampled",
               quadrature_panels=NPANELS, peel_panels=NP_PEEL,
               max_scatt_events=16, fused=True, polychromatic=True,
@@ -98,8 +102,8 @@ def jax_event(grid, ds, ss, ins, options, W, refill, inputs):
                if refill else None)
     want_labs = bool(options.store_absorption)
     kern, n_uniform, oc_np, _, _ = jfp._build_kernel(
-        grid, ds, leaders, NPANELS, NP_PEEL, options, W, want_labs, True,
-        sampler)
+        grid, ds, leaders, options.quadrature_panels, options.peel_panels,
+        options, W, want_labs, True, sampler)
     nlead = len(leaders)
     tile_rows = min(32, max(8, (1024 // W) // 8 * 8))
     tr = min(tile_rows, R)
@@ -177,7 +181,8 @@ def compare(jres, tres):
 def _torch_event(model, W, refill, inputs):
     grid, ds, ss, ins, options = from_skirt_tpu(*model)
     leaders, _ = tfp._group_leaders(ins)
-    spec = tfp._build_kernel(grid, ds, leaders, NPANELS, NP_PEEL, options, W,
+    spec = tfp._build_kernel(grid, ds, leaders, options.quadrature_panels,
+                             options.peel_panels, options, W,
                              bool(options.store_absorption), True,
                              ss.components[0].geometry if refill else None)
     u, L, L0, state = inputs
@@ -209,6 +214,24 @@ def test_event_matches_pallas(W, source):
     assert (tres["state"][6] == 0).sum() > 10
     if refill:
         assert tres["fresh"].sum() > 10
+
+
+@pytest.mark.parametrize("npanels, nlead", [(40, 2), (8, 10)],
+                         ids=["panels-40", "leaders-10"])
+def test_event_past_the_card_limits_matches_pallas(npanels, nlead):
+    """Shapes past the card's one-pass route (the chunked route's): more
+    than 32 panels, more than 8 observer directions."""
+    W = 4
+    model = jax_model(W, "expdisk", K_refill=K, nlead=nlead,
+                      quadrature_panels=npanels, min_weight_reduction=4.0,
+                      min_scatt_events=1)
+    inputs = event_inputs(R * 128, W, 13, K, seed=npanels + nlead)
+    jres, _ = jax_event(*model, W, True, inputs)
+    tres = _torch_event(model, W, True, inputs)
+    assert tres["Ip"].shape[0] == nlead
+    compare(jres, tres)
+    assert (tres["depi"] >= 0).sum() > 100
+    assert (tres["state"][6] == 0).sum() > 10
 
 
 def test_event_without_labs_matches_pallas():

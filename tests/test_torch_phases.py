@@ -78,7 +78,7 @@ def test_force_threads_hooks_each_launch(kernel, threads):
     width into that kernel's launch_g, refusing a W beyond what the
     instance holds, behind one global the tool sets; 0 adds nothing."""
     src = (kernels.CSRC / phases.KERNELS[kernel][0]).read_text()
-    launch, targs = phases.DISPATCH[kernel]
+    launch, targs, tail = phases.DISPATCH[kernel]
     assert src.count(launch) == 1
     out = phases.force_threads(src, threads, kernel)
     assert out.count("int phases_threads = 0;") == 1
@@ -86,7 +86,7 @@ def test_force_threads_hooks_each_launch(kernel, threads):
         if not g:
             continue
         assert f"if (phases_threads == {g})" in out
-        assert f"launch_g<{targs}, {g}>(a, s);" in out
+        assert f"launch_g<{targs}, {g}{tail}>(a, s);" in out
         assert f"a.W > {g} * wpt<{g}>()" in out
     assert "phases_threads == 0" not in out
 

@@ -204,12 +204,12 @@ def test_exact_peel_matches(azimuth):
 # kernel K4: the plain event against the Pallas body
 # ---------------------------------------------------------------------------
 
-def jax_event(model, inputs):
+def jax_event(model, inputs, npanels=NPANELS):
     """skirt_tpu's K4 Pallas body in interpret mode, called as
     make_fused_table_lifecycle's call_kernel calls it."""
     grid, ds, ss, ins, options = model
     want_labs = bool(options.store_absorption)
-    kern = jft._build_kernel(grid, options, 2, NPANELS, want_labs, True)
+    kern = jft._build_kernel(grid, options, 2, npanels, want_labs, True)
     u, kr, state = inputs
     tr = min(32, R)
 
@@ -223,7 +223,7 @@ def jax_event(model, inputs):
         kern, grid=(R // tr,),
         in_specs=[pl.BlockSpec((5, tr, 128), lambda i: (0, i, 0),
                                memory_space=pltpu.VMEM),
-                  pl.BlockSpec((NPANELS, tr, 128), lambda i: (0, i, 0),
+                  pl.BlockSpec((npanels, tr, 128), lambda i: (0, i, 0),
                                memory_space=pltpu.VMEM)]
         + [blk() for _ in state],
         out_specs=tuple(blk() for _ in out_dtypes),
@@ -238,6 +238,27 @@ def jax_event(model, inputs):
     if want_labs:
         res["depi"], res["depv"] = outs[9], outs[10]
     return res
+
+
+def test_event_past_32_panels_matches_pallas(models):
+    """40 panels: a shape past the card's one-pass route (the chunked
+    route's)."""
+    (jm, (grid, ds, ss, ins, opts)) = models
+    cut = dict(min_weight_reduction=20.0, min_scatt_events=1)
+    jm = jm[:4] + (dataclasses.replace(jm[4], **cut),)
+    P = 40
+    inp = table_event_inputs(ds, R * 128, 5, 2, seed=40, npanels=P,
+                             small_tau=0.01, outside=0.01)
+    kr, state = table_state(inp, ds)
+    spec = tft._build_kernel(grid, dataclasses.replace(opts, **cut), 2, P,
+                             True)
+    got = tft.table_event(spec, inp["u"], kr, state)
+    want = jax_event(jm, (inp["u"].numpy(), kr.numpy(),
+                          [s.numpy() for s in state]), npanels=P)
+    res = event_agreement(got, want)
+    assert res["discrete"] >= 0.999, res
+    assert res["float_bad"] <= FLOAT_BAD_LANES, res
+    assert (got["depi"] >= 0).sum() > 300
 
 
 @pytest.mark.parametrize("labs", [True, False], ids=["labs", "nolabs"])

@@ -67,7 +67,8 @@ def jax_multi_model(W=2, H=2, voxelize=True, **opt_kw):
     """The two-component model in skirt_tpu (W = 2: exactly
     TestMultiComponentFused._setup2; other W: log-spaced wavelengths from
     0.55 to 2.2 um with each mix's optics interpolated in log lambda; H = 3
-    adds a third component, a denser 0.9 kpc sphere), voxelized, in table
+    adds a third component, a denser 0.9 kpc sphere, H = 4 a fourth, a
+    thin shell of the torus's extent), voxelized, in table
     mode, with one SED instrument: (grid, dust system, stellar system,
     instruments, options).  With voxelize=False: (stellar system, gridded
     leaf-resolution dust system) before the voxel view."""
@@ -113,12 +114,18 @@ def jax_multi_model(W=2, H=2, voxelize=True, **opt_kw):
                  "x", 0.55e-6, 2.0)),
              DustComponent(sphere, mix2, DustMassNormalization(
                  1.0 / 1800.0 * vol / (1.8 * JKPC)))]
-    if H == 3:
+    if H >= 3:
         core = UniformSphereGeometry(0.9 * JKPC)
         mix3 = SimpleOligoDustMix(wg, lerp(3000.0, 900.0, True),
                                   lerp(0.3, 0.2), lerp(-0.2, 0.4))
         comps.append(DustComponent(core, mix3, DustMassNormalization(
             0.5 / 3000.0 * 4 / 3 * np.pi * (0.9 * JKPC) ** 3 / (0.9 * JKPC))))
+    if H == 4:
+        mix4 = SimpleOligoDustMix(wg, lerp(1200.0, 700.0, True),
+                                  lerp(0.6, 0.5), lerp(0.3, 0.1))
+        comps.append(DustComponent(
+            TorusGeometry(0.5, 1.2, 0.3, 0.2 * JKPC, 1.6 * JKPC), mix4,
+            OpticalDepthNormalization("x", 0.55e-6, 0.7)))
     ds = DustSystem(grid, comps, samples_per_cell=8)
     if not voxelize:
         return ss, ds
@@ -306,11 +313,11 @@ def test_k5_matches_pallas(models, labs):
 # kernel K7: the plain event against the Pallas body
 # ---------------------------------------------------------------------------
 
-def jax_k7(model, W, H, inputs, labs):
+def jax_k7(model, W, H, inputs, labs, npanels=NPANELS):
     """skirt_tpu's K7 Pallas body in interpret mode, called as
     make_fused_table_poly_lifecycle's call_kernel calls it."""
     grid, ds, ss, ins, options = model
-    kern, n_uniform = jftp._build_kernel_multi(grid, options, W, H, NPANELS,
+    kern, n_uniform = jftp._build_kernel_multi(grid, options, W, H, npanels,
                                                labs)
     u, r, oc, L, L0, state = inputs
     tr = min(min(32, max(8, (1024 // W) // 8 * 8)), R)
@@ -333,14 +340,14 @@ def jax_k7(model, W, H, inputs, labs):
         out_specs += [blk(), blk()]
     outs = pl.pallas_call(
         kern, grid=(R // tr,),
-        in_specs=[blkW(n_uniform), blkW(H * NPANELS),
+        in_specs=[blkW(n_uniform), blkW(H * npanels),
                   pl.BlockSpec((3 * H, W, 128), lambda i: (0, 0, 0),
                                memory_space=pltpu.VMEM),
                   blkW(W), blkW(W)] + [blk() for _ in state],
         out_specs=tuple(out_specs), out_shape=tuple(out_shapes),
         interpret=True,
     )(jnp.array(u.reshape(n_uniform, R, 128)),
-      jnp.array(r.reshape(H * NPANELS, R, 128)),
+      jnp.array(r.reshape(H * npanels, R, 128)),
       jnp.array(np.broadcast_to(oc[:, :, None], (3 * H, W, 128)).copy()),
       jnp.array(L.reshape(W, R, 128)), jnp.array(L0.reshape(W, R, 128)),
       *[jnp.array(s.reshape(R, 128)) for s in state])
@@ -355,8 +362,9 @@ def jax_k7(model, W, H, inputs, labs):
 
 @pytest.mark.parametrize("W, H, labs", [(1, 2, True), (2, 2, True),
                                         (2, 2, False), (24, 2, True),
-                                        (2, 3, True)],
-                         ids=["W1", "W2", "W2-nolabs", "W24", "W2-H3"])
+                                        (2, 3, True), (2, 4, True)],
+                         ids=["W1", "W2", "W2-nolabs", "W24", "W2-H3",
+                              "W2-H4"])
 def test_k7_matches_pallas(W, H, labs):
     cut = dict(min_weight_reduction=20.0, min_scatt_events=1,
                store_absorption=labs, polychromatic=True)

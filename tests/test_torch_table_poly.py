@@ -88,14 +88,14 @@ def jax_poly_model(W, **opt_kw):
     return tds.grid, tds, ss, ins, LifecycleOptions(**kw)
 
 
-def jax_event(model, W, inputs):
+def jax_event(model, W, inputs, npanels=NPANELS):
     """skirt_tpu's K6 Pallas body in interpret mode, called as
     make_fused_table_poly_lifecycle's call_kernel calls it."""
     grid, ds, ss, ins, options = model
     want_labs = bool(options.store_absorption)
     mix = ds.components[0].mix
     kern, n_uniform = jftp._build_kernel(
-        grid, options, W, NPANELS, want_labs,
+        grid, options, W, npanels, want_labs,
         [float(np.asarray(ds.kappaext)[0, w]) for w in range(W)],
         [float(np.asarray(mix.albedo)[w]) for w in range(W)],
         [float(np.asarray(mix.g)[w]) for w in range(W)])
@@ -120,14 +120,14 @@ def jax_event(model, W, inputs):
         out_specs += [blk(), blk()]
     outs = pl.pallas_call(
         kern, grid=(R // tr,),
-        in_specs=[blkW(n_uniform), blkW(NPANELS),
+        in_specs=[blkW(n_uniform), blkW(npanels),
                   pl.BlockSpec((3, W, 128), lambda i: (0, 0, 0),
                                memory_space=pltpu.VMEM),
                   blkW(W), blkW(W)] + [blk() for _ in state],
         out_specs=tuple(out_specs), out_shape=tuple(out_shapes),
         interpret=True,
     )(jnp.array(u.reshape(n_uniform, R, 128)),
-      jnp.array(r.reshape(NPANELS, R, 128)),
+      jnp.array(r.reshape(npanels, R, 128)),
       jnp.array(np.broadcast_to(oc[:, :, None], (3, W, 128)).copy()),
       jnp.array(L.reshape(W, R, 128)), jnp.array(L0.reshape(W, R, 128)),
       *[jnp.array(s.reshape(R, 128)) for s in state])
@@ -177,6 +177,30 @@ def test_event_matches_pallas(W, labs):
         assert dep.numel() > 300
         assert len(torch.unique(dep % W)) == W
         assert (got["depi"][inp["outside"] & alive_in] < 0).all()
+
+
+def test_event_past_32_panels_matches_pallas():
+    """40 panels at W = 2: a shape past the card's one-pass route (the
+    chunked route's)."""
+    W, P = 2, 40
+    cut = dict(min_weight_reduction=20.0, min_scatt_events=1,
+               store_absorption=True)
+    jm = jax_poly_model(W, **cut)
+    grid, ds, ss, ins, opts = from_skirt_tpu(*jm)
+    spec = tftp._build_kernel(grid, ds, opts, W, P, True)
+    inp = table_event_inputs(ds, R * 128, 7, W, seed=40, npanels=P,
+                             outside=0.01)
+    state = table_poly_state(inp)
+    oc = torch.from_numpy(spec.oc)
+    got = tftp.table_poly_event(spec, inp["u"], inp["rows"], oc, inp["L"],
+                                inp["L0"], state)
+    want = jax_event(jm, W, [inp["u"].numpy(), inp["rows"].numpy(),
+                             spec.oc, inp["L"].numpy(), inp["L0"].numpy(),
+                             [s.numpy() for s in state]], npanels=P)
+    res = event_agreement(got, want)
+    assert res["discrete"] >= 0.999, res
+    assert res["float_bad"] <= FLOAT_BAD_LANES, res
+    assert (got["depi"] >= 0).sum() > 300
 
 
 def test_wavelength_sums_follow_xla_order():
