@@ -92,17 +92,23 @@ exits non-zero without printing a result):
      K7 at H = 4 (P = 24); each timed against its bound with the shape's
      panel count
   13. K8 (binned_add_lm) at experiments/microbench_blocked_tally.py's
-     flagship (2^17 lanes, 128 wavelength blocks, 16,384 cells) and at
+     flagship (2^17 lanes, 128 wavelength blocks, 16,384 cells), at
      nlambda = 20 (where skirt_tpu's tiles leave blocks 16-19 unwritten),
-     with K2 on the same lanes as the script's yardsticks; the probes
-     through their drivers (skirt_tpu_torch.experiments) at the JAX
+     where lanes are dense (nlambda 8, 1,000 cells, 16 lanes a bin) and
+     where a slice passes the card's opt-in shared memory, each line with
+     the route (sparse, dense with its split, global) ops.binned.k8_route
+     gave it, with K2 on the same lanes as the script's yardsticks; the
+     probes through their drivers (skirt_tpu_torch.experiments) at the JAX
      scripts' shapes, one call per distinct function (the Pallas variants
      that differ only in a TPU schedule are one call): PG through both
      routes on P1-P10, on the 32,768-entry table with uniform indices
      and on the 2^23 voxel ids config 3's mono table path stages for its
      panel rows (event iterations 32-35 of one batch), PO at every stage
      of P11-P14 (its SASS must hold HGMMA: wgmma), PM at every shape and
-     type of P15 (each timed over the Pallas grid's G repeats)
+     type of P15 with mm.plan's tile (each timed over the Pallas grid's G
+     repeats; its SASS must hold HGMMA and UTMALDG: wgmma and TMA).
+     `python3 chip_smoke.py k8 pm po` runs these three alone (phases 1-2
+     first, no "ok" line; SASS counts logged, not required)
   14. the main paths at full width, each with the launch counts of its
      kernels reset just before it and read just after, and its tallies
      checked: S1, polychromatic analytic, through make_lifecycle +
@@ -2555,53 +2561,113 @@ def _panel_gathers(torch, octree):
         for route in ROUTES]
 
 
-def phase_probes(torch, results, octree):
-    """K8 (at the flagship shape and on nlambda = 20, where skirt_tpu's
-    tiles leave blocks unwritten) and the probes PG (both routes, P1-P10,
-    the 32,768-entry table on uniform indices and on the panel cells that
-    config 3 stages), PO (every stage, P11-P14) and PM (every shape and
-    type of P15), each against its plain version at the JAX scripts'
-    shapes, timed: kernel, plain, library and bound ms."""
+# the row each probe kernel reports (its by_variant holds the rest)
+_PROBE_HEAD = {"K8": "K8 binned_add_lm flagship",
+               "PG": "PG T=32768 [l2]",
+               "PO": "PO full split",
+               "PM": "P15 (1024,1024)@(1024,1024) bf16 inner=1"}
+
+
+def _probe_results(results, kname, recs):
+    """results[kname] from a probe's timed records: the head row's times,
+    the largest error, and every row by name (by_variant for the kernels
+    line, by_case for ab_trees)."""
+    for r in recs:
+        log(f"  {kname} {line(r)}")
+    r, = [r for r in recs if r["name"] == _PROBE_HEAD[kname]]
+    keys = ("pallas", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_ms_fp32", "onehot_floor_ms", "max_abs_err", "route",
+            "split", "tile")
+    results[kname] = {
+        "max_abs_err": max(x["max_abs_err"] for x in recs),
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "shape": r["shape"],
+        "by_variant": {x["name"]: {k: x[k] for k in keys if k in x}
+                       for x in recs},
+        "by_case": {x["name"]: {k: x[k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms")}
+                    for x in recs}}
+
+
+def _sass_check(kname, function, opcodes, strict):
+    """Count each opcode in the SASS of the library's functions named
+    `function`; strict: raise when one is missing."""
     from skirt_tpu_torch import kernels
 
-    hgmma = sass_count(kernels.build(), "probe_onehot", "HGMMA")
-    log(f"  PO's SASS: {hgmma} HGMMA instructions (wgmma)")
-    if not hgmma:
-        raise AssertionError("PO's kernel issues no wgmma (no HGMMA in its "
-                             "SASS)")
-    results["PO_hgmma"] = hgmma
+    counts = {op: sass_count(kernels.build(), function, op) for op in opcodes}
+    log(f"  {kname}'s SASS ({function}): "
+        + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    missing = [op for op, n in counts.items() if not n]
+    if strict and missing:
+        raise AssertionError(f"{kname}'s kernel has no {missing} in its "
+                             f"SASS")
+    return counts
+
+
+def phase_pm(torch, results, strict=False):
+    """PM at every shape and type of P15, timed, with its SASS check
+    (HGMMA: wgmma; UTMALDG: TMA loads)."""
+    from skirt_tpu_torch.experiments import microbench_mxu_mm
+
+    counts = _sass_check("PM", "mm_bf16", ("HGMMA", "UTMALDG"), strict)
+    recs = microbench_mxu_mm.sweep(timed=True)
+    _probe_results(results, "PM", recs)
+    results["PM"]["max_err_over_tol"] = max(
+        x["max_err_over_tol"] for x in recs)
+    results["PM"]["sass"] = counts
+
+
+def phase_k8(torch, results):
+    """K8 at the flagship, on nlambda = 20, dense and past the card's
+    opt-in shared memory, timed, each with its route (K2 on the flagship's
+    lanes beside it)."""
+    from skirt_tpu_torch.experiments import microbench_blocked_tally
+
+    recs = microbench_blocked_tally.sweep(timed=True)
+    for r in recs:
+        if r["name"].startswith("K2"):
+            log(f"  K2 {line(r)}")
+    _probe_results(results, "K8",
+                   [r for r in recs if r["name"].startswith("K8")])
+
+
+def phase_po(torch, results, strict=False):
+    """PO at every stage of P11-P14, timed, with its SASS check (HGMMA).
+    Returns the driver's PG records on PO's 32,768-entry table."""
+    from skirt_tpu_torch.experiments import microbench_mxu_gather
+
+    counts = _sass_check("PO", "probe_onehot", ("HGMMA",), strict)
+    po, pg_table = microbench_mxu_gather.sweep(timed=True)
+    _probe_results(results, "PO", po)
+    results["PO"]["sass"] = counts
+    r, = [r for r in po if r["name"] == "PO full split"]
+    results["PO"]["onehot_floor_ms"] = r["onehot_floor_ms"]
+    return pg_table
+
+
+def phase_probes(torch, results, octree):
+    """K8 (at the flagship shape, on nlambda = 20, where skirt_tpu's tiles
+    leave blocks unwritten, dense and past the opt-in limit) and the
+    probes PG (both routes, P1-P10, the 32,768-entry table on uniform
+    indices and on the panel cells that config 3 stages), PO (every stage,
+    P11-P14) and PM (every shape and type of P15), each against its plain
+    version at the JAX scripts' shapes, timed: kernel, plain, library and
+    bound ms; PO's SASS must hold HGMMA, PM's HGMMA and UTMALDG."""
+    from skirt_tpu_torch.experiments import microbench_gather
+
     t0 = time.perf_counter()
-    sweeps = _probe_sweeps(timed=True)
-    sweeps["PG"] += _panel_gathers(torch, octree)
-    for kname, recs in sweeps.items():
-        for r in recs:
-            log(f"  {kname} {line(r)}")
-    # the row each kernel reports (its by_variant holds the rest)
-    head = {"K8": "K8 binned_add_lm flagship",
-            "PG": "PG T=32768 [l2]",
-            "PO": "PO full split",
-            "PM": "P15 (1024,1024)@(1024,1024) bf16 inner=1"}
-    for kname, name in head.items():
-        recs = sweeps[kname]
-        r, = [r for r in recs if r["name"] == name]
-        results[kname] = {
-            "max_abs_err": max(x["max_abs_err"] for x in recs),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "shape": r["shape"],
-            "by_variant": {x["name"]: {k: x[k] for k in (
-                "pallas", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "bound_ms_fp32", "onehot_floor_ms",
-                "max_abs_err") if k in x} for x in recs}}
-    by_name = {r["name"]: r for r in sweeps["PG"]}
+    phase_k8(torch, results)
+    pg_table = phase_po(torch, results, strict=True)
+    pg = (microbench_gather.sweep(timed=True) + pg_table
+          + _panel_gathers(torch, octree))
+    _probe_results(results, "PG", pg)
+    phase_pm(torch, results, strict=True)
+    by_name = {r["name"]: r for r in pg}
     results["PG"]["ms_smem"] = by_name["PG T=32768 [smem]"]["ms"]
     results["PG"]["panel_cells_ms"] = {
         route: by_name[f"PG config-3 panel cells [{route}]"]["ms"]
         for route in ("l2", "smem")}
-    po, = [r for r in sweeps["PO"] if r["name"] == "PO full split"]
-    results["PO"]["onehot_floor_ms"] = po["onehot_floor_ms"]
-    results["PM"]["max_err_over_tol"] = max(
-        x["max_err_over_tol"] for x in sweeps["PM"])
     log(f"  probes timed in {time.perf_counter() - t0:.1f} s")
 
 
@@ -2641,8 +2707,13 @@ def _model(name):
 
 
 # the kernel phases `python3 chip_smoke.py k2 k1 k3 k4 k4d k5 k6 k6d k6p k7
-# chunked` runs alone, each on the models main builds for it
+# chunked k8 pm po` runs alone, each on the models main builds for it (the
+# probes' SASS counts logged, not required, so that a parent tree without
+# TMA or wgmma still times)
 SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3,
+          "k8": phase_k8,
+          "pm": lambda torch, res: phase_pm(torch, res),
+          "po": lambda torch, res: phase_po(torch, res),
           "k4": lambda torch, res: phase_k4(torch, res, _model("octree")),
           "k4d": lambda torch, res: phase_k4d(torch, res, _model("vgrid")),
           "k5": lambda torch, res: phase_k5(torch, res, _model("multi")),
@@ -2891,7 +2962,8 @@ def main():
     kern["PG"]["ms_smem"] = results["PG"]["ms_smem"]
     kern["PG"]["panel_cells_ms"] = results["PG"]["panel_cells_ms"]
     kern["PO"]["onehot_floor_ms"] = results["PO"]["onehot_floor_ms"]
-    kern["PO"]["hgmma_in_sass"] = results["PO_hgmma"]
+    kern["PO"]["hgmma_in_sass"] = results["PO"]["sass"]["HGMMA"]
+    kern["PM"]["sass"] = results["PM"]["sass"]
     kern["PM"]["max_err_over_tol"] = results["PM"]["max_err_over_tol"]
     print(json.dumps({"kernels": list(kern.values()),
                       "main_path_packets_per_s": {

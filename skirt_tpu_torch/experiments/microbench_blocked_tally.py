@@ -1,7 +1,7 @@
 """K8, the lambda-blocked tally, against K2 at the 128-lambda flagship
 shape of experiments/microbench_blocked_tally.py (16,384 cells x 128
-wavelengths, 2^17 lanes), and on a layout whose Pallas tiles do not
-divide nlambda.
+wavelengths, 2^17 lanes), on a layout whose Pallas tiles do not divide
+nlambda, and on layouts that take K8's dense and global routes.
 
 On a CUDA card, from the repository root:
 
@@ -10,15 +10,19 @@ On a CUDA card, from the repository root:
 Each row runs the kernel once on a random tally, holds it to its plain
 version (rtol 1e-4, atol 1e-6: shared-memory atomics add in another
 order), and prints the kernel's, the plain version's and one index_add_'s
-device ms over the kept lanes beside the bound (lanes read once; the
-tally read and written once, but no more of it than one 32-byte sector
-per kept lane, as for K2).  The rows: K8 `binned_add_lm` at the flagship;
-K2 `binned_add` on the same lanes as cell-major bins cell * nl + ell
+device ms over the kept lanes beside the bound (lanes read once; of the
+tally, K8 reads and writes once only the distinct 32-byte sectors its kept
+lanes touch, K2 no more than one sector a kept lane).  The rows: K8
+`binned_add_lm` at the flagship; K2 `binned_add` on the same lanes as cell-major bins cell * nl + ell
 (2.1M bins: K2's global route), the JAX script's serial-scatter
 yardstick; K2 on the 4-lambda bins (65,536: shared route); K8 at
 nlambda = 20, 1,000 cells, 1,024 lanes per block, with dropped lanes,
-where skirt_tpu's kernel leaves blocks 16-19 unwritten.  Inputs: the
-script's default_rng(1) draws.
+where skirt_tpu's kernel leaves blocks 16-19 unwritten; K8 where lanes
+are dense (nlambda 8, 1,000 cells, 16,384 lanes a block: 16 a bin) and
+where a slice passes the card's opt-in shared memory (nlambda 2, 60,000
+cells).  Each K8 row names the route and split `ops.binned.k8_route`
+gave it.  Inputs: the script's default_rng(1) draws; the last two rows'
+from default_rng(5) and (6).
 """
 
 from __future__ import annotations
@@ -54,6 +58,14 @@ def uneven_lanes(nlambda=20, ncells=1000, seed=4):
     return cells, rs.random(n).astype(np.float32)
 
 
+def dense_lanes(nlambda=8, ncells=1000, per=16384, seed=5):
+    """Lanes many to a bin (per / 1,024 a bin), with dropped cells."""
+    rs = np.random.default_rng(seed)
+    n = nlambda * per
+    cells = rs.integers(-9, ncells + 9, n).astype(np.int32)
+    return cells, rs.random(n).astype(np.float32)
+
+
 def _kept_bins(cells, nlambda, ncells, qr):
     n = cells.numel()
     block = torch.arange(n, device=cells.device) // (n // nlambda)
@@ -63,7 +75,8 @@ def _kept_bins(cells, nlambda, ncells, qr):
 
 def run_k8(name, cells, vals, nlambda, ncells, timed=True, reps=10,
            seed=0):
-    Q, R, _ = binned.blocked_layout(nlambda, ncells, cells.numel())
+    n = cells.numel()
+    Q, R, _ = binned.blocked_layout(nlambda, ncells, n)
     gen = torch.Generator(device=cells.device).manual_seed(seed)
     tally0 = torch.rand(nlambda * Q * R, generator=gen, device=cells.device)
     got = binned.binned_add_lm(tally0.clone(), cells, vals,
@@ -71,11 +84,14 @@ def run_k8(name, cells, vals, nlambda, ncells, timed=True, reps=10,
     want = binned.bincount_blocked_plain(tally0.clone(), cells, vals,
                                          nlambda=nlambda, ncells=ncells)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    route = binned.kernels.library().skirt_binned_blocked_route(Q * R)
+    optin, sms = binned.device_limits(cells.device)
+    route, split = binned.k8_route(n // nlambda, Q * R, optin, nlambda, sms,
+                                   tally0.data_ptr() % 16 == 0)
     rec = {"name": name, "replaces": REPLACES,
-           "shape": f"{cells.numel()} lanes, nlambda {nlambda}, "
-           f"{ncells} cells, Q x R = {Q} x {R}, route "
-           f"{'shared' if route else 'global'}",
+           "shape": f"{n} lanes, nlambda {nlambda}, {ncells} cells, Q x R = "
+           f"{Q} x {R}, route {binned.K8_ROUTES[route]}"
+           + (f" split {split}" if route == binned.K8_DENSE else ""),
+           "route": binned.K8_ROUTES[route], "split": split,
            "max_abs_err": float((got - want).abs().max())}
     if timed:
         tally = tally0.clone()
@@ -89,10 +105,10 @@ def run_k8(name, cells, vals, nlambda, ncells, timed=True, reps=10,
                                                   nlambda=nlambda,
                                                   ncells=ncells),
             lambda: tally.index_add_(0, bins, kvals), reps=reps)
-        kept = bins.numel()
+        # the tally is freshly allocated, so its sectors start at bin 8 s
+        sectors = torch.unique(bins // 8).numel()
         rec["bound_ms"], rec["bound_by"] = common.bound(
-            common.nbytes(cells, vals) + 2 * min(common.nbytes(tally),
-                                                 32 * kept), kept)
+            common.nbytes(cells, vals) + 2 * 32 * sectors, bins.numel())
     return rec
 
 
@@ -119,10 +135,14 @@ def run_k2(name, bins, vals, nbins, timed=True, reps=10):
 
 def sweep(timed=True, reps=10):
     """K8 at the flagship, K2 on the same lanes as 2.1M and 65,536 bins,
-    and K8 on the uneven layout: a list of records."""
+    and K8 on the uneven, dense and past-opt-in layouts: a list of
+    records."""
     cells, vals, bins_cm, bins4 = (torch.from_numpy(a).cuda()
                                    for a in tables_like_jax())
     ucells, uvals = (torch.from_numpy(a).cuda() for a in uneven_lanes())
+    dcells, dvals = (torch.from_numpy(a).cuda() for a in dense_lanes())
+    gcells, gvals = (torch.from_numpy(a).cuda() for a in dense_lanes(
+        nlambda=2, ncells=60000, per=2048, seed=6))
     return [
         run_k8("K8 binned_add_lm flagship", cells, vals, NL, NCELLS, timed,
                reps),
@@ -131,7 +151,11 @@ def sweep(timed=True, reps=10):
         run_k2("K2 binned_add 4-lambda", bins4, vals, NCELLS * 4, timed,
                reps),
         run_k8("K8 binned_add_lm nlambda=20 (bpt=16 does not divide it)",
-               ucells, uvals, 20, 1000, timed, reps)]
+               ucells, uvals, 20, 1000, timed, reps),
+        run_k8("K8 binned_add_lm dense", dcells, dvals, 8, 1000, timed,
+               reps),
+        run_k8("K8 binned_add_lm past opt-in", gcells, gvals, 2, 60000,
+               timed, reps)]
 
 
 def main():

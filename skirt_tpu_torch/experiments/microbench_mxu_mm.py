@@ -4,8 +4,9 @@ On a CUDA card, from the repository root:
 
     python -m skirt_tpu_torch.experiments.microbench_mxu_mm
 
-For each of `mm.SHAPES` it multiplies once, holds the result to the plain
-version within `mm.tolerance`, and prints the kernel's device ms (the mean
+For each of `mm.SHAPES` it multiplies once with `mm.plan`'s route and
+tile, holds the result to the plain version within `mm.tolerance`, and
+prints the tile, the kernel's device ms (the mean
 over the Pallas grid's G repeats), the plain version's, torch.matmul's
 (bf16 out for bf16 in) and the bound: 2 M K N inner flop over 989 TFLOP/s
 for bf16 (tensor cores) or 67 TFLOP/s for float32, and over 67 TFLOP/s
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import common
-from .mm import REPLACES, SHAPES, mm, mm_plain, tables_like_jax, tolerance
+from .mm import (REPLACES, SHAPES, mm, mm_plain, plan, tables_like_jax,
+                 tolerance)
 
 
 def run(s, timed=True, reps=None):
@@ -30,8 +32,12 @@ def run(s, timed=True, reps=None):
         raise AssertionError(f"PM {s.name}: off its plain version by "
                              f"{float((err / tol).max()):.3g} x the "
                              f"tolerance")
+    p = plan(s.M, s.K, s.N, s.dtype, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
     rec = {"name": s.name, "replaces": REPLACES,
-           "shape": f"G={s.G}", "max_abs_err": float(err.max()),
+           "shape": f"G={s.G}, {p.route} {p.bm} x {p.bn} tiles",
+           "tile": f"{p.route} {p.bm}x{p.bn}",
+           "max_abs_err": float(err.max()),
            "max_err_over_tol": float((err / tol).max())}
     if timed:
         reps = reps or s.G

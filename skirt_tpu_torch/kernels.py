@@ -290,10 +290,11 @@ def library() -> ctypes.CDLL:
         lib.skirt_binned_blocked_add.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.skirt_binned_blocked_add.restype = ctypes.c_int
-        lib.skirt_binned_blocked_route.argtypes = [ctypes.c_int]
-        lib.skirt_binned_blocked_route.restype = ctypes.c_int
+        lib.skirt_binned_blocked_limits.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.skirt_binned_blocked_limits.restype = ctypes.c_int
         lib.skirt_probe_gather.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -306,7 +307,7 @@ def library() -> ctypes.CDLL:
         lib.skirt_probe_mm.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.skirt_probe_mm.restype = ctypes.c_int
         lib.skirt_poly_event.argtypes = [
             ctypes.POINTER(PolyArgs), ctypes.c_int, ctypes.c_int,

@@ -12,10 +12,13 @@ array).  Indices < 0 or >= nbins are dropped; nothing wraps.
 
 K8, the lambda-blocked tally: `binned_add_lm` is the wrapper of
 csrc/binned_blocked.cu and `bincount_blocked_plain` its plain version;
-`blocked_layout` and `lm_to_cell_major` are skirt_tpu's layout helpers.
+`k8_route` picks its route by lane density; `blocked_layout` and
+`lm_to_cell_major` are skirt_tpu's layout helpers.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -112,6 +115,64 @@ def bincount_blocked_plain(tally_lm, cell_idx, values, *, nlambda, ncells):
     return tally_lm
 
 
+# K8's routes (csrc/binned_blocked.cu's ROUTE_*), by lane density
+K8_GLOBAL, K8_DENSE, K8_SPARSE = 0, 1, 2
+K8_ROUTES = {K8_GLOBAL: "global", K8_DENSE: "dense", K8_SPARSE: "sparse"}
+# lanes a bin a block needs for the dense route (the slice in shared
+# memory) to beat atomics into the tally, alone and with the wavelength
+# block split over several blocks (whose partial slices then go into the
+# tally by atomics), and the most blocks a wavelength block splits over,
+# fitted to the crossover of every route over nlambda 8-128, 1,000 and
+# 16,384 cells and 1,024-65,536 lanes a wavelength block
+# (experiments/sweep_probe_routes.py, which times each route through the C
+# entry point; PERF.md section 6)
+K8_DENSE_LANES_PER_BIN = {"alone": 0.25, "split": 2}
+K8_MAX_SPLIT = 8
+# an H100 SXM's SMs: k8_route's default card
+SMS = 132
+
+
+def k8_route(per: int, qr: int, optin_bytes: int, nlambda: int = 1,
+             sms: int = SMS, aligned: bool = True) -> tuple:
+    """K8's (route, split) for nlambda wavelength blocks of `per` lanes
+    over slices of `qr` bins on a card of `sms` SMs whose blocks can opt
+    into `optin_bytes` of shared memory.
+
+    The dense route gives each wavelength block `split` blocks, the fewest
+    (a power of two up to K8_MAX_SPLIT) that put a block on at least half
+    the SMs, and runs when the slice fits, the tally sits on 16 bytes and
+    each block has K8_DENSE_LANES_PER_BIN lanes a bin.  Otherwise the
+    lanes go straight into the tally by atomics: global where the slice
+    does not fit, sparse where it does (split 1)."""
+    split = 1
+    while split < K8_MAX_SPLIT and 2 * nlambda * split < sms:
+        split *= 2
+    need = K8_DENSE_LANES_PER_BIN["split" if split > 1 else "alone"]
+    if qr * 4 > optin_bytes:
+        return K8_GLOBAL, 1
+    if aligned and nlambda <= 65535 and per >= need * qr * split:
+        return K8_DENSE, split
+    return K8_SPARSE, 1
+
+
+_limits: dict = {}
+
+
+def device_limits(device) -> tuple:
+    """(opt-in shared memory bytes a block, SM count) of a CUDA device, as
+    csrc/binned_blocked.cu reads them, once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _limits:
+        optin, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            kernels.check(kernels.library().skirt_binned_blocked_limits(
+                ctypes.byref(optin), ctypes.byref(sms)), "K8 device limits")
+        _limits[index] = (optin.value, sms.value)
+    return _limits[index]
+
+
 def binned_add_lm(tally_lm, cell_idx, values, *, nlambda, ncells):
     """Lambda-major tally update for lambda-blocked lanes, in place.
 
@@ -123,7 +184,8 @@ def binned_add_lm(tally_lm, cell_idx, values, *, nlambda, ncells):
     block is tallied whether or not its tile size divides nlambda.
 
     CPU tensors take `bincount_blocked_plain`; CUDA tensors launch kernel
-    K8 (csrc/binned_blocked.cu) and add one to `binned_add_lm.launches`."""
+    K8 (csrc/binned_blocked.cu) on the route and split `k8_route` picks
+    and add one to `binned_add_lm.launches`."""
     n = cell_idx.numel()
     lay = blocked_layout(nlambda, ncells, n)
     if lay is None:
@@ -151,12 +213,23 @@ def binned_add_lm(tally_lm, cell_idx, values, *, nlambda, ncells):
             raise ValueError("binned_add_lm: tensors on different devices")
     if not tally_lm.is_contiguous():
         raise ValueError("binned_add_lm: tally_lm must be contiguous")
-    cell = cell_idx.reshape(-1).contiguous()
-    values = values.reshape(-1).contiguous()
-    lib = kernels.library()
-    kernels.check(lib.skirt_binned_blocked_add(
+    return _binned_add_lm_cuda(tally_lm, cell_idx, values, nlambda, ncells,
+                               Q * R, *device_limits(tally_lm.device))
+
+
+def _binned_add_lm_cuda(tally_lm, cell_idx, values, nlambda, ncells, qr,
+                        optin, sms):
+    """The launch: k8_route's (route, split) on a card of `sms` SMs and
+    `optin` opt-in bytes, handed to the C entry point."""
+    n = cell_idx.numel()
+    cell = kernels.aligned(cell_idx.reshape(-1), 16)
+    values = kernels.aligned(values.reshape(-1), 16)
+    route, split = k8_route(n // nlambda, qr, optin, nlambda, sms,
+                            tally_lm.data_ptr() % 16 == 0)
+    kernels.check(kernels.library().skirt_binned_blocked_add(
         tally_lm.data_ptr(), cell.data_ptr(), values.data_ptr(), n, nlambda,
-        ncells, Q * R, kernels.stream_of(tally_lm)), "binned_add_lm kernel")
+        ncells, qr, route, split, kernels.stream_of(tally_lm)),
+        "binned_add_lm kernel")
     binned_add_lm.launches += 1
     return tally_lm
 

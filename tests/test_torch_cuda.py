@@ -21,6 +21,7 @@ from skirt_tpu_torch.engine import fused as tfm
 from skirt_tpu_torch.engine import fused_poly as tfp
 from skirt_tpu_torch.engine import fused_table as tft
 from skirt_tpu_torch.engine import fused_table_poly as tftp
+from skirt_tpu_torch.experiments import mm
 from skirt_tpu_torch.ops import binned
 
 torch.set_num_threads(2)
@@ -1103,24 +1104,82 @@ def test_table_multi_event_kernel_edges_match_plain(small, labs):
             st[3], st[4], state[8] + st[4], state[9], state[10], t0, dt]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("nl, ncells, rows_pb", [
-    (128, 16384, 8), (20, 1000, 8), (2, 60000, 16)],
-    ids=["flagship", "uneven", "global-route"])
-def test_binned_add_lm_kernel_matches_plain(nl, ncells, rows_pb):
-    """K8 against its plain version: the flagship layout (shared route),
-    one where skirt_tpu's tiles do not divide nlambda, and one whose slice
-    exceeds shared memory (global atomics); dropped lanes, a random
-    starting tally; rtol 1e-4 (atomics add in another order)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    rs = np.random.default_rng(nl)
+# K8's layouts: (nlambda, cells, 128-lane rows a wavelength block) and
+# the (route, split) k8_route gives each on an H100 (232,448 opt-in bytes,
+# 132 SMs)
+K8_LAYOUTS = {
+    "flagship": ((128, 16384, 8), (binned.K8_SPARSE, 1)),
+    "uneven": ((20, 1000, 8), (binned.K8_SPARSE, 1)),
+    "crossover": ((8, 1000, 64), (binned.K8_SPARSE, 1)),
+    "dense": ((8, 1000, 128), (binned.K8_DENSE, 8)),
+    "dense-split4": ((20, 1000, 64), (binned.K8_DENSE, 4)),
+    "dense-split2": ((64, 1000, 32), (binned.K8_DENSE, 2)),
+    "dense-alone": ((128, 1000, 32), (binned.K8_DENSE, 1)),
+    "dense-quarter": ((128, 16384, 32), (binned.K8_DENSE, 1)),
+    "global-route": ((2, 60000, 16), (binned.K8_GLOBAL, 1))}
+
+
+def _k8_lanes(nl, ncells, rows_pb, device):
+    rs = np.random.default_rng(nl + rows_pb)
     n = nl * rows_pb * 128
     cells = torch.from_numpy(rs.integers(-9, ncells + 9, n)
-                             .astype(np.int32)).cuda()
-    vals = torch.from_numpy(rs.random(n).astype(np.float32)).cuda()
+                             .astype(np.int32)).to(device)
+    vals = torch.from_numpy(rs.random(n).astype(np.float32)).to(device)
     Q, R, _ = binned.blocked_layout(nl, ncells, n)
-    start = torch.rand(nl * Q * R, device="cuda")
+    return cells, vals, Q * R
+
+
+@pytest.mark.parametrize("layout", list(K8_LAYOUTS))
+def test_k8_route_rule_pins_each_layout(layout):
+    """k8_route at the flagship (sparse: 1,024 lanes over 16,384 bins), the
+    uneven and crossover layouts (sparse: 1 and 8 lanes a bin, where the
+    split dense route only ties), the dense ones (split over 8, 4 and 2
+    blocks at nlambda 8, 20 and 64; alone at nlambda 128, at 4 and at a
+    quarter lane a bin) and past the opt-in limit (global); a tally off 16
+    bytes never takes the dense route."""
+    (nl, ncells, rows_pb), want = K8_LAYOUTS[layout]
+    per = rows_pb * 128
+    _, _, qr = _k8_lanes(nl, ncells, rows_pb, "cpu")
+    assert binned.k8_route(per, qr, 232448, nl, 132) == want
+    route, _ = binned.k8_route(per, qr, 232448, nl, 132, aligned=False)
+    assert route == (binned.K8_SPARSE if want[0] == binned.K8_DENSE
+                     else want[0])
+
+
+def test_k8_route_rule_splits_to_fill_the_card():
+    """The dense route's split: the fewest blocks a wavelength block (a
+    power of two up to 8) that put a block on at least half the SMs; the
+    lanes a bin each block needs: a quarter alone, 2 split."""
+    big = 1 << 30
+    splits = {nl: binned.k8_route(big, 1024, 232448, nl, 132)[1]
+              for nl in (1, 8, 16, 20, 32, 64, 66, 128, 1024)}
+    assert splits == {1: 8, 8: 8, 16: 8, 20: 4, 32: 4, 64: 2, 66: 1,
+                      128: 1, 1024: 1}
+    assert binned.k8_route(256, 1024, 232448, 128) == (binned.K8_DENSE, 1)
+    assert binned.k8_route(255, 1024, 232448, 128)[0] == binned.K8_SPARSE
+    assert binned.k8_route(4096, 16384, 232448, 128) == (binned.K8_DENSE, 1)
+    assert binned.k8_route(1024, 16384, 232448, 128)[0] == binned.K8_SPARSE
+    assert binned.k8_route(2 * 1024 * 4, 1024, 232448, 20) == (
+        binned.K8_DENSE, 4)
+    assert binned.k8_route(2 * 1024 * 4 - 1, 1024, 232448, 20)[0] == (
+        binned.K8_SPARSE)
+    assert binned.k8_route(14528, 58112, 232448, 128)[0] == binned.K8_DENSE
+    assert binned.k8_route(58113, 58113, 232448, 128)[0] == binned.K8_GLOBAL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(K8_LAYOUTS))
+def test_binned_add_lm_kernel_matches_plain(layout):
+    """K8 against its plain version on each layout of K8_LAYOUTS, on the
+    route k8_route picks: dropped lanes, a random starting tally; rtol
+    1e-4 (atomics add in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (nl, ncells, rows_pb), want = K8_LAYOUTS[layout]
+    cells, vals, qr = _k8_lanes(nl, ncells, rows_pb, "cuda")
+    start = torch.rand(nl * qr, device="cuda")
+    optin, sms = binned.device_limits("cuda")
+    assert binned.k8_route(rows_pb * 128, qr, optin, nl, sms) == want
     before = binned.binned_add_lm.launches
     got = binned.binned_add_lm(start.clone(), cells, vals, nlambda=nl,
                                ncells=ncells)
@@ -1128,8 +1187,25 @@ def test_binned_add_lm_kernel_matches_plain(nl, ncells, rows_pb):
     want = binned.bincount_blocked_plain(start.clone(), cells, vals,
                                          nlambda=nl, ncells=ncells)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    route = kernels.library().skirt_binned_blocked_route(Q * R)
-    assert route == (Q * R * 4 <= 227 * 1024)
+
+
+@pytest.mark.parametrize("layout", list(K8_LAYOUTS))
+def test_binned_add_lm_hands_the_rule_to_the_kernel(recorded, layout):
+    """The K8 wrapper's launch passes the C entry point the (route, split)
+    k8_route gives on an H100's limits, and the sparse route for a dense
+    layout whose tally sits off 16 bytes; one launch counted each."""
+    (nl, ncells, rows_pb), want = K8_LAYOUTS[layout]
+    cells, vals, qr = _k8_lanes(nl, ncells, rows_pb, "cpu")
+    buf = torch.zeros(nl * qr + 4)
+    before = binned.binned_add_lm.launches
+    for tally, route in ((buf[:nl * qr], want), (buf[1:nl * qr + 1], (
+            binned.K8_SPARSE, 1) if want[0] == binned.K8_DENSE else want)):
+        binned._binned_add_lm_cuda(tally, cells, vals, nl, ncells, qr,
+                                   232448, 132)
+        name, _, rest = recorded.calls[-1]
+        assert name == "skirt_binned_blocked_add"
+        assert rest[2:8] == (nl * rows_pb * 128, nl, ncells, qr, *route)
+    assert binned.binned_add_lm.launches == before + 2
 
 
 @pytest.mark.gpu
@@ -1178,14 +1254,12 @@ def test_onehot_gather_kernel_matches_plain(name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M, K, N, bf16, inner", [
-    (128, 128, 128, True, 1), (256, 128, 1024, True, 8),
-    (256, 128, 1024, False, 1), (512, 512, 512, True, 1)])
+    (s.M, s.K, s.N, s.dtype == torch.bfloat16, s.inner) for s in mm.SHAPES])
 def test_mm_kernel_matches_plain(M, K, N, bf16, inner):
-    """PM against its plain version within mm.tolerance (TF32 off)."""
+    """PM against its plain version within mm.tolerance (TF32 off) at
+    every shape of P15, 1024^3 included, on the plan's tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from skirt_tpu_torch.experiments import mm
-
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = torch.bfloat16 if bf16 else torch.float32
     a, b = (t.cuda() for t in mm.tables_like_jax(M, K, N, dt))
@@ -1196,10 +1270,106 @@ def test_mm_kernel_matches_plain(M, K, N, bf16, inner):
     assert bool((err <= mm.tolerance(a, b, inner)).all())
 
 
+# shapes the wrapper accepts that the plan's tiles do not divide, and the
+# tile the plan gives each on an H100's 132 SMs: M 192 against 64-row
+# tiles of which the TMA box passes the matrix, N 320 and 960 against 128
+# columns, K 32 and 96 against the 128-deep stages
+MM_OFF_TILE = {
+    (64, 32, 64, torch.bfloat16): (64, 64),
+    (192, 96, 320, torch.bfloat16): (64, 64),
+    (1024, 96, 960, torch.bfloat16): (64, 128),
+    (64, 32, 64, torch.float32): (32, 64),
+    (192, 96, 320, torch.float32): (32, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", [1, 3])
+@pytest.mark.parametrize("M, K, N, dt", list(MM_OFF_TILE),
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_mm_kernel_off_tile_shapes_match_plain(M, K, N, dt, inner):
+    """PM at shapes the wrapper accepts that its tiles do not divide, on
+    the plan's tile (each of the three): within mm.tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = (t.cuda() for t in mm.tables_like_jax(M, K, N, dt))
+    got = mm.mm(a, b, inner=inner)
+    err = (got - mm.mm_plain(a, b, inner=inner)).abs()
+    assert bool((err <= mm.tolerance(a, b, inner)).all())
+
+
+@pytest.mark.parametrize("M, K, N, dt", list(MM_OFF_TILE)
+                         + [(s.M, s.K, s.N, s.dtype) for s in mm.SHAPES],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_mm_hands_the_plan_to_the_kernel(recorded, M, K, N, dt):
+    """The PM wrapper's launch passes the C entry point the plan's route
+    and tile on an H100's 132 SMs (the off-tile shapes' tiles as
+    MM_OFF_TILE lists them), and counts one launch."""
+    a = torch.zeros(M, K, dtype=dt)
+    b = torch.zeros(K, N, dtype=dt)
+    p = mm.plan(M, K, N, dt)
+    if (M, K, N, dt) in MM_OFF_TILE:
+        assert (p.bm, p.bn) == MM_OFF_TILE[M, K, N, dt]
+    before = mm.mm.launches
+    out = mm._mm_cuda(a, b, 2, 132)
+    name, _, rest = recorded.calls[-1]
+    assert name == "skirt_probe_mm"
+    assert rest[2:9] == (M, K, N, int(dt == torch.bfloat16), 2, p.bm, p.bn)
+    assert out.shape == (M, N) and mm.mm.launches == before + 1
+
+
+def _accepted_shapes():
+    return [(M, K, N) for M in range(64, 1089, 64) for N in (64, 192, 320,
+                                                              1024, 2048)
+            for K in (32, 96, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mm_plan_covers_every_accepted_shape(dtype):
+    """mm.plan over shapes the wrapper accepts: its route is the dtype's,
+    its tile one the route takes, its blocks cover C (float32 tiles divide
+    it), and no tile leaves the card with fewer waves x tile area."""
+    for M, K, N in _accepted_shapes():
+        p = mm.plan(M, K, N, dtype)
+        assert p.route == ("wgmma" if dtype == torch.bfloat16 else "simt")
+        assert (p.bm, p.bn) in mm.TILES[p.route]
+        rows, cols = -(-M // p.bm), -(-N // p.bn)
+        assert rows * p.bm >= M and cols * p.bn >= N
+        assert (rows - 1) * p.bm < M and (cols - 1) * p.bn < N
+        if p.route == "simt":
+            assert M % p.bm == 0 and N % p.bn == 0
+
+        def cost(t):
+            return -(-(-(-M // t[0]) * -(-N // t[1])) // mm.SMS) * t[0] * t[1]
+        assert cost((p.bm, p.bn)) == min(cost(t) for t in mm.TILES[p.route])
+
+
+def test_mm_plan_pins_the_p15_shapes():
+    """The plan at P15's shapes on an H100's 132 SMs: 64 x 128 tiles at
+    1024^3 (128 blocks), 64 x 64 at the smaller bf16 shapes, 32 x 64 for
+    float32; every tile of TILES is some P15 shape's."""
+    got = {(s.M, s.K, s.N, str(s.dtype)): mm.plan(s.M, s.K, s.N, s.dtype)
+           for s in mm.SHAPES}
+    want = {(1024, 1024, 1024, "torch.bfloat16"): mm.Plan("wgmma", 64, 128),
+            (512, 512, 512, "torch.bfloat16"): mm.Plan("wgmma", 64, 64),
+            (256, 128, 1024, "torch.bfloat16"): mm.Plan("wgmma", 64, 64),
+            (128, 128, 128, "torch.bfloat16"): mm.Plan("wgmma", 64, 64),
+            (256, 128, 1024, "torch.float32"): mm.Plan("simt", 32, 64),
+            (128, 128, 128, "torch.float32"): mm.Plan("simt", 32, 64)}
+    assert got == want
+    assert {(p.route, p.bm, p.bn) for p in got.values()} == {
+        (r, *t) for r, tiles in mm.TILES.items() for t in tiles}
+    with pytest.raises(TypeError):
+        mm.plan(64, 32, 64, torch.float16)
+
+
 @pytest.mark.gpu
 def test_new_wrappers_refuse_wrong_dtype_or_device():
     """K8, PG, PO and PM raise on a CUDA tensor of the wrong type and on
-    tensors split over the CPU and the card; none falls back."""
+    tensors split over the CPU and the card; none falls back.  The C entry
+    points refuse a PM tile the plan never gives and a K8 route or split
+    the layout cannot take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from skirt_tpu_torch.experiments import gather, mm, onehot_gather
@@ -1232,3 +1402,28 @@ def test_new_wrappers_refuse_wrong_dtype_or_device():
         mm.mm(a, b.float())
     with pytest.raises(ValueError):
         mm.mm(a, b.cpu())
+    lib = kernels.library()
+    c = torch.empty(64, 64, device="cuda")
+    stream = kernels.stream_of(c)
+    for bf16, bm, bn in ((1, 128, 128), (1, 128, 64), (0, 64, 64)):
+        x, y = (a, b) if bf16 else (a.float(), b.float())
+        assert lib.skirt_probe_mm(x.data_ptr(), y.data_ptr(), c.data_ptr(),
+                                  64, 32, 64, bf16, 1, bm, bn, stream) != 0
+    cells, vals, qr = _k8_lanes(2, 60000, 16, "cuda")
+    tally = torch.zeros(2 * qr + 4, device="cuda")
+    for t, route, split in (
+            (tally[:2 * qr], binned.K8_DENSE, 1),      # past the opt-in
+            (tally[:2 * qr], binned.K8_GLOBAL, 2),     # split off dense
+            (tally[:2 * qr], 3, 1)):                   # no such route
+        assert lib.skirt_binned_blocked_add(
+            t.data_ptr(), cells.data_ptr(), vals.data_ptr(), cells.numel(),
+            2, 60000, qr, route, split, stream) != 0
+    cells, vals, qr = _k8_lanes(8, 1000, 128, "cuda")
+    tally = torch.zeros(8 * qr + 4, device="cuda")
+    assert lib.skirt_binned_blocked_add(                # off 16 bytes
+        tally[1:].data_ptr(), cells.data_ptr(), vals.data_ptr(),
+        cells.numel(), 8, 1000, qr, binned.K8_DENSE, 8, stream) != 0
+    assert lib.skirt_binned_blocked_add(
+        tally[:8 * qr].data_ptr(), cells.data_ptr(), vals.data_ptr(),
+        cells.numel(), 8, 1000, qr, binned.K8_DENSE, 3, stream) != 0
+    torch.cuda.synchronize()
