@@ -127,6 +127,7 @@ struct MonoArgs {
   float* cend;
   const float* lead;
   const float* dens_h;
+  unsigned long long* live;
 };
 
 namespace {
@@ -142,12 +143,14 @@ __host__ __device__ constexpr int n_uniform() {
 
 // One lane's event; writes every output.  Returns false, without EXACT, if
 // an operand that mattered left the safe range of div_rn or sqrt_rn: the
-// caller then runs the lane again with EXACT.  s_cum: the thread's column
+// caller then runs the lane again with EXACT.  With COUNT (tracing on) the
+// pass that stands also adds the lane to the live-lane counter if it did
+// an event: alive on entry, or relaunched.  s_cum: the thread's column
 // of the [2 * MAXP][THREADS] scratch (the cumulative optical depths, then
 // with H > 1 the cumulative absorbed fractions); u: its column of the
 // [n_uniform][THREADS] uniforms, copied in asynchronously (waited for
 // before the first read).
-template <int DENS, int SAMP, bool LABS, int H, bool EXACT>
+template <int DENS, int SAMP, bool LABS, int H, bool EXACT, bool COUNT>
 __device__ __forceinline__ bool lane_event(const MonoArgs& a,
                                            const float* s_tab, float* s_cum,
                                            const float* u, int n) {
@@ -184,6 +187,7 @@ __device__ __forceinline__ bool lane_event(const MonoArgs& a,
   float DX = a.dx[n], DY = a.dy[n], DZ = a.dz[n];
   float L = a.L[n];
   bool alive = a.alive[n] != 0;
+  [[maybe_unused]] const bool alive_in = alive;
   int nscatt = a.ns[n];
   const float L0 = a.L0[n];
   const float Lth = L0 * a.inv_minred;
@@ -442,16 +446,28 @@ __device__ __forceinline__ bool lane_event(const MonoArgs& a,
   a.oL[n] = L;
   a.oalive[n] = alive ? 1 : 0;
   a.ons[n] = nscatt;
+  if constexpr (COUNT)
+    if (EXACT || ok) count_live(a.live, alive_in || fresh);
   return EXACT || ok;
 }
 
+// Whether lane n does an event in this launch, for the chunked route's
+// live-lane count while tracing: alive on entry, or relaunched.  A lane
+// dead on entry stays dead through the propagation, so it is relaunched
+// exactly when its launch budget allows: the inputs decide, before the
+// lane runs.
+template <int SAMP>
+__device__ __forceinline__ bool does_event(const MonoArgs& a, int n) {
+  return a.alive[n] != 0 || (SAMP != SAMP_NONE && a.bc[n] < a.K);
+}
+
 // the lane again with the plain operators, out of line (rarely called)
-template <int DENS, int SAMP, bool LABS, int H>
+template <int DENS, int SAMP, bool LABS, int H, bool COUNT>
 __device__ __noinline__ void lane_event_exact(const MonoArgs& a,
                                               const float* s_tab,
                                               float* s_cum, const float* u,
                                               int n) {
-  lane_event<DENS, SAMP, LABS, H, true>(a, s_tab, s_cum, u, n);
+  lane_event<DENS, SAMP, LABS, H, true, COUNT>(a, s_tab, s_cum, u, n);
 }
 
 // floats of dynamic shared memory before the tables: the cumulative sums
@@ -461,7 +477,9 @@ __host__ __device__ constexpr int scratch_floats() {
   return ((H > 1 ? 2 : 1) * MAXP + n_uniform<SAMP, H>()) * THREADS;
 }
 
-template <int DENS, int SAMP, bool LABS, int H>
+// COUNT: the instance that counts live lanes (a.live set while tracing);
+// without it the kernel is the same code as before the counter
+template <int DENS, int SAMP, bool LABS, int H, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
 mono_event_kernel(const __grid_constant__ MonoArgs a) {
   constexpr int NU = n_uniform<SAMP, H>();
@@ -484,21 +502,24 @@ mono_event_kernel(const __grid_constant__ MonoArgs a) {
     s_tab[i] = a.tab[i];
   __syncthreads();
   if (n >= a.N) return;
-  if (!lane_event<DENS, SAMP, LABS, H, false>(a, s_tab, s_cum, s_u, n))
-    lane_event_exact<DENS, SAMP, LABS, H>(a, s_tab, s_cum, s_u, n);
+  if (!lane_event<DENS, SAMP, LABS, H, false, COUNT>(a, s_tab, s_cum, s_u,
+                                                     n))
+    lane_event_exact<DENS, SAMP, LABS, H, COUNT>(a, s_tab, s_cum, s_u, n);
 }
 
-template <int DENS, int SAMP, bool LABS, int H>
+template <int DENS, int SAMP, bool LABS, int H, bool COUNT>
 int launch(const MonoArgs& a, cudaStream_t s) {
   const int blocks = (a.N + THREADS - 1) / THREADS;
   if (blocks <= 0) return (int)cudaGetLastError();
   constexpr size_t scratch = scratch_floats<SAMP, H>();
   static bool raised[64];
-  const int e = raise_smem_limit(mono_event_kernel<DENS, SAMP, LABS, H>,
-                                 (scratch + MAX_TABLE) * sizeof(float), raised);
+  const int e = raise_smem_limit(
+      mono_event_kernel<DENS, SAMP, LABS, H, COUNT>,
+      (scratch + MAX_TABLE) * sizeof(float), raised);
   if (e) return e;
   const size_t smem = (scratch + (size_t)3 * H * a.nlambda) * sizeof(float);
-  mono_event_kernel<DENS, SAMP, LABS, H><<<blocks, THREADS, smem, s>>>(a);
+  mono_event_kernel<DENS, SAMP, LABS, H, COUNT>
+      <<<blocks, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -770,6 +791,7 @@ mono_event_chunked(const __grid_constant__ MonoArgs a) {
   }
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= a.N) return;
+  if (a.live) count_live(a.live, does_event<SAMP>(a, n));
   lane_event_c<DENS, SAMP, LABS>(a, tab, n);
 }
 
@@ -808,8 +830,11 @@ int launch_chunked(const MonoArgs& a, int labs, cudaStream_t s) {
 
 template <int DENS, int SAMP, int H>
 int launch_l(const MonoArgs& a, int labs, cudaStream_t s) {
-  return labs ? launch<DENS, SAMP, true, H>(a, s)
-              : launch<DENS, SAMP, false, H>(a, s);
+  if (a.live)
+    return labs ? launch<DENS, SAMP, true, H, true>(a, s)
+                : launch<DENS, SAMP, false, H, true>(a, s);
+  return labs ? launch<DENS, SAMP, true, H, false>(a, s)
+              : launch<DENS, SAMP, false, H, false>(a, s);
 }
 
 template <int DENS, int SAMP>

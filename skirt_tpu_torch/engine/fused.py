@@ -52,7 +52,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from .. import kernels, rng
+from .. import kernels, rng, trace
 from ..media import polarization as pol
 from ..ops import binned_add
 
@@ -626,6 +626,9 @@ def mono_event_plain(spec: MonoEventSpec, u, state, lam=None):
     DZ = torch.where(scat, nz, DZ)
     nscatt = torch.where(scat, nscatt + 1, nscatt)
 
+    if trace.enabled():
+        # the lanes that did an event: alive on entry, or relaunched
+        trace.count_live(u.device, (state[7] != 0) | fresh)
     out["state"] = (X, Y, Z, DX, DY, DZ, L, alive.to(torch.int32), nscatt)
     return out
 
@@ -744,6 +747,7 @@ def _mono_event_cuda(spec, u, state):
         if nlead:
             a.lead = kernels.device_floats(kernels.lead_rows(spec.leaders),
                                            dev).data_ptr()
+    a.live = _ptr(trace.live_counter(dev))
     lib = kernels.library()
     kernels.check(lib.skirt_mono_event(ctypes.byref(a), dens, samp,
                                        int(spec.want_labs),
@@ -756,7 +760,10 @@ def _mono_event_cuda(spec, u, state):
 def mono_event(spec: MonoEventSpec, u, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K3
     kernel, counted in `mono_event.launches`).  Same contract as
-    mono_event_plain with the tables gathered from the spec."""
+    mono_event_plain with the tables gathered from the spec.  While
+    tracing, both count the lanes in `trace`'s lane_slots and
+    live_lanes."""
+    trace.count_slots(state[0].shape[0])
     if u.device.type == "cpu":
         return mono_event_plain(spec, u, state)
     if u.device.type != "cuda":
@@ -833,101 +840,116 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
         return taus
 
     def run_batch(key, ell, L0, tallies):
-        n = ell.shape[0]
-        dev = ell.device
-        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-        pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
-        alive = L > 0
-        ins = tallies["instruments"]
-        labs = tallies.get("labs")
-        dust = torch.full((n,), bool(is_dust_emission), device=dev)
+        with trace.span("launch"):
+            n = ell.shape[0]
+            dev = ell.device
+            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+            pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
+            alive = L > 0
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
-        if emission_peeloff:
-            _, kext_pk = ds.packet_kappas(ell)
-            taus0 = leader_taus(pos, kext_pk)
-            contribution = torch.where(alive, L, 0.0)
-            tags = {"nscatt": torch.zeros(n, dtype=torch.int32, device=dev),
-                    "is_dust": dust}
-            for i, peel in enumerate(peels):
-                peel(ins[i], pos, ell, contribution, tags,
-                     tau=taus0[lead_of[i]])
+            if emission_peeloff:
+                _, kext_pk = ds.packet_kappas(ell)
+                taus0 = leader_taus(pos, kext_pk)
+                contribution = torch.where(alive, L, 0.0)
+                tags = {"nscatt": torch.zeros(n, dtype=torch.int32,
+                                              device=dev),
+                        "is_dust": dust}
+                for i, peel in enumerate(peels):
+                    peel(ins[i], pos, ell, contribution, tags,
+                         tau=taus0[lead_of[i]])
 
-        ell = ell.to(torch.int32).contiguous()
-        state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                 pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                 direction[:, 1].contiguous(), direction[:, 2].contiguous(),
-                 L.to(torch.float32).contiguous(), alive.to(torch.int32),
-                 torch.zeros(n, dtype=torch.int32, device=dev), ell,
-                 L0.to(torch.float32).contiguous()]
-        if refill:
-            state.append(torch.ones(n, dtype=torch.int32, device=dev))
-        if mt is not None:
-            # normalized Stokes ratios and the reference normal; packets
-            # launch unpolarized (a zero normal: no reference yet)
-            stokes = (torch.zeros(n, device=dev), torch.zeros(n, device=dev),
-                      torch.zeros(n, device=dev),
-                      torch.zeros((n, 3), device=dev))
-            pf = mt.table("pfnorm", dev)[ell.long()]
-            kobs_lead = pol.observer_rows(leaders, n, dev)
-            ky_ins = pol.frame_axes(instruments, n, dev)
+            ell = ell.to(torch.int32).contiguous()
+            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                     direction[:, 1].contiguous(),
+                     direction[:, 2].contiguous(),
+                     L.to(torch.float32).contiguous(), alive.to(torch.int32),
+                     torch.zeros(n, dtype=torch.int32, device=dev), ell,
+                     L0.to(torch.float32).contiguous()]
+            if refill:
+                state.append(torch.ones(n, dtype=torch.int32, device=dev))
+            if mt is not None:
+                # normalized Stokes ratios and the reference normal; packets
+                # launch unpolarized (a zero normal: no reference yet)
+                stokes = (torch.zeros(n, device=dev),
+                          torch.zeros(n, device=dev),
+                          torch.zeros(n, device=dev),
+                          torch.zeros((n, 3), device=dev))
+                pf = mt.table("pfnorm", dev)[ell.long()]
+                kobs_lead = pol.observer_rows(leaders, n, dev)
+                ky_ins = pol.frame_axes(instruments, n, dev)
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
-                go = state[7].any()
-                if refill:
-                    go = go | (state[11] < K).any()
-                if not bool(go):
-                    break
-            u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                 (spec.n_uniform, n), dev)
-            out = mono_event(spec, u, state)
-            st = list(out["state"])
-            if want_labs and labs is not None:
-                binned_add(labs, out["depi"], out["depv"])
-            alive_new = st[7] != 0
-            fresh = out["fresh"] != 0 if refill else None
-            if mt is not None:
-                # -- the Mueller scatter: the pre-event Stokes ratios and
-                # direction feed both the scatter and the peel
-                dir_old = torch.stack(state[3:6], dim=-1)
-                pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
-                    mt, rng.event_key(k_cycle, it, 13), ell, stokes, dir_old)
-                # the kernel relaunched fresh lanes in place: they keep
-                # their launch direction
-                scat = alive_new if fresh is None else alive_new & ~fresh
-                for a in range(3):
-                    st[3 + a] = torch.where(scat, nd[:, a], st[3 + a]) \
-                        .contiguous()
-            if scattering_peeloff:
-                pos_new = torch.stack(st[:3], dim=-1)
-                tags = {"nscatt": st[8], "is_dust": dust}
-                if mt is not None:
-                    speel = pol.StokesPeel(partial(mt.lookup, ell), pf,
-                                           stokes, pdeg, pang, nrm0, dir_old,
-                                           fresh)
-                for i, peel in enumerate(peels):
-                    j = lead_of[i]
-                    tg = tags
-                    if mt is not None:
-                        # the Mueller peel toward the leader, in this
-                        # instrument's frame
-                        w, stk = speel(j, out["cos"][j], kobs_lead[j],
-                                       ky_ins[i])
-                        tg = dict(tags, stokes=stk)
-                    elif multi:
-                        # blended in the kernel (DustSystem.phase_value form)
-                        w = out["phase"][j]
-                    else:
-                        w = mix.phase_function(ell, out["cos"][j])
+                with trace.span("check"):
+                    go = state[7].any()
                     if refill:
-                        # relaunched lanes: isotropic (unpolarized) emission
-                        # peel-off, from the same quadrature at the fresh
-                        # position
-                        w = torch.where(fresh, 1.0, w)
-                    con = torch.where(alive_new, st[6] * w, 0.0)
-                    peel(ins[i], pos_new, ell, con, tg, tau=out["tau"][j])
+                        go = go | (state[11] < K).any()
+                    go = bool(go)
+                if not go:
+                    break
+            with trace.span("event"):
+                u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                     (spec.n_uniform, n), dev)
+                out = mono_event(spec, u, state)
+                st = list(out["state"])
+                if want_labs and labs is not None:
+                    binned_add(labs, out["depi"], out["depv"])
+                alive_new = st[7] != 0
+                fresh = out["fresh"] != 0 if refill else None
             if mt is not None:
-                stokes = pol.carry_stokes(stokes, new, scat, fresh)
+                with trace.span("mueller"):
+                    # -- the Mueller scatter: the pre-event Stokes ratios
+                    # and direction feed both the scatter and the peel
+                    dir_old = torch.stack(state[3:6], dim=-1)
+                    pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
+                        mt, rng.event_key(k_cycle, it, 13), ell, stokes,
+                        dir_old)
+                    # the kernel relaunched fresh lanes in place: they keep
+                    # their launch direction
+                    scat = alive_new if fresh is None else alive_new & ~fresh
+                    for a in range(3):
+                        st[3 + a] = torch.where(scat, nd[:, a], st[3 + a]) \
+                            .contiguous()
+            if scattering_peeloff:
+                with trace.span("peel"):
+                    pos_new = torch.stack(st[:3], dim=-1)
+                    tags = {"nscatt": st[8], "is_dust": dust}
+                    if mt is not None:
+                        with trace.span("mueller"):
+                            speel = pol.StokesPeel(
+                                partial(mt.lookup, ell), pf, stokes, pdeg,
+                                pang, nrm0, dir_old, fresh)
+                    for i, peel in enumerate(peels):
+                        j = lead_of[i]
+                        tg = tags
+                        if mt is not None:
+                            # the Mueller peel toward the leader, in this
+                            # instrument's frame
+                            with trace.span("mueller"):
+                                w, stk = speel(j, out["cos"][j],
+                                               kobs_lead[j], ky_ins[i])
+                            tg = dict(tags, stokes=stk)
+                        elif multi:
+                            # blended in the kernel (DustSystem.phase_value
+                            # form)
+                            w = out["phase"][j]
+                        else:
+                            w = mix.phase_function(ell, out["cos"][j])
+                        if refill:
+                            # relaunched lanes: isotropic (unpolarized)
+                            # emission peel-off, from the same quadrature at
+                            # the fresh position
+                            w = torch.where(fresh, 1.0, w)
+                        con = torch.where(alive_new, st[6] * w, 0.0)
+                        peel(ins[i], pos_new, ell, con, tg,
+                             tau=out["tau"][j])
+            if mt is not None:
+                with trace.span("mueller"):
+                    stokes = pol.carry_stokes(stokes, new, scat, fresh)
             state = st + state[9:11]
             if refill:
                 state.append(out["bc"])

@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import kernels, rng
+from .. import kernels, rng, trace
 from ..ops import binned_add
 from .fused import (_CHECK_EVERY, _CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER,
                     _TINY, _expon_cutoff, _f32, _geom_args, _group_leaders,
@@ -332,6 +332,9 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
     DZ = torch.where(scat, nz, DZ)
     nscatt = torch.where(scat, nscatt + 1, nscatt)
 
+    if trace.enabled():
+        # the lanes that did an event: alive on entry, or relaunched
+        trace.count_live(u.device, (state[6] != 0) | fresh)
     out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
     out["Ln"] = torch.where(alive[None], Ln, 0.0)
     out["Lp"] = torch.where(alive[None], Lp, 0.0)
@@ -434,6 +437,7 @@ def _poly_event_cuda(spec, u, oc, L, L0, state):
         if nlead:
             a.lead = kernels.device_floats(kernels.lead_rows(spec.leaders),
                                            dev).data_ptr()
+    a.live = _ptr(trace.live_counter(dev))
     lib = kernels.library()
     kernels.check(lib.skirt_poly_event(ctypes.byref(a), dens, samp,
                                        int(spec.want_labs),
@@ -446,7 +450,9 @@ def _poly_event_cuda(spec, u, oc, L, L0, state):
 def poly_event(spec: PolyEventSpec, u, oc, L, L0, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K1
     kernel, counted in `poly_event.launches`).  Same contract as
-    poly_event_plain."""
+    poly_event_plain.  While tracing, both count the lanes in
+    `trace`'s lane_slots and live_lanes."""
+    trace.count_slots(state[0].shape[0])
     if u.device.type == "cpu":
         return poly_event_plain(spec, u, oc, L, L0, state)
     if u.device.type != "cuda":
@@ -498,87 +504,96 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
         if L0.ndim != 2 or L0.shape[1] != W:
             raise ValueError("polychromatic run_batch needs L0 of shape "
                              f"(N, {W})")
-        n = L0.shape[0]
-        dev = L0.device
-        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-        ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
-        pos, direction, _, _ = stellar_system.launch(
-            k_launch, ell0, torch.ones(n, dtype=torch.float32, device=dev))
-        L = L0.T.contiguous()
-        l0 = L
-        alive = (L > 0).any(0)
-        wls = torch.arange(W, device=dev)
-        oc = torch.as_tensor(spec.oc, device=dev)
-        kext_col = oc[0][:, None]
-        g_col = oc[2][:, None]
-        kext_t_col = torch.as_tensor(
-            np.asarray(ds.kappaext, np.float32)[0, :W], device=dev)[:, None]
-        ins = tallies["instruments"]
-        labs = tallies.get("labs")
-        dust = torch.full((n,), bool(is_dust_emission), device=dev)
+        with trace.span("launch"):
+            n = L0.shape[0]
+            dev = L0.device
+            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+            ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
+            pos, direction, _, _ = stellar_system.launch(
+                k_launch, ell0,
+                torch.ones(n, dtype=torch.float32, device=dev))
+            L = L0.T.contiguous()
+            l0 = L
+            alive = (L > 0).any(0)
+            wls = torch.arange(W, device=dev)
+            oc = torch.as_tensor(spec.oc, device=dev)
+            kext_col = oc[0][:, None]
+            g_col = oc[2][:, None]
+            kext_t_col = torch.as_tensor(
+                np.asarray(ds.kappaext, np.float32)[0, :W],
+                device=dev)[:, None]
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
-        if emission_peeloff:
-            # emission peel: panel quadrature toward each leader once
-            from . import vector_traversal as vt
-            Lw = torch.where(alive[None], L, 0.0)
-            ones = [torch.ones(n, dtype=torch.float32, device=dev)]
-            Ipe = []
-            for kvec in leaders:
-                kobs = torch.tensor(np.asarray(kvec, np.float32),
-                                    device=dev).expand(n, 3)
-                dsg, _, midp = vt.panel_paths(grid, pos, kobs, np_peel)
-                # with unit weights analytic_rows returns the kg/m^3
-                # density rows -> tau_w = kappaext_w * integral
-                rows = ds.analytic_rows(pos, kobs, midp, None, ones,
-                                        want_sca=False)
-                Ipe.append((rows * dsg).sum(1))
-            tags = {"nscatt": torch.zeros(n, dtype=torch.int32, device=dev),
-                    "is_dust": dust, "transparent": Lw}
-            for i, ins_obj in enumerate(instruments):
-                ext = Lw * torch.exp(-kext_t_col * Ipe[lead_of[i]][None])
-                ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
+            if emission_peeloff:
+                # emission peel: panel quadrature toward each leader once
+                from . import vector_traversal as vt
+                Lw = torch.where(alive[None], L, 0.0)
+                ones = [torch.ones(n, dtype=torch.float32, device=dev)]
+                Ipe = []
+                for kvec in leaders:
+                    kobs = torch.tensor(np.asarray(kvec, np.float32),
+                                        device=dev).expand(n, 3)
+                    dsg, _, midp = vt.panel_paths(grid, pos, kobs, np_peel)
+                    # with unit weights analytic_rows returns the kg/m^3
+                    # density rows -> tau_w = kappaext_w * integral
+                    rows = ds.analytic_rows(pos, kobs, midp, None, ones,
+                                            want_sca=False)
+                    Ipe.append((rows * dsg).sum(1))
+                tags = {"nscatt": torch.zeros(n, dtype=torch.int32,
+                                              device=dev),
+                        "is_dust": dust, "transparent": Lw}
+                for i, ins_obj in enumerate(instruments):
+                    ext = Lw * torch.exp(-kext_t_col * Ipe[lead_of[i]][None])
+                    ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
 
-        state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                 pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                 direction[:, 1].contiguous(), direction[:, 2].contiguous(),
-                 alive.to(torch.int32),
-                 torch.zeros(n, dtype=torch.int32, device=dev)]
-        if refill:
-            state.append(torch.ones(n, dtype=torch.int32, device=dev))
+            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                     direction[:, 1].contiguous(),
+                     direction[:, 2].contiguous(), alive.to(torch.int32),
+                     torch.zeros(n, dtype=torch.int32, device=dev)]
+            if refill:
+                state.append(torch.ones(n, dtype=torch.int32, device=dev))
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
-                go = state[6].any()
-                if refill:
-                    go = go | (state[8] < K).any()
-                if not bool(go):
+                with trace.span("check"):
+                    go = state[6].any()
+                    if refill:
+                        go = go | (state[8] < K).any()
+                    go = bool(go)
+                if not go:
                     break
-            u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                 (spec.n_uniform, n), dev)
-            out = poly_event(spec, u, oc, L, l0, state)
+            with trace.span("event"):
+                u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                     (spec.n_uniform, n), dev)
+                out = poly_event(spec, u, oc, L, l0, state)
+                if want_labs:
+                    binned_add(labs, out["depi"], out["depv"])
             st = out["state"]
             Ln, Lp = out["Ln"], out["Lp"]
-            alive_new = st[6] != 0
-            if want_labs:
-                binned_add(labs, out["depi"], out["depv"])
             if scattering_peeloff:
-                pos_new = torch.stack(st[:3], dim=-1)
-                for i, ins_obj in enumerate(instruments):
-                    Ii = out["Ip"][lead_of[i]]
-                    cosj = out["cos"][lead_of[i]]
-                    # HG phase weights for all wavelengths at once
-                    tq = 1.0 + g_col * g_col - 2.0 * g_col * cosj[None]
-                    pw = (1.0 - g_col) * (1.0 + g_col) / torch.sqrt(tq * tq * tq)
-                    cw = Lp * pw
-                    if refill:
-                        # the in-kernel relaunch happens BEFORE the peel
-                        # quadrature, so Ii/cosj are at the fresh position
-                        cw = torch.where(out["fresh"][None] != 0, Ln, cw)
-                    cw = torch.where(alive_new[None], cw, 0.0)
-                    ext = cw * torch.exp(-kext_col * Ii[None])
-                    ins_obj.detect_poly(ins[i], pos_new, wls, ext,
-                                        {"nscatt": st[7], "is_dust": dust,
-                                         "transparent": cw})
+                with trace.span("peel"):
+                    alive_new = st[6] != 0
+                    pos_new = torch.stack(st[:3], dim=-1)
+                    for i, ins_obj in enumerate(instruments):
+                        Ii = out["Ip"][lead_of[i]]
+                        cosj = out["cos"][lead_of[i]]
+                        # HG phase weights for all wavelengths at once
+                        tq = 1.0 + g_col * g_col - 2.0 * g_col * cosj[None]
+                        pw = (1.0 - g_col) * (1.0 + g_col) \
+                            / torch.sqrt(tq * tq * tq)
+                        cw = Lp * pw
+                        if refill:
+                            # the in-kernel relaunch happens BEFORE the peel
+                            # quadrature, so Ii/cosj are at the fresh position
+                            cw = torch.where(out["fresh"][None] != 0, Ln, cw)
+                        cw = torch.where(alive_new[None], cw, 0.0)
+                        ext = cw * torch.exp(-kext_col * Ii[None])
+                        ins_obj.detect_poly(ins[i], pos_new, wls, ext,
+                                            {"nscatt": st[7], "is_dust": dust,
+                                             "transparent": cw})
             state = list(st)
             if refill:
                 state.append(out["bc"])

@@ -68,7 +68,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from .. import kernels, rng
+from .. import kernels, rng, trace
 from ..media import polarization as pol
 from ..ops import binned_add
 from . import vector_traversal as vt
@@ -658,13 +658,16 @@ def make_exact_peel(grid, ds, leaders):
                           for i in range(0, pos.shape[0], chunk)], dim=-1)
 
     def taus(pos, kext_pk):
-        return [chunked(pos, j, lambda p, sl, j=j: leader_tau(
-            p, [kp[sl] for kp in kext_pk], j))
-            for j in range(len(per_leader))]
+        with trace.span("exact_peel"):
+            return [chunked(pos, j, lambda p, sl, j=j: leader_tau(
+                p, [kp[sl] for kp in kext_pk], j))
+                for j in range(len(per_leader))]
 
     def integrals(pos):
-        return [chunked(pos, j, lambda p, sl, j=j: torch.stack(
-            leader_sums(p, j)) * inv_ka(j)) for j in range(len(per_leader))]
+        with trace.span("exact_peel"):
+            return [chunked(pos, j, lambda p, sl, j=j: torch.stack(
+                leader_sums(p, j)) * inv_ka(j))
+                for j in range(len(per_leader))]
 
     taus.integrals = integrals
     return taus
@@ -703,13 +706,15 @@ def make_staged_peel(grid, ds, leaders, np_peel):
 
     def staged(pos, kext_pk):
         taus = []
-        for kvec in leaders:
-            kobs = torch.as_tensor(np.asarray(kvec, np.float32),
-                                   device=pos.device).expand(pos.shape[0], 3)
-            dsg, _, mid = vt.panel_paths(grid, pos, kobs, np_peel)
-            rows = ds.analytic_rows(pos, kobs, mid, None, kext_pk,
-                                    want_sca=False)
-            taus.append((rows * dsg).sum(1))
+        with trace.span("staged_peel"):
+            for kvec in leaders:
+                kobs = torch.as_tensor(np.asarray(kvec, np.float32),
+                                       device=pos.device).expand(
+                                           pos.shape[0], 3)
+                dsg, _, mid = vt.panel_paths(grid, pos, kobs, np_peel)
+                rows = ds.analytic_rows(pos, kobs, mid, None, kext_pk,
+                                        want_sca=False)
+                taus.append((rows * dsg).sum(1))
         return taus
 
     return staged
@@ -771,21 +776,22 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     count_events = bool(getattr(options, "count_events", False))
 
     def run_batch(key, ell, L0, tallies):
-        n = ell.shape[0]
-        dev = ell.device
-        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-        ell = ell.to(torch.int32).contiguous()
-        L0 = L0.to(torch.float32).contiguous()
-        pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
-        alive = L > 0
-        ksca_pk, kext_pk = ds.packet_kappas(ell)
-        albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
-            .contiguous()
-        g_pk = [torch.as_tensor(m.g, device=dev)[ell.long()].contiguous()
-                for m in mixes]
-        ins = tallies["instruments"]
-        labs = tallies.get("labs")
-        dust = torch.full((n,), bool(is_dust_emission), device=dev)
+        with trace.span("launch"):
+            n = ell.shape[0]
+            dev = ell.device
+            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+            ell = ell.to(torch.int32).contiguous()
+            L0 = L0.to(torch.float32).contiguous()
+            pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
+            alive = L > 0
+            ksca_pk, kext_pk = ds.packet_kappas(ell)
+            albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
+                .contiguous()
+            g_pk = [torch.as_tensor(m.g, device=dev)[ell.long()]
+                    .contiguous() for m in mixes]
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
 
         def component_scatter(it, cell, alive_b, dir_old):
             """K5's scatter, torch-side: the component drawn by
@@ -827,131 +833,153 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                 peel(ins[i], pos_p, ell, contribution, tags,
                      tau=taus0[lead_of[i]])
 
-        ns = torch.zeros(n, dtype=torch.int32, device=dev)
-        if emission_peeloff:
-            emission_peel(pos, torch.where(alive, L, 0.0), ns)
+        with trace.span("launch"):
+            ns = torch.zeros(n, dtype=torch.int32, device=dev)
+            if emission_peeloff:
+                emission_peel(pos, torch.where(alive, L, 0.0), ns)
 
-        pos = pos.contiguous()
-        direction = direction.contiguous()
-        L = L.to(torch.float32).contiguous()
-        alive = alive.to(torch.int32)
-        if mt is not None:
-            # normalized Stokes ratios and the reference normal; packets
-            # launch unpolarized (a zero normal: no reference yet)
-            stokes = (torch.zeros(n, device=dev), torch.zeros(n, device=dev),
-                      torch.zeros(n, device=dev),
-                      torch.zeros((n, 3), device=dev))
-            pf = mt.table("pfnorm", dev)[ell.long()]
-            kobs_lead = pol.observer_rows(leaders, n, dev)
-            ky_ins = pol.frame_axes(instruments, n, dev)
-        bc = torch.ones(n, dtype=torch.int32, device=dev)
-        nev = torch.zeros((), dtype=torch.float32, device=dev)
+            pos = pos.contiguous()
+            direction = direction.contiguous()
+            L = L.to(torch.float32).contiguous()
+            alive = alive.to(torch.int32)
+            if mt is not None:
+                # normalized Stokes ratios and the reference normal;
+                # packets launch unpolarized (a zero normal: no reference
+                # yet)
+                stokes = (torch.zeros(n, device=dev),
+                          torch.zeros(n, device=dev),
+                          torch.zeros(n, device=dev),
+                          torch.zeros((n, 3), device=dev))
+                pf = mt.table("pfnorm", dev)[ell.long()]
+                kobs_lead = pol.observer_rows(leaders, n, dev)
+                ky_ins = pol.frame_axes(instruments, n, dev)
+            bc = torch.ones(n, dtype=torch.int32, device=dev)
+            nev = torch.zeros((), dtype=torch.float32, device=dev)
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
-                go = alive.any()
-                if refill:
-                    go = go | (bc < K).any()
-                if not bool(go):
+                with trace.span("check"):
+                    go = alive.any()
+                    if refill:
+                        go = go | (bc < K).any()
+                    go = bool(go)
+                if not go:
                     break
-            u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                 (spec.n_uniform, n), dev)
-            # -- stage the kappa * rho panel rows (the gather) ------------
-            dsg, _, mid = vt.panel_paths(grid, pos, direction, npanels)
-            t0 = mid[:, 0] - 0.5 * dsg[:, 0]
-            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                     direction[:, 1].contiguous(),
-                     direction[:, 2].contiguous(), L, alive, ns, ell, L0,
-                     t0.contiguous(), dsg[:, 0].contiguous()]
-            if multi:
-                ks, kr = (r.T.contiguous() for r in ds.analytic_rows(
-                    pos, direction, mid, ksca_pk, kext_pk))
-                out = table_multi_event(spec, u, kr, ks, state)
-            else:
-                kr = ds.analytic_rows(pos, direction, mid, None, kext_pk,
-                                      want_sca=False).T.contiguous()
-                out = table_event(spec, u, kr,
-                                  state + [albedo_pk, g_pk[0]])
-            if want_labs and labs is not None:
-                if arith_locate:
-                    binned_add(labs, out["depi"], out["depv"])
+            with trace.span("event"):
+                u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                     (spec.n_uniform, n), dev)
+                # -- stage the kappa * rho panel rows (the gather) --------
+                with trace.span("stage_gather"):
+                    dsg, _, mid = vt.panel_paths(grid, pos, direction,
+                                                 npanels)
+                    t0 = mid[:, 0] - 0.5 * dsg[:, 0]
+                    if multi:
+                        ks, kr = (r.T.contiguous()
+                                  for r in ds.analytic_rows(
+                                      pos, direction, mid, ksca_pk, kext_pk))
+                    else:
+                        kr = ds.analytic_rows(pos, direction, mid, None,
+                                              kext_pk, want_sca=False) \
+                            .T.contiguous()
+                state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                         pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                         direction[:, 1].contiguous(),
+                         direction[:, 2].contiguous(), L, alive, ns, ell, L0,
+                         t0.contiguous(), dsg[:, 0].contiguous()]
+                if multi:
+                    out = table_multi_event(spec, u, kr, ks, state)
                 else:
-                    binned_add(labs, *direct_deposits(
-                        grid, pos, direction, out["depd"], out["depv"], ell,
-                        nlambda))
-            st = out["state"]
-            if count_events:
-                nev = nev + alive.sum().to(torch.float32)
-            dir_old = direction
-            pos = torch.stack(st[:3], dim=-1)
-            wv_h = None
-            if multi:
-                L, alive = st[3], st[4]
-                alive_b = alive != 0
-                wv_h, direction = component_scatter(it, out["cell"], alive_b,
-                                                    dir_old)
-                ns = torch.where(alive_b, ns + 1, ns)
-            else:
-                direction = torch.stack(st[3:6], dim=-1)
-                L, alive, ns = st[6], st[7], st[8]
+                    out = table_event(spec, u, kr,
+                                      state + [albedo_pk, g_pk[0]])
+                if want_labs and labs is not None:
+                    if arith_locate:
+                        binned_add(labs, out["depi"], out["depv"])
+                    else:
+                        binned_add(labs, *direct_deposits(
+                            grid, pos, direction, out["depd"], out["depv"],
+                            ell, nlambda))
+                st = out["state"]
+                if count_events:
+                    nev = nev + alive.sum().to(torch.float32)
+                dir_old = direction
+                pos = torch.stack(st[:3], dim=-1)
+                wv_h = None
+                if multi:
+                    L, alive = st[3], st[4]
+                    alive_b = alive != 0
+                    wv_h, direction = component_scatter(it, out["cell"],
+                                                        alive_b, dir_old)
+                    ns = torch.where(alive_b, ns + 1, ns)
+                else:
+                    direction = torch.stack(st[3:6], dim=-1)
+                    L, alive, ns = st[6], st[7], st[8]
 
             if mt is not None:
                 # -- the Mueller scatter overriding the kernel's HG
                 # direction; the pre-event Stokes ratios and direction feed
                 # both the scatter and the peel (ref: DustMix.cpp:584-620)
-                pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
-                    mt, rng.event_key(k_cycle, it, 13), ell, stokes, dir_old)
-                scat = alive != 0
-                direction = torch.where(scat[:, None], nd, direction)
+                with trace.span("mueller"):
+                    pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
+                        mt, rng.event_key(k_cycle, it, 13), ell, stokes,
+                        dir_old)
+                    scat = alive != 0
+                    direction = torch.where(scat[:, None], nd, direction)
 
             # -- torch-side relaunch (refill) ------------------------------
             fresh = None
             if refill:
-                fresh = (alive == 0) & (bc < K)
-                kre = rng.event_key(k_cycle, it, 7)
-                pos_l, dir_l, L_l, _ = stellar_system.launch(kre, ell, L0)
-                f3 = fresh[:, None]
-                pos = torch.where(f3, pos_l, pos)
-                direction = torch.where(f3, dir_l, direction)
-                L = torch.where(fresh, L_l, L)
-                ns = torch.where(fresh, 0, ns)
-                bc = bc + fresh.to(torch.int32)
-                alive = alive | fresh.to(torch.int32)
+                with trace.span("launch"):
+                    fresh = (alive == 0) & (bc < K)
+                    kre = rng.event_key(k_cycle, it, 7)
+                    pos_l, dir_l, L_l, _ = stellar_system.launch(kre, ell,
+                                                                 L0)
+                    f3 = fresh[:, None]
+                    pos = torch.where(f3, pos_l, pos)
+                    direction = torch.where(f3, dir_l, direction)
+                    L = torch.where(fresh, L_l, L)
+                    ns = torch.where(fresh, 0, ns)
+                    bc = bc + fresh.to(torch.int32)
+                    alive = alive | fresh.to(torch.int32)
 
             # -- merged peel-off: scattered lanes with the phase weight at
             # the incoming direction, fresh lanes with the (isotropic)
             # emission weight ---------------------------------------------
-            alive_b = alive != 0
             if scattering_peeloff:
-                taus0 = staged_taus(pos, kext_pk)
-                tags = {"nscatt": ns, "is_dust": dust}
-                if mt is not None:
-                    speel = pol.StokesPeel(partial(mt.lookup, ell), pf,
-                                           stokes, pdeg, pang, nrm0, dir_old,
-                                           fresh)
-                for i, peel in enumerate(peels):
-                    j = lead_of[i]
-                    kx, ky, kz = (_f32(v) for v in leaders[j])
-                    cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
-                            + dir_old[:, 2] * kz)
-                    tg = tags
+                with trace.span("peel"):
+                    alive_b = alive != 0
+                    taus0 = staged_taus(pos, kext_pk)
+                    tags = {"nscatt": ns, "is_dust": dust}
                     if mt is not None:
-                        # the Mueller peel toward the leader, in this
-                        # instrument's frame
-                        w, stk = speel(j, cosj, kobs_lead[j], ky_ins[i])
-                        tg = dict(tags, stokes=stk)
-                    else:
-                        w = phase_weight(cosj, wv_h)
-                    if refill:
-                        w = torch.where(fresh, 1.0, w)
-                    con = torch.where(alive_b, L * w, 0.0)
-                    peel(ins[i], pos, ell, con, tg, tau=taus0[j])
+                        with trace.span("mueller"):
+                            speel = pol.StokesPeel(
+                                partial(mt.lookup, ell), pf, stokes, pdeg,
+                                pang, nrm0, dir_old, fresh)
+                    for i, peel in enumerate(peels):
+                        j = lead_of[i]
+                        kx, ky, kz = (_f32(v) for v in leaders[j])
+                        cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
+                                + dir_old[:, 2] * kz)
+                        tg = tags
+                        if mt is not None:
+                            # the Mueller peel toward the leader, in this
+                            # instrument's frame
+                            with trace.span("mueller"):
+                                w, stk = speel(j, cosj, kobs_lead[j],
+                                               ky_ins[i])
+                            tg = dict(tags, stokes=stk)
+                        else:
+                            w = phase_weight(cosj, wv_h)
+                        if refill:
+                            w = torch.where(fresh, 1.0, w)
+                        con = torch.where(alive_b, L * w, 0.0)
+                        peel(ins[i], pos, ell, con, tg, tau=taus0[j])
             elif refill and emission_peeloff:
-                emission_peel(pos, torch.where(fresh, L, 0.0), ns)
+                with trace.span("peel"):
+                    emission_peel(pos, torch.where(fresh, L, 0.0), ns)
 
             if mt is not None:
-                stokes = pol.carry_stokes(stokes, new, scat, fresh)
+                with trace.span("mueller"):
+                    stokes = pol.carry_stokes(stokes, new, scat, fresh)
         if count_events:
             tallies["nevents"] = tallies.get("nevents", 0.0) + nev
         return tallies

@@ -63,7 +63,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import kernels, rng
+from .. import kernels, rng, trace
 from ..media import polarization as pol
 from ..ops import binned_add
 from . import vector_traversal as vt
@@ -803,22 +803,23 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         if L0.ndim != 2 or L0.shape[1] != W:
             raise ValueError("polychromatic run_batch needs L0 of shape "
                              f"(N, {W})")
-        n = L0.shape[0]
-        dev = L0.device
-        k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-        ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
-        ones = torch.ones(n, dtype=torch.float32, device=dev)
-        pos, direction, _, _ = stellar_system.launch(k_launch, ell0, ones)
-        l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
-        L = l0
-        alive = (L > 0).any(0)
-        wls = torch.arange(W, device=dev)
-        oc = torch.as_tensor(spec.oc, device=dev)
-        kext_col = oc[0][:, None]
-        g_col = oc[2][:, None]
-        dust = torch.full((n,), bool(is_dust_emission), device=dev)
-        ins = tallies["instruments"]
-        labs = tallies.get("labs")
+        with trace.span("launch"):
+            n = L0.shape[0]
+            dev = L0.device
+            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+            ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
+            ones = torch.ones(n, dtype=torch.float32, device=dev)
+            pos, direction, _, _ = stellar_system.launch(k_launch, ell0, ones)
+            l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
+            L = l0
+            alive = (L > 0).any(0)
+            wls = torch.arange(W, device=dev)
+            oc = torch.as_tensor(spec.oc, device=dev)
+            kext_col = oc[0][:, None]
+            g_col = oc[2][:, None]
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
 
         def peel_I(pos_p):
             """Per leader the raw rho integral (N,), or with several
@@ -861,179 +862,197 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 ext = contrib * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
                 ins_obj.detect_poly(ins[i], pos_p, wls, ext, tags)
 
-        ns = torch.zeros(n, dtype=torch.int32, device=dev)
-        if emission_peeloff:
-            detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos),
-                       ns)
+        with trace.span("launch"):
+            ns = torch.zeros(n, dtype=torch.int32, device=dev)
+            if emission_peeloff:
+                detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos),
+                           ns)
 
-        pos = pos.contiguous()
-        direction = direction.contiguous()
-        alive = alive.to(torch.int32)
-        bc = torch.ones(n, dtype=torch.int32, device=dev)
-        nev = torch.zeros((), dtype=torch.float32, device=dev)
-        if pol_mode:
-            # per-wavelength normalized Stokes ratios (each wavelength's
-            # Mueller chain differs) and one geometric reference normal
-            # (the rotations are wavelength-free); packets launch
-            # unpolarized, a zero normal meaning no reference yet
-            stokes = (torch.zeros((W, n), device=dev),
-                      torch.zeros((W, n), device=dev),
-                      torch.zeros((W, n), device=dev),
-                      torch.zeros((n, 3), device=dev))
-            alb_col = oc[1][:, None]
-            pf_col = mt.table("pfnorm", dev)[:, None]
-            kobs_lead = pol.observer_rows(leaders, n, dev)
-            ky_ins = pol.frame_axes(instruments, n, dev)
+            pos = pos.contiguous()
+            direction = direction.contiguous()
+            alive = alive.to(torch.int32)
+            bc = torch.ones(n, dtype=torch.int32, device=dev)
+            nev = torch.zeros((), dtype=torch.float32, device=dev)
+            if pol_mode:
+                # per-wavelength normalized Stokes ratios (each wavelength's
+                # Mueller chain differs) and one geometric reference normal
+                # (the rotations are wavelength-free); packets launch
+                # unpolarized, a zero normal meaning no reference yet
+                stokes = (torch.zeros((W, n), device=dev),
+                          torch.zeros((W, n), device=dev),
+                          torch.zeros((W, n), device=dev),
+                          torch.zeros((n, 3), device=dev))
+                alb_col = oc[1][:, None]
+                pf_col = mt.table("pfnorm", dev)[:, None]
+                kobs_lead = pol.observer_rows(leaders, n, dev)
+                ky_ins = pol.frame_axes(instruments, n, dev)
 
         for it in range(iter_cap):
             if it % _CHECK_EVERY == 0:
-                go = alive.any()
-                if refill:
-                    go = go | (bc < K).any()
-                if not bool(go):
+                with trace.span("check"):
+                    go = alive.any()
+                    if refill:
+                        go = go | (bc < K).any()
+                    go = bool(go)
+                if not go:
                     break
-            u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                 (spec.n_uniform, n), dev)
-            # -- stage the rho panel rows (the gather) --------------------
-            dsg, _, midp = vt.panel_paths(grid, pos, direction, npanels)
-            t0 = midp[:, 0] - 0.5 * dsg[:, 0]
-            r = stage(pos, direction, midp)
-            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                     direction[:, 1].contiguous(),
-                     direction[:, 2].contiguous(), alive, ns,
-                     t0.contiguous(), dsg[:, 0].contiguous()]
-            event = table_poly_multi_event if multi else table_poly_event
-            out = event(spec, u, r, oc, L, l0, state)
-            if want_labs and labs is not None:
-                if arith_locate:
-                    binned_add(labs, out["depi"], out["depv"])
-                else:
-                    binned_add(labs, *direct_deposits(
-                        grid, pos, direction, out["depd"], out["depv"],
-                        out["depi"], W))
-            if count_events:
-                nev = nev + alive.sum().to(torch.float32)
-            st = out["state"]
-            dir_old = direction
-            alive_in, ns_in = alive != 0, ns
-            pos = torch.stack(st[:3], dim=-1)
-            direction = torch.stack(st[3:6], dim=-1)
-            alive, ns = st[6], st[7]
-            Ln, Lp = out["Ln"], out["Lp"]
+            with trace.span("event"):
+                u = rng.uniform_open(rng.event_key(k_cycle, it),
+                                     (spec.n_uniform, n), dev)
+                # -- stage the rho panel rows (the gather) ----------------
+                with trace.span("stage_gather"):
+                    dsg, _, midp = vt.panel_paths(grid, pos, direction,
+                                                  npanels)
+                    t0 = midp[:, 0] - 0.5 * dsg[:, 0]
+                    r = stage(pos, direction, midp)
+                state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                         pos[:, 2].contiguous(), direction[:, 0].contiguous(),
+                         direction[:, 1].contiguous(),
+                         direction[:, 2].contiguous(), alive, ns,
+                         t0.contiguous(), dsg[:, 0].contiguous()]
+                event = table_poly_multi_event if multi else table_poly_event
+                out = event(spec, u, r, oc, L, l0, state)
+                if want_labs and labs is not None:
+                    if arith_locate:
+                        binned_add(labs, out["depi"], out["depv"])
+                    else:
+                        binned_add(labs, *direct_deposits(
+                            grid, pos, direction, out["depd"], out["depv"],
+                            out["depi"], W))
+                if count_events:
+                    nev = nev + alive.sum().to(torch.float32)
+                st = out["state"]
+                dir_old = direction
+                alive_in, ns_in = alive != 0, ns
+                pos = torch.stack(st[:3], dim=-1)
+                direction = torch.stack(st[3:6], dim=-1)
+                alive, ns = st[6], st[7]
+                Ln, Lp = out["Ln"], out["Lp"]
 
             if pol_mode:
-                # -- the Mueller scatter and the polarized reweighting
-                # around the unchanged event: the mixture ratios rebuilt
-                # from K6p's column densities, the HG direction and its HG
-                # weights in Ln replaced by the driver wavelength's
-                # polarized sample and its defensive-mixture weights
-                # (ref: DustMix.cpp:584-620).  As in skirt_tpu, the lane's
-                # alive bit stays the kernel's (decided on the HG weights;
-                # ROADMAP.md's watch list): the port is held to skirt_tpu
-                I_s, I_tot = out["I_s"], out["I_tot"]
-                tau_wv = kext_col * I_tot[None]
-                ome_v = 1.0 - torch.exp(-tau_wv)
-                Lab_v = alb_col * torch.where(alive_in[None], L, 0.0) * ome_v
-                F_v = kext_col * torch.exp(-kext_col * I_s[None]) \
-                    / torch.clamp(ome_v, min=1e-30)
-                if spec.xi == 0.0:
-                    Q_v = F_v
-                else:
-                    Q_v = spec.one_m_xi * F_v + spec.xi * kext_col \
-                        / torch.clamp(tau_wv, min=1e-30)
-                Qmix_v = Q_v.sum(0) * spec.inv_W
-                # the driver wavelength the kernel drew, from the same
-                # uniform row u[5]
-                c_drv = torch.clamp((u[5] * float(W)).to(torch.int32),
-                                    max=W - 1)
-                pdeg_w, pang_w = pol.polarization_of(*stokes[:2])
-                cix = c_drv.long()[None]
-                pdeg_c = pdeg_w.gather(0, cix)[0]
-                pang_c = pang_w.gather(0, cix)[0]
-                kpol = rng.event_key(k_cycle, it, 13)
-                nrm0 = pol.reference_normals(rng.fold_in(kpol, 2), stokes[3],
-                                             dir_old)
-                theta_s = mt.sample_theta(rng.fold_in(kpol, 0), c_drv)
-                phi_s = mt.sample_phi(rng.fold_in(kpol, 1), c_drv, theta_s,
-                                      pdeg_c, pang_c)
-                S_s = mt.lookup_all(theta_s)
-                wpol = pf_col * (S_s[0] + pdeg_w * S_s[1] * torch.cos(
-                    2.0 * (phi_s[None] - pang_w)))
-                QHpol = (Q_v * wpol).sum(0) * spec.inv_W
-                Lp = Lab_v * F_v / torch.clamp(Qmix_v[None], min=1e-30)
-                Ln = Lab_v * F_v * wpol / torch.clamp(QHpol[None], min=1e-30)
-                # the per-wavelength cut with the polarized weights
-                kill = (Ln <= l0 * spec.inv_minred) \
-                    & (ns_in >= spec.min_scatt)[None]
-                gone = kill | (alive == 0)[None]
-                Lp = torch.where(gone, 0.0, Lp)
-                Ln = torch.where(gone, 0.0, Ln)
-                *new, nd = pol.scatter_stokes(*stokes[:3], S_s, theta_s,
-                                              phi_s, nrm0, dir_old)
-                scat = alive != 0
-                direction = torch.where(scat[:, None], nd, direction)
+                with trace.span("mueller"):
+                    # -- the Mueller scatter and the polarized reweighting
+                    # around the unchanged event: the mixture ratios rebuilt
+                    # from K6p's column densities, the HG direction and its
+                    # HG weights in Ln replaced by the driver wavelength's
+                    # polarized sample and its defensive-mixture weights
+                    # (ref: DustMix.cpp:584-620).  As in skirt_tpu, the
+                    # lane's alive bit stays the kernel's (decided on the HG
+                    # weights; ROADMAP.md's watch list): the port is held to
+                    # skirt_tpu
+                    I_s, I_tot = out["I_s"], out["I_tot"]
+                    tau_wv = kext_col * I_tot[None]
+                    ome_v = 1.0 - torch.exp(-tau_wv)
+                    Lab_v = alb_col * torch.where(alive_in[None], L, 0.0) \
+                        * ome_v
+                    F_v = kext_col * torch.exp(-kext_col * I_s[None]) \
+                        / torch.clamp(ome_v, min=1e-30)
+                    if spec.xi == 0.0:
+                        Q_v = F_v
+                    else:
+                        Q_v = spec.one_m_xi * F_v + spec.xi * kext_col \
+                            / torch.clamp(tau_wv, min=1e-30)
+                    Qmix_v = Q_v.sum(0) * spec.inv_W
+                    # the driver wavelength the kernel drew, from the same
+                    # uniform row u[5]
+                    c_drv = torch.clamp((u[5] * float(W)).to(torch.int32),
+                                        max=W - 1)
+                    pdeg_w, pang_w = pol.polarization_of(*stokes[:2])
+                    cix = c_drv.long()[None]
+                    pdeg_c = pdeg_w.gather(0, cix)[0]
+                    pang_c = pang_w.gather(0, cix)[0]
+                    kpol = rng.event_key(k_cycle, it, 13)
+                    nrm0 = pol.reference_normals(rng.fold_in(kpol, 2),
+                                                 stokes[3], dir_old)
+                    theta_s = mt.sample_theta(rng.fold_in(kpol, 0), c_drv)
+                    phi_s = mt.sample_phi(rng.fold_in(kpol, 1), c_drv, theta_s,
+                                          pdeg_c, pang_c)
+                    S_s = mt.lookup_all(theta_s)
+                    wpol = pf_col * (S_s[0] + pdeg_w * S_s[1] * torch.cos(
+                        2.0 * (phi_s[None] - pang_w)))
+                    QHpol = (Q_v * wpol).sum(0) * spec.inv_W
+                    Lp = Lab_v * F_v / torch.clamp(Qmix_v[None], min=1e-30)
+                    Ln = Lab_v * F_v * wpol / torch.clamp(QHpol[None],
+                                                          min=1e-30)
+                    # the per-wavelength cut with the polarized weights
+                    kill = (Ln <= l0 * spec.inv_minred) \
+                        & (ns_in >= spec.min_scatt)[None]
+                    gone = kill | (alive == 0)[None]
+                    Lp = torch.where(gone, 0.0, Lp)
+                    Ln = torch.where(gone, 0.0, Ln)
+                    *new, nd = pol.scatter_stokes(*stokes[:3], S_s, theta_s,
+                                                  phi_s, nrm0, dir_old)
+                    scat = alive != 0
+                    direction = torch.where(scat[:, None], nd, direction)
 
             # -- torch-side relaunch (refill) ------------------------------
             fresh = None
             if refill:
-                fresh = (alive == 0) & (bc < K)
-                kre = rng.event_key(k_cycle, it, 7)
-                pos_l, dir_l, _, _ = stellar_system.launch(kre, ell0, ones)
-                f3 = fresh[:, None]
-                pos = torch.where(f3, pos_l, pos)
-                direction = torch.where(f3, dir_l, direction)
-                Ln = torch.where(fresh[None], l0, Ln)
-                ns = torch.where(fresh, 0, ns)
-                bc = bc + fresh.to(torch.int32)
-                alive = alive | fresh.to(torch.int32)
+                with trace.span("launch"):
+                    fresh = (alive == 0) & (bc < K)
+                    kre = rng.event_key(k_cycle, it, 7)
+                    pos_l, dir_l, _, _ = stellar_system.launch(kre, ell0,
+                                                               ones)
+                    f3 = fresh[:, None]
+                    pos = torch.where(f3, pos_l, pos)
+                    direction = torch.where(f3, dir_l, direction)
+                    Ln = torch.where(fresh[None], l0, Ln)
+                    ns = torch.where(fresh, 0, ns)
+                    bc = bc + fresh.to(torch.int32)
+                    alive = alive | fresh.to(torch.int32)
 
             # -- merged peel-off: scattered lanes use the peel luminosities
             # and the per-wavelength phase weights at the incoming
             # direction, fresh lanes the isotropic emission weight --------
-            alive_b = alive != 0
             if scattering_peeloff:
-                Ipeel = peel_I(pos)
-                rho_n_h = None
-                if multi:
-                    # per-component densities at the new position's cell
-                    # (one locate and H gathers, shared by every leader)
-                    cell_n = grid.locate_batched(pos[:, None, :])[:, 0]
-                    safe_n = torch.clamp(cell_n, min=0)
-                    rho_n_h = [torch.where(cell_n >= 0, ds.rho_at(h, safe_n),
-                                           0.0) for h in range(H)]
-                if pol_mode:
-                    speel = pol.StokesPeel(mt.lookup_all, pf_col, stokes,
-                                           pdeg_w, pang_w, nrm0, dir_old,
-                                           fresh)
-                for i, ins_obj in enumerate(instruments):
-                    j = lead_of[i]
-                    kx, ky, kz = (_f32(v) for v in leaders[j])
-                    cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
-                            + dir_old[:, 2] * kz)
-                    tags = {"nscatt": ns, "is_dust": dust}
+                with trace.span("peel"):
+                    alive_b = alive != 0
+                    Ipeel = peel_I(pos)
+                    rho_n_h = None
+                    if multi:
+                        # per-component densities at the new position's cell
+                        # (one locate and H gathers, shared by every leader)
+                        cell_n = grid.locate_batched(pos[:, None, :])[:, 0]
+                        safe_n = torch.clamp(cell_n, min=0)
+                        rho_n_h = [torch.where(cell_n >= 0,
+                                               ds.rho_at(h, safe_n), 0.0)
+                                   for h in range(H)]
                     if pol_mode:
-                        # the Mueller phase weights at the incoming
-                        # direction (one theta-major row per lane for all
-                        # W) toward the leader, the Stokes ratios in this
-                        # instrument's frame
-                        pw, tags["stokes"] = speel(j, cosj, kobs_lead[j],
-                                                   ky_ins[i])
-                    else:
-                        pw = phase_weights(cosj, rho_n_h)
-                    cw = Lp * pw
-                    if refill:
-                        cw = torch.where(fresh[None], Ln, cw)
-                    cw = torch.where(alive_b[None], cw, 0.0)
-                    ext = cw * torch.exp(-peel_tau_w(Ipeel[j]))
-                    tags["transparent"] = cw
-                    ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
+                        with trace.span("mueller"):
+                            speel = pol.StokesPeel(
+                                mt.lookup_all, pf_col, stokes, pdeg_w,
+                                pang_w, nrm0, dir_old, fresh)
+                    for i, ins_obj in enumerate(instruments):
+                        j = lead_of[i]
+                        kx, ky, kz = (_f32(v) for v in leaders[j])
+                        cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
+                                + dir_old[:, 2] * kz)
+                        tags = {"nscatt": ns, "is_dust": dust}
+                        if pol_mode:
+                            # the Mueller phase weights at the incoming
+                            # direction (one theta-major row per lane for all
+                            # W) toward the leader, the Stokes ratios in this
+                            # instrument's frame
+                            with trace.span("mueller"):
+                                pw, tags["stokes"] = speel(
+                                    j, cosj, kobs_lead[j], ky_ins[i])
+                        else:
+                            pw = phase_weights(cosj, rho_n_h)
+                        cw = Lp * pw
+                        if refill:
+                            cw = torch.where(fresh[None], Ln, cw)
+                        cw = torch.where(alive_b[None], cw, 0.0)
+                        ext = cw * torch.exp(-peel_tau_w(Ipeel[j]))
+                        tags["transparent"] = cw
+                        ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
             elif refill and emission_peeloff:
-                detect_all(pos, torch.where(fresh[None], Ln, 0.0),
-                           peel_I(pos), ns)
+                with trace.span("peel"):
+                    detect_all(pos, torch.where(fresh[None], Ln, 0.0),
+                               peel_I(pos), ns)
 
             if pol_mode:
-                stokes = pol.carry_stokes(stokes, new, scat, fresh)
+                with trace.span("mueller"):
+                    stokes = pol.carry_stokes(stokes, new, scat, fresh)
             L = Ln.contiguous()
         if count_events:
             tallies["nevents"] = tallies.get("nevents", 0.0) + nev

@@ -23,7 +23,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from .. import rng
+from .. import rng, trace
 from ..devices import resolve
 from ..log import Log
 from ..units import Units
@@ -224,10 +224,12 @@ class OligoSimulation:
 
     def run(self):
         """Run the stellar-emission phase and write results."""
-        key = rng.root_key(self.seed)
-        with self.log.timer("the stellar emission phase"):
-            acc = self._run_phase(key, phase_tag=0)
-        self.write(acc)
+        with trace.span("run"):
+            key = rng.root_key(self.seed)
+            with self.log.timer("the stellar emission phase"):
+                acc = self._run_phase(key, phase_tag=0)
+            with trace.span("write"):
+                self.write(acc)
         return acc
 
     def _run_phase(self, key, phase_tag: int):
@@ -271,20 +273,23 @@ class OligoSimulation:
                 run_many = make_multibatch(
                     self._lifecycle, K,
                     key_fn=lambda k, i, b0=b: rng.fold_in(k, b0 + i))
-                tallies = run_many(key_p, ell, L0, tallies)
+                with trace.span("dispatch"):
+                    tallies = run_many(key_p, ell, L0, tallies)
                 nproc = K
             else:
-                tallies = self._lifecycle(rng.fold_in(key_p, b), ell, L0,
-                                          tallies)
+                with trace.span("dispatch"):
+                    tallies = self._lifecycle(rng.fold_in(key_p, b), ell,
+                                              L0, tallies)
                 nproc = 1
             total += sum(batches[pos + j][1].shape[0] for j in range(nproc))
             # drain to the host in float64 and restart the device tallies
-            for i, t in enumerate(tallies["instruments"]):
-                for k, v in t.items():
-                    acc["instruments"][i][k] += v.double().cpu().numpy()
-            if "labs" in tallies:
-                acc["labs"] += tallies["labs"].double().cpu().numpy()
-            tallies = self._zero_tallies()
+            with trace.span("drain"):
+                for i, t in enumerate(tallies["instruments"]):
+                    for k, v in t.items():
+                        acc["instruments"][i][k] += v.double().cpu().numpy()
+                if "labs" in tallies:
+                    acc["labs"] += tallies["labs"].double().cpu().numpy()
+                tallies = self._zero_tallies()
             dt = time.perf_counter() - t0
             self.log.info(f"Launched {total:,} photon packages "
                           f"({total / max(dt, 1e-9):,.0f} lanes/s)")

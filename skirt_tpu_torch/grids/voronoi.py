@@ -38,6 +38,8 @@ import numpy as np
 import torch
 from scipy.spatial import Voronoi, cKDTree
 
+from .. import trace
+
 _BIG = 3.4e38
 
 # bound on the floats a locate chunk gathers (rows or distance tiles), by
@@ -506,10 +508,12 @@ class VoronoiGrid:
     def locate_batched(self, points):
         """Flat cell ids (int32) of point batches (..., 3) in metres, -1
         outside the domain box."""
-        p = self._scaled(points)
-        lo, hi = (self._dev(n, p.device) for n in ("_lo_np", "_hi_np"))
-        inside = ((p >= lo) & (p <= hi)).all(dim=-1)
-        return torch.where(inside, self.nearest_site(p), -1).to(torch.int32)
+        with trace.span("locate"):
+            p = self._scaled(points)
+            lo, hi = (self._dev(n, p.device) for n in ("_lo_np", "_hi_np"))
+            inside = ((p >= lo) & (p <= hi)).all(dim=-1)
+            return torch.where(inside, self.nearest_site(p),
+                               -1).to(torch.int32)
 
     def locate(self, pos):
         """The cell of each position (skirt_tpu's start().cell)."""

@@ -28,6 +28,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from .. import trace
 from ..devices import resolve
 from ..fits import write_fits
 from ..ops import binned_add
@@ -65,6 +66,19 @@ class DistantInstrument:
         self.ky = np.array([-cp * ct * cpa - sp * spa,
                             -sp * ct * cpa + cp * spa,
                             st * cpa])
+
+    def detect(self, tallies, pos, ell, contribution, tags=None):
+        """Add the (already extincted) contributions of N packets with
+        wavelength indices ell (N,) to the tallies."""
+        with trace.span("detect"):
+            return self._detect(tallies, pos, ell, contribution, tags)
+
+    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
+        """contrib (W, N): row i carries wavelength index wls[i] (a
+        (W,) int64 tensor) for the same N positions; a tag's
+        "transparent" is (W, N)."""
+        with trace.span("detect"):
+            return self._detect_poly(tallies, pos, wls, contrib, tags)
 
     def project(self, pos):
         """Model position (N, 3) float32 -> detector-plane (xp, yp).
@@ -108,16 +122,11 @@ class SEDInstrument(DistantInstrument):
         return {"Ftot": torch.zeros((self.nlambda,), dtype=torch.float32,
                                     device=resolve(device))}
 
-    def detect(self, tallies, pos, ell, contribution, tags=None):
-        """Add the (already extincted) contributions of N packets with
-        wavelength indices ell (N,) to the tallies."""
+    def _detect(self, tallies, pos, ell, contribution, tags=None):
         tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
         return tallies
 
-    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
-        """contrib (W, N): row i carries wavelength index wls[i] (a
-        (W,) int64 tensor) for the same N positions; a tag's
-        "transparent" is (W, N)."""
+    def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
         tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
         return tallies
 
@@ -160,7 +169,7 @@ class FrameInstrument(DistantInstrument):
                                     dtype=torch.float32,
                                     device=resolve(device))}
 
-    def detect(self, tallies, pos, ell, contribution, tags=None):
+    def _detect(self, tallies, pos, ell, contribution, tags=None):
         pix = self.pixel(pos)
         idx = torch.where(pix >= 0, ell * (self.nx * self.ny) + pix, -1)
         binned_add(tallies["ftot"], idx, contribution)
@@ -173,7 +182,7 @@ class FrameInstrument(DistantInstrument):
         return torch.where(pix[None, :] >= 0,
                            wcol * (self.nx * self.ny) + pix[None, :], -1)
 
-    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
+    def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
         idx = self._poly_idx(pos, wls)
         binned_add(tallies["ftot"], idx.reshape(-1), contrib.reshape(-1))
         return tallies
@@ -193,13 +202,13 @@ class SimpleInstrument(FrameInstrument):
                                 device=device)
         return t
 
-    def detect(self, tallies, pos, ell, contribution, tags=None):
-        tallies = super().detect(tallies, pos, ell, contribution, tags)
+    def _detect(self, tallies, pos, ell, contribution, tags=None):
+        tallies = super()._detect(tallies, pos, ell, contribution, tags)
         tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
         return tallies
 
-    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
-        tallies = super().detect_poly(tallies, pos, wls, contrib, tags)
+    def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
+        tallies = super()._detect_poly(tallies, pos, wls, contrib, tags)
         tallies["Ftot"].index_add_(0, wls, contrib.sum(dim=1))
         return tallies
 
@@ -261,8 +270,8 @@ class FullInstrument(SimpleInstrument):
         if tags.get("transparent") is not None:
             add("ftra", "Ftra", direct & ~is_dust, tags["transparent"])
 
-    def detect(self, tallies, pos, ell, contribution, tags=None):
-        t = super().detect(tallies, pos, ell, contribution, tags)
+    def _detect(self, tallies, pos, ell, contribution, tags=None):
+        t = super()._detect(tallies, pos, ell, contribution, tags)
         if tags is None:
             return t
         pix = self.pixel(pos)
@@ -295,8 +304,8 @@ class FullInstrument(SimpleInstrument):
                 t[key_F] += _bin_sum(val, ell, self.nlambda)
         return t
 
-    def detect_poly(self, tallies, pos, wls, contrib, tags=None):
-        t = super().detect_poly(tallies, pos, wls, contrib, tags)
+    def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
+        t = super()._detect_poly(tallies, pos, wls, contrib, tags)
         if tags is None:
             return t
         idx = self._poly_idx(pos, wls)                 # (W, N)

@@ -168,7 +168,8 @@ class PolyArgs(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "xi", "inv_np", "inv_pp", "inv_minred")]
         + [("geo", Geom),
-           ("cend", ctypes.c_void_p), ("lead", ctypes.c_void_p)])
+           ("cend", ctypes.c_void_p), ("lead", ctypes.c_void_p),
+           ("live", ctypes.c_void_p)])
 
 
 class MonoArgs(ctypes.Structure):
@@ -194,7 +195,7 @@ class MonoArgs(ctypes.Structure):
         + [("dens1", ctypes.c_float * 8),
            ("geo", Geom),
            ("cend", ctypes.c_void_p), ("lead", ctypes.c_void_p),
-           ("dens_h", ctypes.c_void_p)])
+           ("dens_h", ctypes.c_void_p), ("live", ctypes.c_void_p)])
 
 
 class TableArgs(ctypes.Structure):
