@@ -4,8 +4,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 k1 k3 k4 k4d k5 k6 k6d k6p k7 chunked` runs
-phases 1-2 and then only the named kernel phases (k1 phase 4, k2 phase 3,
+`python3 chip_smoke.py k2 bin_sum k1 k3 k4 k4d k5 k6 k6d k6p k7 chunked`
+runs phases 1-2 and then only the named kernel phases (k1 phase 4, k2
+phase 3, bin_sum phase 3b,
 k3 phase 5, k4 phase 6, k5 phase 7, k6 phase 8, k7 phase 9, k4d phase 10,
 k6d phase 11, k6p phase 12, chunked phase 12b, each on the models main
 builds for it, built once per run), and prints their
@@ -28,6 +29,14 @@ exits non-zero without printing a result):
      detects of event iterations 32-35 of one batch at the main path's
      shapes: w-banded bins w * 256 + pixel, ~17 hot pixels a
      wavelength row on the edge-on frame), timed per call the same way
+  3b. the bin sum of the mono detects (ops.bin_sum_add, csrc/bin_sum.cu)
+     vs float64 np.bincount and its plain version at 2^21 values: the
+     mono path's 128 bins (lane % 128, the benchmark's layout, and
+     uniform), the flagship's 4, one bin, the one-pass route's largest
+     and the passes route (one more bin, and 5,000), each with its route,
+     its largest relative bin error against the plain version's (at most
+     twice), the bitwise repeat of two launches, and kernel / plain /
+     torch.bincount / bound ms
   4. K1 poly_event kernel vs its plain version on identical inputs at the
      polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
      2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
@@ -501,6 +510,75 @@ def phase_k2(torch, results):
                      "bound_by": times["frame"][3][1], "times": times}
 
 
+def phase_bin_sum(torch, results):
+    """The per-wavelength bin sum of the mono detects (ops.bin_sum_add,
+    csrc/bin_sum.cu) against float64 np.bincount and its plain version
+    at the mono paths' shapes (2^21 values into 128 bins in the
+    benchmark's lane % 128 layout and uniform; the flagship's 4 bins),
+    one bin, the one-pass route's largest and the passes route: the
+    route, the largest relative bin error of each, the bitwise repeat of
+    two launches, kernel / plain / torch.bincount / bound ms."""
+    from skirt_tpu_torch.ops import bin_sum, binned
+
+    optin, sms = binned.device_limits("cuda")
+    most = (optin - bin_sum.STATIC_SMEM) // (4 * bin_sum.THREADS)
+    n = 1 << 21
+    shapes = {"mono path": (128, "lane"), "mono uniform": (128, "uniform"),
+              "flagship": (4, "lane"), "one bin": (1, "lane"),
+              "one pass, largest": (most, "uniform"),
+              "passes": (most + 1, "uniform"),
+              "passes, 5000 bins": (5000, "uniform")}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    times, worst = {}, 0.0
+    for name, (nl, layout) in shapes.items():
+        val = torch.rand(n, generator=gen, device="cuda")
+        val *= torch.rand(n, generator=gen, device="cuda") >= 0.25
+        ell = (torch.arange(n, device="cuda") % nl if layout == "lane" else
+               torch.randint(0, nl, (n,), generator=gen, device="cuda"))
+        ell = ell.to(torch.int32)
+        want = np.bincount(ell.cpu().numpy(), weights=val.double().cpu()
+                           .numpy(), minlength=nl)
+
+        def err(t):
+            g = t.double().cpu().numpy()
+            return float(np.max(np.abs(g - want)
+                                / np.maximum(np.abs(want), 1e-300)))
+
+        got = [bin_sum.bin_sum_add(torch.zeros(nl, device="cuda"), val, ell)
+               for _ in range(2)]
+        plain = bin_sum.bin_sum_plain(val, ell, nl)
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(got[0], got[1]))
+        k_err, p_err = err(got[0]), err(plain)
+        if not repeat or k_err > 2 * p_err:
+            raise AssertionError(f"bin_sum {name}: bitwise repeat {repeat}, "
+                                 f"max_rel_err {k_err:.3e} against the "
+                                 f"plain version's {p_err:.3e}")
+        worst = max(worst, k_err)
+        tally = torch.zeros(nl, device="cuda")
+        ms = cuda_ms(lambda: bin_sum.bin_sum_add(tally, val, ell))
+        plain_ms = cuda_ms(lambda: bin_sum.bin_sum_plain(val, ell, nl),
+                           reps=5)
+        lib_ms = cuda_ms(lambda: torch.bincount(ell, weights=val,
+                                                minlength=nl))
+        plan = bin_sum.bin_sum_plan(n, nl, optin, sms)
+        # each value and index read once; the tally read and written and a
+        # row of partials a block, each counted at 4 bytes a bin
+        bnd = bound(8 * n + 4 * nl * (1 + plan.blocks), 0)
+        times[name] = (ms, plain_ms, lib_ms, bnd)
+        log(f"  bin_sum {name}: {n} values -> {nl} bins ({layout}), route "
+            f"{plan.route} ({plan.bins} bins x {plan.ranges} ranges, "
+            f"{plan.blocks} blocks a range), max_rel_err {k_err:.3e} (plain "
+            f"{p_err:.3e}), bitwise repeat {repeat}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    main = times["mono path"]
+    results["BS"] = {"max_abs_err": worst, "ms": main[0],
+                     "plain_ms": main[1], "library_ms": main[2],
+                     "bound_ms": main[3][0], "bound_by": main[3][1],
+                     "times": times}
+
+
 def phase_k1(torch, results):
     from bench_torch import _build
     from skirt_tpu_torch import rng
@@ -834,7 +912,7 @@ def _check_tallies(acc, launched, what):
 def phase_main_mono(torch, results):
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import bin_sum, binned
 
     W, lanes, K, nbatches = 4, 1 << 21, 128, 2
     sim = _mono_simulation("cuda", W, lanes, nbatches, ncells=32,
@@ -846,12 +924,14 @@ def phase_main_mono(torch, results):
     torch.cuda.synchronize()
     binned.binned_add.launches = 0
     fused.mono_event.launches = 0
+    bs_before = sum(bin_sum.bin_sum_add.launches.values())
     t0 = time.perf_counter()
     acc = sim._run_phase(rng.root_key(sim.seed), 0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"K3": fused.mono_event.launches,
-                "K2": binned.binned_add.launches}
+                "K2": binned.binned_add.launches,
+                "BS": sum(bin_sum.bin_sum_add.launches.values()) - bs_before}
     results["launches_mono"] = launches
     pps = lanes * K * nbatches / dt
     launched = float(sim.stellar_system.Lv.sum())
@@ -861,7 +941,7 @@ def phase_main_mono(torch, results):
         f"packets/s; launches {launches} ({launches['K3'] / nbatches:.0f} "
         f"event iterations per batch); SED total {sed.sum():.4e} W, labs "
         f"{labs:.4e} W of {launched:.4e} W launched")
-    if launches["K3"] <= 0 or launches["K2"] <= 0:
+    if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     results["main_mono"] = {"seconds": dt, "packets_per_s": pps}
@@ -2710,7 +2790,8 @@ def _model(name):
 # chunked k8 pm po` runs alone, each on the models main builds for it (the
 # probes' SASS counts logged, not required, so that a parent tree without
 # TMA or wgmma still times)
-SUBSET = {"k2": phase_k2, "k1": phase_k1, "k3": phase_k3,
+SUBSET = {"k2": phase_k2, "bin_sum": phase_bin_sum, "k1": phase_k1,
+          "k3": phase_k3,
           "k8": phase_k8,
           "pm": lambda torch, res: phase_pm(torch, res),
           "po": lambda torch, res: phase_po(torch, res),
@@ -2772,6 +2853,8 @@ def main():
         return
     stamp("phase 3: K2 binned_add kernel vs plain")
     phase_k2(torch, results)
+    stamp("phase 3b: the bin sum of the mono detects vs float64 and plain")
+    phase_bin_sum(torch, results)
     stamp("phase 4: K1 poly_event kernel vs plain")
     phase_k1(torch, results)
     stamp("phase 5: K3 mono_event kernel vs plain")
@@ -2889,12 +2972,16 @@ def main():
         + results["launches_pol_sim"]["K6p"],
         "K7": results["launches_multi_poly"]["K7"]
         + results["launches_multi_sim"]["K7"],
+        "BS": results["launches_mono"]["BS"],
         **results["launches_probes"]}
     meta = {
         "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
                "skirt_tpu/engine/fused_poly.py:85"),
         "K2": ("K2 binned_add", "skirt_tpu_torch/csrc/binned.cu",
                "skirt_tpu/ops/binned.py:37"),
+        "BS": ("bin_sum", "skirt_tpu_torch/csrc/bin_sum.cu",
+               "no Pallas kernel: skirt_tpu/instruments/instruments.py:98 "
+               "_bin_sum, an XLA one-hot matvec"),
         "K3": ("K3 mono_event", "skirt_tpu_torch/csrc/fused_mono.cu",
                "skirt_tpu/engine/fused.py:199"),
         "K4": ("K4 table_event", "skirt_tpu_torch/csrc/fused_table.cu",
@@ -2954,6 +3041,8 @@ def main():
     for k in ("K6", "K7", "K6d", "K6p"):
         kern[k]["by_W"] = results[k]["by_W"]
     kern["K3"]["by_case"] = results["K3"]["by_case"]
+    kern["BS"]["ms_by_shape"] = {n: v[0] for n, v
+                                 in results["BS"]["times"].items()}
     for k, by_shape in results["chunked"].items():
         kern[k]["chunked"] = by_shape
     for k in ("K8", "PG", "PO", "PM"):

@@ -73,6 +73,8 @@ def layer_of(name: str) -> str:
         return "K2 binned_add, shared route (frame)"
     if "binned_add_global" in name:
         return "K2 binned_add, global route (labs)"
+    if "bin_sum_kernel" in name:
+        return "bin sum (the mono detects' SEDs)"
     if "distribution" in name:
         return "uniforms (Philox)"
     if "memcpy" in name.lower() or "memset" in name.lower():

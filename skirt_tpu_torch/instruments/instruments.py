@@ -13,7 +13,9 @@ and, for polarized packets, the Stokes ratios (q, u, v) in the
 instrument's frame.  Only FullInstrument reads them.
 
 Tallies are float32 tensors on the run's device, updated in place; the
-frame cube goes through the K2 binned scatter-add (ops.binned_add).
+frame cube goes through the K2 binned scatter-add (ops.binned_add), the
+monochromatic detects' SEDs through the per-wavelength bin sum
+(ops.bin_sum_add: on the card the kernel of csrc/bin_sum.cu).
 Calibration and output run on the host in float64 through the port's
 own FITS writer (fits.py) and unit system (units.py), copies of
 skirt_tpu's: the port imports no module of skirt_tpu.
@@ -31,7 +33,7 @@ import torch
 from .. import trace
 from ..devices import resolve
 from ..fits import write_fits
-from ..ops import binned_add
+from ..ops import bin_sum_add, binned_add
 
 if TYPE_CHECKING:
     from ..units import Units
@@ -95,22 +97,6 @@ class DistantInstrument:
         return xp, yp
 
 
-def _bin_sum(values, ell, nlambda):
-    """Per-wavelength-bin sum of (N,) values with (N,) bin indices.
-
-    A pairwise reduction of masked rows, as skirt_tpu's one-hot matvec
-    (error ~sqrt(N) eps): a scatter of N lanes into a handful of bins
-    would be N-way contended atomics on the GPU with ~N eps error.  The
-    rows are taken in chunks of at most 2^24 elements."""
-    n = max(values.shape[0], 1)
-    wl = torch.arange(nlambda, dtype=ell.dtype, device=ell.device)
-    step = max(1, (1 << 24) // n)
-    out = [torch.where(ell[None, :] == wl[i:i + step, None], values[None, :],
-                       0.0).sum(dim=1)
-           for i in range(0, nlambda, step)]
-    return out[0] if len(out) == 1 else torch.cat(out)
-
-
 class SEDInstrument(DistantInstrument):
     """Integrated SED only (ref: SKIRTcore/SEDInstrument.cpp)."""
 
@@ -123,7 +109,7 @@ class SEDInstrument(DistantInstrument):
                                     device=resolve(device))}
 
     def _detect(self, tallies, pos, ell, contribution, tags=None):
-        tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
+        bin_sum_add(tallies["Ftot"], contribution, ell)
         return tallies
 
     def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
@@ -204,7 +190,7 @@ class SimpleInstrument(FrameInstrument):
 
     def _detect(self, tallies, pos, ell, contribution, tags=None):
         tallies = super()._detect(tallies, pos, ell, contribution, tags)
-        tallies["Ftot"] += _bin_sum(contribution, ell, self.nlambda)
+        bin_sum_add(tallies["Ftot"], contribution, ell)
         return tallies
 
     def _detect_poly(self, tallies, pos, wls, contrib, tags=None):
@@ -280,8 +266,7 @@ class FullInstrument(SimpleInstrument):
 
         def add(key_f, key_F, mask, value):
             binned_add(t[key_f], torch.where(mask, idx, -1), value)
-            t[key_F] += _bin_sum(torch.where(mask, value, 0.0), ell,
-                                 self.nlambda)
+            bin_sum_add(t[key_F], torch.where(mask, value, 0.0), ell)
 
         self._decomposed(tags, contribution, add)
         nscatt = tags["nscatt"]
@@ -301,7 +286,7 @@ class FullInstrument(SimpleInstrument):
                     tags["stokes"]):
                 val = contribution * ratio
                 binned_add(t[key_f], idx, val)
-                t[key_F] += _bin_sum(val, ell, self.nlambda)
+                bin_sum_add(t[key_F], val, ell)
         return t
 
     def _detect_poly(self, tallies, pos, wls, contrib, tags=None):

@@ -296,6 +296,11 @@ def library() -> ctypes.CDLL:
         lib.skirt_binned_blocked_limits.argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         lib.skirt_binned_blocked_limits.restype = ctypes.c_int
+        lib.skirt_bin_sum.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.skirt_bin_sum.restype = ctypes.c_int
         lib.skirt_probe_gather.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -22,7 +22,7 @@ from skirt_tpu_torch.engine import fused_poly as tfp
 from skirt_tpu_torch.engine import fused_table as tft
 from skirt_tpu_torch.engine import fused_table_poly as tftp
 from skirt_tpu_torch.experiments import mm
-from skirt_tpu_torch.ops import binned
+from skirt_tpu_torch.ops import bin_sum, binned
 
 torch.set_num_threads(2)
 
@@ -358,7 +358,8 @@ def test_table_kernels_take_any_panels_and_components(recorded, P, H):
 def test_cpu_run_launches_no_kernel():
     """On CPU tensors the wrappers take their plain versions."""
     def counts():
-        return (binned.binned_add.launches, tfp.poly_event.launches,
+        return (binned.binned_add.launches,
+                dict(bin_sum.bin_sum_add.launches), tfp.poly_event.launches,
                 tfm.mono_event.launches, tft.table_event.launches,
                 tft.table_event.direct_launches,
                 tft.table_multi_event.launches,
@@ -403,6 +404,22 @@ def test_profile_layers_name_the_poly_path_kernels():
     assert layer("(anonymous namespace)::binned_add_global(float *, const "
                  "int *, const float *, long long, int)") == \
         "K2 binned_add, global route (labs)"
+
+
+def test_profile_layers_name_the_bin_sum_kernel():
+    """csrc/bin_sum.cu holds one kernel, whose device name profile_torch.
+    layer_of files under the bin sum and the benchmark's classifier, which
+    names only the older kernels, under the drivers' arithmetic."""
+    import profile_torch
+    from rtbench import kernel_names
+
+    assert _kernels_of("bin_sum.cu") == ["bin_sum_kernel"]
+    name = ("(anonymous namespace)::bin_sum_kernel(float *, const float *, "
+            "const int *, long long, int, int, long long, double *, "
+            "unsigned int *)")
+    assert profile_torch.layer_of(name) == "bin sum (the mono detects' SEDs)"
+    assert kernel_names.classify(name) == (
+        "plain torch: the drivers' arithmetic", None)
 
 
 def _smem_limit_bins():
@@ -474,6 +491,188 @@ def test_binned_add_kernel_matches_plain(case):
     tally = torch.ones(nbins + 1, device="cuda")[1:]
     got = binned.binned_add(tally, idx, val)
     torch.testing.assert_close(got, want + 1.0, rtol=1e-4, atol=1e-6)
+
+
+# the bin-sum kernel's card shapes: N from none to past 2^24; nlambda from
+# one bin through the mono path's 128 to the one-pass route's largest on
+# an H100 (226) and past it (the passes route: 2 and 23 ranges)
+BIN_SUM_N = [0, 1, 1 << 15, 1 << 21, (1 << 24) + 3]
+BIN_SUM_NLAMBDA = [1, 8, 128, 226, 227, 5000]
+BIN_SUM_LAYOUTS = ["one-bin", "uniform", "lane"]
+H100_OPTIN, H100_SMS = 232448, 132
+
+
+def _bin_sum_inputs(n, nlambda, layout, device, seed=5):
+    """(values, ell): uniform values with a quarter of the lanes dead
+    (zero), the indices all in one bin, uniform, or lane % nlambda (the
+    mono path's layout)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    values = torch.rand(n, generator=gen, device=device)
+    values *= torch.rand(n, generator=gen, device=device) >= 0.25
+    if layout == "one-bin":
+        ell = torch.full((n,), nlambda // 2, dtype=torch.int32,
+                         device=device)
+    elif layout == "uniform":
+        ell = torch.randint(0, nlambda, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+    else:
+        ell = (torch.arange(n, device=device) % nlambda).to(torch.int32)
+    return values, ell
+
+
+def _bin_err(got, want):
+    """Largest relative bin error of a float32 tally against float64 sums
+    (0 where both are 0)."""
+    g = got.double().cpu().numpy()
+    return float(np.max(np.abs(g - want) / np.maximum(np.abs(want),
+                                                       1e-300)))
+
+
+def test_bin_sum_plan_pins_the_routes():
+    """bin_sum_plan on an H100's limits: the mono path's 2^21 values into
+    128 bins in one pass on one 128 KB block an SM; 226 bins the one-pass
+    route's largest, 227 two ranges; every plan's columns fit a block,
+    its ranges cover the bins exactly, and the card test's shapes reach
+    every route."""
+    plan = bin_sum.bin_sum_plan
+    assert plan(1 << 21, 128, H100_OPTIN, H100_SMS) == (
+        "one_pass", 128, 1, 132)
+    assert plan(1 << 21, 1, H100_OPTIN, H100_SMS) == ("one_pass", 1, 1, 264)
+    assert plan(1 << 15, 128, H100_OPTIN, H100_SMS).blocks == 16
+    assert plan(1, 8, H100_OPTIN, H100_SMS).blocks == 1
+    assert plan(1 << 21, 226, H100_OPTIN, H100_SMS).route == "one_pass"
+    assert plan(1 << 21, 227, H100_OPTIN, H100_SMS) == ("passes", 114, 2, 66)
+    routes = set()
+    for n in BIN_SUM_N[1:]:
+        for nl in BIN_SUM_NLAMBDA + [65536]:
+            p = plan(n, nl, H100_OPTIN, H100_SMS)
+            assert 4 * bin_sum.THREADS * p.bins + bin_sum.STATIC_SMEM <= \
+                H100_OPTIN
+            assert p.bins * (p.ranges - 1) < nl <= p.bins * p.ranges
+            assert p.blocks >= 1 and p.route == bin_sum.ROUTES[p.ranges > 1]
+            if nl in BIN_SUM_NLAMBDA:
+                routes.add(p.route)
+    assert routes == set(bin_sum.ROUTES)
+
+
+@pytest.mark.parametrize("nlambda", [8, 128, 227])
+def test_bin_sum_hands_the_plan_to_the_kernel(recorded, nlambda):
+    """The bin-sum wrapper's launch passes the C entry point the plan an
+    H100's limits give, its workspace (a float32 row of partials a block
+    of each range, a ticket a range) and counts one launch on the plan's
+    route."""
+    values, ell = _bin_sum_inputs(1 << 15, nlambda, "uniform", "cpu")
+    tally = torch.zeros(nlambda)
+    before = dict(bin_sum.bin_sum_add.launches)
+    bin_sum._bin_sum_cuda(tally, values, ell, H100_OPTIN, H100_SMS)
+    name, _, rest = recorded.calls[-1]
+    p = bin_sum.bin_sum_plan(1 << 15, nlambda, H100_OPTIN, H100_SMS)
+    assert name == "skirt_bin_sum"
+    assert rest[2:7] == (1 << 15, nlambda, p.bins, p.ranges, p.blocks)
+    nparts = p.ranges * p.blocks * bin_sum.row_floats(p)
+    tickets, parts = bin_sum._workspace(tally.device, 0, p.ranges, nparts)
+    assert rest[7:9] == (parts.data_ptr(), tickets.data_ptr())
+    assert int(tickets.abs().sum()) == 0 and parts.numel() >= nparts
+    assert parts.dtype == torch.float32 and tickets.dtype == torch.int32
+    before[p.route] += 1
+    assert bin_sum.bin_sum_add.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", BIN_SUM_LAYOUTS)
+@pytest.mark.parametrize("nlambda", BIN_SUM_NLAMBDA)
+@pytest.mark.parametrize("n", BIN_SUM_N)
+def test_bin_sum_kernel_matches_float64(n, nlambda, layout):
+    """The bin-sum kernel against float64 np.bincount: its largest
+    relative bin error at most twice the plain version's; two launches
+    equal to the bit; each launch counted on the plan's route (none at
+    N = 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    values, ell = _bin_sum_inputs(n, nlambda, layout, "cuda")
+    want = np.bincount(ell.cpu().numpy(), weights=values.double().cpu()
+                       .numpy(), minlength=nlambda)
+    before = dict(bin_sum.bin_sum_add.launches)
+    got = [bin_sum.bin_sum_add(torch.zeros(nlambda, device="cuda"), values,
+                               ell) for _ in range(2)]
+    plain = bin_sum.bin_sum_plain(values, ell, nlambda)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert _bin_err(got[0], want) <= 2 * _bin_err(plain, want)
+    optin, sms = binned.device_limits("cuda")
+    if n:
+        before[bin_sum.bin_sum_plan(n, nlambda, optin, sms).route] += 2
+    assert bin_sum.bin_sum_add.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nlambda", [128, 227])
+def test_bin_sum_kernel_drops_and_adds_in_place(nlambda):
+    """Indices outside [0, nlambda) dropped, as the plain version drops
+    them; the sums added into a tally that already holds values, through
+    views off 16 bytes (the wrapper's aligned copies) and a tally view off
+    the start of its storage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = (1 << 20) + 5
+    values, _ = _bin_sum_inputs(n, nlambda, "uniform", "cuda")
+    ell = torch.randint(-3, nlambda + 3, (n,), device="cuda",
+                        dtype=torch.int32)
+    values, ell = values[1:], ell[1:]
+    assert values.data_ptr() % 16 and ell.data_ptr() % 16
+    start = torch.rand(nlambda + 1, device="cuda")
+    tally = start.clone()[1:]
+    got = bin_sum.bin_sum_add(tally, values, ell)
+    assert got is tally
+    e, v = ell.cpu().numpy(), values.double().cpu().numpy()
+    kept = (e >= 0) & (e < nlambda)
+    want = np.bincount(e[kept], weights=v[kept], minlength=nlambda)
+    plain = start[1:] + bin_sum.bin_sum_plain(values, ell, nlambda)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               start[1:].double().cpu().numpy() + want,
+                               rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_bin_sum_refuses_wrong_dtype_device_or_plan():
+    """The bin-sum wrapper raises on a CUDA tensor of the wrong type and
+    on tensors split over the CPU and the card (no fallback); the C entry
+    point refuses a pass whose columns pass the opt-in limit, ranges that
+    do not cover the bins exactly, and values off 16 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tally = torch.zeros(8, device="cuda")
+    values = torch.ones(64, device="cuda")
+    ell = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        bin_sum.bin_sum_add(tally, values, ell.long())
+    with pytest.raises(TypeError):
+        bin_sum.bin_sum_add(tally, values.double(), ell)
+    with pytest.raises(ValueError):
+        bin_sum.bin_sum_add(tally, values.cpu(), ell)
+    with pytest.raises(ValueError):
+        bin_sum.bin_sum_add(tally.cpu(), values, ell)
+    lib = kernels.library()
+    optin, _ = binned.device_limits("cuda")
+    most = (optin - bin_sum.STATIC_SMEM) // (4 * bin_sum.THREADS)
+    tickets, parts = bin_sum._workspace("cuda", kernels.stream_of(tally),
+                                        4, 4 * 1000)
+    big = torch.zeros(1000, device="cuda")
+
+    def call(v, nl, bins, ranges):
+        return lib.skirt_bin_sum(big.data_ptr(), v.data_ptr(),
+                                 ell.data_ptr(), 63, nl, bins, ranges, 1,
+                                 parts.data_ptr(), tickets.data_ptr(),
+                                 kernels.stream_of(big))
+
+    assert call(values, most + 1, most + 1, 1) != 0     # past the opt-in
+    assert call(values, 100, 40, 2) != 0                 # 80 bins < 100
+    assert call(values, 100, 50, 3) != 0                 # an empty range
+    assert call(values[1:], 8, 8, 1) != 0                # off 16 bytes
+    assert call(values, 100, 50, 2) == 0
+    torch.cuda.synchronize()
+    assert int(tickets.abs().sum()) == 0
 
 
 @pytest.mark.gpu

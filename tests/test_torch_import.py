@@ -35,7 +35,7 @@ SCRIPT = textwrap.dedent("""
     torch.set_num_threads(1)
     import skirt_tpu_torch
     from skirt_tpu_torch import kernels
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import bin_sum, binned
     from skirt_tpu_torch.engine import fused_poly, fused_table, fused_table_poly
     import chip_smoke
     mods = sorted(m.name for m in pkgutil.walk_packages(
@@ -130,6 +130,7 @@ SCRIPT = textwrap.dedent("""
         "reference_during_run": reference,
         "built": kernels._lib is not None,
         "launches": [binned.binned_add.launches,
+                     sum(bin_sum.bin_sum_add.launches.values()),
                      fused_poly.poly_event.launches,
                      fused.mono_event.launches,
                      fused_table.table_event.launches,
@@ -175,11 +176,12 @@ def test_port_imports_and_runs_without_jax_or_toolchain(tmp_path):
     assert res["triton"] is False
     # a run, its writers and chip_smoke.py import nothing of the JAX package
     assert res["reference_during_run"] == []
-    assert res["built"] is False and res["launches"] == [0] * 13
+    assert res["built"] is False and res["launches"] == [0] * 14
     for mod in ("engine.fused_poly", "engine.fused", "engine.simulation",
                 "engine.fused_table", "engine.fused_table_poly",
                 "grids.octree", "grids.voronoi", "native", "devices", "units",
-                "fits", "kernels", "media.polarization", "experiments.common",
+                "fits", "kernels", "ops.bin_sum", "media.polarization",
+                "experiments.common",
                 "experiments.gather", "experiments.onehot_gather",
                 "experiments.mm", "experiments.microbench_blocked_tally",
                 "experiments.microbench_gather",
