@@ -6,5 +6,6 @@ through `OligoSimulation` on one NVIDIA card.
 cells, metrics and limits are described in PERF.md).  Configurations,
 cells and per-layer metrics are files of their own (`configs/`,
 `workloads/`, `metrics/`), found by the names in the root's
-BENCHMARK.json.
+BENCHMARK.json; a configuration names its model builder (`builders/`)
+and its plain reference (`reference/`).
 """

@@ -43,11 +43,12 @@ def readings(workload, seeds, program_side, control_side, device="cuda",
 
         sim, _ = program.build(cell, cfg, port, dev, out_dir)
         program.run_once(sim, program.call_seed(seeds[0], 0))   # warm-up
+        centers = program.cell_centers_kpc(sim, port)
         views = {}
         for s in seeds:
             acc = program.run_once(sim, program.call_seed(s, 1))
             views[s] = check.program_view(
-                acc, cfg, check.compared_wavelengths(cell, cfg, s))
+                acc, cfg, check.compared_wavelengths(cell, cfg, s), centers)
         del sim
         gc.collect()
         for s in seeds:

@@ -5,6 +5,8 @@ and again, each call with a fresh seed derived from the run's seed."""
 import hashlib
 import time
 
+import numpy as np
+
 from .builders import load as builder, sub
 
 
@@ -52,6 +54,15 @@ def build(cell: dict, cfg: dict, pkg, device, out_dir: str):
         raise RuntimeError(f"{cell['name']}: {nb} batches a run(), the "
                            f"cell asks for {cell['batches_per_run']}")
     return sim, host_s
+
+
+def cell_centers_kpc(sim, pkg) -> np.ndarray:
+    """(ncells, 3) float64 centres in kpc of the cells that the labs rows
+    of run() belong to: the cells of the dust system's grid as built
+    (a voxel view's labs are folded back onto them)."""
+    KPC = sub(pkg, "constants").KPC
+    return np.asarray(sim.dust_system_out.grid.cell_centers(),
+                      np.float64) / KPC
 
 
 def run_once(sim, seed: int):

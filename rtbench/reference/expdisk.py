@@ -14,7 +14,8 @@ noise on both sides, which check.py measures on coarse bins.
 `simulate` runs `packets` packets for each wavelength index in `ells`
 and returns the raw tallies of those wavelengths: the summed luminosity
 in W of each SED, of each frame pixel, and of the absorbed energy per
-grid cell.  `dtype` is the precision of every quantity (the control
+grid cell, with the cells' centres (the contract of reference/
+__init__.py).  `dtype` is the precision of every quantity (the control
 passes bfloat16); the tallies are summed in float64 unless `acc_dtype`
 says otherwise."""
 
@@ -114,6 +115,14 @@ def _panels(m, k0, px, py, pz, dx, dy, dz, n):
     return t0, w, dtau, x, y, z
 
 
+def _centers(m):
+    """(ncells, 3) float64 centres in kpc of the grid's cells, in the
+    order `_cell` numbers them (x-major, z fastest)."""
+    axes = [-h + (np.arange(n) + 0.5) * (2 * h / n)
+            for h, n in zip(m.half, m.shape)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+
+
 def _cell(m, x, y, z):
     ids = []
     for v, h, n in ((x, m.half[0], m.shape[0]), (y, m.half[1], m.shape[1]),
@@ -204,7 +213,8 @@ def simulate(cfg: dict, ells, packets: int, seed: int, device,
              chunk: int = 1 << 20) -> dict:
     """Raw tallies of `packets` packets at each wavelength index of
     `ells`: {"sed": [(W,) per instrument], "frame": [(W, ny, nx) or None],
-    "labs": (ncells, W)}, as float64 NumPy arrays."""
+    "labs": (ncells, W), "centers": (ncells, 3) in kpc}, as float64 NumPy
+    arrays."""
     m = Model(cfg)
     ells = [int(e) for e in ells]
     W = len(ells)
@@ -286,5 +296,6 @@ def simulate(cfg: dict, ells, packets: int, seed: int, device,
            "frame": [None if f is None else
                      f.double().cpu().numpy().reshape(W, o["ny"], o["nx"])
                      for f, o in zip(tal.frame, m.observers)],
-           "labs": tal.labs.double().cpu().numpy().reshape(-1, W)}
+           "labs": tal.labs.double().cpu().numpy().reshape(-1, W),
+           "centers": _centers(m)}
     return out

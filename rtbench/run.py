@@ -9,13 +9,16 @@ files; a warm-up run() (CUDA start-up, the kernel build or load, the
 first batch) closes the set-up; then run() is called again and again,
 closed loop, each call with a fresh seed derived from --seed and writing
 its SED and FITS files under $TMPDIR, until the first phase end after
---seconds.  --trace 1 profiles two more whole run() phases after the
-window (tracing.py) and reports the per-layer metrics instead of the
-end-to-end ones; the window itself is not traced.
-Then one run() of the window, drawn from the seed, is compared with the
-plain reference (check.py), which runs its own packets.  The last line
-of standard output is the result's JSON; the last lines of standard
-error are the numbers compared, each beside its limit."""
+--seconds.  --trace 1 runs three more whole run() phases after the
+window (tracing.py: the port's own spans alone, then the device alone
+and those spans under the profiler) and
+reports the per-layer metrics instead of the end-to-end ones; the window
+itself is not traced.  Then the centres of the simulation's cells are
+read, and one run() of the window, drawn from the seed, is compared with
+the plain reference that the configuration names (check.py), which runs
+its own packets.  The last line of standard output is the result's JSON;
+the last lines of standard error are the numbers compared, each beside
+its limit."""
 
 import time
 
@@ -23,6 +26,7 @@ _T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
@@ -88,7 +92,6 @@ def drive(workload: str, seed: int, seconds: float, trace: bool,
 
     out_dir = os.path.join(tempfile.gettempdir(), "rtbench_out", workload)
     sim, host_s = program.build(cell, cfg, port, dev, out_dir)
-    installed = tracing.install_sim_ranges(sim) if trace else set()
     if fault is not None:
         fault(sim)
     per_run = program.packets_per_run(cell, cfg)
@@ -129,17 +132,21 @@ def drive(workload: str, seed: int, seconds: float, trace: bool,
     tr = None
     if trace:
         t1 = time.perf_counter()
-        nxt = iter(range(n_runs + 1, n_runs + 3))
+        nxt = itertools.count(n_runs + 1)
         tr = tracing.profile_phases(port, lambda: program.run_once(
             sim, program.call_seed(seed, next(nxt))), cuda)
         tr.host_build_s = host_s
         tr.untraced_wall_s = sorted(calls)[n_runs // 2]
+        st, hs = tr.spans, tr.host_spans
         log(f"rtbench: traced phase {tr.wall_s:.4f} s against the window's "
             f"median run() {tr.untraced_wall_s:.4f} s, {len(tr.ops)} device "
-            f"operations, {tr.launches} event launches; ranges "
-            f"{sorted(installed)}; both phases traced and read in "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"operations, {tr.launches} event launches; spans phase "
+            f"{st.wall_s if st else 0.0:.4f} s, "
+            f"{len(st.spans) if st else 0} spans; host phase "
+            f"{hs.wall_s if hs else 0.0:.4f} s; the three phases run and "
+            f"read in {time.perf_counter() - t1:.1f} s")
 
+    centers = program.cell_centers_kpc(sim, port)
     del sim
     gc.collect()
     if cuda:
@@ -147,7 +154,8 @@ def drive(workload: str, seed: int, seconds: float, trace: bool,
     t2 = time.perf_counter()
     ells = check.compared_wavelengths(cell, cfg, seed)
     ref = check.reference(cell, cfg, seed, dev)
-    found = check.gaps(check.program_view(kept, cfg, ells), ref, cfg)
+    found = check.gaps(check.program_view(kept, cfg, ells, centers), ref,
+                       cfg)
     correct, rows = check.judge(found, cell["limits"])
     log(f"rtbench: run() {pick} against the reference at wavelengths "
         f"{ells}, {cell['reference']['packets']} packets each, in "

@@ -1,7 +1,8 @@
 """The program's own spans and counters read against a CUDA profile of
 whole run() calls: which stage of the port launched each device
-operation, which stage the device waited on in each idle gap, and what
-share of the event kernels' lanes were live.
+operation, which stage the device waited on in each idle gap, what
+share of the event kernels' lanes were live, and how long the host
+spends dispatching.
 
 `profile_spans(pkg, call)` runs `call()` (one run()) under
 torch.profiler with CUDA activity alone and the port's tracing on
@@ -11,26 +12,37 @@ id, host time), the port's spans and its counters.  Both sides stamp the
 same Unix-epoch clock, so each device operation is credited to the
 innermost span open at its runtime call (`credit`), and each idle gap of
 the device is split over the spans it overlaps, by overlap
-(`idle_by_span`).  A port without the tracing module gives None.
+(`idle_by_span`).  With `profiled=False` the phase keeps the spans and
+counters alone, on a host that CUPTI does not slow.  A port without the
+tracing module gives None.
 
-The readers at the end (`live_lane_share` ... `entry_idle_ms_per_run`)
-are the per-layer quantities these records give; each returns None
-where the trace holds nothing to read.  The benchmark's `--trace 1` run
-does not call this module yet (PERF.md, section 7); run it by hand:
+The readers at the end (`live_lane_share` ... `host_ms_per_iter`) are
+the per-layer quantities these records give; each returns None where
+the trace holds nothing to read.  The benchmark's `--trace 1` run takes
+the profiled phase as the second of tracing.profile_phases and the
+unprofiled one as its host phase, and each reader has its
+metrics/<name>.py.  By hand:
 
     python3 -m rtbench.spans --workload <cell> --seed <n> [--runs 3]
 
 builds the cell as run.py does, warms up, times --runs untraced run()
-calls, runs tracing.profile_phases (the benchmark's own two phases) and
-then this phase, and prints one JSON line: the walls, the readings and
-the checks of completeness."""
+calls, runs tracing.profile_phases (the benchmark's own three phases)
+and prints one JSON line: the walls, the readings and the checks of
+completeness of its spans phase, and the host phase's reading."""
 
 import importlib
 import time
 from dataclasses import dataclass, field
 
 from .kernel_names import classify
-from .tracing import launches
+
+# the port's event dispatchers and their launch counters
+EVENT_COUNTERS = (("engine.fused_poly", "poly_event"),
+                  ("engine.fused", "mono_event"),
+                  ("engine.fused_table", "table_event"),
+                  ("engine.fused_table", "table_multi_event"),
+                  ("engine.fused_table_poly", "table_poly_event"),
+                  ("engine.fused_table_poly", "table_poly_multi_event"))
 
 
 @dataclass
@@ -45,6 +57,21 @@ class SpanTrace:
     wall_s: float = 0.0                           # the phase's host wall
 
 
+def launches(pkg) -> int | None:
+    """The sum of the port's event-kernel launch counters, or None when
+    none of them is there."""
+    total, seen = 0, False
+    for mod, fn in EVENT_COUNTERS:
+        try:
+            n = getattr(getattr(importlib.import_module(
+                f"{pkg.__name__}.{mod}"), fn), "launches")
+        except (ImportError, AttributeError):
+            continue
+        total += int(n)
+        seen = True
+    return total if seen else None
+
+
 def tracer(pkg):
     """The port's tracing module, or None where the port has none."""
     try:
@@ -53,10 +80,12 @@ def tracer(pkg):
         return None
 
 
-def profile_spans(pkg, call, cuda: bool = True):
+def profile_spans(pkg, call, cuda: bool = True, profiled: bool = True):
     """One run() phase (`call()`) with the port's tracing on, under a
-    CUDA-only profile on a card (none on the CPU, where only the spans
-    and counters are kept).  None where the port has no tracing."""
+    CUDA-only profile on a card when `profiled` (none on the CPU, where
+    only the spans and counters are kept; without `profiled` the card's
+    phase is closed by a synchronize).  None where the port has no
+    tracing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,7 +99,7 @@ def profile_spans(pkg, call, cuda: bool = True):
     n0 = launches(pkg)
     tr.enable(True)
     try:
-        if cuda:
+        if cuda and profiled:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 call()
@@ -80,6 +109,8 @@ def profile_spans(pkg, call, cuda: bool = True):
         else:
             t0 = time.perf_counter()
             call()
+            if cuda:
+                torch.cuda.synchronize()
             st.wall_s = time.perf_counter() - t0
     finally:
         tr.enable(False)
@@ -232,12 +263,12 @@ def idle_by_span(st: SpanTrace, top: int = 20):
                   key=lambda kv: -kv[1])[:top]
 
 
-def idle_ns_in(st: SpanTrace, name: str) -> int:
-    """Device idle ns that overlaps the spans called `name` (which do not
-    nest in one another)."""
-    cover = _union([(s, e) for n, s, e, _ in st.spans if n == name])
+def _overlap_ns(intervals, cover) -> int:
+    """ns of the (disjoint, sorted) `intervals` that the union of
+    `cover` overlaps."""
+    cover = _union(cover)
     total, j = 0, 0
-    for gs, ge in gaps(st):
+    for gs, ge in intervals:
         while j < len(cover) and cover[j][1] <= gs:
             j += 1
         k = j
@@ -245,6 +276,16 @@ def idle_ns_in(st: SpanTrace, name: str) -> int:
             total += max(0, min(cover[k][1], ge) - max(cover[k][0], gs))
             k += 1
     return total
+
+
+def _named(st: SpanTrace, name: str):
+    return [(s, e) for n, s, e, _ in st.spans if n == name]
+
+
+def idle_ns_in(st: SpanTrace, name: str) -> int:
+    """Device idle ns that overlaps the spans called `name` (which do not
+    nest in one another)."""
+    return _overlap_ns(gaps(st), _named(st, name))
 
 
 def busy_ns(st: SpanTrace) -> int:
@@ -304,6 +345,22 @@ def entry_idle_ms_per_run(st):
         return None
     return (idle_ns_in(st, "run") - idle_ns_in(st, "dispatch")) / 1e6 \
         / len(_runs(st))
+
+
+def host_ms_per_iter(st):
+    """Host ms per event launch inside `dispatch` spans and outside
+    `check` (the stop test, where the host waits for the device): the
+    host's own dispatch work.  Read from a phase with no profiler, whose
+    host CUPTI does not slow.  Layer: the entry point and the drivers on
+    the host."""
+    if st is None or not st.launches:
+        return None
+    dispatch = _union(_named(st, "dispatch"))
+    inside = sum(e - s for s, e in dispatch)
+    if not inside:
+        return None
+    waits = _overlap_ns(dispatch, _named(st, "check"))
+    return (inside - waits) / 1e6 / st.launches
 
 
 READERS = (live_lane_share, detect_ms_per_iter, peel_ms_per_iter,
@@ -398,18 +455,19 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     tr = tracing.profile_phases(port, call, True)
     t2 = time.perf_counter()
-    st = profile_spans(port, call, True)
+    res = summary(tr.spans)
     t3 = time.perf_counter()
-    res = summary(st)
-    t4 = time.perf_counter()
     res.update({
+        "host_ms_per_iter": host_ms_per_iter(tr.host_spans),
+        "host_phase_wall_s": tr.host_spans.wall_s,
+        "untraced_idle_s": statistics.median(walls) - tr.busy_s(),
         "workload": a.workload, "seed": a.seed, "host_build_s": host_s,
         "untraced_walls_s": walls,
         "untraced_median_s": statistics.median(walls),
         "phase1_wall_s": tr.wall_s,
         "phase1_event_kernel_us": _event_kernel_us(SpanTrace(
             ops=[(n, s, e, 0) for n, s, e in tr.ops])),
-        "phases_1_2_s": t2 - t1, "phase3_s": t3 - t2, "read_s": t4 - t3,
+        "phases_s": t2 - t1, "read_s": t3 - t2,
         "card": torch.cuda.get_device_name(dev)})
     print(json.dumps(res), flush=True)
     return 0

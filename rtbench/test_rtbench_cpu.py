@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from rtbench import cells, check, run, tracing
+from rtbench import cells, check, program, run, spans, tracing
 from rtbench.kernel_names import classify
+from rtbench.spans import SpanTrace
 from rtbench.tracing import Trace
 
 torch.set_num_threads(2)
@@ -51,10 +52,10 @@ def drive(workload, **kw):
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
-CONFIG_KEYS = {"name", "source", "builder", "precision", "wavelengths",
-               "luminosity_W", "stars", "dust", "grid", "engine",
-               "instruments", "semantics", "reduced", "cuts", "assumed",
-               "device_state"}
+CONFIG_KEYS = {"name", "source", "builder", "reference", "precision",
+               "wavelengths", "luminosity_W", "stars", "dust", "grid",
+               "labs_blocks", "engine", "instruments", "semantics",
+               "reduced", "cuts", "assumed", "device_state"}
 CELL_KEYS = {"name", "config", "loop", "polychromatic", "batch_size",
              "refill_batches", "dispatch_batches", "batches_per_run",
              "reference", "limits"}
@@ -101,6 +102,8 @@ def test_cell_and_config_files_name_only_known_keys(workload):
     cell, cfg = cells.load(workload)
     assert set(cell) == CELL_KEYS and cell["name"] == workload
     assert set(cfg) == CONFIG_KEYS
+    assert (HERE / "reference" / f"{cfg['reference']}.py").is_file()
+    assert set(cfg["labs_blocks"]) == {"counts", "lo_kpc", "hi_kpc"}
     assert set(cfg["reduced"]) == set(cfg["cuts"])
     assert cfg["precision"] == "float32"
     listed = [c for c in cells.benchmark()["configs"]
@@ -199,21 +202,31 @@ def test_reference_without_dust_gives_every_packet_to_the_sed():
 def test_trace_run_reports_its_per_layer_metrics_on_the_cpu():
     out = drive("disc-poly128", trace=True)
     assert list(out)[-1] == "checks" and "breakdown" in out
-    # no device operations on the CPU: only the host build is read
-    assert set(out["metrics"]) == {"host_build_s"}
+    # no device operations on the CPU: only the host build and the
+    # port's own live-lane counter are read
+    assert set(out["metrics"]) == {"host_build_s", "live_lane_share"}
+    assert out["breakdown"]["idle_gaps"] == []
 
 
 # -- the gaps and the limits -----------------------------------------------
 
+def _unit_centers(counts):
+    """Centres of unit cells over [0, counts), x-major, z fastest."""
+    axes = [np.arange(n) + 0.5 for n in counts]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+
+
 def test_gaps_and_judge():
     cfg = {"instruments": [{"kind": "sed"}, {"kind": "frame"}],
-           "grid": {"nx": 8, "ny": 8, "nz": 4}}
+           "labs_blocks": {"counts": [8, 8, 4], "lo_kpc": [0, 0, 0],
+                           "hi_kpc": [8, 8, 4]}}
+    ctr = _unit_centers((8, 8, 4))
     ref = {"sed": [np.array([1.0, 2.0]), np.array([1.0, 1.0])],
            "frame": [None, np.ones((2, 16, 16))],
-           "labs": np.ones((256, 2))}
+           "labs": np.ones((256, 2)), "centers": ctr}
     prog = {"sed": [np.array([1.0, 2.002]), np.array([1.0, 1.0])],
             "frame": [None, np.ones((2, 16, 16))],
-            "labs": np.ones((256, 2))}
+            "labs": np.ones((256, 2)), "centers": ctr}
     prog["frame"][1][0, 0, 0] = 1.64      # block (0, 0): 16 px x 2 wl
     prog["labs"][0] = [1.5, 1.5]          # a block of 1 cell
     g = check.gaps(prog, ref, cfg)
@@ -238,20 +251,173 @@ def test_compared_wavelengths_are_drawn_from_the_seed():
     assert len(draws) > 1
 
 
+# -- the reference a configuration names, the labs in blocks of space ------
+
+def _old_labs_gap(prog_labs, ref_labs, shape, counts=(8, 8, 4)):
+    """The comparison before blocks of space: each side's labs reshaped
+    to the Cartesian grid and summed over equal blocks of cells."""
+    return check._gap(check._blocks(prog_labs.sum(1).reshape(shape), counts),
+                      check._blocks(ref_labs.sum(1).reshape(shape), counts))
+
+
+def test_labs_gap_by_position_equals_the_reshape_on_the_disc(tmp_path):
+    """The port's tallies and centres of one run() of the shrunk disc
+    against the reference's: the same gap as the reshape gave."""
+    import skirt_tpu_torch as port
+
+    cell, cfg = cells.load("disc-poly128", shrink("disc-poly128"))
+    sim, _ = program.build(cell, cfg, port, torch.device("cpu"),
+                           str(tmp_path))
+    acc = program.run_once(sim, program.call_seed(SEED, 1))
+    centers = program.cell_centers_kpc(sim, port)
+    ells = check.compared_wavelengths(cell, cfg, SEED)
+    prog = check.program_view(acc, cfg, ells, centers)
+    ref = check.reference(cell, cfg, SEED, "cpu")
+    np.testing.assert_allclose(prog["centers"], ref["centers"], rtol=1e-12)
+    g = cfg["grid"]
+    old = _old_labs_gap(prog["labs"], ref["labs"], (g["nx"], g["ny"], g["nz"]))
+    new = check.gaps(prog, ref, cfg)["labs_gap"]
+    assert 0 < old < 1
+    assert new == pytest.approx(old, rel=1e-12)
+
+
+def test_labs_gap_by_position_equals_the_reshape_at_the_cells_size():
+    """disc-galaxy's own grid and blocks (32 x 32 x 16 cells in 8 x 8 x 4
+    blocks) on made-up tallies: the same gap as the reshape gave."""
+    from rtbench.reference import expdisk
+
+    _, cfg = cells.load("disc-poly128")
+    ctr = expdisk._centers(expdisk.Model(cfg))
+    rng = np.random.default_rng(SEED)
+    p, r = rng.random((2, ctr.shape[0], 3))
+    g = cfg["grid"]
+    old = _old_labs_gap(p, r, (g["nx"], g["ny"], g["nz"]))
+    spec = cfg["labs_blocks"]
+    new = check._gap(check.labs_blocks(p, ctr, spec),
+                     check.labs_blocks(r, ctr, spec))
+    assert new == pytest.approx(old, rel=1e-12)
+
+
+def _two_level_cells():
+    """Octree-like boxes over [-2, 2]^3 kpc: the 8 level-1 octants, the
+    first of which is split into its 8 level-2 children; (lo, hi) per
+    leaf, leaves in a tree's depth-first order."""
+    boxes = []
+    for oct_ in range(8):
+        lo = np.array([-2.0 + 2 * ((oct_ >> k) & 1) for k in (2, 1, 0)])
+        if oct_ == 0:
+            for ch in range(8):
+                clo = lo + np.array([(ch >> k) & 1 for k in (2, 1, 0)])
+                boxes.append((clo, clo + 1))
+        else:
+            boxes.append((lo, lo + 2))
+    return boxes
+
+
+def test_labs_blocks_sum_unequal_cells_into_their_blocks():
+    """15 leaves of two levels into 2 x 2 x 2 blocks of 2 kpc: the
+    8 children of the first octant all land in block (0, 0, 0), each
+    other octant alone in its own."""
+    boxes = _two_level_cells()
+    ctr = np.array([(lo + hi) / 2 for lo, hi in boxes])
+    labs = np.arange(1.0, 1.0 + 2 * len(boxes)).reshape(-1, 2)
+    spec = {"counts": [2, 2, 2], "lo_kpc": [-2, -2, -2],
+            "hi_kpc": [2, 2, 2]}
+    got = check.labs_blocks(labs, ctr, spec)
+    want = np.concatenate([[labs[:8].sum()], labs[8:].sum(1)])
+    np.testing.assert_allclose(got, want, rtol=1e-15)
+    # a finer block layout that a level-1 octant straddles still takes
+    # every cell's energy once, in the block of its centre
+    fine = dict(spec, counts=[4, 4, 4])
+    assert check.labs_blocks(labs, ctr, fine).sum() == pytest.approx(
+        labs.sum())
+
+
+def test_labs_gap_is_inf_where_centres_do_not_match_the_rows():
+    spec = {"counts": [2, 2, 2], "lo_kpc": [0, 0, 0], "hi_kpc": [2, 2, 2]}
+    ctr = _unit_centers((2, 2, 2))
+    cfg = {"instruments": [{"kind": "sed"}], "labs_blocks": spec}
+    side = {"sed": [np.ones(3)], "frame": [None], "labs": np.ones((8, 3)),
+            "centers": ctr}
+    ok = dict(side, labs=np.ones((8, 3)) * 1.01)
+    assert check.gaps(ok, side, cfg)["labs_gap"] == pytest.approx(0.01)
+    for bad in (ctr[:7], ctr[:, :2], np.where(ctr > 1, np.nan, ctr),
+                ctr + 1.0):          # a row short, 2D, NaN, outside
+        got = check.gaps(dict(ok, centers=bad), side, cfg)["labs_gap"]
+        assert got == float("inf")
+    assert not check.judge({"labs_gap": float("inf")},
+                           {"labs_gap": 1.0})[0]
+
+
+def test_check_calls_the_reference_the_configuration_names(monkeypatch):
+    """A configuration unlike the disc's (another reference module,
+    octree-like cells, no frame) judged by check.py as it stands."""
+    import types
+
+    boxes = _two_level_cells()
+    ctr = np.array([(lo + hi) / 2 for lo, hi in boxes])
+    calls = []
+
+    def simulate(cfg, ells, packets, seed, device, **kw):
+        calls.append((cfg["name"], list(ells), packets, seed, device, kw))
+        return {"sed": [np.full(len(ells), 2.0)], "frame": [None],
+                "labs": np.ones((len(boxes), len(ells))), "centers": ctr}
+
+    stub = types.ModuleType("rtbench.reference.stub_torus")
+    stub.simulate = simulate
+    monkeypatch.setitem(sys.modules, "rtbench.reference.stub_torus", stub)
+    cfg = {"name": "stub", "reference": "stub_torus",
+           "wavelengths": {"count": 24},
+           "instruments": [{"kind": "sed"}],
+           "labs_blocks": {"counts": [2, 2, 2], "lo_kpc": [-2, -2, -2],
+                           "hi_kpc": [2, 2, 2]}}
+    cell = {"reference": {"wavelengths": 4, "packets": 1000}}
+    ref = check.reference(cell, cfg, SEED, "cpu", dtype="low")
+    ells = check.compared_wavelengths(cell, cfg, SEED)
+    assert calls == [("stub", ells, 1000, check.reference_seed(SEED), "cpu",
+                      {"dtype": "low"})]
+    # the program on a layout of its own: 64 equal cells of 1 kpc
+    fine = np.stack(np.meshgrid(*[np.arange(4) - 1.5] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    # each of the 8 blocks holds 8 of the program's cells, which share
+    # what the reference's cells in that block hold (block 0: 8 leaves)
+    blk = np.ravel_multi_index(
+        np.floor((fine + 2) / 2).astype(int).T, (2, 2, 2))
+    ref_blocks = check.labs_blocks(ref["labs"], ctr, cfg["labs_blocks"])
+    np.testing.assert_allclose(ref_blocks, [32.0] + [4.0] * 7)
+    acc = {"instruments": [{"Ftot": np.full(24, 2.0)}],
+           "labs": np.zeros((64, 24))}
+    acc["labs"][:, ells] = (ref_blocks[blk] / 8 / len(ells))[:, None]
+    found = check.gaps(check.program_view(acc, cfg, ells, fine), ref, cfg)
+    assert found["sed_gap"] == 0 and "frame_gap" not in found
+    assert found["labs_gap"] == pytest.approx(0, abs=1e-12)
+    limits = {"sed_gap": 0.01, "labs_gap": 0.01}
+    assert check.judge(found, limits)[0]
+    acc["labs"][0] *= 2                   # block 0: 36 against 32
+    found = check.gaps(check.program_view(acc, cfg, ells, fine), ref, cfg)
+    assert found["labs_gap"] == pytest.approx(4 / 32)
+    assert not check.judge(found, limits)[0]
+
+
 # -- the metric readers on a synthetic trace -------------------------------
 
 def _trace():
+    from rtbench.test_rtbench_spans import _trace as span_trace
+
     ms = 1_000_000
     ops = [("void poly_event_kernel<1>(PolyArgs)", 0, 2 * ms),
            ("binned_add_shared", 2 * ms, 3 * ms),
            ("void at::native::elementwise_kernel<...>", 5 * ms, 6 * ms),
            ("void poly_event_kernel<1>(PolyArgs)", 6 * ms, 8 * ms),
            ("Memcpy DtoH (Device -> Pageable)", 9 * ms, 10 * ms)]
-    return Trace(ops=ops, ranged_ops=ops,
-                 host=[("run", 0, 20 * ms),
-                       ("write", 9 * ms + ms // 2, 20 * ms)],
-                 wall_s=0.020, untraced_wall_s=0.014, launches=2,
-                 host_build_s=1.5)
+    # the host phase: a dispatch of 40 ms holding 9 ms of stop tests
+    host = [("run", 0, 50, -1), ("dispatch", 5, 45, 0), ("check", 5, 9, 1),
+            ("event", 9, 20, 1), ("check", 25, 30, 1), ("drain", 45, 50, 0)]
+    return Trace(ops=ops, wall_s=0.020, untraced_wall_s=0.014,
+                 launches=2, host_build_s=1.5, spans=span_trace(),
+                 host_spans=SpanTrace(spans=[(n, s * ms, e * ms, p)
+                                             for n, s, e, p in host],
+                                      launches=4))
 
 
 @pytest.mark.parametrize("name,value", [
@@ -261,6 +427,14 @@ def _trace():
     ("event_kernel_us", 2000.0),
     ("tally_us_per_iter", 500.0),
     ("host_build_s", 1.5),
+    ("host_ms_per_iter", (40 - 9) / 4),
+    # the spans phase's readings (test_rtbench_spans.py's trace); its
+    # 54 ms of idle scaled to the untraced run()'s 14 - 7 ms
+    ("live_lane_share", 75.0),
+    ("detect_ms_per_iter", 14.0),
+    ("peel_ms_per_iter", 8.0),
+    ("dispatch_idle_ms_per_run", 28.0 * 7 / 54),
+    ("entry_idle_ms_per_run", 26.0 * 7 / 54),
 ])
 def test_metric_reader(name, value):
     assert cells.metric_reader(name)(_trace()) == pytest.approx(value)
@@ -268,16 +442,41 @@ def test_metric_reader(name, value):
 
 @pytest.mark.parametrize("name", ["launches_per_iter", "plain_ms_per_iter",
                                   "event_kernel_us", "tally_us_per_iter",
-                                  "device_idle_share"])
+                                  "device_idle_share", "host_ms_per_iter",
+                                  "live_lane_share", "detect_ms_per_iter",
+                                  "peel_ms_per_iter",
+                                  "dispatch_idle_ms_per_run",
+                                  "entry_idle_ms_per_run"])
 def test_metric_reader_reads_nothing_from_an_empty_trace(name):
     assert cells.metric_reader(name)(Trace()) is None
 
 
+def test_idle_readings_split_the_untraced_idle():
+    """The spans phase splits the idle, the untraced run() sets how much
+    there is; none where the first phase is missing, none below 0."""
+    tr = _trace()
+    parts = [cells.metric_reader(n)(tr) for n in
+             ("dispatch_idle_ms_per_run", "entry_idle_ms_per_run")]
+    assert sum(parts) == pytest.approx((0.014 - tr.busy_s()) * 1e3)
+    assert tr.untraced_idle_ms(None) is None
+    tr.untraced_wall_s = 0.005            # shorter than the busy 7 ms
+    assert tr.untraced_idle_ms(28.0) == 0.0
+    tr.ops = []
+    assert tr.untraced_idle_ms(28.0) is None
+
+
 def test_breakdown_names_gaps_by_the_open_host_range():
+    """The idle gaps of the spans phase, by the port's span open over
+    each part of a gap (test_rtbench_spans.py's trace)."""
     tr = _trace()
     gaps = dict(tracing.idle_gaps(tr))
-    assert gaps["write"] == pytest.approx(0.010)
-    assert gaps["run: drain and bookkeeping"] == pytest.approx(0.003)
+    assert gaps == pytest.approx({"dispatch": 0.020, "run": 0.010,
+                                  "write": 0.010, "drain": 0.006,
+                                  "event": 0.005, "detect": 0.002,
+                                  "peel": 0.001})
+    assert list(gaps)[0] == "dispatch"
+    assert len(tracing.idle_gaps(tr, top=3)) == 3
+    assert tracing.idle_gaps(Trace()) == []
     ops = dict(tracing.device_ops(tr))
     assert ops["K1 poly_event"] == pytest.approx(0.004)
     assert classify("binned_add_global")[1] == "K2"
@@ -285,7 +484,7 @@ def test_breakdown_names_gaps_by_the_open_host_range():
 
 
 def test_idle_share_from_a_missing_range_reads_nothing():
-    assert tracing.launches(type("pkg", (), {"__name__": "no_such"})) is None
+    assert spans.launches(type("pkg", (), {"__name__": "no_such"})) is None
 
 
 # -- what may be imported --------------------------------------------------

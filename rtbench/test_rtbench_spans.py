@@ -64,12 +64,14 @@ def test_idle_by_span_splits_each_gap_by_overlap():
     ("peel_ms_per_iter", 8.0),
     ("dispatch_idle_ms_per_run", 28.0),
     ("entry_idle_ms_per_run", 26.0),
+    ("host_ms_per_iter", 70.0),
 ])
 def test_span_reader(name, value):
     assert getattr(spans, name)(_trace()) == pytest.approx(value)
 
 
-@pytest.mark.parametrize("reader", spans.READERS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("reader", spans.READERS + (spans.host_ms_per_iter,),
+                         ids=lambda f: f.__name__)
 def test_span_reader_reads_nothing_from_an_empty_trace(reader):
     assert reader(SpanTrace()) is None
     assert reader(None) is None
@@ -83,6 +85,19 @@ def test_summary_checks_completeness():
             + out["entry_idle_ms_per_run"]) / 1e3 == pytest.approx(
                 out["wall_minus_busy_s"])
     assert out["event_kernel_us"] == {"K1": pytest.approx(20_000.0)}
+
+
+def test_host_ms_leaves_out_the_stop_tests():
+    """The host's dispatch work: the dispatch spans' wall less the
+    `check` spans inside them, over the launches."""
+    sp = [("run", 0, 100, -1), ("dispatch", 10, 40, 0), ("check", 10, 12, 1),
+          ("event", 12, 20, 1), ("check", 30, 35, 1), ("dispatch", 50, 80, 0),
+          ("check", 50, 51, 5), ("drain", 80, 90, 0)]
+    st = SpanTrace(spans=[(n, s * MS, e * MS, p) for n, s, e, p in sp],
+                   launches=4)
+    assert spans.host_ms_per_iter(st) == pytest.approx((60 - 8) / 4)
+    st.launches = 0                       # the plain versions on the CPU
+    assert spans.host_ms_per_iter(st) is None
 
 
 def test_device_lead_bounds_the_clock_skew():
@@ -117,4 +132,32 @@ def test_cpu_phase_reads_the_spans_and_counters(workload, tmp_path):
     assert st.counters["lane_slots"] > 0
     for reader in spans.READERS[1:]:
         assert reader(st) is None
+    assert not port.trace.enabled()
+
+
+def test_profile_phases_keeps_the_spans_phase_on_the_cpu(tmp_path):
+    """The benchmark's traced phases on the CPU: no device phase, and the
+    spans phase kept whole on the trace for the metric readers."""
+    import skirt_tpu_torch as port
+
+    from rtbench import tracing
+
+    torch.set_num_threads(2)
+    cell, cfg = cells.load("disc-mono128", shrink("disc-mono128"))
+    sim, _ = program.build(cell, cfg, port, torch.device("cpu"),
+                           str(tmp_path))
+    tr = tracing.profile_phases(
+        port, lambda: program.run_once(sim, SEED), cuda=False)
+    assert tr.ops == [] and tr.launches is None
+    st = tr.spans
+    assert isinstance(st, SpanTrace)
+    assert sum(1 for s in st.spans if s[0] == "run") == 1
+    assert {"dispatch", "event", "peel", "detect"} <= {s[0] for s in st.spans}
+    assert st.launches == 0               # the plain versions launch nothing
+    assert 0 < st.counters["live_lanes"] <= st.counters["lane_slots"]
+    assert cells.metric_reader("live_lane_share")(tr) == pytest.approx(
+        100.0 * st.counters["live_lanes"] / st.counters["lane_slots"])
+    # no profiler on the CPU: the spans phase stands for the host phase
+    assert tr.host_spans is st
+    assert cells.metric_reader("host_ms_per_iter")(tr) is None
     assert not port.trace.enabled()
