@@ -525,7 +525,47 @@ table_multi_event.launches = 0
 # the exact peel: column-DDA optical depths toward constant directions
 # ---------------------------------------------------------------------------
 
-def make_exact_peel(grid, ds, leaders):
+def exact_peel_work(grid, pos, live, kdirs, ncomp: int = 1):
+    """The work of an exact peel from the lanes `live` (bool (N,), None
+    for all) at `pos` (N, 3) toward the unit directions `kdirs` (L, 3) on
+    a uniform grid: an int64 (2,) tensor of the rays (live lanes x
+    directions) and the voxels those rays cross with a positive length
+    from the lane's point to where they leave the grid, times `ncomp`.
+
+    Counted from the geometry alone, in float64: a ray crosses one voxel
+    more than the walls it passes inside the grid, and along axis i it
+    passes the whole numbers strictly between its start and its end in
+    voxel units, none along a zero component.  Any implementation of the
+    exact peel reads the same work from the same lanes.  The trace's
+    peel_rays and peel_voxels counters (rtbench's exact_peel_roofline)."""
+    n = (grid.nx, grid.ny, grid.nz)
+    p = pos.to(torch.float64)
+    # start and direction per axis in voxel units: (1, N) and (L, 1)
+    s = [((p[:, i] - grid._lo[i]) / grid._dx[i])[None] for i in range(3)]
+    kv = [kdirs[:, i].to(torch.float64)[:, None] / grid._dx[i]
+          for i in range(3)]
+    inside = torch.ones_like(s[0][0], dtype=torch.bool)
+    t_exit = None
+    for i in range(3):
+        inside = inside & (s[i][0] >= 0) & (s[i][0] < n[i])
+        wall = torch.where(kv[i] > 0, float(n[i]), 0.0)
+        t_i = torch.where(kv[i] != 0, (wall - s[i])
+                          / torch.where(kv[i] != 0, kv[i], 1.0),
+                          float("inf"))
+        t_exit = t_i if t_exit is None else torch.minimum(t_exit, t_i)
+    voxels = 1.0
+    for i in range(3):
+        end = torch.clamp(s[i] + t_exit * kv[i], 0.0, float(n[i]))
+        lo, hi = torch.minimum(s[i], end), torch.maximum(s[i], end)
+        walls = torch.clamp(torch.ceil(hi) - torch.floor(lo) - 1.0, min=0.0)
+        voxels = voxels + torch.where(kv[i] != 0, walls, 0.0)
+    ok = inside if live is None else inside & live
+    voxels = torch.where(ok[None] & (t_exit > 0), voxels, 0.0)
+    return torch.stack([ok.sum() * kdirs.shape[0],
+                        voxels.sum().to(torch.int64) * int(ncomp)])
+
+
+def make_exact_peel(grid, ds, leaders, graph=False):
     """Exact peel-off column densities toward static leader directions.
 
     Twin of skirt_tpu/engine/fused_table.py:395-540.  Per leader the
@@ -536,14 +576,28 @@ def make_exact_peel(grid, ds, leaders):
     sequences of the two lateral axes' wall crossings (one sequence when a
     lateral component is zero); the merge is a sort (the TPU's two-pointer
     merge gives the same sequence).  Lanes go in chunks so the (lanes,
-    Kp, n_a) gathers stay bounded.
+    Kp, n_a) gathers stay bounded.  A leader's direction and row tables
+    go to a device once (a host-to-device copy of a host array waits for
+    the device).
 
-    Returns taus(pos, kext_pk) -> list over leaders of (N,) tau =
-    sum_h kext_pk[h] * integral rho_h, with taus.integrals(pos) -> list
-    over leaders of the (H, N) raw integrals of rho_h.  skirt_tpu's
+    Returns taus(pos, kext_pk, live=None) -> list over leaders of (N,)
+    tau = sum_h kext_pk[h] * integral rho_h, with taus.integrals(pos,
+    live=None) -> list over leaders of the (H, N) raw integrals of rho_h.
+    Every lane is integrated; `live` (bool (N,), None for all) names the
+    lanes whose depths are used, and only while tracing is on does it
+    count: `exact_peel_work` of those lanes goes to the trace's peel
+    counters, launched before the `exact_peel` span opens.  skirt_tpu's
     polychromatic multi-component driver gets those by running its peel
     once per component with unit opacities; here one pass over the shared
-    crossings gives the same values (each 0 * S + 1 * S is exact)."""
+    crossings gives the same values (each 0 * S + 1 * S is exact).
+
+    With `graph` on a card the peel's thousands of small launches a pass
+    become one CUDA graph, so the host no longer sets the pace: the first
+    pass at a shape runs as is (and brings the rows, directions and box to
+    the device), the second captures the graph, later ones copy their
+    inputs into its own and replay it.  The same kernels on the same
+    inputs: the same bits.  Each shape's graph keeps a pool of device
+    memory as large as one pass's working set."""
     nxyz = (grid.nx, grid.ny, grid.nz)
     lo = np.asarray(grid._lo, np.float64)
     dx = np.asarray(grid._dx, np.float64)
@@ -567,7 +621,9 @@ def make_exact_peel(grid, ds, leaders):
         cc = int(np.floor(Dk * abs(k[c]) / dx[c])) + 1
         Kp = min(cb + cc + 1, nxyz[b] + nxyz[c] + 1)
         per_leader.append((k, a, b, c, rows, Kp))
-    rows_dev = {}
+    on_dev = {}               # (device, leader) -> (rows, direction)
+    kdirs = torch.from_numpy(np.array([pl[0] for pl in per_leader]))
+    kdirs_dev = {}            # device -> kdirs, the (L, 3) directions
 
     def cross_seq(p0, kk, loi, dxi, count):
         """Ray parameters of the wall crossings along one lateral axis."""
@@ -592,13 +648,13 @@ def make_exact_peel(grid, ds, leaders):
         ka, kb, kc = float(k[a]), float(k[b]), float(k[c])
         dev = pos.device
         key = (dev, j)
-        if key not in rows_dev:          # one host->device copy per device
-            rows_dev[key] = [torch.as_tensor(r, device=dev) for r in rows]
-        rows_t = rows_dev[key]
+        if key not in on_dev:
+            on_dev[key] = ([torch.as_tensor(r, device=dev) for r in rows],
+                           torch.as_tensor(np.asarray(k, np.float32),
+                                           device=dev))
+        rows_t, kdir = on_dev[key]
         pa, pb, pc = pos[:, a], pos[:, b], pos[:, c]
-        kdir = torch.as_tensor(np.asarray(k, np.float32),
-                               device=dev).expand(pos.shape[0], 3)
-        _, t_exit = grid.ray_span(pos, kdir)
+        _, t_exit = grid.ray_span(pos, kdir.expand(pos.shape[0], 3))
         tb = cross_seq(pb, kb, lo[b], dx[b], Kp)
         tc = cross_seq(pc, kc, lo[c], dx[c], Kp)
         tb = torch.where(tb < t_exit[:, None], tb, float("inf"))
@@ -657,17 +713,53 @@ def make_exact_peel(grid, ds, leaders):
         return torch.cat([fn(pos[i:i + chunk], slice(i, i + chunk))
                           for i in range(0, pos.shape[0], chunk)], dim=-1)
 
-    def taus(pos, kext_pk):
-        with trace.span("exact_peel"):
-            return [chunked(pos, j, lambda p, sl, j=j: leader_tau(
-                p, [kp[sl] for kp in kext_pk], j))
-                for j in range(len(per_leader))]
+    def count(pos, live):
+        if not trace.enabled():
+            return
+        kd = kdirs_dev.get(pos.device)
+        if kd is None:
+            kd = kdirs_dev[pos.device] = kdirs.to(pos.device)
+        trace.count_peel(exact_peel_work(grid, pos, live, kd, H))
 
-    def integrals(pos):
+    graphs = {}               # (what, device, input shapes) -> () or graph
+
+    def graphed(what, fn, pos, extra):
+        """fn(pos, extra), a list over leaders of tensors of one shape,
+        through the CUDA graph of its launches where `graph` asks for it."""
+        if not graph or pos.device.type != "cuda":
+            return fn(pos, extra)
+        key = (what, pos.device, *(tuple(x.shape) for x in (pos, *extra)))
+        g = graphs.get(key)
+        if g is None:
+            graphs[key] = ()
+            return fn(pos, extra)
+        if not g:
+            ins = [x.clone() for x in (pos, *extra)]
+            cg = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(cg):
+                out = torch.stack(fn(ins[0], ins[1:]))
+            g = graphs[key] = (cg, ins, out)
+        cg, ins, out = g
+        for mine, x in zip(ins, (pos, *extra)):
+            mine.copy_(x)
+        cg.replay()
+        return list(out.clone().unbind(0))
+
+    def taus(pos, kext_pk, live=None):
+        count(pos, live)
         with trace.span("exact_peel"):
-            return [chunked(pos, j, lambda p, sl, j=j: torch.stack(
-                leader_sums(p, j)) * inv_ka(j))
-                for j in range(len(per_leader))]
+            return graphed("taus", lambda pos, kext_pk: [
+                chunked(pos, j, lambda p, sl, j=j: leader_tau(
+                    p, [kp[sl] for kp in kext_pk], j))
+                for j in range(len(per_leader))], pos, list(kext_pk))
+
+    def integrals(pos, live=None):
+        count(pos, live)
+        with trace.span("exact_peel"):
+            return graphed("integrals", lambda pos, _: [
+                chunked(pos, j, lambda p, sl, j=j: torch.stack(
+                    leader_sums(p, j)) * inv_ka(j))
+                for j in range(len(per_leader))], pos, [])
 
     taus.integrals = integrals
     return taus
@@ -691,11 +783,12 @@ def _warn_staged_peel(grid, np_peel=None):
         stacklevel=3)
 
 
-def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel):
-    """Peel optical depths toward each leader: the exact column DDA, or the
-    P_peel panel quadrature of the staged rows ('staged')."""
+def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel, graph=False):
+    """Peel optical depths toward each leader: the exact column DDA (a
+    CUDA graph on a card with `graph`), or the P_peel panel quadrature of
+    the staged rows ('staged')."""
     if peel_mode == "exact":
-        return make_exact_peel(grid, ds, leaders)
+        return make_exact_peel(grid, ds, leaders, graph=bool(graph))
     return make_staged_peel(grid, ds, leaders, np_peel)
 
 
@@ -704,7 +797,8 @@ def make_staged_peel(grid, ds, leaders, np_peel):
     quadrature of the table rows (one locate of every panel midpoint per
     leader): taus(pos, kext_pk) -> list over leaders of (N,) tau."""
 
-    def staged(pos, kext_pk):
+    def staged(pos, kext_pk, live=None):
+        del live                  # the exact peel's work counter only
         taus = []
         with trace.span("staged_peel"):
             for kvec in leaders:
@@ -769,7 +863,8 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
         spec = _build_kernel(grid, options, nlambda, npanels, want_labs,
                              arith_locate)
     peels = [make_peel_off(grid, ds, ins) for ins in instruments]
-    staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel)
+    staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel,
+                                  getattr(options, "peel_graph", False))
     mixes = [c.mix for c in ds.components]
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
@@ -826,8 +921,8 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             return torch.where(total > 0, w / torch.clamp(total, min=1e-30),
                                0.0)
 
-        def emission_peel(pos_p, contribution, ns_p):
-            taus0 = staged_taus(pos_p, kext_pk)
+        def emission_peel(pos_p, contribution, ns_p, live):
+            taus0 = staged_taus(pos_p, kext_pk, live)
             tags = {"nscatt": ns_p, "is_dust": dust}
             for i, peel in enumerate(peels):
                 peel(ins[i], pos_p, ell, contribution, tags,
@@ -836,7 +931,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
         with trace.span("launch"):
             ns = torch.zeros(n, dtype=torch.int32, device=dev)
             if emission_peeloff:
-                emission_peel(pos, torch.where(alive, L, 0.0), ns)
+                emission_peel(pos, torch.where(alive, L, 0.0), ns, alive)
 
             pos = pos.contiguous()
             direction = direction.contiguous()
@@ -898,6 +993,11 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                         binned_add(labs, *direct_deposits(
                             grid, pos, direction, out["depd"], out["depv"],
                             ell, nlambda))
+                if trace.enabled():
+                    # the kernel's lanes; those that did an event were
+                    # alive on entry (this driver relaunches torch-side)
+                    trace.count_slots(n)
+                    trace.count_live(dev, alive != 0)
                 st = out["state"]
                 if count_events:
                     nev = nev + alive.sum().to(torch.float32)
@@ -947,7 +1047,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             if scattering_peeloff:
                 with trace.span("peel"):
                     alive_b = alive != 0
-                    taus0 = staged_taus(pos, kext_pk)
+                    taus0 = staged_taus(pos, kext_pk, alive_b)
                     tags = {"nscatt": ns, "is_dust": dust}
                     if mt is not None:
                         with trace.span("mueller"):
@@ -975,7 +1075,8 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                         peel(ins[i], pos, ell, con, tg, tau=taus0[j])
             elif refill and emission_peeloff:
                 with trace.span("peel"):
-                    emission_peel(pos, torch.where(fresh, L, 0.0), ns)
+                    emission_peel(pos, torch.where(fresh, L, 0.0), ns,
+                                  fresh)
 
             if mt is not None:
                 with trace.span("mueller"):

@@ -793,7 +793,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     # (skirt_tpu/engine/fused_table_poly.py:726-740), and the uniform grid
     # it needs is checked in _validate
     peel_I_fn = _staged_taus_fn(grid, ds, leaders,
-                                "exact" if multi else peel_mode, np_peel)
+                                "exact" if multi else peel_mode, np_peel,
+                                getattr(options, "peel_graph", False))
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
     count_events = bool(getattr(options, "count_events", False))
@@ -821,12 +822,13 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             ins = tallies["instruments"]
             labs = tallies.get("labs")
 
-        def peel_I(pos_p):
+        def peel_I(pos_p, live):
             """Per leader the raw rho integral (N,), or with several
-            components the (H, N) integrals of each."""
+            components the (H, N) integrals of each; `live` the lanes
+            whose integrals are used."""
             if multi:
-                return peel_I_fn.integrals(pos_p)
-            return peel_I_fn(pos_p, [ones])
+                return peel_I_fn.integrals(pos_p, live)
+            return peel_I_fn(pos_p, [ones], live)
 
         def peel_tau_w(Ii):
             """Per-wavelength peel optical depths (W, N): kext_w * I, or
@@ -865,8 +867,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         with trace.span("launch"):
             ns = torch.zeros(n, dtype=torch.int32, device=dev)
             if emission_peeloff:
-                detect_all(pos, torch.where(alive[None], L, 0.0), peel_I(pos),
-                           ns)
+                detect_all(pos, torch.where(alive[None], L, 0.0),
+                           peel_I(pos, alive), ns)
 
             pos = pos.contiguous()
             direction = direction.contiguous()
@@ -924,6 +926,10 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 st = out["state"]
                 dir_old = direction
                 alive_in, ns_in = alive != 0, ns
+                # the kernel's lanes; those that did an event were alive on
+                # entry (this driver relaunches lanes torch-side, below)
+                trace.count_slots(n)
+                trace.count_live(dev, alive_in)
                 pos = torch.stack(st[:3], dim=-1)
                 direction = torch.stack(st[3:6], dim=-1)
                 alive, ns = st[6], st[7]
@@ -1007,7 +1013,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             if scattering_peeloff:
                 with trace.span("peel"):
                     alive_b = alive != 0
-                    Ipeel = peel_I(pos)
+                    Ipeel = peel_I(pos, alive_b)
                     rho_n_h = None
                     if multi:
                         # per-component densities at the new position's cell
@@ -1048,7 +1054,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             elif refill and emission_peeloff:
                 with trace.span("peel"):
                     detect_all(pos, torch.where(fresh[None], Ln, 0.0),
-                               peel_I(pos), ns)
+                               peel_I(pos, fresh), ns)
 
             if pol_mode:
                 with trace.span("mueller"):

@@ -2,7 +2,8 @@
 
 Twin of skirt_tpu/engine/lifecycle.py.  `LifecycleOptions` keeps the
 reference's field names and defaults so a configuration carries across
-unchanged; `make_lifecycle` has the fused branches (the polychromatic
+unchanged, and adds the port's own (`PORT_OPTIONS`) at defaults that
+change nothing; `make_lifecycle` has the fused branches (the polychromatic
 analytic engine, slice S1; the monochromatic analytic one, slice S2a; the
 monochromatic and polychromatic table engines, slice S4a; polarization on
 the fused engines, slice S5a) and names the missing slice for every other
@@ -45,6 +46,14 @@ class LifecycleOptions:
     voxelize: bool | None = None
     path_record: bool | None = None
     count_events: bool = False
+    # the port's own (not in skirt_tpu): on a card, the table engines'
+    # exact peel replays one CUDA graph of its launches (make_exact_peel)
+    peel_graph: bool = False
+
+
+# LifecycleOptions' fields that skirt_tpu's lacks; a converted
+# configuration keeps their defaults
+PORT_OPTIONS = ("peel_graph",)
 
 
 # skirt_tpu's lifecycle.hg_costheta is the event kernels' formula

@@ -53,6 +53,7 @@ class CartesianGrid:
         self._dx = (float(self.xb64[1] - self.xb64[0]),
                     float(self.yb64[1] - self.yb64[0]),
                     float(self.zb64[1] - self.zb64[0]))
+        self._box_dev = {}        # device -> float32 (lo, hi) box corners
 
     # -- host-side cell metadata ------------------------------------------
 
@@ -93,11 +94,17 @@ class CartesianGrid:
 
     def ray_span(self, pos, direction):
         """(t_start, t_stop) of each ray inside the bounding box (slab test);
-        rays that miss give t_start == t_stop.  pos, direction: (N, 3)."""
-        lo = torch.tensor([self.xb[0], self.yb[0], self.zb[0]],
-                          dtype=torch.float32, device=pos.device)
-        hi = torch.tensor([self.xb[-1], self.yb[-1], self.zb[-1]],
-                          dtype=torch.float32, device=pos.device)
+        rays that miss give t_start == t_stop.  pos, direction: (N, 3).
+        The box corners go to a device once: a host-to-device copy of a
+        host array waits for the device to catch up."""
+        box = self._box_dev.get(pos.device)
+        if box is None:
+            box = self._box_dev[pos.device] = (
+                torch.tensor([self.xb[0], self.yb[0], self.zb[0]],
+                             dtype=torch.float32, device=pos.device),
+                torch.tensor([self.xb[-1], self.yb[-1], self.zb[-1]],
+                             dtype=torch.float32, device=pos.device))
+        lo, hi = box
         moving = torch.abs(direction) > 1e-30
         inv = 1.0 / torch.where(moving, direction, 1.0)
         t1 = (lo - pos) * inv

@@ -13,13 +13,22 @@ span in the list, -1 at the top.  `take()` hands the spans and counters
 out and clears them.  Nothing is written anywhere.
 
 Counters:
-- `lane_slots`: the lanes the analytic event kernels (K1, K3) were
-  launched over, added on the host at each launch;
+- `lane_slots`: the lanes the event kernels were launched over, added
+  on the host at each launch;
 - `live_lanes`: the lanes among them that did an event (alive on entry,
   or relaunched from their refill budget in that launch), added by the
-  kernels themselves on the device (one atomic a warp, spread over
-  LIVE_SLOTS counters a cache line apart) or by their plain versions.
-  `take()` sums it, one synchronization.
+  analytic kernels (K1, K3) themselves on the device (one atomic a warp,
+  spread over LIVE_SLOTS counters a cache line apart), by their plain
+  versions, or by the table engines' drivers (K4-K7, whose lanes
+  relaunch on the torch side) from the lanes alive on entry.  `take()`
+  sums it, one synchronization;
+- `peel_rays`, `peel_voxels`: the work of the exact peel
+  (`engine/fused_table.py::exact_peel_work`): the (live lane, observer
+  direction) rays it integrated, and the voxels those rays cross with a
+  positive length times the dust components H, counted from the lanes'
+  geometry whatever implements the peel, and added on the device into
+  one int64 pair per device with no synchronization.  `take()` reads
+  them.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ _spans: list = []
 _open: list = []          # indices of the spans open now, innermost last
 _slots = 0
 _live: dict = {}          # device -> int64 live-lane counters
+_peel: dict = {}          # device -> int64 (rays, voxels) counters
 # the live-lane counters a kernel adds to, LIVE_STRIDE int64 apart
 # (csrc/common.cuh's LIVE_SLOTS and LIVE_STRIDE)
 LIVE_SLOTS = 256
@@ -127,17 +137,33 @@ def count_live(device, did):
         t[0] += did.sum()
 
 
+def count_peel(work):
+    """Add one exact-peel pass, the int64 (2,) tensor `work` (rays,
+    voxels x H), to peel_rays and peel_voxels on its device (when on)."""
+    if not _on:
+        return
+    t = _peel.get(work.device)
+    if t is None:
+        t = _peel[work.device] = torch.zeros(2, dtype=torch.int64,
+                                             device=work.device)
+    t += work
+
+
 def take() -> dict:
     """{"spans": [(name, start ns, end ns, parent), ...], "counters":
-    {"lane_slots": n, "live_lanes": n}}, and clear them.  Called outside
-    every span."""
+    {"lane_slots": n, "live_lanes": n, "peel_rays": n, "peel_voxels":
+    n}}, and clear them.  Called outside every span."""
     global _spans, _slots
     if _open:
         raise RuntimeError("trace.take: spans are still open")
     live = sum(int(t.sum()) for t in _live.values())
+    rays, voxels = (sum(v) for v in zip(
+        (0, 0), *(t.tolist() for t in _peel.values())))
     out = {"spans": [tuple(s) for s in _spans],
-           "counters": {"lane_slots": _slots, "live_lanes": live}}
+           "counters": {"lane_slots": _slots, "live_lanes": live,
+                        "peel_rays": rays, "peel_voxels": voxels}}
     _spans = []
     _slots = 0
     _live.clear()
+    _peel.clear()
     return out

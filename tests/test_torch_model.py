@@ -116,8 +116,11 @@ def test_event_constants_exact(models):
     np.testing.assert_array_equal(spec.oc, oc_np[:, :, 0])
     assert spec.oc[0].tolist() == kextm_w and spec.oc[2].tolist() == g_w
     assert spec.n_uniform == 7 + 4 + 2
-    assert opt == type(opt)(**{f: getattr(jopt, f)
-                               for f in opt.__dataclass_fields__})
+    from skirt_tpu_torch.engine.lifecycle import PORT_OPTIONS
+
+    mine = set(opt.__dataclass_fields__) - set(PORT_OPTIONS)
+    assert mine == set(jopt.__dataclass_fields__)
+    assert opt == type(opt)(**{f: getattr(jopt, f) for f in mine})
 
 
 def test_instruments_exact(models):

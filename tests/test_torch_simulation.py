@@ -92,8 +92,14 @@ def test_settings_carried_across(runs):
     for name in ("packets", "seed", "batch_size", "prefix",
                  "checkpoint_every", "dispatch_batches", "nlambda"):
         assert getattr(tsim, name) == getattr(jsim, name), name
+    from skirt_tpu_torch.engine.lifecycle import PORT_OPTIONS
+
+    shared = set(tsim.options.__dataclass_fields__) - set(PORT_OPTIONS)
+    assert shared == set(jsim.options.__dataclass_fields__)
+    defaults = type(tsim.options)()
     assert dataclasses.asdict(tsim.options) == {
-        f: getattr(jsim.options, f) for f in tsim.options.__dataclass_fields__}
+        f: getattr(jsim.options if f in shared else defaults, f)
+        for f in tsim.options.__dataclass_fields__}
     np.testing.assert_array_equal(tsim.stellar_system.Lv,
                                   jsim.stellar_system.Lv)
     batches_j = [(b, np.asarray(e), np.asarray(L)) for b, e, L

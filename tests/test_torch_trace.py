@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from skirt_tpu_torch import trace
+from skirt_tpu_torch import rng, trace
 from skirt_tpu_torch.engine import fused as tfm
 from skirt_tpu_torch.engine import fused_poly as tfp
 
@@ -64,7 +64,8 @@ def test_span_is_the_shared_null_context_while_off():
     trace.count_slots(128)
     assert trace.live_counter("cpu") is None
     assert trace.take() == {"spans": [],
-                            "counters": {"lane_slots": 0, "live_lanes": 0}}
+                            "counters": {"lane_slots": 0, "live_lanes": 0,
+                                         "peel_rays": 0, "peel_voxels": 0}}
 
 
 def test_span_records_nesting_while_on():
@@ -216,10 +217,284 @@ def test_plain_live_lane_count_equals_a_count_by_hand(kernel, refill):
     trace.enable(False)
     c = trace.take()["counters"]
     want = _by_hand(alive_in, out)
-    assert c == {"lane_slots": alive_in.shape[0], "live_lanes": want}
+    assert c == {"lane_slots": alive_in.shape[0], "live_lanes": want,
+                 "peel_rays": 0, "peel_voxels": 0}
     # some lanes were dead on entry; with refill some were relaunched
     assert want > int((alive_in != 0).sum()) if refill else \
         want < alive_in.shape[0]
+
+
+# -- the exact peel's counters ---------------------------------------------
+
+# observer directions: two zero components (face-on; edge-on at azimuth 0,
+# whose z component is cos(pi/2) = 6.1e-17; along -y), one (azimuth 0) and
+# none
+PEEL_LEADERS = [(0.0, 0.0, 1.0), (1.0, 0.0, 6.123233995736766e-17),
+                (0.0, -1.0, 0.0), (0.644217687237691, 0.0, 0.764842187284489),
+                tuple(np.array([0.3, -0.5, 0.8]) / np.sqrt(0.98))]
+
+
+def _voxel_field(H, n=60, seed=3):
+    """A 6 x 5 x 7 uniform voxel grid with unequal voxel sizes per axis,
+    H random density fields on it, and n points inside it (float32
+    values, as the lanes hold them)."""
+    from types import SimpleNamespace
+
+    from skirt_tpu_torch.grids import CartesianGrid
+
+    rs = np.random.default_rng(seed)
+    edges = [np.linspace(-3.0, 3.0, 7), np.linspace(-2.0, 3.0, 6),
+             np.linspace(-1.0, 2.5, 8)]
+    grid = CartesianGrid(*edges)
+    ds = SimpleNamespace(ncomp=H, rho=rs.random((H, 6 * 5 * 7)))
+    lo = np.array([e[0] for e in edges])
+    hi = np.array([e[-1] for e in edges])
+    pos = (lo + rs.random((n, 3)) * (hi - lo)).astype(np.float32)
+    return grid, ds, edges, pos.astype(np.float64)
+
+
+def _overlaps_by_hand(edges, pos, k):
+    """The voxels each ray from `pos` along k crosses with a positive
+    length before it leaves the box, counted voxel by voxel in float64
+    (slab tests)."""
+    k = np.asarray(k, np.float64)
+    lo = np.array([e[0] for e in edges])
+    hi = np.array([e[-1] for e in edges])
+    total = 0
+    for p in pos:
+        t_exit = min((hi[a] - p[a]) / k[a] if k[a] > 0 else
+                     (lo[a] - p[a]) / k[a] for a in range(3) if k[a] != 0)
+        for i in range(len(edges[0]) - 1):
+            for j in range(len(edges[1]) - 1):
+                for m in range(len(edges[2]) - 1):
+                    t0, t1 = 0.0, t_exit
+                    for a, c in enumerate((i, j, m)):
+                        e0, e1 = edges[a][c], edges[a][c + 1]
+                        if k[a] == 0:
+                            if not e0 <= p[a] < e1:
+                                t1 = -1.0
+                            continue
+                        u, v = (e0 - p[a]) / k[a], (e1 - p[a]) / k[a]
+                        t0, t1 = max(t0, min(u, v)), min(t1, max(u, v))
+                    total += t1 > t0
+    return total
+
+
+def _peel(grid, ds, leaders, pos, live=None):
+    from skirt_tpu_torch.engine.fused_table import make_exact_peel
+
+    peel = make_exact_peel(grid, ds, leaders)
+    p = torch.as_tensor(pos, dtype=torch.float32)
+    ones = [torch.ones(p.shape[0]) for _ in range(ds.ncomp)]
+    return peel(p, ones, live)
+
+
+def _peel_counters(grid, ds, leaders, pos, live=None):
+    trace.enable(True)
+    _peel(grid, ds, leaders, pos, live)
+    trace.enable(False)
+    return trace.take()["counters"]
+
+
+@pytest.mark.parametrize("chunk", [1 << 26, 1 << 9], ids=["one-chunk",
+                                                         "chunks"])
+@pytest.mark.parametrize("H", [1, 2])
+def test_peel_counters_equal_a_count_by_hand(H, chunk, monkeypatch):
+    """peel_rays is the live lanes x leaders; peel_voxels is H x the
+    voxels each live lane's ray crosses with a positive length, counted
+    voxel by voxel in float64, along leaders with two, one and no zero
+    components; the peel's chunks change nothing, dead lanes count
+    nothing, and all leaders in one peel count as each alone."""
+    from skirt_tpu_torch.engine import fused_table
+
+    monkeypatch.setattr(fused_table, "_PEEL_CHUNK_FLOATS", chunk)
+    grid, ds, edges, pos = _voxel_field(H)
+    voxels = [_overlaps_by_hand(edges, pos, k) for k in PEEL_LEADERS]
+    got = [_peel_counters(grid, ds, [k], pos) for k in PEEL_LEADERS]
+    assert [(c["peel_rays"], c["peel_voxels"]) for c in got] == \
+        [(len(pos), H * v) for v in voxels]
+    # a leader along an axis crosses the voxels of one column from the
+    # point's own to the wall: 7 - iz along +z, iy + 1 along -y
+    iy = np.searchsorted(edges[1], pos[:, 1], side="right") - 1
+    iz = np.searchsorted(edges[2], pos[:, 2], side="right") - 1
+    assert voxels[0] == (7 - iz).sum() and voxels[2] == (iy + 1).sum()
+    live = np.arange(len(pos)) % 3 != 1
+    c = _peel_counters(grid, ds, PEEL_LEADERS, pos, torch.as_tensor(live))
+    assert c["peel_rays"] == live.sum() * len(PEEL_LEADERS)
+    assert c["peel_voxels"] == H * sum(_overlaps_by_hand(edges, pos[live], k)
+                                       for k in PEEL_LEADERS)
+    c = _peel_counters(grid, ds, PEEL_LEADERS, pos)
+    assert c["peel_voxels"] == sum(b["peel_voxels"] for b in got)
+
+
+def test_peel_counters_are_zero_and_allocate_nothing_while_off():
+    grid, ds, _, pos = _voxel_field(1)
+    _peel(grid, ds, PEEL_LEADERS, pos)
+    trace.count_peel(torch.ones(2, dtype=torch.int64))
+    assert trace._peel == {}
+    c = trace.take()["counters"]
+    assert c["peel_rays"] == 0 and c["peel_voxels"] == 0
+
+
+def test_exact_peel_launches_the_same_operations_with_the_counters_off(
+        monkeypatch):
+    """The operations of the peel with tracing off are those with it on
+    less the counting (the work count and the counter's add, once a pass
+    and before the peel's own), and the optical depths are the same
+    bits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from skirt_tpu_torch.engine import fused_table
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    rec = Record()
+    work, count = fused_table.exact_peel_work, trace.count_peel
+
+    def marked_work(*a):
+        rec.ops.append("<count")
+        return work(*a)
+
+    def marked_count(*a):
+        count(*a)
+        rec.ops.append("count>")
+
+    monkeypatch.setattr(fused_table, "exact_peel_work", marked_work)
+    monkeypatch.setattr(trace, "count_peel", marked_count)
+    grid, ds, _, pos = _voxel_field(2)
+    _peel(grid, ds, PEEL_LEADERS, pos)      # the grid's box to the device
+    with rec:
+        off = _peel(grid, ds, PEEL_LEADERS, pos)
+    ops_off, rec.ops = rec.ops, []
+    trace.enable(True)
+    with rec:
+        on = _peel(grid, ds, PEEL_LEADERS, pos)
+    trace.enable(False)
+    ops_on = rec.ops
+    assert ops_on.count("<count") == ops_on.count("count>") == 1
+    assert "<count" not in ops_off
+    i, j = ops_on.index("<count"), ops_on.index("count>")
+    assert ops_on[:i] + ops_on[j + 1:] == ops_off
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_exact_peel_copies_nothing_to_the_device_after_its_first_pass(
+        monkeypatch):
+    """A leader's direction and the grid's box (ray_span) go to a device
+    once: a later pass makes no tensor from host data (on a card each
+    such copy waits for the device)."""
+    from skirt_tpu_torch.engine import fused_table
+    from skirt_tpu_torch.grids import cartesian
+
+    grid, ds, _, pos = _voxel_field(1)
+    peel = fused_table.make_exact_peel(grid, ds, PEEL_LEADERS)
+    p = torch.as_tensor(pos, dtype=torch.float32)
+    first = peel(p, [torch.ones(len(p))])
+
+    def refused(*a, **kw):
+        raise AssertionError("a tensor made from host data")
+
+    for mod in (fused_table, cartesian):
+        monkeypatch.setattr(mod.torch, "tensor", refused)
+        monkeypatch.setattr(mod.torch, "as_tensor", refused)
+    again = peel(p, [torch.ones(len(p))])
+    t0, t1 = grid.ray_span(p, p / p.norm(dim=1, keepdim=True))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert (t1 >= t0).all()
+
+
+def test_exact_peel_graph_option_changes_nothing_on_the_cpu():
+    """`graph` asks for a CUDA graph on a card only: on the CPU the peel
+    launches the same operations, pass after pass, and gives the same
+    bits as without it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from skirt_tpu_torch.engine import fused_table
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    runs = {}
+    for graph in (False, True):
+        grid, ds, _, pos = _voxel_field(2)      # a grid of its own each
+        p = torch.as_tensor(pos, dtype=torch.float32)
+        ones = [torch.ones(len(p)), torch.ones(len(p))]
+        peel = fused_table.make_exact_peel(grid, ds, PEEL_LEADERS,
+                                           graph=graph)
+        passes = []
+        for _ in range(3):
+            rec = Record()
+            with rec:
+                out = peel(p, ones) + peel.integrals(p)
+            passes.append((rec.ops, out))
+        runs[graph] = passes
+    for (ops_off, off), (ops_on, on) in zip(runs[False], runs[True]):
+        assert ops_on == ops_off
+        for a, b in zip(on, off):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("poly", [True, False], ids=["K6", "K4"])
+def test_table_driver_live_lane_count_equals_a_count_by_hand(poly,
+                                                             monkeypatch):
+    """The table drivers relaunch lanes on the torch side, so the lanes
+    that did an event are those alive on entry to the kernel: counted by
+    hand around each event call, with the lanes the calls were made
+    over.  The exact peel counts only its live lanes meanwhile."""
+    from bench_torch import _octree_model
+
+    from skirt_tpu_torch.engine import fused_table as tft
+    from skirt_tpu_torch.engine import fused_table_poly as tftp
+    from skirt_tpu_torch.engine.lifecycle import make_lifecycle
+
+    W = 2
+    grid, ds, ss, ins, opts, _ = _octree_model(
+        nlambda=W, polychromatic=poly, refill_batches=4, max_level=3,
+        quadrature_panels=8, peel_panels=8)
+    run = make_lifecycle(grid, ds, ss, ins, opts, W)
+    mod, name = (tftp, "table_poly_event") if poly else (tft, "table_event")
+    event = getattr(mod, name)
+    seen = {"slots": 0, "live": 0}
+
+    def by_hand(spec, u, *rest):
+        state = rest[-1]
+        alive = state[6] if poly else state[7]
+        seen["slots"] += alive.shape[0]
+        seen["live"] += int((alive != 0).sum())
+        return event(spec, u, *rest)
+
+    monkeypatch.setattr(mod, name, by_hand)
+    n = 512
+    tallies = {"instruments": [i.zero_tallies("cpu") for i in ins],
+               "labs": torch.zeros(grid.ncells * W)}
+    trace.enable(True)
+    if poly:
+        run(rng.root_key(5), torch.zeros(n, dtype=torch.int32),
+            torch.full((n, W), 1e30), tallies)
+    else:
+        run(rng.root_key(5), torch.arange(n, dtype=torch.int32) % W,
+            torch.full((n,), 1e30), tallies)
+    trace.enable(False)
+    c = trace.take()["counters"]
+    assert c["lane_slots"] == seen["slots"] > 0
+    assert c["live_lanes"] == seen["live"]
+    assert 0 < c["live_lanes"] < c["lane_slots"]
+    assert 0 < c["peel_rays"] and c["peel_voxels"] > c["peel_rays"]
 
 
 # -- on the card ----------------------------------------------------------
@@ -267,6 +542,58 @@ def test_kernel_live_lane_counter_equals_the_plain_count(kernel, refill,
         for k in off:
             if k != "state":
                 assert torch.equal(out[k], off[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1 << 26, 1 << 12], ids=["one-chunk",
+                                                         "chunks"])
+@pytest.mark.parametrize("H", [1, 2])
+def test_exact_peel_graph_replays_equal_its_passes_as_they_are(H, chunk,
+                                                              monkeypatch):
+    """Pass after pass on other points and opacities (the first runs as
+    is, the second captures, the rest replay), the graphed peel's depths
+    and integrals equal those of the peel without a graph to the bit,
+    along leaders with two, one and no zero components; a result handed
+    out stays as it was through later replays, and a replay dispatches
+    no operation of the peel's own: its inputs go in, the graph runs, a
+    copy of its output comes out."""
+    _card()
+    from skirt_tpu_torch.engine import fused_table
+
+    monkeypatch.setattr(fused_table, "_PEEL_CHUNK_FLOATS", chunk)
+    grid, ds, _, _ = _voxel_field(H)
+    dev = torch.device("cuda")
+    plain = fused_table.make_exact_peel(grid, ds, PEEL_LEADERS)
+    graphed = fused_table.make_exact_peel(grid, ds, PEEL_LEADERS, graph=True)
+    held = []
+    for seed in range(5):
+        _, _, _, pos = _voxel_field(H, n=3000, seed=10 + seed)
+        p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        g = torch.Generator().manual_seed(seed)
+        ks = [torch.rand(len(p), generator=g).to(dev) for _ in range(H)]
+        want = plain(p, ks) + plain.integrals(p)
+        got = graphed(p, ks) + graphed.integrals(p)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        held.append(([x.clone() for x in got], got))
+    for kept, got in held:
+        for a, b in zip(got, kept):
+            assert torch.equal(a, b)
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.add(str(func).split(".")[1])
+            return func(*args, **(kwargs or {}))
+
+    rec = Record()
+    with rec:
+        graphed(p, ks)
+    assert rec.ops <= {"copy_", "clone", "unbind"}, rec.ops
 
 
 @pytest.mark.gpu
