@@ -4,9 +4,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 bin_sum k1 k3 k4 k4d k5 k6 k6d k6p k7 chunked`
-runs phases 1-2 and then only the named kernel phases (k1 phase 4, k2
-phase 3, bin_sum phase 3b,
+`python3 chip_smoke.py k2 bin_sum exact_peel k1 k3 k4 k4d k5 k6 k6d k6p
+k7 chunked` runs phases 1-2 and then only the named kernel phases (k1
+phase 4, k2 phase 3, bin_sum phase 3b, exact_peel phase 3c,
 k3 phase 5, k4 phase 6, k5 phase 7, k6 phase 8, k7 phase 9, k4d phase 10,
 k6d phase 11, k6p phase 12, chunked phase 12b, each on the models main
 builds for it, built once per run), and prints their
@@ -37,6 +37,14 @@ exits non-zero without printing a result):
      its largest relative bin error against the plain version's (at most
      twice), the bitwise repeat of two launches, and kernel / plain /
      torch.bincount / bound ms
+  3c. the exact peel's kernel (ops.exact_peel.peel_columns,
+     csrc/exact_peel.cu) vs its plain version on the card at the
+     agn-torus cell's shapes (2^15 lanes drawn by density, its ten
+     leaders, its 64^3 voxel view): the optical depths at H = 1, the
+     integrals at H = 1 and 2, each with its largest relative error, the
+     bitwise repeat of two launches, kernel / plain / bound ms (4 B a
+     crossed voxel a component and 16 B a ray, from exact_peel_work) and
+     the launches
   4. K1 poly_event kernel vs its plain version on identical inputs at the
      polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
      2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
@@ -576,6 +584,104 @@ def phase_bin_sum(torch, results):
     results["BS"] = {"max_abs_err": worst, "ms": main[0],
                      "plain_ms": main[1], "library_ms": main[2],
                      "bound_ms": main[3][0], "bound_by": main[3][1],
+                     "times": times}
+
+
+def _torus_field():
+    """The agn-torus cell's 64^3 voxel view (its grid and dust system)
+    and its ten leaders, built by rtbench's torus_octree from its
+    configuration."""
+    import skirt_tpu_torch
+    from rtbench.builders import torus_octree
+
+    with open("rtbench/configs/agn-torus.json") as f:
+        cfg = json.load(f)
+    model, _ = torus_octree.build(cfg, skirt_tpu_torch, True, 1)
+    ds, _ = model["dust_system"].voxelized()
+    leaders = [tuple(float(v) for v in np.asarray(i.kobs, np.float64))
+               for i in model["instruments"]]
+    return ds.grid, ds, leaders
+
+
+def phase_exact_peel(torch, results):
+    """The exact peel's kernel (ops.exact_peel.peel_columns,
+    csrc/exact_peel.cu) against its plain version on the card at the
+    agn-torus cell's shapes: 2^15 lanes toward its ten leaders on its
+    64^3 voxel view, the optical depths with H = 1 and the integrals with
+    H = 1 and 2 (the field and its square), the lanes drawn in voxels by
+    density: the largest relative error against the plain version (over
+    values above 1e-6 of the largest), the bitwise repeat of two
+    launches, kernel / plain / bound ms (4 B a crossed voxel a component
+    and 16 B a ray, exact_peel_work's count, over 3.35 TB/s) and the
+    launches."""
+    from types import SimpleNamespace
+
+    from skirt_tpu_torch.engine import fused_table
+    from skirt_tpu_torch.ops import exact_peel
+
+    grid, ds1, leaders = _torus_field()
+    n = 1 << 15
+    rho = torch.as_tensor(np.asarray(ds1.rho[0], np.float64))
+    gen = torch.Generator().manual_seed(18)
+    vox = torch.multinomial(rho / rho.sum(), n, replacement=True,
+                            generator=gen)
+    ijk = torch.stack([vox // (grid.ny * grid.nz),
+                       vox // grid.nz % grid.ny, vox % grid.nz], 1)
+    lo = torch.tensor(grid._lo, dtype=torch.float64)
+    dx = torch.tensor(grid._dx, dtype=torch.float64)
+    pos = (lo + (ijk + torch.rand(n, 3, generator=gen,
+                                  dtype=torch.float64)) * dx)
+    pos = pos.to(torch.float32).cuda()
+    kdirs = torch.tensor(leaders, dtype=torch.float64).cuda()
+    r1 = np.asarray(ds1.rho[0], np.float64)
+    times, worst, launches = {}, 0.0, 0
+    for H, what in ((1, "taus"), (1, "integrals"), (2, "integrals")):
+        ds = ds1 if H == 1 else SimpleNamespace(
+            ncomp=2, rho=[r1, r1 * r1 / r1.max()])
+        peel = fused_table.make_exact_peel(grid, ds, leaders)
+        ones = [torch.ones(n, device="cuda") for _ in range(H)]
+        if what == "taus":
+            def kernel():
+                return torch.stack(peel(pos, ones))
+
+            def plain():
+                return torch.stack(peel.plain(pos, ones))
+        else:
+            def kernel():
+                return torch.stack(peel.integrals(pos))
+
+            def plain():
+                return torch.stack(peel.plain_integrals(pos))
+        before = exact_peel.peel_columns.launches
+        got = [kernel() for _ in range(2)]
+        launches += exact_peel.peel_columns.launches - before
+        want = plain()
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(got[0], got[1]))
+        w = want.double()
+        big = w.abs() > 1e-6 * float(w.abs().max())
+        err = float(((got[0].double() - w).abs() / w.abs())[big].max())
+        if not repeat or err > 1e-5:
+            raise AssertionError(f"exact peel {what}, H = {H}: bitwise "
+                                 f"repeat {repeat}, max_rel_err {err:.3e}")
+        worst = max(worst, err)
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=3)
+        rays, voxels = (int(v) for v in fused_table.exact_peel_work(
+            grid, pos, None, kdirs, H))
+        bnd = bound(4 * voxels + 16 * rays, 0)
+        name = f"{what} H={H}"
+        times[name] = (ms, plain_ms, bnd)
+        log(f"  exact peel {name}: {n} lanes x {len(leaders)} leaders on "
+            f"{grid.nx}x{grid.ny}x{grid.nz} voxels, {rays} rays, {voxels} "
+            f"voxel reads ({voxels / max(rays, 1):.2f} a ray), "
+            f"max_rel_err {err:.3e}, bitwise repeat {repeat}, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), {bnd[0] / ms:.1%} of it")
+    main = times["taus H=1"]
+    results["EP"] = {"max_abs_err": worst, "ms": main[0],
+                     "plain_ms": main[1], "bound_ms": main[2][0],
+                     "bound_by": main[2][1], "launches": launches,
                      "times": times}
 
 
@@ -1802,13 +1908,14 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
     `grid` (an octree or tessellation built earlier, or None): (seconds,
     packets, SED, labs
     total (per wavelength with labs_by_wavelength), launched W, launches
-    of the path's kernels; on the direct table K4d or K6d)."""
+    of the path's kernels; on the direct table K4d or K6d; EP the exact
+    peel's, 0 where the peel is staged or runs on the CPU)."""
     import warnings
 
     from bench_torch import _octree_build
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine.lifecycle import make_multibatch
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import binned, exact_peel
 
     with warnings.catch_warnings():
         # the direct table's staged-peel downgrade, expected here; any
@@ -1827,6 +1934,7 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
     if device == "cuda":
         torch.cuda.synchronize()
     binned.binned_add.launches = 0
+    exact_peel.peel_columns.launches = 0
     event.launches = 0
     if direct:
         event.direct_launches = 0
@@ -1841,6 +1949,7 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
         assert event.launches == event.direct_launches
     else:
         launches = {kname: event.launches, "K2": binned.binned_add.launches}
+    launches["EP"] = exact_peel.peel_columns.launches
     for leaf in [v for d in out["instruments"] for v in d.values()] \
             + [out["labs"]]:
         if not bool(torch.isfinite(leaf).all()):
@@ -1870,7 +1979,7 @@ def phase_main_table(torch, results, octree):
             f"({launches[kname] / batches:.0f} event iterations per batch); "
             f"SED {', '.join(f'{v:.4e}' for v in sed)} W, labs "
             f"{labs:.4e} W of {launched:.4e} W launched")
-        if launches[kname] <= 0 or launches["K2"] <= 0:
+        if min(launches[kname], launches["K2"], launches["EP"]) <= 0:
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
         if not (sed > 0).all():
@@ -1890,7 +1999,7 @@ def phase_simulation_table(torch, results, octree):
     from skirt_tpu_torch.engine import fused_table_poly
     from skirt_tpu_torch.engine.simulation import OligoSimulation
     from skirt_tpu_torch.log import SilentLog
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import binned, exact_peel
 
     grid, ds, ss, ins, opts, _ = _octree_model(grid=octree, voxelize=False)
     W, lanes, K = 2, 1 << 17, opts.refill_batches
@@ -1903,13 +2012,15 @@ def phase_simulation_table(torch, results, octree):
     assert len(list(sim._batches())) == 1
     torch.cuda.synchronize()
     binned.binned_add.launches = 0
+    exact_peel.peel_columns.launches = 0
     fused_table_poly.table_poly_event.launches = 0
     t0 = time.perf_counter()
     acc = sim._run_phase(rng.root_key(sim.seed), 0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"K6": fused_table_poly.table_poly_event.launches,
-                "K2": binned.binned_add.launches}
+                "K2": binned.binned_add.launches,
+                "EP": exact_peel.peel_columns.launches}
     results["launches_table_sim"] = launches
     launched = float(ss.Lv.sum())
     sed, labs = _check_tallies(acc, launched, "table OligoSimulation")
@@ -1922,7 +2033,7 @@ def phase_simulation_table(torch, results, octree):
         f"{dt:.3f} s = {pps:.4e} packets/s; launches {launches}; SED "
         f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
         f"{launched:.4e} W launched, on {octree.ncells} leaves")
-    if launches["K6"] <= 0 or launches["K2"] <= 0:
+    if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     results["main_table_sim"] = {"seconds": dt, "packets_per_s": pps}
@@ -1967,7 +2078,7 @@ def phase_main_multi(torch, results, multi_tree):
             f"({launches[kname] / batches:.0f} event iterations per batch); "
             f"SED {', '.join(f'{v:.4e}' for v in sed)} W, labs "
             f"{labs:.4e} W of {launched:.4e} W launched")
-        if launches[kname] <= 0 or launches["K2"] <= 0:
+        if min(launches[kname], launches["K2"], launches["EP"]) <= 0:
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
         if not (sed > 0).all():
@@ -2005,19 +2116,21 @@ def phase_simulation_multi(torch, results, multi_tree):
     voxelizes, runs the K7 engine and folds the labs onto the leaves."""
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_table_poly
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import binned, exact_peel
 
     lanes, K, W = 1 << 17, 128, 2
     sim = _multi_simulation(multi_tree, True, lanes, K, "cuda")
     torch.cuda.synchronize()
     binned.binned_add.launches = 0
+    exact_peel.peel_columns.launches = 0
     fused_table_poly.table_poly_multi_event.launches = 0
     t0 = time.perf_counter()
     acc = sim._run_phase(rng.root_key(sim.seed), 0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"K7": fused_table_poly.table_poly_multi_event.launches,
-                "K2": binned.binned_add.launches}
+                "K2": binned.binned_add.launches,
+                "EP": exact_peel.peel_columns.launches}
     results["launches_multi_sim"] = launches
     launched = float(sim.stellar_system.Lv.sum())
     sed, labs = _check_tallies(acc, launched, "multi OligoSimulation")
@@ -2031,7 +2144,7 @@ def phase_simulation_multi(torch, results, multi_tree):
         f"packets/s; launches {launches}; SED "
         f"{', '.join(f'{v:.4e}' for v in sed)} W, labs {labs:.4e} W of "
         f"{launched:.4e} W launched")
-    if launches["K7"] <= 0 or launches["K2"] <= 0:
+    if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     results["main_multi_sim"] = {"seconds": dt, "packets_per_s": pps}
@@ -2790,7 +2903,8 @@ def _model(name):
 # chunked k8 pm po` runs alone, each on the models main builds for it (the
 # probes' SASS counts logged, not required, so that a parent tree without
 # TMA or wgmma still times)
-SUBSET = {"k2": phase_k2, "bin_sum": phase_bin_sum, "k1": phase_k1,
+SUBSET = {"k2": phase_k2, "bin_sum": phase_bin_sum,
+          "exact_peel": phase_exact_peel, "k1": phase_k1,
           "k3": phase_k3,
           "k8": phase_k8,
           "pm": lambda torch, res: phase_pm(torch, res),
@@ -2855,6 +2969,8 @@ def main():
     phase_k2(torch, results)
     stamp("phase 3b: the bin sum of the mono detects vs float64 and plain")
     phase_bin_sum(torch, results)
+    stamp("phase 3c: the exact peel's kernel vs plain")
+    phase_exact_peel(torch, results)
     stamp("phase 4: K1 poly_event kernel vs plain")
     phase_k1(torch, results)
     stamp("phase 5: K3 mono_event kernel vs plain")
@@ -2973,6 +3089,9 @@ def main():
         "K7": results["launches_multi_poly"]["K7"]
         + results["launches_multi_sim"]["K7"],
         "BS": results["launches_mono"]["BS"],
+        "EP": sum(results[f"launches_{p}"]["EP"]
+                  for p in ("table_mono", "table_poly", "table_sim",
+                            "multi_mono", "multi_poly", "multi_sim")),
         **results["launches_probes"]}
     meta = {
         "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
@@ -2982,6 +3101,9 @@ def main():
         "BS": ("bin_sum", "skirt_tpu_torch/csrc/bin_sum.cu",
                "no Pallas kernel: skirt_tpu/instruments/instruments.py:98 "
                "_bin_sum, an XLA one-hot matvec"),
+        "EP": ("exact peel", "skirt_tpu_torch/csrc/exact_peel.cu",
+               "no Pallas kernel: skirt_tpu/engine/fused_table.py:395-540, "
+               "the exact peel in XLA"),
         "K3": ("K3 mono_event", "skirt_tpu_torch/csrc/fused_mono.cu",
                "skirt_tpu/engine/fused.py:199"),
         "K4": ("K4 table_event", "skirt_tpu_torch/csrc/fused_table.cu",
@@ -3043,6 +3165,8 @@ def main():
     kern["K3"]["by_case"] = results["K3"]["by_case"]
     kern["BS"]["ms_by_shape"] = {n: v[0] for n, v
                                  in results["BS"]["times"].items()}
+    kern["EP"]["ms_by_shape"] = {n: v[0] for n, v
+                                 in results["EP"]["times"].items()}
     for k, by_shape in results["chunked"].items():
         kern[k]["chunked"] = by_shape
     for k in ("K8", "PG", "PO", "PM"):

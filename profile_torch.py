@@ -75,6 +75,8 @@ def layer_of(name: str) -> str:
         return "K2 binned_add, global route (labs)"
     if "bin_sum_kernel" in name:
         return "bin sum (the mono detects' SEDs)"
+    if "exact_peel_kernel" in name:
+        return "exact peel (the table engines' column integrals)"
     if "distribution" in name:
         return "uniforms (Philox)"
     if "memcpy" in name.lower() or "memset" in name.lower():

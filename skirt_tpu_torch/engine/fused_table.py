@@ -70,7 +70,7 @@ import torch
 
 from .. import kernels, rng, trace
 from ..media import polarization as pol
-from ..ops import binned_add
+from ..ops import binned_add, exact_peel
 from . import vector_traversal as vt
 from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
                     _group_leaders, _hg_costheta, _hit_point, _make_locate,
@@ -580,9 +580,18 @@ def make_exact_peel(grid, ds, leaders, graph=False):
     go to a device once (a host-to-device copy of a host array waits for
     the device).
 
+    That plain version (`leader_sums`) runs on CPU tensors.  CUDA tensors
+    take the hand-written kernel of csrc/exact_peel.cu
+    (`ops.exact_peel.peel_columns`): one launch a pass for all leaders and
+    components, walking the same crossings in the same float32 arithmetic
+    through the (H, nx, ny, nz) densities, which go to a device once with
+    the leaders' constant rows.
+
     Returns taus(pos, kext_pk, live=None) -> list over leaders of (N,)
     tau = sum_h kext_pk[h] * integral rho_h, with taus.integrals(pos,
-    live=None) -> list over leaders of the (H, N) raw integrals of rho_h.
+    live=None) -> list over leaders of the (H, N) raw integrals of rho_h,
+    and the plain version on any device, taus.plain(pos, kext_pk) and
+    taus.plain_integrals(pos) (no counters, no span).
     Every lane is integrated; `live` (bool (N,), None for all) names the
     lanes whose depths are used, and only while tracing is on does it
     count: `exact_peel_work` of those lanes goes to the trace's peel
@@ -591,78 +600,72 @@ def make_exact_peel(grid, ds, leaders, graph=False):
     once per component with unit opacities; here one pass over the shared
     crossings gives the same values (each 0 * S + 1 * S is exact).
 
-    With `graph` on a card the peel's thousands of small launches a pass
-    become one CUDA graph, so the host no longer sets the pace: the first
-    pass at a shape runs as is (and brings the rows, directions and box to
-    the device), the second captures the graph, later ones copy their
-    inputs into its own and replay it.  The same kernels on the same
-    inputs: the same bits.  Each shape's graph keeps a pool of device
-    memory as large as one pass's working set."""
+    `graph` (LifecycleOptions.peel_graph) is accepted and ignored: a
+    pass is the kernel's one launch, which a CUDA graph would only wrap
+    in copies of its inputs and output."""
     nxyz = (grid.nx, grid.ny, grid.nz)
     lo = np.asarray(grid._lo, np.float64)
     dx = np.asarray(grid._dx, np.float64)
-    hi = lo + np.asarray(nxyz) * dx
     H = ds.ncomp
     rho3 = [np.asarray(ds.rho[h], np.float32).reshape(nxyz) for h in range(H)]
 
-    per_leader = []
+    per_leader = []           # (the leader's constants, its rows)
     for kvec in leaders:
-        k = np.asarray(kvec, np.float64)
-        a = int(np.argmax(np.abs(k)))
-        b, c = [i for i in range(3) if i != a]
+        ld = exact_peel.leader(kvec, lo, dx, nxyz)
         # rows along axis a, indexed by ib * n_c + ic
-        rows = [np.ascontiguousarray(np.moveaxis(r, a, 2).reshape(-1, nxyz[a]))
-                for r in rho3]
-        # max in-domain ray length along k, bounded per axis
-        ext = hi - lo
-        Dk = min(float(ext[i] / abs(k[i])) for i in range(3)
-                 if abs(k[i]) > 1e-12)
-        cb = int(np.floor(Dk * abs(k[b]) / dx[b])) + 1
-        cc = int(np.floor(Dk * abs(k[c]) / dx[c])) + 1
-        Kp = min(cb + cc + 1, nxyz[b] + nxyz[c] + 1)
-        per_leader.append((k, a, b, c, rows, Kp))
+        rows = [np.ascontiguousarray(np.moveaxis(r, ld.a, 2).reshape(
+            -1, nxyz[ld.a])) for r in rho3]
+        per_leader.append((ld, rows))
     on_dev = {}               # (device, leader) -> (rows, direction)
-    kdirs = torch.from_numpy(np.array([pl[0] for pl in per_leader]))
+    # the kernel's inputs: the densities (H, nx, ny, nz), the leaders'
+    # constants and the grid's float32 box
+    lead_rows = np.array([exact_peel.leader_row(ld) for ld, _ in per_leader],
+                         np.float32)
+    box = tuple(float(e[i]) for i in (0, -1)
+                for e in (grid.xb, grid.yb, grid.zb))
+    field_dev = {}            # device -> (densities, leader rows)
+    kdirs = torch.from_numpy(np.array([ld.k for ld, _ in per_leader]))
     kdirs_dev = {}            # device -> kdirs, the (L, 3) directions
 
-    def cross_seq(p0, kk, loi, dxi, count):
-        """Ray parameters of the wall crossings along one lateral axis."""
-        if abs(kk) < 1e-12:
+    def cross_seq(p0, s, count):
+        """Ray parameters of the wall crossings along one lateral axis
+        (`s`, its exact_peel.Crossings)."""
+        if not s.active:
             return torch.full(p0.shape[:1] + (count,), float("inf"),
                               dtype=torch.float32, device=p0.device)
-        i0 = (p0 - _f32(loi)) * _f32(1.0 / dxi)
-        step = np.float32(abs(dxi / kk))
-        if kk > 0:
-            first = (torch.ceil(i0) - i0) * _f32(dxi / kk)
+        i0 = (p0 - s.lo) * s.inv
+        if s.positive:
+            first = (torch.ceil(i0) - i0) * s.step
         else:
-            first = (i0 - torch.floor(i0)) * _f32(-dxi / kk)
-        first = torch.where(first <= float(1e-6 * step), first + float(step),
-                            first)
+            first = (i0 - torch.floor(i0)) * s.step
+        first = torch.where(first <= s.thr, first + s.step, first)
         m = torch.arange(count, dtype=torch.float32, device=p0.device)[None, :]
-        return first[:, None] + m * float(step)
+        return first[:, None] + m * s.step
 
     def leader_sums(pos, j):
         """Per component the integral of rho_h along the ray, times
         |k_a| (the a-extent of each column crossing)."""
-        k, a, b, c, rows, Kp = per_leader[j]
-        ka, kb, kc = float(k[a]), float(k[b]), float(k[c])
+        ld, rows = per_leader[j]
+        a, b, c, Kp = ld.a, ld.b, ld.c, ld.Kp
+        sb, sc = ld.lat
+        ka, kb, kc = ld.k32[a], ld.k32[b], ld.k32[c]
         dev = pos.device
         key = (dev, j)
         if key not in on_dev:
             on_dev[key] = ([torch.as_tensor(r, device=dev) for r in rows],
-                           torch.as_tensor(np.asarray(k, np.float32),
-                                           device=dev))
+                           torch.tensor(ld.k32, dtype=torch.float32,
+                                        device=dev))
         rows_t, kdir = on_dev[key]
         pa, pb, pc = pos[:, a], pos[:, b], pos[:, c]
         _, t_exit = grid.ray_span(pos, kdir.expand(pos.shape[0], 3))
-        tb = cross_seq(pb, kb, lo[b], dx[b], Kp)
-        tc = cross_seq(pc, kc, lo[c], dx[c], Kp)
+        tb = cross_seq(pb, sb, Kp)
+        tc = cross_seq(pc, sc, Kp)
         tb = torch.where(tb < t_exit[:, None], tb, float("inf"))
         tc = torch.where(tc < t_exit[:, None], tc, float("inf"))
-        if abs(kb) < 1e-12 or abs(kc) < 1e-12:
+        if not (sb.active and sc.active):
             # one lateral axis is inactive (e.g. azimuth-0 leaders): the
             # crossing sequence is already sorted
-            tall = (tc if abs(kb) < 1e-12 else tb)[:, :Kp - 1]
+            tall = (tb if sb.active else tc)[:, :Kp - 1]
         else:
             tall = torch.sort(torch.cat([tb, tc], 1), 1).values[:, :Kp - 1]
         zeros = torch.zeros_like(t_exit)[:, None]
@@ -673,18 +676,18 @@ def make_exact_peel(grid, ds, leaders, graph=False):
         valid = t_out > t_in
         tmid = 0.5 * (t_in + t_out)
         nb_, nc_, na = nxyz[b], nxyz[c], nxyz[a]
-        ib = torch.floor((pb[:, None] + tmid * _f32(kb) - _f32(lo[b]))
-                         * _f32(1.0 / dx[b])).to(torch.int32)
-        ic = torch.floor((pc[:, None] + tmid * _f32(kc) - _f32(lo[c]))
-                         * _f32(1.0 / dx[c])).to(torch.int32)
+        ib = torch.floor((pb[:, None] + tmid * kb - sb.lo)
+                         * sb.inv).to(torch.int32)
+        ic = torch.floor((pc[:, None] + tmid * kc - sc.lo)
+                         * sc.inv).to(torch.int32)
         okc = valid & (ib >= 0) & (ib < nb_) & (ic >= 0) & (ic < nc_)
         col = torch.where(okc, ib * nc_ + ic, 0).long()
         # exact in-column integral over the a-profile
-        a_in = pa[:, None] + t_in * _f32(ka)
-        a_out = pa[:, None] + t_out * _f32(ka)
+        a_in = pa[:, None] + t_in * ka
+        a_out = pa[:, None] + t_out * ka
         a_nearc = torch.minimum(a_in, a_out)
         a_farc = torch.maximum(a_in, a_out)
-        edges = _f32(lo[a]) + _f32(dx[a]) * torch.arange(
+        edges = ld.lo_a + ld.dx_a * torch.arange(
             na + 1, dtype=torch.float32, device=dev)
         ov = torch.clamp(
             torch.minimum(a_farc[..., None], edges[1:])
@@ -694,8 +697,7 @@ def make_exact_peel(grid, ds, leaders, graph=False):
                 for h in range(H)]
 
     def inv_ka(j):
-        return _f32(1.0 / max(abs(per_leader[j][0][per_leader[j][1]]),
-                              1e-12))
+        return per_leader[j][0].inv_ka
 
     def leader_tau(pos, kext_pk, j):
         tau = 0.0
@@ -706,8 +708,8 @@ def make_exact_peel(grid, ds, leaders, graph=False):
     def chunked(pos, j, fn):
         """fn(pos slice, lane slice) over lanes in chunks, joined on the
         last axis."""
-        _, a, _, _, _, Kp = per_leader[j]
-        chunk = max(1, _PEEL_CHUNK_FLOATS // (Kp * nxyz[a]))
+        ld = per_leader[j][0]
+        chunk = max(1, _PEEL_CHUNK_FLOATS // (ld.Kp * nxyz[ld.a]))
         if pos.shape[0] <= chunk:
             return fn(pos, slice(None))
         return torch.cat([fn(pos[i:i + chunk], slice(i, i + chunk))
@@ -721,47 +723,45 @@ def make_exact_peel(grid, ds, leaders, graph=False):
             kd = kdirs_dev[pos.device] = kdirs.to(pos.device)
         trace.count_peel(exact_peel_work(grid, pos, live, kd, H))
 
-    graphs = {}               # (what, device, input shapes) -> () or graph
+    def columns(pos, kext):
+        """The kernel's (L, N) optical depths (kext, a list of H (N,)
+        opacities) or (L, H, N) integrals (kext None)."""
+        f = field_dev.get(pos.device)
+        if f is None:
+            f = field_dev[pos.device] = (
+                torch.from_numpy(np.stack(rho3)).to(pos.device),
+                torch.from_numpy(lead_rows).to(pos.device))
+        if kext is not None:
+            kext = (torch.stack(kext) if H > 1 else kext[0][None])
+            kext = kext.contiguous()
+        return exact_peel.peel_columns(pos.contiguous(), *f, box, kext)
 
-    def graphed(what, fn, pos, extra):
-        """fn(pos, extra), a list over leaders of tensors of one shape,
-        through the CUDA graph of its launches where `graph` asks for it."""
-        if not graph or pos.device.type != "cuda":
-            return fn(pos, extra)
-        key = (what, pos.device, *(tuple(x.shape) for x in (pos, *extra)))
-        g = graphs.get(key)
-        if g is None:
-            graphs[key] = ()
-            return fn(pos, extra)
-        if not g:
-            ins = [x.clone() for x in (pos, *extra)]
-            cg = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(cg):
-                out = torch.stack(fn(ins[0], ins[1:]))
-            g = graphs[key] = (cg, ins, out)
-        cg, ins, out = g
-        for mine, x in zip(ins, (pos, *extra)):
-            mine.copy_(x)
-        cg.replay()
-        return list(out.clone().unbind(0))
+    def plain_taus(pos, kext_pk):
+        return [chunked(pos, j, lambda p, sl, j=j: leader_tau(
+            p, [kp[sl] for kp in kext_pk], j))
+            for j in range(len(per_leader))]
+
+    def plain_integrals(pos):
+        return [chunked(pos, j, lambda p, sl, j=j: torch.stack(
+            leader_sums(p, j)) * inv_ka(j))
+            for j in range(len(per_leader))]
 
     def taus(pos, kext_pk, live=None):
         count(pos, live)
         with trace.span("exact_peel"):
-            return graphed("taus", lambda pos, kext_pk: [
-                chunked(pos, j, lambda p, sl, j=j: leader_tau(
-                    p, [kp[sl] for kp in kext_pk], j))
-                for j in range(len(per_leader))], pos, list(kext_pk))
+            if pos.device.type == "cpu":
+                return plain_taus(pos, kext_pk)
+            return list(columns(pos, list(kext_pk)).unbind(0))
 
     def integrals(pos, live=None):
         count(pos, live)
         with trace.span("exact_peel"):
-            return graphed("integrals", lambda pos, _: [
-                chunked(pos, j, lambda p, sl, j=j: torch.stack(
-                    leader_sums(p, j)) * inv_ka(j))
-                for j in range(len(per_leader))], pos, [])
+            if pos.device.type == "cpu":
+                return plain_integrals(pos)
+            return list(columns(pos, None).unbind(0))
 
     taus.integrals = integrals
+    taus.plain, taus.plain_integrals = plain_taus, plain_integrals
     return taus
 
 
@@ -784,9 +784,9 @@ def _warn_staged_peel(grid, np_peel=None):
 
 
 def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel, graph=False):
-    """Peel optical depths toward each leader: the exact column DDA (a
-    CUDA graph on a card with `graph`), or the P_peel panel quadrature of
-    the staged rows ('staged')."""
+    """Peel optical depths toward each leader: the exact column DDA
+    (`graph` accepted and ignored, make_exact_peel), or the P_peel panel
+    quadrature of the staged rows ('staged')."""
     if peel_mode == "exact":
         return make_exact_peel(grid, ds, leaders, graph=bool(graph))
     return make_staged_peel(grid, ds, leaders, np_peel)

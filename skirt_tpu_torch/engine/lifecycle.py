@@ -46,8 +46,9 @@ class LifecycleOptions:
     voxelize: bool | None = None
     path_record: bool | None = None
     count_events: bool = False
-    # the port's own (not in skirt_tpu): on a card, the table engines'
-    # exact peel replays one CUDA graph of its launches (make_exact_peel)
+    # the port's own (not in skirt_tpu): accepted and ignored by the table
+    # engines' exact peel, one kernel launch a pass (make_exact_peel); the
+    # agn-torus benchmark configuration still sets it
     peel_graph: bool = False
 
 
