@@ -34,12 +34,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import kernels, rng, trace
-from ..ops import binned_add
-from .fused import (_CHECK_EVERY, _CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER,
-                    _TINY, _expon_cutoff, _f32, _geom_args, _group_leaders,
-                    _hg_costheta, _make_locate, _make_span, _ptr,
-                    _scatter_direction)
+from .. import kernels, trace
+from ..numerics import f32
+from .common import (_CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER, _TINY,
+                     _check_tensors, _expon_cutoff, _geom_args, _hg,
+                     _hg_costheta, _invert, _launch_in_event, _make_locate,
+                     _make_span, _moved, _on_device, _ptr, _scattered,
+                     _set_ptrs, _uniform_grid, batch_keys, check_shared,
+                     deposit, emit_poly, events, lane_columns, panel_taus,
+                     peel_poly, plan, uniforms)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -55,28 +58,14 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if mueller is not None:
         bail("polarization not supported (vector/fused-mono paths carry "
              "the Stokes machinery)")
-    if io_state:
-        bail("io_state not supported")
-    if launch_fn is not None:
-        bail("launch_fn (dust-emission launch with refill between kernel "
-             "calls) belongs to the panchromatic loop, not ported yet "
-             "(slice S3)")
-    if options.continuous_scattering:
-        bail("continuous_scattering not supported")
-    if options.store_absorption and options.deposition != "sampled":
-        bail("absorption tallies require deposition='sampled'")
-    if options.store_absorption and not (hasattr(grid, "_uniform")
-                                         and all(grid._uniform)):
+    if options.store_absorption and not _uniform_grid(grid):
         bail("absorption tallies require a uniform Cartesian grid "
              "(in-kernel arithmetic locate)")
     if nlambda > 128:
         bail("nlambda <= 128 (split wider grids into blocks of <= 128 "
              "wavelengths)")
-    if stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
-        bail("requires a single isotropic stellar component")
-    for ins in instruments:
-        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
-            bail("requires distant (constant-direction) instruments")
+    check_shared(bail, stellar_system, instruments, options, io_state,
+                 launch_fn)
     if options.refill_batches > 1:
         geom = stellar_system.components[0].geometry
         if geom.device_sampler_xyz() is None:
@@ -145,10 +134,10 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
         K=int(options.refill_batches) if refill else 1, nu_pos=nu_pos,
         n_uniform=7 + (nu_pos + 2 if refill else 0),
         min_scatt=int(options.min_scatt_events),
-        xi=float(options.scatt_bias), inv_np=_f32(1.0 / npanels),
-        inv_pp=_f32(1.0 / np_peel),
-        inv_minred=_f32(1.0 / options.min_weight_reduction),
-        invL=_f32(1.0 / lscale), lscale=lscale, leaders=list(leaders),
+        xi=float(options.scatt_bias), inv_np=f32(1.0 / npanels),
+        inv_pp=f32(1.0 / np_peel),
+        inv_minred=f32(1.0 / options.min_weight_reduction),
+        invL=f32(1.0 / lscale), lscale=lscale, leaders=list(leaders),
         box=tuple(float(v) for v in grid.bounding_box()), oc=oc,
         density_geometry=geom, sampler_geometry=sampler_geometry, grid=grid,
         span=_make_span(grid.bounding_box()),
@@ -160,11 +149,6 @@ def _wsum(x):
     entry): the CUDA kernel sums each lane's wavelengths in that order,
     and a reduction kernel would round differently."""
     return torch.cumsum(x, 0)[-1]
-
-
-def _hg(g, cosa):
-    t = 1.0 + g * g - 2.0 * g * cosa
-    return (1.0 - g) * (1.0 + g) / torch.sqrt(t * t * t)
 
 
 def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
@@ -189,7 +173,7 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
     cum = torch.zeros_like(delta)
     cums = []
     for kk in range(npanels):
-        midk = t0 + _f32(kk + 0.5) * delta
+        midk = t0 + f32(kk + 0.5) * delta
         rho = spec.rho_s(X + midk * DX, Y + midk * DY, Z + midk * DZ)
         cum = cum + rho * delta
         cums.append(cum)
@@ -244,19 +228,9 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
         tau_smp = torch.where(u1 < xi, u2 * tau_c, tau_exp)
     I_s = tau_smp * kinv_cc
 
-    i_hit = count_below(I_s)
-    h64 = i_hit.to(torch.int64)
-    cum_h = cums_t.gather(0, h64[None])[0]
-    cum_prev = torch.where(
-        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0], 0.0)
-    dI_h = cum_h - cum_prev
-    frac = torch.clamp(torch.where(dI_h > 0, (I_s - cum_prev)
-                                   / torch.clamp(dI_h, min=_TINY), 0.0),
-                       0.0, 1.0)
+    i_hit, frac = _invert(cums_t, npanels, I_s)
     s = t0 + (i_hit.to(torch.float32) + frac) * delta
-    X = torch.where(alive, X + s * DX, X)
-    Y = torch.where(alive, Y + s * DY, Y)
-    Z = torch.where(alive, Z + s * DZ, Z)
+    X, Y, Z = _moved(alive, s, X, Y, Z, DX, DY, DZ)
 
     # -- per-wavelength mixture ratios -----------------------------------
     F = kext * torch.exp(-kext * I_s[None]) / torch.clamp(ome, min=_TINY)
@@ -264,12 +238,12 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
         Q = F
     else:
         Q = ((1.0 - xi) * F
-             + _f32(xi) * kext / torch.clamp(tau, min=_TINY))
-    Qmix = _wsum(Q) * _f32(1.0 / W)
+             + f32(xi) * kext / torch.clamp(tau, min=_TINY))
+    Qmix = _wsum(Q) * f32(1.0 / W)
 
     costheta = _hg_costheta(g_cc, u[3])
     HG = _hg(gw, costheta[None])
-    QHmix = _wsum(Q * HG) * _f32(1.0 / W)
+    QHmix = _wsum(Q * HG) * f32(1.0 / W)
 
     Lp = Lab * F / torch.clamp(Qmix[None], min=_TINY)
     Ln = Lab * F * HG / torch.clamp(QHmix[None], min=_TINY)
@@ -285,17 +259,8 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
     if spec.refill:
         bcount = state[8]
         eligible = torch.logical_not(alive) & (bcount < spec.K)
-        nu, sample = spec.sampler_geometry.device_sampler_xyz()
-        xs, ys, zs = sample([u[7 + j] for j in range(nu)])
-        ct = 2.0 * u[7 + nu] - 1.0
-        st_ = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
-        ph2 = _f32(2.0 * np.pi) * u[8 + nu]
-        X = torch.where(eligible, xs, X)
-        Y = torch.where(eligible, ys, Y)
-        Z = torch.where(eligible, zs, Z)
-        DX = torch.where(eligible, st_ * torch.cos(ph2), DX)
-        DY = torch.where(eligible, st_ * torch.sin(ph2), DY)
-        DZ = torch.where(eligible, ct, DZ)
+        X, Y, Z, DX, DY, DZ = _launch_in_event(spec, u, 7, eligible,
+                                               X, Y, Z, DX, DY, DZ)
         Ln = torch.where(eligible[None], L0, Ln)
         Lp = torch.where(eligible[None], 0.0, Lp)
         nscatt = torch.where(eligible, 0, nscatt)
@@ -312,25 +277,21 @@ def poly_event_plain(spec: PolyEventSpec, u, oc, L, L0, state):
             coss.append(torch.zeros_like(I_tot))
             Ips.append(torch.zeros_like(I_tot))
             continue
-        fx, fy, fz = _f32(kx), _f32(ky), _f32(kz)
+        fx, fy, fz = f32(kx), f32(ky), f32(kz)
         coss.append(DX * fx + DY * fy + DZ * fz)
         pt0, pt1 = span(X, Y, Z, kx, ky, kz, const_d=True)
         pd = (pt1 - pt0) * spec.inv_pp
         rsum = torch.zeros_like(I_tot)
         for kk in range(spec.np_peel):
-            mk = pt0 + _f32(kk + 0.5) * pd
+            mk = pt0 + f32(kk + 0.5) * pd
             rsum = rsum + spec.rho_s(X + mk * fx, Y + mk * fy, Z + mk * fz)
         Ips.append(rsum * pd)
     out["Ip"] = torch.stack(Ips)
     out["cos"] = torch.stack(coss)
 
     # -- HG scatter about the old direction (driver g) -------------------
-    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
-    scat = alive & torch.logical_not(fresh)
-    DX = torch.where(scat, nx, DX)
-    DY = torch.where(scat, ny, DY)
-    DZ = torch.where(scat, nz, DZ)
-    nscatt = torch.where(scat, nscatt + 1, nscatt)
+    DX, DY, DZ, nscatt = _scattered(alive, costheta, u[4], DX, DY, DZ,
+                                    nscatt, fresh)
 
     if trace.enabled():
         # the lanes that did an event: alive on entry, or relaunched
@@ -392,44 +353,35 @@ def _poly_event_cuda(spec, u, oc, L, L0, state):
     n_state = 9 if spec.refill else 8
     if len(state) != n_state:
         raise ValueError(f"poly_event: expected {n_state} state arrays")
-    checks = [(u, (spec.n_uniform, N), torch.float32),
-              (oc, (3, W), torch.float32), (L, (W, N), torch.float32),
-              (L0, (W, N), torch.float32)]
-    checks += [(s, (N,), torch.float32) for s in state[:6]]
-    checks += [(s, (N,), torch.int32) for s in state[6:]]
-    for t, shape, dt in checks:
-        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
-                or not t.is_contiguous()):
-            raise ValueError(f"poly_event kernel: expected a contiguous "
-                             f"{dt} tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_tensors("poly_event",
+                   [(u, (spec.n_uniform, N), torch.float32),
+                    (oc, (3, W), torch.float32), (L, (W, N), torch.float32),
+                    (L0, (W, N), torch.float32)]
+                   + [(s, (N,), torch.float32) for s in state[:6]]
+                   + [(s, (N,), torch.int32) for s in state[6:]])
     a, (dens, samp) = _cuda_args(spec)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    st_out = [torch.empty(N, **f32) for _ in range(6)] \
-        + [torch.empty(N, **i32) for _ in range(2)]
-    Ln = torch.empty((W, N), **f32)
-    Lp = torch.empty((W, N), **f32)
-    Ip = torch.empty((nlead, N), **f32)
-    cos = torch.empty((nlead, N), **f32)
+    f32_kw = dict(dtype=torch.float32, device=dev)
+    i32_kw = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32_kw) for _ in range(6)] \
+        + [torch.empty(N, **i32_kw) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32_kw)
+    Lp = torch.empty((W, N), **f32_kw)
+    Ip = torch.empty((nlead, N), **f32_kw)
+    cos = torch.empty((nlead, N), **f32_kw)
     out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp, "Ip": Ip, "cos": cos}
     depi = depv = bc = fresh = None
     if spec.want_labs:
-        depi = out["depi"] = torch.empty(N, **i32)
-        depv = out["depv"] = torch.empty(N, **f32)
+        depi = out["depi"] = torch.empty(N, **i32_kw)
+        depv = out["depv"] = torch.empty(N, **f32_kw)
     if spec.refill:
-        bc = out["bc"] = torch.empty(N, **i32)
-        fresh = out["fresh"] = torch.empty(N, **i32)
+        bc = out["bc"] = torch.empty(N, **i32_kw)
+        fresh = out["fresh"] = torch.empty(N, **i32_kw)
     a.N = N
     ins = [u, oc, L, L0, *state[:8], state[8] if spec.refill else None]
-    for name, t in zip(("u", "oc", "L", "L0", "px", "py", "pz", "dx", "dy",
-                        "dz", "alive", "ns", "bc"), ins):
-        setattr(a, name, _ptr(t))
+    _set_ptrs(a, "u oc L L0 px py pz dx dy dz alive ns bc", ins)
     outs = [*st_out, Ln, Lp, depi, depv, Ip, cos, bc, fresh]
-    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
-                        "ons", "oLn", "oLp", "odepi", "odepv", "oIp", "ocos",
-                        "obc", "ofresh"), outs):
-        setattr(a, name, _ptr(t))
+    _set_ptrs(a, "opx opy opz odx ody odz oalive ons oLn oLp odepi odepv oIp "
+              "ocos obc ofresh", outs)
     chunked, rows = cuda_route(spec)
     if chunked:
         cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
@@ -453,11 +405,8 @@ def poly_event(spec: PolyEventSpec, u, oc, L, L0, state):
     poly_event_plain.  While tracing, both count the lanes in
     `trace`'s lane_slots and live_lanes."""
     trace.count_slots(state[0].shape[0])
-    if u.device.type == "cpu":
-        return poly_event_plain(spec, u, oc, L, L0, state)
-    if u.device.type != "cuda":
-        raise ValueError(f"poly_event: unsupported device {u.device}")
-    return _poly_event_cuda(spec, u, oc, L, L0, state)
+    return _on_device("poly_event", poly_event_plain, _poly_event_cuda, spec,
+                      u, oc, L, L0, state)
 
 
 poly_event.launches = 0
@@ -475,29 +424,17 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
     `L0` must be (N, nlambda) per-lane launch luminosities on the run's
     device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
     packets.  Labs bins are cell * nlambda + w.  The tallies (float32
-    tensors on the same device) are updated in place and returned.
-
-    The event loop runs at most max_scatt_events * K iterations and stops
-    when no lane is alive and no lane has launch budget left; the host
-    reads that condition every _CHECK_EVERY iterations (an iteration over
-    finished lanes changes nothing), so it syncs with the device rarely.
+    tensors on the same device) are updated in place and returned.  The
+    event loop and its stop test are common.events'.
     """
     ds = dust_system
     W = int(nlambda)
     _validate(grid, ds, stellar_system, instruments, options, W,
               mueller, io_state, launch_fn)
-    npanels = int(options.quadrature_panels
-                  or getattr(grid, "max_steps", 96))
-    np_peel = int(options.peel_panels or npanels)
-    want_labs = bool(options.store_absorption)
-    leaders, lead_of = _group_leaders(instruments)
-    refill = options.refill_batches > 1
-    K = int(options.refill_batches) if refill else 1
-    sampler_geom = stellar_system.components[0].geometry if refill else None
-    spec = _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
-                         want_labs, scattering_peeloff, sampler_geom)
-    iter_cap = int(max_iterations if max_iterations is not None
-                   else options.max_scatt_events) * K
+    p = plan(grid, instruments, options, max_iterations)
+    sampler_geom = stellar_system.components[0].geometry if p.refill else None
+    spec = _build_kernel(grid, ds, p.leaders, p.npanels, p.np_peel, options,
+                         W, p.want_labs, scattering_peeloff, sampler_geom)
 
     def run_batch(key, ell, L0, tallies):
         del ell
@@ -507,7 +444,7 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
         with trace.span("launch"):
             n = L0.shape[0]
             dev = L0.device
-            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
+            k_launch, k_cycle = batch_keys(key)
             ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
             pos, direction, _, _ = stellar_system.launch(
                 k_launch, ell0,
@@ -517,7 +454,7 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
             alive = (L > 0).any(0)
             wls = torch.arange(W, device=dev)
             oc = torch.as_tensor(spec.oc, device=dev)
-            kext_col = oc[0][:, None]
+            minus_kext = -oc[0][:, None]
             g_col = oc[2][:, None]
             kext_t_col = torch.as_tensor(
                 np.asarray(ds.kappaext, np.float32)[0, :W],
@@ -528,74 +465,47 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
 
             if emission_peeloff:
                 # emission peel: panel quadrature toward each leader once
-                from . import vector_traversal as vt
                 Lw = torch.where(alive[None], L, 0.0)
                 ones = [torch.ones(n, dtype=torch.float32, device=dev)]
-                Ipe = []
-                for kvec in leaders:
-                    kobs = torch.tensor(np.asarray(kvec, np.float32),
-                                        device=dev).expand(n, 3)
-                    dsg, _, midp = vt.panel_paths(grid, pos, kobs, np_peel)
-                    # with unit weights analytic_rows returns the kg/m^3
-                    # density rows -> tau_w = kappaext_w * integral
-                    rows = ds.analytic_rows(pos, kobs, midp, None, ones,
-                                            want_sca=False)
-                    Ipe.append((rows * dsg).sum(1))
-                tags = {"nscatt": torch.zeros(n, dtype=torch.int32,
-                                              device=dev),
-                        "is_dust": dust, "transparent": Lw}
-                for i, ins_obj in enumerate(instruments):
-                    ext = Lw * torch.exp(-kext_t_col * Ipe[lead_of[i]][None])
-                    ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
+                # with unit weights the depths are the density integrals
+                # -> tau_w = kappaext_w * integral
+                Ipe = panel_taus(grid, ds, p.leaders, p.np_peel, pos, ones)
+                emit_poly(instruments, ins, p.lead_of, pos, wls, Lw,
+                          lambda j: -kext_t_col * Ipe[j][None],
+                          {"nscatt": torch.zeros(n, dtype=torch.int32,
+                                                 device=dev),
+                           "is_dust": dust})
 
-            state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                     pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                     direction[:, 1].contiguous(),
-                     direction[:, 2].contiguous(), alive.to(torch.int32),
-                     torch.zeros(n, dtype=torch.int32, device=dev)]
-            if refill:
+            state = lane_columns(pos, direction) + [
+                alive.to(torch.int32),
+                torch.zeros(n, dtype=torch.int32, device=dev)]
+            if p.refill:
                 state.append(torch.ones(n, dtype=torch.int32, device=dev))
 
-        for it in range(iter_cap):
-            if it % _CHECK_EVERY == 0:
-                with trace.span("check"):
-                    go = state[6].any()
-                    if refill:
-                        go = go | (state[8] < K).any()
-                    go = bool(go)
-                if not go:
-                    break
+        for it in events(p, lambda: (state[6],
+                                      state[8] if p.refill else None)):
             with trace.span("event"):
-                u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                     (spec.n_uniform, n), dev)
+                u = uniforms(k_cycle, it, spec.n_uniform, n, dev)
                 out = poly_event(spec, u, oc, L, l0, state)
-                if want_labs:
-                    binned_add(labs, out["depi"], out["depv"])
+                deposit(labs, out)
             st = out["state"]
             Ln, Lp = out["Ln"], out["Lp"]
             if scattering_peeloff:
                 with trace.span("peel"):
                     alive_new = st[6] != 0
                     pos_new = torch.stack(st[:3], dim=-1)
-                    for i, ins_obj in enumerate(instruments):
-                        Ii = out["Ip"][lead_of[i]]
-                        cosj = out["cos"][lead_of[i]]
-                        # HG phase weights for all wavelengths at once
-                        tq = 1.0 + g_col * g_col - 2.0 * g_col * cosj[None]
-                        pw = (1.0 - g_col) * (1.0 + g_col) \
-                            / torch.sqrt(tq * tq * tq)
-                        cw = Lp * pw
-                        if refill:
-                            # the in-kernel relaunch happens BEFORE the peel
-                            # quadrature, so Ii/cosj are at the fresh position
-                            cw = torch.where(out["fresh"][None] != 0, Ln, cw)
-                        cw = torch.where(alive_new[None], cw, 0.0)
-                        ext = cw * torch.exp(-kext_col * Ii[None])
-                        ins_obj.detect_poly(ins[i], pos_new, wls, ext,
-                                            {"nscatt": st[7], "is_dust": dust,
-                                             "transparent": cw})
+                    # the in-kernel relaunch happens BEFORE the peel
+                    # quadrature, so the depths and cosines of fresh lanes
+                    # are at their fresh position
+                    fresh = out["fresh"] != 0 if p.refill else None
+                    peel_poly(instruments, ins, p.lead_of, pos_new, wls, Lp,
+                              Ln, alive_new,
+                              {"nscatt": st[7], "is_dust": dust},
+                              lambda j: minus_kext * out["Ip"][j][None],
+                              lambda j: out["cos"][j],
+                              lambda j, cosj: _hg(g_col, cosj[None]), fresh)
             state = list(st)
-            if refill:
+            if p.refill:
                 state.append(out["bc"])
             L = Ln
         return tallies

@@ -70,19 +70,24 @@ import torch
 
 from .. import kernels, rng, trace
 from ..media import polarization as pol
-from ..ops import binned_add, exact_peel
+from ..numerics import f32
+from ..ops import exact_peel
 from . import vector_traversal as vt
-from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
-                    _group_leaders, _hg_costheta, _hit_point, _make_locate,
-                    _ptr, _scatter_direction)
+from .common import (EventCount, Stokes, _TINY, _check_tensors, _expon_cutoff,
+                     _forced, _hg_costheta, _hit_point, _locate_args,
+                     _make_locate, _moved, _on_device, _scattered, _set_ptrs,
+                     _uniform_grid, batch_keys, check_shared, chunk_rows,
+                     count_entry_lanes, deposit, emit_mono, events,
+                     lane_columns, leader_cosines, make_peel_off, panel_taus,
+                     peel_mono, plan, relaunch, table_peel_mode, uniforms)
+# the direct table's deposits (K4d, K6d), placed here beside the exact peel
+# the direct table's deposits (K4d, K6d), placed here as skirt_tpu places
+# its peels
+from .common import direct_deposits  # noqa: F401
 
 # lanes per chunk of the exact peel: its (lanes, Kp, n_a) gathers and
 # overlaps stay under ~2^26 floats (256 MB) each
 _PEEL_CHUNK_FLOATS = 1 << 26
-
-
-def _uniform_grid(grid) -> bool:
-    return bool(hasattr(grid, "_uniform") and all(grid._uniform))
 
 
 def _validate(grid, ds, stellar_system, instruments, options, mueller,
@@ -99,28 +104,14 @@ def _validate(grid, ds, stellar_system, instruments, options, mueller,
         bail("multi-component mode needs the uniform Cartesian voxel view")
     if ds.ncomp > 1 and mueller is not None:
         bail("polarized mode is single-component only")
-    if launch_fn is not None:
-        bail("launch_fn (the dust-emission launch) is not ported yet "
-             "(slice S3)")
-    if io_state:
-        bail("io_state not supported")
-    if options.continuous_scattering:
-        bail("continuous_scattering not supported")
-    if options.store_absorption and options.deposition != "sampled":
-        bail("absorption tallies require deposition='sampled'")
     peel_mode = getattr(options, "table_peel", "exact")
     if peel_mode == "taumap":
         bail("table_peel='taumap' (compute_rho_path_maps) is not ported yet "
              "(slice S2b)")
     if peel_mode not in ("staged", "exact"):
         bail("table_peel must be 'exact', 'taumap' or 'staged'")
-    for ins in instruments:
-        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
-            bail("requires distant (constant-direction) instruments")
-    if stellar_system is None or stellar_system.ncomp != 1 \
-            or not stellar_system.is_isotropic:
-        bail("requires a single isotropic stellar component (the others "
-             "launch through slice S6)")
+    check_shared(bail, stellar_system, instruments, options, io_state,
+                 launch_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -147,15 +138,16 @@ class TableEventSpec:
 
 
 def _build_kernel(grid, options, nlambda, npanels, want_labs,
-                  arith_locate=True):
+                  arith_locate=True, spec=None):
     """The event's constants (mirrors skirt_tpu
-    fused_table._build_kernel; arith_locate=False is K4d)."""
+    fused_table._build_kernel; arith_locate=False is K4d; `spec` the
+    class, TableEventSpec by default)."""
     xi = float(options.scatt_bias)
-    return TableEventSpec(
+    return (spec or TableEventSpec)(
         npanels=int(npanels), nlambda=int(nlambda), want_labs=bool(want_labs),
-        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
-        one_m_xi=_f32(1.0 - xi),
-        inv_minred=_f32(1.0 / options.min_weight_reduction), grid=grid,
+        min_scatt=int(options.min_scatt_events), xi=f32(xi),
+        one_m_xi=f32(1.0 - xi),
+        inv_minred=f32(1.0 / options.min_weight_reduction), grid=grid,
         arith_locate=bool(arith_locate),
         locate=_make_locate(grid) if arith_locate else None)
 
@@ -175,7 +167,6 @@ def table_event_plain(spec: TableEventSpec, u, kr, state):
     ell = state[9]
     Lth = state[10] * spec.inv_minred
     t0, delta, albedo, g = state[11:15]
-    xi = spec.xi
     out = {}
 
     # -- cumulative optical depth from the staged panels ------------------
@@ -212,70 +203,16 @@ def table_event_plain(spec: TableEventSpec, u, kr, state):
         (L <= Lth) & (nscatt >= spec.min_scatt)) & (taupath > 0)
 
     # -- forced propagation ------------------------------------------------
-    tau_exp = _expon_cutoff(u[1], taupath)
-    if xi == 0.0:
-        tau = tau_exp
-    else:
-        tau = torch.where(u[0] < xi, u[1] * taupath, tau_exp)
-        p = torch.exp(-tau) / torch.clamp(one_m_e, min=_TINY)
-        # a true division (torch evaluates `scalar / tensor` as
-        # reciprocal(tensor) * scalar, which rounds twice)
-        qq = spec.one_m_xi * p + (torch.full_like(taupath, xi)
-                                  / torch.clamp(taupath, min=_TINY))
-        L = torch.where(alive, L * (p / torch.clamp(qq, min=1e-37)), L)
+    tau, L = _forced(spec, u[0], u[1], taupath, one_m_e, alive, L)
     s = _hit_point(cums, P, tau, t0, delta)
-    X = torch.where(alive, X + s * DX, X)
-    Y = torch.where(alive, Y + s * DY, Y)
-    Z = torch.where(alive, Z + s * DZ, Z)
+    X, Y, Z = _moved(alive, s, X, Y, Z, DX, DY, DZ)
 
     # -- Henyey-Greenstein scatter -----------------------------------------
-    nx, ny, nz = _scatter_direction(_hg_costheta(g, u[3]), u[4], DX, DY, DZ)
-    DX = torch.where(alive, nx, DX)
-    DY = torch.where(alive, ny, DY)
-    DZ = torch.where(alive, nz, DZ)
-    nscatt = torch.where(alive, nscatt + 1, nscatt)
+    DX, DY, DZ, nscatt = _scattered(alive, _hg_costheta(g, u[3]), u[4],
+                                    DX, DY, DZ, nscatt)
 
     out["state"] = (X, Y, Z, DX, DY, DZ, L, alive.to(torch.int32), nscatt)
     return out
-
-
-def direct_deposits(grid, pos, direction, mid_dep, value, wl, width):
-    """Absorption bins and values of the deposits of a direct-table event
-    (K4d, K6d): the point pos + mid_dep * dir of the PRE-event position
-    and direction located with one grid.locate_batched, bins cell * width
-    + wl; none (-1, 0) where mid_dep < 0, wl < 0 or the point lies outside
-    the grid (skirt_tpu fused_table.py:868-879, fused_table_poly.py:
-    977-988)."""
-    cell = grid.locate_batched((pos + mid_dep[:, None] * direction)
-                               [:, None, :])[:, 0]
-    okd = (mid_dep >= 0) & (wl >= 0) & (cell >= 0)
-    return (torch.where(okd, cell * width + wl, -1),
-            torch.where(okd, value, 0.0))
-
-
-def _locate_args(a, grid):
-    """Fill the arithmetic-locate fields of a kernels.Geom."""
-    a.nx, a.ny, a.nz = grid.nx, grid.ny, grid.nz
-    for i in range(3):
-        a.loc_lo[i] = _f32(grid._lo[i])
-        a.loc_inv[i] = _f32(1.0 / grid._dx[i])
-
-
-def _check_tensors(what, checks):
-    dev = checks[0][0].device
-    for t, shape, dt in checks:
-        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dt
-                or not t.is_contiguous()):
-            raise ValueError(f"{what} kernel: expected a contiguous {dt} "
-                             f"tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def chunk_rows(P: int) -> int:
-    """Scratch rows a table kernel's chunked route needs per running sum
-    (each panel chunk's last value), 0 on the one-pass route (at most
-    MAXP panels): K4, K4d, K6, K6d and K6p keep one sum, K5 two, K7 one."""
-    return kernels.nchunks(P) if P > _CUDA_MAXP else 0
 
 
 def _table_event_cuda(spec, u, kr, state):
@@ -300,26 +237,22 @@ def _table_event_cuda(spec, u, kr, state):
     a.direct = int(not spec.arith_locate)
     if spec.arith_locate:
         _locate_args(a.geo, spec.grid)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    st_out = [torch.empty(N, **f32) for _ in range(7)] \
-        + [torch.empty(N, **i32) for _ in range(2)]
+    f32_kw = dict(dtype=torch.float32, device=dev)
+    i32_kw = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32_kw) for _ in range(7)] \
+        + [torch.empty(N, **i32_kw) for _ in range(2)]
     out = {"state": tuple(st_out)}
     depi = depv = depd = None
     if spec.want_labs:
         if spec.arith_locate:
-            depi = out["depi"] = torch.empty(N, **i32)
+            depi = out["depi"] = torch.empty(N, **i32_kw)
         else:
-            depd = out["depd"] = torch.empty(N, **f32)
-        depv = out["depv"] = torch.empty(N, **f32)
-    for name, t in zip(("u", "kr", "px", "py", "pz", "dx", "dy", "dz", "L",
-                        "alive", "ns", "ell", "L0", "t0", "dt", "alb", "g"),
-                       [u, kr, *state]):
-        setattr(a, name, _ptr(t))
-    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oL",
-                        "oalive", "ons", "odepi", "odepv", "odepd"),
-                       [*st_out, depi, depv, depd]):
-        setattr(a, name, _ptr(t))
+            depd = out["depd"] = torch.empty(N, **f32_kw)
+        depv = out["depv"] = torch.empty(N, **f32_kw)
+    _set_ptrs(a, "u kr px py pz dx dy dz L alive ns ell L0 t0 dt alb g",
+              [u, kr, *state])
+    _set_ptrs(a, "opx opy opz odx ody odz oL oalive ons odepi odepv odepd",
+              [*st_out, depi, depv, depd])
     rows = chunk_rows(P)
     if rows:
         cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
@@ -338,11 +271,8 @@ def table_event(spec: TableEventSpec, u, kr, state):
     """The event on CPU tensors (plain version) or CUDA tensors (the K4
     kernel, or K4d without arith_locate, counted in `table_event.launches`
     and with K4d also in `table_event.direct_launches`)."""
-    if u.device.type == "cpu":
-        return table_event_plain(spec, u, kr, state)
-    if u.device.type != "cuda":
-        raise ValueError(f"table_event: unsupported device {u.device}")
-    return _table_event_cuda(spec, u, kr, state)
+    return _on_device("table_event", table_event_plain, _table_event_cuda,
+                      spec, u, kr, state)
 
 
 table_event.launches = 0
@@ -363,13 +293,8 @@ class TableMultiEventSpec(TableEventSpec):
 def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
     """The K5 event's constants (mirrors skirt_tpu
     fused_table._build_kernel_multi)."""
-    xi = float(options.scatt_bias)
-    return TableMultiEventSpec(
-        npanels=int(npanels), nlambda=int(nlambda), want_labs=bool(want_labs),
-        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
-        one_m_xi=_f32(1.0 - xi),
-        inv_minred=_f32(1.0 / options.min_weight_reduction), grid=grid,
-        locate=_make_locate(grid))
+    return _build_kernel(grid, options, nlambda, npanels, want_labs,
+                         spec=TableMultiEventSpec)
 
 
 def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
@@ -389,7 +314,6 @@ def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
     ell = state[9]
     Lth = state[10] * spec.inv_minred
     t0, delta = state[11], state[12]
-    xi = spec.xi
     out = {}
 
     # -- cumulative optical depth and the per-panel absorbed energy -------
@@ -435,15 +359,7 @@ def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
 
     # -- forced propagation ------------------------------------------------
     one_m_e = 1.0 - torch.exp(-taupath)
-    tau_exp = _expon_cutoff(u[1], taupath)
-    if xi == 0.0:
-        tau = tau_exp
-    else:
-        tau = torch.where(u[0] < xi, u[1] * taupath, tau_exp)
-        p = torch.exp(-tau) / torch.clamp(one_m_e, min=_TINY)
-        qq = spec.one_m_xi * p + (torch.full_like(taupath, xi)
-                                  / torch.clamp(taupath, min=_TINY))
-        L = torch.where(alive, L * (p / torch.clamp(qq, min=1e-37)), L)
+    tau, L = _forced(spec, u[0], u[1], taupath, one_m_e, alive, L)
     s = _hit_point(cums, P, tau, t0, delta)
     mid_h = t0 + (count_below(cums, tau).to(torch.float32) + 0.5) * delta
     # the interaction cell for the torch-side component selection and
@@ -451,9 +367,7 @@ def table_multi_event_plain(spec: TableMultiEventSpec, u, kr, ks, state):
     out["cell"] = torch.where(alive, spec.locate(X + mid_h * DX,
                                                  Y + mid_h * DY,
                                                  Z + mid_h * DZ), -1)
-    X = torch.where(alive, X + s * DX, X)
-    Y = torch.where(alive, Y + s * DY, Y)
-    Z = torch.where(alive, Z + s * DZ, Z)
+    X, Y, Z = _moved(alive, s, X, Y, Z, DX, DY, DZ)
     out["state"] = (X, Y, Z, L, alive.to(torch.int32))
     return out
 
@@ -478,23 +392,20 @@ def _table_multi_event_cuda(spec, u, kr, ks, state):
     a.one_m_xi = spec.one_m_xi
     a.inv_minred = spec.inv_minred
     _locate_args(a.geo, spec.grid)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    st_out = [torch.empty(N, **f32) for _ in range(4)] \
-        + [torch.empty(N, **i32)]
-    cell = torch.empty(N, **i32)
+    f32_kw = dict(dtype=torch.float32, device=dev)
+    i32_kw = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32_kw) for _ in range(4)] \
+        + [torch.empty(N, **i32_kw)]
+    cell = torch.empty(N, **i32_kw)
     out = {"state": tuple(st_out), "cell": cell}
     depi = depv = None
     if spec.want_labs:
-        depi = out["depi"] = torch.empty(N, **i32)
-        depv = out["depv"] = torch.empty(N, **f32)
-    for name, t in zip(("u", "kr", "ks", "px", "py", "pz", "dx", "dy", "dz",
-                        "L", "alive", "ns", "ell", "L0", "t0", "dt"),
-                       [u, kr, ks, *state]):
-        setattr(a, name, _ptr(t))
-    for name, t in zip(("opx", "opy", "opz", "oL", "oalive", "ocell",
-                        "odepi", "odepv"), [*st_out, cell, depi, depv]):
-        setattr(a, name, _ptr(t))
+        depi = out["depi"] = torch.empty(N, **i32_kw)
+        depv = out["depv"] = torch.empty(N, **f32_kw)
+    _set_ptrs(a, "u kr ks px py pz dx dy dz L alive ns ell L0 t0 dt",
+              [u, kr, ks, *state])
+    _set_ptrs(a, "opx opy opz oL oalive ocell odepi odepv",
+              [*st_out, cell, depi, depv])
     rows = 2 * chunk_rows(P)
     if rows:
         cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
@@ -511,11 +422,8 @@ def _table_multi_event_cuda(spec, u, kr, ks, state):
 def table_multi_event(spec: TableMultiEventSpec, u, kr, ks, state):
     """The K5 event on CPU tensors (plain version) or CUDA tensors (the
     kernel, counted in `table_multi_event.launches`)."""
-    if u.device.type == "cpu":
-        return table_multi_event_plain(spec, u, kr, ks, state)
-    if u.device.type != "cuda":
-        raise ValueError(f"table_multi_event: unsupported device {u.device}")
-    return _table_multi_event_cuda(spec, u, kr, ks, state)
+    return _on_device("table_multi_event", table_multi_event_plain,
+                      _table_multi_event_cuda, spec, u, kr, ks, state)
 
 
 table_multi_event.launches = 0
@@ -769,24 +677,11 @@ def make_exact_peel(grid, ds, leaders, graph=False):
 # the lifecycle driver
 # ---------------------------------------------------------------------------
 
-def _warn_staged_peel(grid, np_peel=None):
-    """skirt_tpu's warning when table_peel='exact' meets a grid without the
-    column DDA (a direct-table grid) and the peel runs staged."""
-    import warnings
-
-    warnings.warn(
-        "table_peel='exact' needs a uniform Cartesian (voxel) grid; "
-        "downgrading to 'staged' "
-        + (f"({np_peel} panels) " if np_peel is not None else "")
-        + f"on {type(grid).__name__} — peel "
-        "flux carries a panel quadrature bias (use >=32 panels)",
-        stacklevel=3)
-
-
-def _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel, graph=False):
-    """Peel optical depths toward each leader: the exact column DDA
-    (`graph` accepted and ignored, make_exact_peel), or the P_peel panel
-    quadrature of the staged rows ('staged')."""
+def make_table_peel(grid, ds, leaders, peel_mode, np_peel, graph=False):
+    """The table engines' peel optical depths toward each leader: the exact
+    column DDA (make_exact_peel, looked up here at each build; `graph`
+    accepted and ignored), or the np_peel-panel quadrature of the staged
+    rows ('staged', make_staged_peel)."""
     if peel_mode == "exact":
         return make_exact_peel(grid, ds, leaders, graph=bool(graph))
     return make_staged_peel(grid, ds, leaders, np_peel)
@@ -799,17 +694,8 @@ def make_staged_peel(grid, ds, leaders, np_peel):
 
     def staged(pos, kext_pk, live=None):
         del live                  # the exact peel's work counter only
-        taus = []
         with trace.span("staged_peel"):
-            for kvec in leaders:
-                kobs = torch.as_tensor(np.asarray(kvec, np.float32),
-                                       device=pos.device).expand(
-                                           pos.shape[0], 3)
-                dsg, _, mid = vt.panel_paths(grid, pos, kobs, np_peel)
-                rows = ds.analytic_rows(pos, kobs, mid, None, kext_pk,
-                                        want_sca=False)
-                taus.append((rows * dsg).sum(1))
-        return taus
+            return panel_taus(grid, ds, leaders, np_peel, pos, kext_pk)
 
     return staged
 
@@ -831,63 +717,28 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     same device) are updated in place and returned.  Labs bins are
     voxel * nlambda + ell.  With options.count_events the tallies gain
     "nevents": the events run, one per lane alive at an iteration's start
-    (scatterings plus the final event of each packet).
-
-    The event loop runs at most max_scatt_events * K iterations and stops
-    when no lane is alive and no lane has launch budget left; the host
-    reads that condition every _CHECK_EVERY iterations (an iteration over
-    finished lanes changes nothing)."""
-    from .lifecycle import hg_costheta, make_peel_off
-
+    (scatterings plus the final event of each packet).  The event loop and
+    its stop test are common.events'."""
     ds = dust_system
     _validate(grid, ds, stellar_system, instruments, options, mueller,
               io_state, launch_fn)
-    npanels = int(options.quadrature_panels
-                  or getattr(grid, "max_steps", 96))
-    np_peel = int(options.peel_panels or npanels)
-    want_labs = bool(options.store_absorption)
-    leaders, lead_of = _group_leaders(instruments)
+    p = plan(grid, instruments, options, max_iterations)
     mt = pol.first_table(mueller)
-    peel_mode = getattr(options, "table_peel", "exact")
-    arith_locate = _uniform_grid(grid)
-    if peel_mode == "exact" and not arith_locate:
-        _warn_staged_peel(grid, np_peel)
-        peel_mode = "staged"
-    refill = options.refill_batches > 1
-    K = int(options.refill_batches) if refill else 1
+    arith_locate, peel_mode = table_peel_mode(grid, options, p.np_peel)
     H = ds.ncomp
     multi = H > 1
     if multi:
-        spec = _build_kernel_multi(grid, options, nlambda, npanels, want_labs)
+        spec = _build_kernel_multi(grid, options, nlambda, p.npanels,
+                                   p.want_labs)
     else:
-        spec = _build_kernel(grid, options, nlambda, npanels, want_labs,
+        spec = _build_kernel(grid, options, nlambda, p.npanels, p.want_labs,
                              arith_locate)
     peels = [make_peel_off(grid, ds, ins) for ins in instruments]
-    staged_taus = _staged_taus_fn(grid, ds, leaders, peel_mode, np_peel,
+    staged_taus = make_table_peel(grid, ds, p.leaders, peel_mode, p.np_peel,
                                   getattr(options, "peel_graph", False))
     mixes = [c.mix for c in ds.components]
-    iter_cap = int(max_iterations if max_iterations is not None
-                   else options.max_scatt_events) * K
-    count_events = bool(getattr(options, "count_events", False))
 
     def run_batch(key, ell, L0, tallies):
-        with trace.span("launch"):
-            n = ell.shape[0]
-            dev = ell.device
-            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-            ell = ell.to(torch.int32).contiguous()
-            L0 = L0.to(torch.float32).contiguous()
-            pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
-            alive = L > 0
-            ksca_pk, kext_pk = ds.packet_kappas(ell)
-            albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
-                .contiguous()
-            g_pk = [torch.as_tensor(m.g, device=dev)[ell.long()]
-                    .contiguous() for m in mixes]
-            ins = tallies["instruments"]
-            labs = tallies.get("labs")
-            dust = torch.full((n,), bool(is_dust_emission), device=dev)
-
         def component_scatter(it, cell, alive_b, dir_old):
             """K5's scatter, torch-side: the component drawn by
             kappa_sca,h * rho_h at the interaction cell, its HG cosine, a
@@ -903,12 +754,12 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             for h in range(1, H):
                 g_sel = torch.where(usel > acc, g_pk[h], g_sel)
                 acc = acc + wv_h[h]
-            costh = hg_costheta(g_sel, rng.uniform_open(rng.fold_in(ksc, 1),
-                                                        (n,), dev))
+            costh = _hg_costheta(g_sel, rng.uniform_open(
+                rng.fold_in(ksc, 1), (n,), dev))
             d = rng.direction_about_axis(rng.fold_in(ksc, 2), dir_old, costh)
             return wv_h, torch.where(alive_b[:, None], d, dir_old)
 
-        def phase_weight(cosj, wv_h):
+        def phase_weight(j, cosj):
             """The peel phase weight at the incoming direction: the mix's
             HG, or with several components their blend by
             kappa_sca,h * rho_h at the interaction cell."""
@@ -923,12 +774,25 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
 
         def emission_peel(pos_p, contribution, ns_p, live):
             taus0 = staged_taus(pos_p, kext_pk, live)
-            tags = {"nscatt": ns_p, "is_dust": dust}
-            for i, peel in enumerate(peels):
-                peel(ins[i], pos_p, ell, contribution, tags,
-                     tau=taus0[lead_of[i]])
+            emit_mono(peels, ins, p.lead_of, pos_p, ell, contribution,
+                      {"nscatt": ns_p, "is_dust": dust}, taus0)
 
         with trace.span("launch"):
+            n = ell.shape[0]
+            dev = ell.device
+            k_launch, k_cycle = batch_keys(key)
+            ell = ell.to(torch.int32).contiguous()
+            L0 = L0.to(torch.float32).contiguous()
+            pos, direction, L, _ = stellar_system.launch(k_launch, ell, L0)
+            alive = L > 0
+            ksca_pk, kext_pk = ds.packet_kappas(ell)
+            albedo_pk = (ksca_pk[0] / torch.clamp(kext_pk[0], min=1e-37)) \
+                .contiguous()
+            g_pk = [torch.as_tensor(m.g, device=dev)[ell.long()]
+                    .contiguous() for m in mixes]
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
             ns = torch.zeros(n, dtype=torch.int32, device=dev)
             if emission_peeloff:
                 emission_peel(pos, torch.where(alive, L, 0.0), ns, alive)
@@ -937,36 +801,18 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             direction = direction.contiguous()
             L = L.to(torch.float32).contiguous()
             alive = alive.to(torch.int32)
-            if mt is not None:
-                # normalized Stokes ratios and the reference normal;
-                # packets launch unpolarized (a zero normal: no reference
-                # yet)
-                stokes = (torch.zeros(n, device=dev),
-                          torch.zeros(n, device=dev),
-                          torch.zeros(n, device=dev),
-                          torch.zeros((n, 3), device=dev))
-                pf = mt.table("pfnorm", dev)[ell.long()]
-                kobs_lead = pol.observer_rows(leaders, n, dev)
-                ky_ins = pol.frame_axes(instruments, n, dev)
+            sk = (Stokes(mt, p.leaders, instruments, n, dev, ell=ell)
+                  if mt is not None else None)
             bc = torch.ones(n, dtype=torch.int32, device=dev)
-            nev = torch.zeros((), dtype=torch.float32, device=dev)
+            nev = EventCount(p.count_events, dev)
 
-        for it in range(iter_cap):
-            if it % _CHECK_EVERY == 0:
-                with trace.span("check"):
-                    go = alive.any()
-                    if refill:
-                        go = go | (bc < K).any()
-                    go = bool(go)
-                if not go:
-                    break
+        for it in events(p, lambda: (alive, bc)):
             with trace.span("event"):
-                u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                     (spec.n_uniform, n), dev)
+                u = uniforms(k_cycle, it, spec.n_uniform, n, dev)
                 # -- stage the kappa * rho panel rows (the gather) --------
                 with trace.span("stage_gather"):
                     dsg, _, mid = vt.panel_paths(grid, pos, direction,
-                                                 npanels)
+                                                 p.npanels)
                     t0 = mid[:, 0] - 0.5 * dsg[:, 0]
                     if multi:
                         ks, kr = (r.T.contiguous()
@@ -976,31 +822,19 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                         kr = ds.analytic_rows(pos, direction, mid, None,
                                               kext_pk, want_sca=False) \
                             .T.contiguous()
-                state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                         pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                         direction[:, 1].contiguous(),
-                         direction[:, 2].contiguous(), L, alive, ns, ell, L0,
-                         t0.contiguous(), dsg[:, 0].contiguous()]
+                state = lane_columns(pos, direction) + [
+                    L, alive, ns, ell, L0, t0.contiguous(),
+                    dsg[:, 0].contiguous()]
                 if multi:
                     out = table_multi_event(spec, u, kr, ks, state)
                 else:
                     out = table_event(spec, u, kr,
                                       state + [albedo_pk, g_pk[0]])
-                if want_labs and labs is not None:
-                    if arith_locate:
-                        binned_add(labs, out["depi"], out["depv"])
-                    else:
-                        binned_add(labs, *direct_deposits(
-                            grid, pos, direction, out["depd"], out["depv"],
-                            ell, nlambda))
-                if trace.enabled():
-                    # the kernel's lanes; those that did an event were
-                    # alive on entry (this driver relaunches torch-side)
-                    trace.count_slots(n)
-                    trace.count_live(dev, alive != 0)
+                deposit(labs, out, None if arith_locate
+                        else (grid, pos, direction, ell, nlambda))
+                count_entry_lanes(alive)
                 st = out["state"]
-                if count_events:
-                    nev = nev + alive.sum().to(torch.float32)
+                nev.add(alive)
                 dir_old = direction
                 pos = torch.stack(st[:3], dim=-1)
                 wv_h = None
@@ -1014,75 +848,42 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                     direction = torch.stack(st[3:6], dim=-1)
                     L, alive, ns = st[6], st[7], st[8]
 
-            if mt is not None:
+            if sk is not None:
                 # -- the Mueller scatter overriding the kernel's HG
                 # direction; the pre-event Stokes ratios and direction feed
                 # both the scatter and the peel (ref: DustMix.cpp:584-620)
                 with trace.span("mueller"):
                     pdeg, pang, nrm0, new, nd = pol.mueller_scatter(
-                        mt, rng.event_key(k_cycle, it, 13), ell, stokes,
+                        mt, rng.event_key(k_cycle, it, 13), ell, sk.state,
                         dir_old)
                     scat = alive != 0
                     direction = torch.where(scat[:, None], nd, direction)
 
-            # -- torch-side relaunch (refill) ------------------------------
             fresh = None
-            if refill:
-                with trace.span("launch"):
-                    fresh = (alive == 0) & (bc < K)
-                    kre = rng.event_key(k_cycle, it, 7)
-                    pos_l, dir_l, L_l, _ = stellar_system.launch(kre, ell,
-                                                                 L0)
-                    f3 = fresh[:, None]
-                    pos = torch.where(f3, pos_l, pos)
-                    direction = torch.where(f3, dir_l, direction)
-                    L = torch.where(fresh, L_l, L)
-                    ns = torch.where(fresh, 0, ns)
-                    bc = bc + fresh.to(torch.int32)
-                    alive = alive | fresh.to(torch.int32)
+            if p.refill:
+                fresh, pos, direction, L, ns, bc, alive = relaunch(
+                    stellar_system, rng.event_key(k_cycle, it, 7), p.K, pos,
+                    direction, L, ns, bc, alive, ell, L0)
 
-            # -- merged peel-off: scattered lanes with the phase weight at
-            # the incoming direction, fresh lanes with the (isotropic)
-            # emission weight ---------------------------------------------
             if scattering_peeloff:
                 with trace.span("peel"):
                     alive_b = alive != 0
                     taus0 = staged_taus(pos, kext_pk, alive_b)
-                    tags = {"nscatt": ns, "is_dust": dust}
-                    if mt is not None:
-                        with trace.span("mueller"):
-                            speel = pol.StokesPeel(
-                                partial(mt.lookup, ell), pf, stokes, pdeg,
-                                pang, nrm0, dir_old, fresh)
-                    for i, peel in enumerate(peels):
-                        j = lead_of[i]
-                        kx, ky, kz = (_f32(v) for v in leaders[j])
-                        cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
-                                + dir_old[:, 2] * kz)
-                        tg = tags
-                        if mt is not None:
-                            # the Mueller peel toward the leader, in this
-                            # instrument's frame
-                            with trace.span("mueller"):
-                                w, stk = speel(j, cosj, kobs_lead[j],
-                                               ky_ins[i])
-                            tg = dict(tags, stokes=stk)
-                        else:
-                            w = phase_weight(cosj, wv_h)
-                        if refill:
-                            w = torch.where(fresh, 1.0, w)
-                        con = torch.where(alive_b, L * w, 0.0)
-                        peel(ins[i], pos, ell, con, tg, tau=taus0[j])
-            elif refill and emission_peeloff:
+                    polarized = (sk.peel(partial(mt.lookup, ell), pdeg, pang,
+                                         nrm0, dir_old, fresh)
+                                 if sk is not None else None)
+                    peel_mono(peels, ins, p.lead_of, pos, ell, L, alive_b,
+                              {"nscatt": ns, "is_dust": dust}, taus0,
+                              leader_cosines(dir_old, p.leaders),
+                              phase_weight, fresh, polarized)
+            elif p.refill and emission_peeloff:
                 with trace.span("peel"):
                     emission_peel(pos, torch.where(fresh, L, 0.0), ns,
                                   fresh)
 
-            if mt is not None:
-                with trace.span("mueller"):
-                    stokes = pol.carry_stokes(stokes, new, scat, fresh)
-        if count_events:
-            tallies["nevents"] = tallies.get("nevents", 0.0) + nev
+            if sk is not None:
+                sk.carry(new, scat, fresh)
+        nev.into(tallies)
         return tallies
 
     run_batch.spec = spec

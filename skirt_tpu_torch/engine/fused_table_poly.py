@@ -65,15 +65,16 @@ import torch
 
 from .. import kernels, rng, trace
 from ..media import polarization as pol
-from ..ops import binned_add
+from ..numerics import f32
 from . import vector_traversal as vt
-from .fused import (_CHECK_EVERY, _CUDA_MAXP, _TINY, _expon_cutoff, _f32,
-                    _group_leaders, _hg_costheta, _make_locate, _ptr,
-                    _scatter_direction)
-from .fused_poly import _hg
-from .fused_table import (_check_tensors, _locate_args, _staged_taus_fn,
-                          _uniform_grid, _warn_staged_peel, chunk_rows,
-                          direct_deposits)
+from .common import (EventCount, Stokes, _CUDA_MAXP, _TINY, _check_tensors,
+                     _expon_cutoff, _hg, _hg_costheta, _invert, _locate_args,
+                     _make_locate, _moved, _on_device, _scattered, _set_ptrs,
+                     _uniform_grid, batch_keys, check_shared, chunk_rows,
+                     count_entry_lanes, deposit, emit_poly, events,
+                     lane_columns, leader_cosines, peel_poly, plan, relaunch,
+                     table_peel_mode, uniforms)
+from .fused_table import make_table_peel
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -97,15 +98,6 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
         bail("polarization with launch_fn (dust phases) not supported (dust "
              "re-emission launches unpolarized; use the monochromatic "
              "kernel)")
-    if io_state:
-        bail("io_state not supported")
-    if launch_fn is not None:
-        bail("launch_fn (the dust-emission launch) is not ported yet "
-             "(slice S3)")
-    if options.continuous_scattering:
-        bail("continuous_scattering not supported")
-    if options.store_absorption and options.deposition != "sampled":
-        bail("absorption tallies require deposition='sampled'")
     if getattr(options, "table_peel", "exact") == "taumap":
         bail("table_peel='taumap' is per-wavelength; use 'exact'")
     if nlambda > 128:
@@ -114,11 +106,8 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if polarized and not stellar_system.is_isotropic:
         bail("polarized mode with anisotropic stellar emission is not "
              "supported")
-    if stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
-        bail("requires a single isotropic stellar component")
-    for ins in instruments:
-        if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
-            bail("requires distant (constant-direction) instruments")
+    check_shared(bail, stellar_system, instruments, options, io_state,
+                 launch_fn)
 
 
 def _sum_block(W: int) -> int:
@@ -192,9 +181,9 @@ def _build_kernel(grid, ds, options, W, npanels, want_labs,
     xi = float(options.scatt_bias)
     return TablePolyEventSpec(
         W=int(W), npanels=int(npanels), want_labs=bool(want_labs),
-        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
-        one_m_xi=_f32(1.0 - xi), inv_W=_f32(1.0 / W),
-        inv_minred=_f32(1.0 / options.min_weight_reduction),
+        min_scatt=int(options.min_scatt_events), xi=f32(xi),
+        one_m_xi=f32(1.0 - xi), inv_W=f32(1.0 / W),
+        inv_minred=f32(1.0 / options.min_weight_reduction),
         oc=np.ascontiguousarray(oc), grid=grid,
         arith_locate=bool(arith_locate),
         locate=_make_locate(grid) if arith_locate else None,
@@ -284,20 +273,9 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
         tau_smp = torch.where(u[0] < xi, u[1] * tau_c, tau_exp)
     I_s = tau_smp * kinv_cc
 
-    i_hit = count_below(I_s)
-    h64 = i_hit.long()
-    cum_h = cums_t.gather(0, h64[None])[0]
-    cum_prev = torch.where(
-        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0],
-        0.0)
-    dI_h = cum_h - cum_prev
-    frac = torch.clamp(torch.where(dI_h > 0, (I_s - cum_prev)
-                                   / torch.clamp(dI_h, min=_TINY), 0.0),
-                       0.0, 1.0)
+    i_hit, frac = _invert(cums_t, P, I_s)
     s = t0 + (i_hit.to(torch.float32) + frac) * delta
-    X = torch.where(alive, X + s * DX, X)
-    Y = torch.where(alive, Y + s * DY, Y)
-    Z = torch.where(alive, Z + s * DZ, Z)
+    X, Y, Z = _moved(alive, s, X, Y, Z, DX, DY, DZ)
 
     # -- per-wavelength mixture ratios (arithmetic in I_s) ---------------
     F = kext * torch.exp(-kext * I_s[None]) / torch.clamp(ome, min=_TINY)
@@ -323,11 +301,8 @@ def table_poly_event_plain(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     Ln = torch.where(kill, 0.0, Ln)
     alive = alive & (Ln > 0).any(0) & (I_tot > _TINY)
 
-    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
-    DX = torch.where(alive, nx, DX)
-    DY = torch.where(alive, ny, DY)
-    DZ = torch.where(alive, nz, DZ)
-    nscatt = torch.where(alive, nscatt + 1, nscatt)
+    DX, DY, DZ, nscatt = _scattered(alive, costheta, u[4], DX, DY, DZ,
+                                    nscatt)
 
     out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
     out["Ln"] = torch.where(alive[None], Ln, 0.0)
@@ -368,32 +343,27 @@ def _table_poly_event_cuda(spec, u, r, oc, L, L0, state):
     a.pol = int(spec.want_pol)
     if spec.arith_locate:
         _locate_args(a.geo, spec.grid)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    st_out = [torch.empty(N, **f32) for _ in range(6)] \
-        + [torch.empty(N, **i32) for _ in range(2)]
-    Ln = torch.empty((W, N), **f32)
-    Lp = torch.empty((W, N), **f32)
+    f32_kw = dict(dtype=torch.float32, device=dev)
+    i32_kw = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32_kw) for _ in range(6)] \
+        + [torch.empty(N, **i32_kw) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32_kw)
+    Lp = torch.empty((W, N), **f32_kw)
     out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp}
     depi = depv = depd = None
     if spec.want_labs:
-        depi = out["depi"] = torch.empty(N, **i32)
-        depv = out["depv"] = torch.empty(N, **f32)
+        depi = out["depi"] = torch.empty(N, **i32_kw)
+        depv = out["depv"] = torch.empty(N, **f32_kw)
         if not spec.arith_locate:
-            depd = out["depd"] = torch.empty(N, **f32)
+            depd = out["depd"] = torch.empty(N, **f32_kw)
     Is = It = None
     if spec.want_pol:
-        Is = out["I_s"] = torch.empty(N, **f32)
-        It = out["I_tot"] = torch.empty(N, **f32)
-    for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
-                        "dy", "dz", "alive", "ns", "t0", "dt"),
-                       [u, r, oc, L, L0, *state]):
-        setattr(a, name, _ptr(t))
-    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
-                        "ons", "oLn", "oLp", "odepi", "odepv", "odepd",
-                        "oIs", "oIt"),
-                       [*st_out, Ln, Lp, depi, depv, depd, Is, It]):
-        setattr(a, name, _ptr(t))
+        Is = out["I_s"] = torch.empty(N, **f32_kw)
+        It = out["I_tot"] = torch.empty(N, **f32_kw)
+    _set_ptrs(a, "u r oc L L0 px py pz dx dy dz alive ns t0 dt",
+              [u, r, oc, L, L0, *state])
+    _set_ptrs(a, "opx opy opz odx ody odz oalive ons oLn oLp odepi odepv "
+              "odepd oIs oIt", [*st_out, Ln, Lp, depi, depv, depd, Is, It])
     rows = chunk_rows(P)
     if rows:
         cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
@@ -417,11 +387,8 @@ def table_poly_event(spec: TablePolyEventSpec, u, r, oc, L, L0, state):
     `table_poly_event.launches`, K6d also in
     `table_poly_event.direct_launches` and K6p also in
     `table_poly_event.pol_launches`)."""
-    if u.device.type == "cpu":
-        return table_poly_event_plain(spec, u, r, oc, L, L0, state)
-    if u.device.type != "cuda":
-        raise ValueError(f"table_poly_event: unsupported device {u.device}")
-    return _table_poly_event_cuda(spec, u, r, oc, L, L0, state)
+    return _on_device("table_poly_event", table_poly_event_plain,
+                      _table_poly_event_cuda, spec, u, r, oc, L, L0, state)
 
 
 table_poly_event.launches = 0
@@ -466,9 +433,9 @@ def _build_kernel_multi(grid, ds, options, W, npanels, want_labs):
     xi = float(options.scatt_bias)
     return TablePolyMultiEventSpec(
         W=int(W), npanels=int(npanels), want_labs=bool(want_labs),
-        min_scatt=int(options.min_scatt_events), xi=_f32(xi),
-        one_m_xi=_f32(1.0 - xi), inv_W=_f32(1.0 / W),
-        inv_minred=_f32(1.0 / options.min_weight_reduction),
+        min_scatt=int(options.min_scatt_events), xi=f32(xi),
+        one_m_xi=f32(1.0 - xi), inv_W=f32(1.0 / W),
+        inv_minred=f32(1.0 / options.min_weight_reduction),
         oc=np.ascontiguousarray(oc), grid=grid, locate=_make_locate(grid),
         H=ds.ncomp)
 
@@ -482,22 +449,6 @@ def component_rows(grid, ds, pos, direction, midp):
     safe = torch.clamp(cells, min=0)
     return torch.cat([torch.where(cells >= 0, ds.rho_at(h, safe), 0.0)
                       for h in range(ds.ncomp)], dim=1).T.contiguous()
-
-
-def _invert(cums_t, P, target):
-    """Panel of the driver's cumulative optical depths where target lands
-    and the fraction into it (the Pallas body's invert)."""
-    i_hit = (cums_t[:P - 1] < target[None]).sum(0).to(torch.int32)
-    h64 = i_hit.long()
-    cum_hi = cums_t.gather(0, h64[None])[0]
-    cum_prev = torch.where(
-        i_hit > 0, cums_t.gather(0, torch.clamp(h64 - 1, min=0)[None])[0],
-        0.0)
-    dtau = cum_hi - cum_prev
-    frac = torch.clamp(torch.where(dtau > 0, (target - cum_prev)
-                                   / torch.clamp(dtau, min=_TINY), 0.0),
-                       0.0, 1.0)
-    return i_hit, frac
 
 
 def table_poly_multi_event_plain(spec: TablePolyMultiEventSpec, u, r, oc, L,
@@ -639,14 +590,9 @@ def table_poly_multi_event_plain(spec: TablePolyMultiEventSpec, u, r, oc, L,
     Ln = torch.where(kill, 0.0, Ln)
     alive = alive & (Ln > 0).any(0) & (tau_c > _TINY)
 
-    X = torch.where(alive, X + s * DX, X)
-    Y = torch.where(alive, Y + s * DY, Y)
-    Z = torch.where(alive, Z + s * DZ, Z)
-    nx, ny, nz = _scatter_direction(costheta, u[4], DX, DY, DZ)
-    DX = torch.where(alive, nx, DX)
-    DY = torch.where(alive, ny, DY)
-    DZ = torch.where(alive, nz, DZ)
-    nscatt = torch.where(alive, nscatt + 1, nscatt)
+    X, Y, Z = _moved(alive, s, X, Y, Z, DX, DY, DZ)
+    DX, DY, DZ, nscatt = _scattered(alive, costheta, u[4], DX, DY, DZ,
+                                    nscatt)
     out["state"] = (X, Y, Z, DX, DY, DZ, alive.to(torch.int32), nscatt)
     out["Ln"] = torch.where(alive[None], Ln, 0.0)
     out["Lp"] = torch.where(alive[None], Lp, 0.0)
@@ -685,25 +631,21 @@ def _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state):
     a.inv_W = spec.inv_W
     a.inv_minred = spec.inv_minred
     _locate_args(a.geo, spec.grid)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    st_out = [torch.empty(N, **f32) for _ in range(6)] \
-        + [torch.empty(N, **i32) for _ in range(2)]
-    Ln = torch.empty((W, N), **f32)
-    Lp = torch.empty((W, N), **f32)
+    f32_kw = dict(dtype=torch.float32, device=dev)
+    i32_kw = dict(dtype=torch.int32, device=dev)
+    st_out = [torch.empty(N, **f32_kw) for _ in range(6)] \
+        + [torch.empty(N, **i32_kw) for _ in range(2)]
+    Ln = torch.empty((W, N), **f32_kw)
+    Lp = torch.empty((W, N), **f32_kw)
     out = {"state": tuple(st_out), "Ln": Ln, "Lp": Lp}
     depi = depv = None
     if spec.want_labs:
-        depi = out["depi"] = torch.empty(N, **i32)
-        depv = out["depv"] = torch.empty(N, **f32)
-    for name, t in zip(("u", "r", "oc", "L", "L0", "px", "py", "pz", "dx",
-                        "dy", "dz", "alive", "ns", "t0", "dt"),
-                       [u, r, oc, L, L0, *state]):
-        setattr(a, name, _ptr(t))
-    for name, t in zip(("opx", "opy", "opz", "odx", "ody", "odz", "oalive",
-                        "ons", "oLn", "oLp", "odepi", "odepv"),
-                       [*st_out, Ln, Lp, depi, depv]):
-        setattr(a, name, _ptr(t))
+        depi = out["depi"] = torch.empty(N, **i32_kw)
+        depv = out["depv"] = torch.empty(N, **f32_kw)
+    _set_ptrs(a, "u r oc L L0 px py pz dx dy dz alive ns t0 dt",
+              [u, r, oc, L, L0, *state])
+    _set_ptrs(a, "opx opy opz odx ody odz oalive ons oLn oLp odepi odepv",
+              [*st_out, Ln, Lp, depi, depv])
     chunked, rows = k7_route(P, H)
     if chunked:
         cend = torch.empty((rows, N), dtype=torch.float32, device=dev)
@@ -721,12 +663,10 @@ def table_poly_multi_event(spec: TablePolyMultiEventSpec, u, r, oc, L, L0,
                            state):
     """The K7 event on CPU tensors (plain version) or CUDA tensors (the
     kernel, counted in `table_poly_multi_event.launches`)."""
-    if u.device.type == "cpu":
-        return table_poly_multi_event_plain(spec, u, r, oc, L, L0, state)
-    if u.device.type != "cuda":
-        raise ValueError(f"table_poly_multi_event: unsupported device "
-                         f"{u.device}")
-    return _table_poly_multi_event_cuda(spec, u, r, oc, L, L0, state)
+    return _on_device("table_poly_multi_event",
+                      table_poly_multi_event_plain,
+                      _table_poly_multi_event_cuda, spec, u, r, oc, L, L0,
+                      state)
 
 
 table_poly_multi_event.launches = 0
@@ -748,8 +688,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     device; `ell` is ignored.  A batch covers N * refill_batches * nlambda
     packets.  Labs bins are voxel * nlambda + w.  With options.count_events
     the tallies gain "nevents" (events run: lanes alive at an iteration's
-    start).  The tallies are updated in place and returned; the host reads
-    the stop condition every _CHECK_EVERY iterations.
+    start).  The tallies are updated in place and returned; the event loop
+    and its stop test are common.events'.
 
     Polarized (one component, a Mueller table `mueller`): every lane
     carries per-wavelength Stokes ratios (W, N) and one reference normal
@@ -765,62 +705,32 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     W = int(nlambda)
     _validate(grid, ds, stellar_system, instruments, options, W, mueller,
               io_state, launch_fn)
-    npanels = int(options.quadrature_panels
-                  or getattr(grid, "max_steps", 96))
-    np_peel = int(options.peel_panels or npanels)
-    want_labs = bool(options.store_absorption)
-    leaders, lead_of = _group_leaders(instruments)
-    peel_mode = getattr(options, "table_peel", "exact")
-    arith_locate = _uniform_grid(grid)
-    if peel_mode == "exact" and not arith_locate:
-        _warn_staged_peel(grid)
-        peel_mode = "staged"
-    refill = options.refill_batches > 1
-    K = int(options.refill_batches) if refill else 1
+    p = plan(grid, instruments, options, max_iterations)
+    arith_locate, peel_mode = table_peel_mode(grid, options)
     H = ds.ncomp
     multi = H > 1
     mt = pol.first_table(mueller)
-    pol_mode = mt is not None
     if multi:
-        spec = _build_kernel_multi(grid, ds, options, W, npanels, want_labs)
+        spec = _build_kernel_multi(grid, ds, options, W, p.npanels,
+                                   p.want_labs)
     else:
-        spec = _build_kernel(grid, ds, options, W, npanels, want_labs,
-                             arith_locate, want_pol=pol_mode)
+        spec = _build_kernel(grid, ds, options, W, p.npanels, p.want_labs,
+                             arith_locate, want_pol=mt is not None)
     # one wavelength-independent peel integral per leader (per component
     # with several) serves all W.  With several components the peel is the
     # exact one whatever table_peel says: skirt_tpu's multi branch sets
     # peel_mode = "exact" before it builds its peel
     # (skirt_tpu/engine/fused_table_poly.py:726-740), and the uniform grid
     # it needs is checked in _validate
-    peel_I_fn = _staged_taus_fn(grid, ds, leaders,
-                                "exact" if multi else peel_mode, np_peel,
+    peel_I_fn = make_table_peel(grid, ds, p.leaders,
+                                "exact" if multi else peel_mode, p.np_peel,
                                 getattr(options, "peel_graph", False))
-    iter_cap = int(max_iterations if max_iterations is not None
-                   else options.max_scatt_events) * K
-    count_events = bool(getattr(options, "count_events", False))
 
     def run_batch(key, ell, L0, tallies):
         del ell
         if L0.ndim != 2 or L0.shape[1] != W:
             raise ValueError("polychromatic run_batch needs L0 of shape "
                              f"(N, {W})")
-        with trace.span("launch"):
-            n = L0.shape[0]
-            dev = L0.device
-            k_launch, k_cycle = rng.split(rng.event_key(key, 1))
-            ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
-            ones = torch.ones(n, dtype=torch.float32, device=dev)
-            pos, direction, _, _ = stellar_system.launch(k_launch, ell0, ones)
-            l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
-            L = l0
-            alive = (L > 0).any(0)
-            wls = torch.arange(W, device=dev)
-            oc = torch.as_tensor(spec.oc, device=dev)
-            kext_col = oc[0][:, None]
-            g_col = oc[2][:, None]
-            dust = torch.full((n,), bool(is_dust_emission), device=dev)
-            ins = tallies["instruments"]
-            labs = tallies.get("labs")
 
         def peel_I(pos_p, live):
             """Per leader the raw rho integral (N,), or with several
@@ -830,12 +740,13 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 return peel_I_fn.integrals(pos_p, live)
             return peel_I_fn(pos_p, [ones], live)
 
-        def peel_tau_w(Ii):
-            """Per-wavelength peel optical depths (W, N): kext_w * I, or
-            kext_hw^T @ I_h with several components."""
+        def minus_tau(Ipeel):
+            """minus_tau(j): minus the per-wavelength peel optical depths
+            (W, N) toward leader j, kext_w * I, or kext_hw^T @ I_h with
+            several components."""
             if multi:
-                return torch.matmul(oc[:H].T, Ii)
-            return kext_col * Ii[None]
+                return lambda j: -torch.matmul(oc[:H].T, Ipeel[j])
+            return lambda j: -(kext_col * Ipeel[j][None])
 
         def stage(pos, direction, midp):
             """The raw rho panel rows: (P, N), or with several components
@@ -845,7 +756,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                         want_sca=False).T.contiguous()
             return component_rows(grid, ds, pos, direction, midp)
 
-        def phase_weights(cosj, rho_n_h):
+        def phase_weights(j, cosj):
             """Per-wavelength peel phase weights (W, N) at the incoming
             direction: the mix's HG, or with several components their
             blend by kappa_sca,hw * rho_h at the new position's cell."""
@@ -859,12 +770,26 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             return num / torch.clamp(den, min=1e-30)
 
         def detect_all(pos_p, contrib, Ipeel, ns_p):
-            tags = {"nscatt": ns_p, "is_dust": dust, "transparent": contrib}
-            for i, ins_obj in enumerate(instruments):
-                ext = contrib * torch.exp(-peel_tau_w(Ipeel[lead_of[i]]))
-                ins_obj.detect_poly(ins[i], pos_p, wls, ext, tags)
+            emit_poly(instruments, ins, p.lead_of, pos_p, wls, contrib,
+                      minus_tau(Ipeel), {"nscatt": ns_p, "is_dust": dust})
 
         with trace.span("launch"):
+            n = L0.shape[0]
+            dev = L0.device
+            k_launch, k_cycle = batch_keys(key)
+            ell0 = torch.zeros(n, dtype=torch.int32, device=dev)
+            ones = torch.ones(n, dtype=torch.float32, device=dev)
+            pos, direction, _, _ = stellar_system.launch(k_launch, ell0, ones)
+            l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
+            L = l0
+            alive = (L > 0).any(0)
+            wls = torch.arange(W, device=dev)
+            oc = torch.as_tensor(spec.oc, device=dev)
+            kext_col = oc[0][:, None]
+            g_col = oc[2][:, None]
+            dust = torch.full((n,), bool(is_dust_emission), device=dev)
+            ins = tallies["instruments"]
+            labs = tallies.get("labs")
             ns = torch.zeros(n, dtype=torch.int32, device=dev)
             if emission_peeloff:
                 detect_all(pos, torch.where(alive[None], L, 0.0),
@@ -874,68 +799,42 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             direction = direction.contiguous()
             alive = alive.to(torch.int32)
             bc = torch.ones(n, dtype=torch.int32, device=dev)
-            nev = torch.zeros((), dtype=torch.float32, device=dev)
-            if pol_mode:
-                # per-wavelength normalized Stokes ratios (each wavelength's
-                # Mueller chain differs) and one geometric reference normal
-                # (the rotations are wavelength-free); packets launch
-                # unpolarized, a zero normal meaning no reference yet
-                stokes = (torch.zeros((W, n), device=dev),
-                          torch.zeros((W, n), device=dev),
-                          torch.zeros((W, n), device=dev),
-                          torch.zeros((n, 3), device=dev))
+            nev = EventCount(p.count_events, dev)
+            sk = None
+            if mt is not None:
+                # per-wavelength Stokes ratios (each wavelength's Mueller
+                # chain differs) and one geometric reference normal (the
+                # rotations are wavelength-free)
                 alb_col = oc[1][:, None]
-                pf_col = mt.table("pfnorm", dev)[:, None]
-                kobs_lead = pol.observer_rows(leaders, n, dev)
-                ky_ins = pol.frame_axes(instruments, n, dev)
+                sk = Stokes(mt, p.leaders, instruments, n, dev, W=W)
 
-        for it in range(iter_cap):
-            if it % _CHECK_EVERY == 0:
-                with trace.span("check"):
-                    go = alive.any()
-                    if refill:
-                        go = go | (bc < K).any()
-                    go = bool(go)
-                if not go:
-                    break
+        for it in events(p, lambda: (alive, bc)):
             with trace.span("event"):
-                u = rng.uniform_open(rng.event_key(k_cycle, it),
-                                     (spec.n_uniform, n), dev)
+                u = uniforms(k_cycle, it, spec.n_uniform, n, dev)
                 # -- stage the rho panel rows (the gather) ----------------
                 with trace.span("stage_gather"):
                     dsg, _, midp = vt.panel_paths(grid, pos, direction,
-                                                  npanels)
+                                                  p.npanels)
                     t0 = midp[:, 0] - 0.5 * dsg[:, 0]
                     r = stage(pos, direction, midp)
-                state = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
-                         pos[:, 2].contiguous(), direction[:, 0].contiguous(),
-                         direction[:, 1].contiguous(),
-                         direction[:, 2].contiguous(), alive, ns,
-                         t0.contiguous(), dsg[:, 0].contiguous()]
+                state = lane_columns(pos, direction) + [
+                    alive, ns, t0.contiguous(), dsg[:, 0].contiguous()]
                 event = table_poly_multi_event if multi else table_poly_event
                 out = event(spec, u, r, oc, L, l0, state)
-                if want_labs and labs is not None:
-                    if arith_locate:
-                        binned_add(labs, out["depi"], out["depv"])
-                    else:
-                        binned_add(labs, *direct_deposits(
-                            grid, pos, direction, out["depd"], out["depv"],
-                            out["depi"], W))
-                if count_events:
-                    nev = nev + alive.sum().to(torch.float32)
+                deposit(labs, out, None if arith_locate
+                        else (grid, pos, direction, None, W))
+                nev.add(alive)
                 st = out["state"]
                 dir_old = direction
-                alive_in, ns_in = alive != 0, ns
-                # the kernel's lanes; those that did an event were alive on
-                # entry (this driver relaunches lanes torch-side, below)
-                trace.count_slots(n)
-                trace.count_live(dev, alive_in)
+                if sk is not None:
+                    alive_in, ns_in = alive != 0, ns
+                count_entry_lanes(alive if sk is None else alive_in)
                 pos = torch.stack(st[:3], dim=-1)
                 direction = torch.stack(st[3:6], dim=-1)
                 alive, ns = st[6], st[7]
                 Ln, Lp = out["Ln"], out["Lp"]
 
-            if pol_mode:
+            if sk is not None:
                 with trace.span("mueller"):
                     # -- the Mueller scatter and the polarized reweighting
                     # around the unchanged event: the mixture ratios rebuilt
@@ -963,18 +862,18 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                     # uniform row u[5]
                     c_drv = torch.clamp((u[5] * float(W)).to(torch.int32),
                                         max=W - 1)
-                    pdeg_w, pang_w = pol.polarization_of(*stokes[:2])
+                    pdeg_w, pang_w = pol.polarization_of(*sk.state[:2])
                     cix = c_drv.long()[None]
                     pdeg_c = pdeg_w.gather(0, cix)[0]
                     pang_c = pang_w.gather(0, cix)[0]
                     kpol = rng.event_key(k_cycle, it, 13)
                     nrm0 = pol.reference_normals(rng.fold_in(kpol, 2),
-                                                 stokes[3], dir_old)
+                                                 sk.state[3], dir_old)
                     theta_s = mt.sample_theta(rng.fold_in(kpol, 0), c_drv)
                     phi_s = mt.sample_phi(rng.fold_in(kpol, 1), c_drv, theta_s,
                                           pdeg_c, pang_c)
                     S_s = mt.lookup_all(theta_s)
-                    wpol = pf_col * (S_s[0] + pdeg_w * S_s[1] * torch.cos(
+                    wpol = sk.pf * (S_s[0] + pdeg_w * S_s[1] * torch.cos(
                         2.0 * (phi_s[None] - pang_w)))
                     QHpol = (Q_v * wpol).sum(0) * spec.inv_W
                     Lp = Lab_v * F_v / torch.clamp(Qmix_v[None], min=1e-30)
@@ -986,35 +885,22 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                     gone = kill | (alive == 0)[None]
                     Lp = torch.where(gone, 0.0, Lp)
                     Ln = torch.where(gone, 0.0, Ln)
-                    *new, nd = pol.scatter_stokes(*stokes[:3], S_s, theta_s,
-                                                  phi_s, nrm0, dir_old)
+                    *new, nd = pol.scatter_stokes(*sk.state[:3], S_s,
+                                                  theta_s, phi_s, nrm0,
+                                                  dir_old)
                     scat = alive != 0
                     direction = torch.where(scat[:, None], nd, direction)
 
-            # -- torch-side relaunch (refill) ------------------------------
             fresh = None
-            if refill:
-                with trace.span("launch"):
-                    fresh = (alive == 0) & (bc < K)
-                    kre = rng.event_key(k_cycle, it, 7)
-                    pos_l, dir_l, _, _ = stellar_system.launch(kre, ell0,
-                                                               ones)
-                    f3 = fresh[:, None]
-                    pos = torch.where(f3, pos_l, pos)
-                    direction = torch.where(f3, dir_l, direction)
-                    Ln = torch.where(fresh[None], l0, Ln)
-                    ns = torch.where(fresh, 0, ns)
-                    bc = bc + fresh.to(torch.int32)
-                    alive = alive | fresh.to(torch.int32)
+            if p.refill:
+                fresh, pos, direction, Ln, ns, bc, alive = relaunch(
+                    stellar_system, rng.event_key(k_cycle, it, 7), p.K, pos,
+                    direction, Ln, ns, bc, alive, ell0, ones, l0=l0)
 
-            # -- merged peel-off: scattered lanes use the peel luminosities
-            # and the per-wavelength phase weights at the incoming
-            # direction, fresh lanes the isotropic emission weight --------
             if scattering_peeloff:
                 with trace.span("peel"):
                     alive_b = alive != 0
                     Ipeel = peel_I(pos, alive_b)
-                    rho_n_h = None
                     if multi:
                         # per-component densities at the new position's cell
                         # (one locate and H gathers, shared by every leader)
@@ -1023,45 +909,25 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                         rho_n_h = [torch.where(cell_n >= 0,
                                                ds.rho_at(h, safe_n), 0.0)
                                    for h in range(H)]
-                    if pol_mode:
-                        with trace.span("mueller"):
-                            speel = pol.StokesPeel(
-                                mt.lookup_all, pf_col, stokes, pdeg_w,
-                                pang_w, nrm0, dir_old, fresh)
-                    for i, ins_obj in enumerate(instruments):
-                        j = lead_of[i]
-                        kx, ky, kz = (_f32(v) for v in leaders[j])
-                        cosj = (dir_old[:, 0] * kx + dir_old[:, 1] * ky
-                                + dir_old[:, 2] * kz)
-                        tags = {"nscatt": ns, "is_dust": dust}
-                        if pol_mode:
-                            # the Mueller phase weights at the incoming
-                            # direction (one theta-major row per lane for all
-                            # W) toward the leader, the Stokes ratios in this
-                            # instrument's frame
-                            with trace.span("mueller"):
-                                pw, tags["stokes"] = speel(
-                                    j, cosj, kobs_lead[j], ky_ins[i])
-                        else:
-                            pw = phase_weights(cosj, rho_n_h)
-                        cw = Lp * pw
-                        if refill:
-                            cw = torch.where(fresh[None], Ln, cw)
-                        cw = torch.where(alive_b[None], cw, 0.0)
-                        ext = cw * torch.exp(-peel_tau_w(Ipeel[j]))
-                        tags["transparent"] = cw
-                        ins_obj.detect_poly(ins[i], pos, wls, ext, tags)
-            elif refill and emission_peeloff:
+                    # the Mueller phase weights at the incoming direction
+                    # (one theta-major row per lane for all W)
+                    polarized = (sk.peel(mt.lookup_all, pdeg_w, pang_w, nrm0,
+                                         dir_old, fresh)
+                                 if sk is not None else None)
+                    peel_poly(instruments, ins, p.lead_of, pos, wls, Lp, Ln,
+                              alive_b, {"nscatt": ns, "is_dust": dust},
+                              minus_tau(Ipeel),
+                              leader_cosines(dir_old, p.leaders),
+                              phase_weights, fresh, polarized)
+            elif p.refill and emission_peeloff:
                 with trace.span("peel"):
                     detect_all(pos, torch.where(fresh[None], Ln, 0.0),
                                peel_I(pos, fresh), ns)
 
-            if pol_mode:
-                with trace.span("mueller"):
-                    stokes = pol.carry_stokes(stokes, new, scat, fresh)
+            if sk is not None:
+                sk.carry(new, scat, fresh)
             L = Ln.contiguous()
-        if count_events:
-            tallies["nevents"] = tallies.get("nevents", 0.0) + nev
+        nev.into(tallies)
         return tallies
 
     run_batch.spec = spec

@@ -14,11 +14,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-import torch
-
 from .. import rng
 from ..media import polarization as pol
-from .fused import _hg_costheta
+from .common import _hg_costheta
+# skirt_tpu's lifecycle.make_peel_off, shared by the fused drivers
+from .common import make_peel_off  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -103,38 +103,6 @@ def make_lifecycle_with_fallback(*args, log=None, **kwargs):
         except ValueError as e2:
             raise ValueError(f"{e2} [the fused engine refused first: {e}]"
                              ) from e
-
-
-def make_peel_off(grid, dust_system, instrument, rho_path_map=None):
-    """Returns peel(tallies, pos, ell, contribution, tags, tau=...) that
-    applies the extinction exp(-tau) toward the instrument and detects.
-
-    Ported: the shared-tau branch (the fused drivers compute tau once per
-    observer direction) and the run without dust.  The fast-peeloff map
-    (rho_path_map) and the grid-traversal optical depth belong to the
-    general lifecycle and raise, naming slice S2b."""
-    if rho_path_map is not None:
-        raise ValueError("make_peel_off: the fast-peeloff density-path maps "
-                         "(compute_rho_path_maps) are not ported yet "
-                         "(slice S2b)")
-    if hasattr(instrument, "observer_distance"):
-        raise ValueError("make_peel_off: perspective instruments are not "
-                         "ported yet (slice S6)")
-
-    def peel(tallies, pos, ell, contribution, tags, active=None, cell=None,
-             tau=None, kapparho=None):
-        if tau is not None:
-            extincted = contribution * torch.exp(-tau)
-        elif dust_system is None:
-            extincted = contribution
-        else:
-            raise ValueError("make_peel_off: the peel-off optical depth by "
-                             "grid traversal is not ported yet (slice S2b)")
-        if tags is not None:
-            tags = dict(tags, transparent=contribution)
-        return instrument.detect(tallies, pos, ell, extincted, tags)
-
-    return peel
 
 
 def make_lifecycle(grid, dust_system, stellar_system, instruments,

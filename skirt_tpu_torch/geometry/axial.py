@@ -12,7 +12,8 @@ import torch
 
 from .. import rng
 from ..devices import resolve
-from .base import AxGeometry, _f32, build_inverse_cdf
+from ..numerics import f32
+from .base import AxGeometry, build_inverse_cdf
 
 
 class ExpDiskGeometry(AxGeometry):
@@ -70,11 +71,11 @@ class ExpDiskGeometry(AxGeometry):
         absz = torch.abs(z)
         inv_hR, inv_hz = self._inv_scales()
         shape = torch.exp(-R * inv_hR - absz * inv_hz)
-        inside = R >= _f32(self.Rmin)
+        inside = R >= f32(self.Rmin)
         if self.Rmax > 0:
-            inside &= R <= _f32(self.Rmax)
+            inside &= R <= f32(self.Rmax)
         if self.zmax > 0:
-            inside &= absz <= _f32(self.zmax)
+            inside &= absz <= f32(self.zmax)
         return torch.where(inside, shape, 0.0)
 
     def generate_position(self, key: int, n: int, device="cuda"):
@@ -95,8 +96,8 @@ class ExpDiskGeometry(AxGeometry):
         return self.cylindrical_to_cartesian(k3, R, z)
 
     def _sampler_consts(self):
-        return (_f32(self.hR), _f32(self.hz),
-                _f32(-np.expm1(-self._zcut / self.hz)))
+        return (f32(self.hR), f32(self.hz),
+                f32(-np.expm1(-self._zcut / self.hz)))
 
     def device_sampler_xyz(self):
         """Closed-form (gather-free) sampler: Gamma(2) radius + truncated
@@ -112,16 +113,16 @@ class ExpDiskGeometry(AxGeometry):
             absz = -hz * torch.log(torch.clamp(
                 1.0 - torch.abs(2.0 * uz - 1.0) * cut, min=1e-37))
             z = torch.where(uz < 0.5, -absz, absz)
-            phi = _f32(2.0 * np.pi) * uphi
+            phi = f32(2.0 * np.pi) * uphi
             return R * torch.cos(phi), R * torch.sin(phi), z
 
         return 4, fn
 
     def cuda_density(self, lscale: float):
-        return ("expdisk", [_f32(float(self.rho0) * lscale ** 3),
-                            _f32(lscale), *self._inv_scales(),
-                            _f32(self.Rmin), _f32(self.Rmax),
-                            _f32(self.zmax)])
+        return ("expdisk", [f32(float(self.rho0) * lscale ** 3),
+                            f32(lscale), *self._inv_scales(),
+                            f32(self.Rmin), f32(self.Rmax),
+                            f32(self.zmax)])
 
     def cuda_sampler(self):
         if self.device_sampler_xyz() is None:

@@ -17,12 +17,7 @@ import numpy as np
 import torch
 
 from .. import rng
-
-
-def _f32(v) -> float:
-    """A constant rounded to float32, as a Python float: torch applies a
-    Python scalar to a float32 tensor in float32, like JAX's weak types."""
-    return float(np.float32(v))
+from ..numerics import f32
 
 
 class InverseCdf:
@@ -154,10 +149,10 @@ class AxGeometry(Geometry):
         (rho/rho0 as O(1) float32-safe math in R, z [m])."""
         if not hasattr(self, "shape_rz"):
             return Geometry.density_scaled_xyz(self, x_s, y_s, z_s, lscale)
-        L = _f32(lscale)
+        L = f32(lscale)
         R = torch.sqrt(x_s * x_s + y_s * y_s) * L
         z = z_s * L
-        pref = _f32(float(self.rho0) * lscale ** 3)
+        pref = f32(float(self.rho0) * lscale ** 3)
         return pref * self.shape_rz(R, z)
 
     @staticmethod

@@ -12,7 +12,8 @@ import torch
 
 from ..devices import resolve
 from .. import rng
-from .base import Geometry, _f32
+from ..numerics import f32
+from .base import Geometry
 
 
 class PointGeometry(Geometry):
@@ -66,8 +67,8 @@ class UniformSphereGeometry(Geometry):
 
     def density_scaled_xyz(self, x_s, y_s, z_s, lscale: float):
         r_s = torch.sqrt(x_s * x_s + y_s * y_s + z_s * z_s)
-        pref = _f32(lscale ** 3 / self.volume)
-        return torch.where(r_s * _f32(lscale) <= _f32(self.rmax), pref, 0.0)
+        pref = f32(lscale ** 3 / self.volume)
+        return torch.where(r_s * f32(lscale) <= f32(self.rmax), pref, 0.0)
 
     def generate_position(self, key: int, n: int, device="cuda"):
         device = resolve(device)
@@ -80,14 +81,14 @@ class UniformSphereGeometry(Geometry):
     def device_sampler_xyz(self):
         """Gather-free sampler: r = rmax u^(1/3), an isotropic direction
         from (cos theta, phi)."""
-        rmax = _f32(self.rmax)
+        rmax = f32(self.rmax)
 
         def fn(u):
             u1, u2, u3 = u
             r = rmax * torch.pow(u1, 1.0 / 3.0)
             ct = 1.0 - 2.0 * u2
             st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
-            phi = _f32(2.0 * np.pi) * u3
+            phi = f32(2.0 * np.pi) * u3
             return r * st * torch.cos(phi), r * st * torch.sin(phi), r * ct
 
         return 3, fn

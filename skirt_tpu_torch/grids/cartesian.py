@@ -13,11 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..numerics import f32
+
 _BIG = 3.4e38
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
 
 
 class CartesianGrid:
@@ -144,8 +142,8 @@ class CartesianGrid:
             return self.locate(points)
         idx = []
         for axis, n in enumerate((self.nx, self.ny, self.nz)):
-            rel = ((points[..., axis] - _f32(self._lo[axis]))
-                   * _f32(1.0 / self._dx[axis]))
+            rel = ((points[..., axis] - f32(self._lo[axis]))
+                   * f32(1.0 / self._dx[axis]))
             i = torch.floor(rel).to(torch.int32)
             idx.append(torch.where((i >= 0) & (i < n), i, -1))
         ix, iy, iz = idx

@@ -39,6 +39,7 @@ import torch
 from scipy.spatial import Voronoi, cKDTree
 
 from .. import trace
+from ..numerics import f32
 
 _BIG = 3.4e38
 
@@ -48,10 +49,6 @@ _BIG = 3.4e38
 # time at 64 MB, 24.2 at 256 MB, 23.0 at 512 MB (1.5 GiB peak) and 22.4 at
 # 1 GB (2.7 GiB peak)
 _LOCATE_CHUNK_FLOATS = {"cuda": 1 << 27, "cpu": 1 << 18}
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
 
 
 class VoronoiGrid:
@@ -392,7 +389,7 @@ class VoronoiGrid:
     # -- device-side -------------------------------------------------------
 
     def _scaled(self, pos):
-        return pos * _f32(1.0 / self.scale)
+        return pos * f32(1.0 / self.scale)
 
     def nearest_site(self, p_scaled):
         """Nearest site index (int32) for scaled points (..., 3): exact, by

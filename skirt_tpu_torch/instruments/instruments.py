@@ -33,14 +33,11 @@ import torch
 from .. import trace
 from ..devices import resolve
 from ..fits import write_fits
+from ..numerics import f32
 from ..ops import bin_sum_add, binned_add
 
 if TYPE_CHECKING:
     from ..units import Units
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
 
 
 class DistantInstrument:
@@ -90,10 +87,10 @@ class DistantInstrument:
         so pixel edges agree bit for bit.  ref: pixelondetector."""
         ct, st, cp, sp, cpa, spa = self._trig
         x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
-        xpp = _f32(-sp) * x + _f32(cp) * y
-        ypp = _f32(-cp * ct) * x - _f32(sp * ct) * y + _f32(st) * z
-        xp = _f32(cpa) * xpp - _f32(spa) * ypp
-        yp = _f32(spa) * xpp + _f32(cpa) * ypp
+        xpp = f32(-sp) * x + f32(cp) * y
+        ypp = f32(-cp * ct) * x - f32(sp * ct) * y + f32(st) * z
+        xp = f32(cpa) * xpp - f32(spa) * ypp
+        yp = f32(spa) * xpp + f32(cpa) * ypp
         return xp, yp
 
 
@@ -145,8 +142,8 @@ class FrameInstrument(DistantInstrument):
         """Flat pixel index (iy * nx + ix), -1 outside the frame: floor of
         the float32 projection, as in skirt_tpu."""
         xp, yp = self.project(pos)
-        i = torch.floor((xp - _f32(self.xmin)) / _f32(self.psize_x)).to(torch.int32)
-        j = torch.floor((yp - _f32(self.ymin)) / _f32(self.psize_y)).to(torch.int32)
+        i = torch.floor((xp - f32(self.xmin)) / f32(self.psize_x)).to(torch.int32)
+        j = torch.floor((yp - f32(self.ymin)) / f32(self.psize_y)).to(torch.int32)
         ok = (i >= 0) & (i < self.nx) & (j >= 0) & (j < self.ny)
         return torch.where(ok, i + self.nx * j, -1)
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..numerics import f32
 
 # floats of a leader's row (csrc/exact_peel.cu ROW): 0-2 the axes a, b, c;
 # 3-5 the float32 components along them; 6-8 the float32 direction (the
@@ -28,10 +29,6 @@ from .. import kernels
 # (`Crossings`, the step written twice: the first crossing's coefficient
 # and the step); 25-27 lo_a, dx_a and 1 / dx_a; 28-31 unused
 ROW = 32
-
-
-def _f32(v) -> float:
-    return float(np.float32(v))
 
 
 class Crossings(NamedTuple):
@@ -47,8 +44,8 @@ class Crossings(NamedTuple):
 def crossings(k, lo, dx) -> Crossings:
     active = abs(k) >= 1e-12
     step = np.float32(abs(dx / k)) if active else np.float32(0.0)
-    return Crossings(active, bool(active and k > 0), _f32(lo), _f32(1.0 / dx),
-                     float(step), _f32(float(1e-6 * step)))
+    return Crossings(active, bool(active and k > 0), f32(lo), f32(1.0 / dx),
+                     float(step), f32(float(1e-6 * step)))
 
 
 class Leader(NamedTuple):
@@ -80,11 +77,11 @@ def leader(kvec, lo, dx, nxyz) -> Leader:
     cb = int(np.floor(Dk * abs(k[b]) / dx[b])) + 1
     cc = int(np.floor(Dk * abs(k[c]) / dx[c])) + 1
     Kp = min(cb + cc + 1, nxyz[b] + nxyz[c] + 1)
-    return Leader(k, a, b, c, tuple(_f32(v) for v in k),
-                  _f32(1.0 / max(abs(k[a]), 1e-12)), Kp,
+    return Leader(k, a, b, c, tuple(f32(v) for v in k),
+                  f32(1.0 / max(abs(k[a]), 1e-12)), Kp,
                   (crossings(float(k[b]), lo[b], dx[b]),
                    crossings(float(k[c]), lo[c], dx[c])),
-                  _f32(lo[a]), _f32(dx[a]))
+                  f32(lo[a]), f32(dx[a]))
 
 
 def leader_row(ld: Leader) -> list:
@@ -95,7 +92,7 @@ def leader_row(ld: Leader) -> list:
     for s in ld.lat:
         row += [float(s.active), float(s.positive), s.lo, s.inv, s.step,
                 s.step, s.thr]
-    row += [ld.lo_a, ld.dx_a, _f32(1.0 / ld.dx_a)]
+    row += [ld.lo_a, ld.dx_a, f32(1.0 / ld.dx_a)]
     return row + [0.0] * (ROW - len(row))
 
 

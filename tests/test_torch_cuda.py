@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from skirt_tpu_torch import kernels
+from skirt_tpu_torch.engine import common as tcm
 from skirt_tpu_torch.engine import fused as tfm
 from skirt_tpu_torch.engine import fused_poly as tfp
 from skirt_tpu_torch.engine import fused_table as tft
@@ -199,7 +200,7 @@ def test_table_locate_args_pack_the_grid():
     run, *_, model = _table_model()
     grid = model[0]
     a = kernels.Geom()
-    tft._locate_args(a, grid)
+    tcm._locate_args(a, grid)
     assert (a.nx, a.ny, a.nz) == (16, 16, 16)
     for i in range(3):
         assert a.loc_lo[i] == np.float32(grid._lo[i])

@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from skirt_tpu.engine import fused as jfused
 from skirt_tpu_torch.convert import from_skirt_tpu
+from skirt_tpu_torch.engine import common as tcm
 from skirt_tpu_torch.engine import fused as tfused
 from skirt_tpu_torch.testing import event_agreement, mono_event_inputs
 
@@ -196,7 +197,7 @@ def jax_event(model, nlambda, refill, inputs):
 
 def torch_event(model, nlambda, refill, inputs):
     grid, ds, ss, ins, options = from_skirt_tpu(*model)
-    leaders, _ = tfused._group_leaders(ins)
+    leaders, _ = tcm._group_leaders(ins)
     spec = tfused._build_kernel(
         grid, ds, leaders, options.quadrature_panels, options.peel_panels,
         options, nlambda,
@@ -244,7 +245,7 @@ def test_event_matches_pallas(case):
     model = jax_model(nlambda, source, K_refill=K if refill else 0,
                       ncomp=ncomp, min_weight_reduction=4.0,
                       min_scatt_events=1, **extra)
-    assert len(tfused._group_leaders(model[3])[0]) == extra.get("nlead", 2)
+    assert len(tcm._group_leaders(model[3])[0]) == extra.get("nlead", 2)
     nu = 4 if source == "expdisk" else 1
     n_uniform = 5 + (nu + 2 if refill else 0) + (1 if ncomp > 1 else 0)
     inputs = mono_event_inputs(R * 128, nlambda, n_uniform,

@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 from skirt_tpu.engine import fused_poly as jfp
 from skirt_tpu.engine.fused import _group_leaders as j_group_leaders
 from skirt_tpu_torch.convert import from_skirt_tpu
+from skirt_tpu_torch.engine import common as tcm
 from skirt_tpu_torch.engine import fused_poly as tfp
 from skirt_tpu_torch.testing import event_agreement, event_inputs
 
@@ -180,7 +181,7 @@ def compare(jres, tres):
 
 def _torch_event(model, W, refill, inputs):
     grid, ds, ss, ins, options = from_skirt_tpu(*model)
-    leaders, _ = tfp._group_leaders(ins)
+    leaders, _ = tcm._group_leaders(ins)
     spec = tfp._build_kernel(grid, ds, leaders, options.quadrature_panels,
                              options.peel_panels, options, W,
                              bool(options.store_absorption), True,

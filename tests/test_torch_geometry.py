@@ -16,7 +16,7 @@ from skirt_tpu import rng as jrng
 from skirt_tpu.constants import KPC
 from skirt_tpu_torch import geometry as tgeom
 from skirt_tpu_torch import rng
-from skirt_tpu_torch.engine import fused as tfused
+from skirt_tpu_torch.engine import common as tcm
 
 torch.set_num_threads(2)
 
@@ -150,18 +150,18 @@ def test_locate_and_span_match_reference():
     d[0, :50] = 0.0
     d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
     want = np.asarray(jfused._make_locate(jg)(*[jnp.asarray(x) for x in p]))
-    got = tfused._make_locate(tg)(*[torch.from_numpy(x) for x in p]).numpy()
+    got = tcm._make_locate(tg)(*[torch.from_numpy(x) for x in p]).numpy()
     np.testing.assert_array_equal(got, want)
     sj = jfused._make_span(jg.bounding_box())(
         *[jnp.asarray(x) for x in (*p, *d)])
-    st = tfused._make_span(tg.bounding_box())(
+    st = tcm._make_span(tg.bounding_box())(
         *[torch.from_numpy(x) for x in (*p, *d)])
     for a, b_ in zip(st, sj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-6)
     kvec = (0.3, 0.0, -0.9539392014169456)
     sj = jfused._make_span(jg.bounding_box())(
         *[jnp.asarray(x) for x in p], *kvec, const_d=True)
-    st = tfused._make_span(tg.bounding_box())(
+    st = tcm._make_span(tg.bounding_box())(
         *[torch.from_numpy(x) for x in p], *kvec, const_d=True)
     for a, b_ in zip(st, sj):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
@@ -180,7 +180,7 @@ def test_expon_cutoff_forms():
     # rounding of numbers near 1 (~6e-8), one ulp of which moves a small
     # sample by that much: hence its atol
     pairs = ((jrng.expon_cutoff, rng.expon_cutoff, 0.0),
-             (j_kernel_form, tfused._expon_cutoff, 2e-7))
+             (j_kernel_form, tcm._expon_cutoff, 2e-7))
     for jf, tf, atol in pairs:
         want = np.asarray(jf(jnp.asarray(u), jnp.asarray(tau)))
         got = tf(torch.from_numpy(u), torch.from_numpy(tau)).numpy()

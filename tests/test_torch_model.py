@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from skirt_tpu.engine import fused_poly as jfp
 from skirt_tpu.engine.fused import _group_leaders as j_group_leaders
 from skirt_tpu_torch.convert import from_skirt_tpu
+from skirt_tpu_torch.engine import common as tcm
 from skirt_tpu_torch.engine import fused_poly as tfp
 
 torch.set_num_threads(2)
@@ -106,7 +107,7 @@ def test_port_constructors_reproduce_discretisation(models):
 def test_event_constants_exact(models):
     (jgrid, jds, jss, jins, jopt), (grid, ds, ss, ins, opt) = models
     jleaders, jlead_of = j_group_leaders(jins)
-    leaders, lead_of = tfp._group_leaders(ins)
+    leaders, lead_of = tcm._group_leaders(ins)
     assert leaders == jleaders and lead_of == jlead_of
     _, _, oc_np, kextm_w, g_w = jfp._build_kernel(
         jgrid, jds, jleaders, 8, 4, jopt, W, True, True,

@@ -38,14 +38,30 @@ def tracing_off():
     trace.take()
 
 
-def _simulation(tmp_path, poly, seed=11):
-    from bench_torch import _model
+# the drivers a small OligoSimulation reaches: (poly lanes, table engine)
+ENGINES = {"poly": (True, False), "mono": (False, False),
+           "K6": (True, True), "K4": (False, True)}
+
+
+def _simulation(tmp_path, engine, seed=11):
+    import dataclasses
+
+    from bench_torch import _model, _octree_model
     from skirt_tpu_torch.engine.simulation import OligoSimulation
     from skirt_tpu_torch.log import SilentLog
 
-    grid, ds, ss, ins, opts = _model(
-        nlambda=4, ncells=8, refill_batches=4, quadrature_panels=8,
-        peel_panels=4, max_scatt=16, polychromatic=poly)
+    poly, table = ENGINES[engine]
+    if table:
+        # the octree torus through its exact voxel view (K6 or K4, the
+        # exact peel), as OligoSimulation(voxelize="table") builds it
+        _, ds, ss, ins, opts, _ = _octree_model(
+            nlambda=4, polychromatic=poly, refill_batches=4, max_level=3,
+            quadrature_panels=8, peel_panels=8, voxelize=False)
+        opts = dataclasses.replace(opts, max_scatt_events=16)
+    else:
+        _, ds, ss, ins, opts = _model(
+            nlambda=4, ncells=8, refill_batches=4, quadrature_panels=8,
+            peel_panels=4, max_scatt=16, polychromatic=poly)
     # 3 batches of 256 poly lanes (1,024 mono lanes), K = 4: one grouped
     # dispatch of 2, then a ragged batch of half the lanes alone
     return OligoSimulation(
@@ -119,9 +135,10 @@ def _ancestors(spans, i):
     return out
 
 
-@pytest.mark.parametrize("poly", [True, False], ids=["poly", "mono"])
-def test_simulation_spans_nest_as_the_stages(tmp_path, poly):
-    sim = _simulation(tmp_path, poly)
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_simulation_spans_nest_as_the_stages(tmp_path, engine):
+    poly, table = ENGINES[engine]
+    sim = _simulation(tmp_path, engine)
     assert sim._poly is poly
     trace.enable(True)
     sim.run()
@@ -130,10 +147,14 @@ def test_simulation_spans_nest_as_the_stages(tmp_path, poly):
     spans = got["spans"]
     names = {s[0] for s in spans}
     assert names == {"run", "dispatch", "drain", "write", "launch", "check",
-                     "event", "peel", "detect"}
+                     "event", "peel", "detect"} | (
+                         {"stage_gather", "exact_peel"} if table else set())
     assert sum(s[0] == "run" for s in spans) == 1
     assert sum(s[0] == "dispatch" for s in spans) == 2    # 2 + 1 batches
-    assert sum(s[0] == "launch" for s in spans) == 3
+    # one launch a batch, and the table drivers' relaunch each event
+    events = sum(s[0] == "event" for s in spans)
+    assert sum(s[0] == "launch" for s in spans) == 3 + (events if table
+                                                        else 0)
     for i, (name, start, end, parent) in enumerate(spans):
         up = _ancestors(spans, i)
         assert start <= end
@@ -145,9 +166,11 @@ def test_simulation_spans_nest_as_the_stages(tmp_path, poly):
             assert up == ["run"], (name, up)
         elif name in ("launch", "check", "event", "peel"):
             assert up == ["dispatch", "run"], (name, up)
-        elif name == "detect":
+        elif name in ("detect", "exact_peel"):
             assert up[0] in ("peel", "launch") and up[1:] == [
                 "dispatch", "run"], up
+        elif name == "stage_gather":
+            assert up == ["event", "dispatch", "run"], up
     # every event launch counted its lanes (the first dispatch's full
     # batches, then the ragged one), live ones among them
     first = [i for i, s in enumerate(spans) if s[0] == "dispatch"][0]
@@ -159,11 +182,11 @@ def test_simulation_spans_nest_as_the_stages(tmp_path, poly):
     assert 0 < c["live_lanes"] <= c["lane_slots"]
 
 
-@pytest.mark.parametrize("poly", [True, False], ids=["poly", "mono"])
-def test_tallies_bit_identical_with_tracing_on_and_off(tmp_path, poly):
-    off = _simulation(tmp_path / "off", poly).run()
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_tallies_bit_identical_with_tracing_on_and_off(tmp_path, engine):
+    off = _simulation(tmp_path / "off", engine).run()
     trace.enable(True)
-    on = _simulation(tmp_path / "on", poly).run()
+    on = _simulation(tmp_path / "on", engine).run()
     trace.enable(False)
     assert trace.take()["counters"]["live_lanes"] > 0
     for a, b in zip(off["instruments"], on["instruments"]):
@@ -171,6 +194,44 @@ def test_tallies_bit_identical_with_tracing_on_and_off(tmp_path, poly):
         for k in a:
             assert np.array_equal(a[k], b[k]), k
     assert np.array_equal(off["labs"], on["labs"])
+
+
+@pytest.mark.parametrize("case", ["refill", "no-refill", "iter_cap"])
+def test_event_loop_reads_its_stop_test_every_16_iterations(case):
+    """engine/common.events, the four drivers' loop: the host reads the
+    stop test in a `check` span at iterations 0, 16, 32, ...; the loop
+    ends at the first check that finds no lane alive and (with refill) no
+    lane with launches left under K, or after iter_cap iterations."""
+    from skirt_tpu_torch.engine import common
+
+    refill = case == "refill"
+    cap = 40 if case == "iter_cap" else 1000
+    p = common.Plan(npanels=8, np_peel=8, want_labs=False, leaders=[],
+                    lead_of=[], refill=refill, K=3, iter_cap=cap,
+                    count_events=False)
+    alive = torch.ones(4, dtype=torch.int32)
+    bc = torch.ones(4, dtype=torch.int32)
+    seen, checks = [], []
+
+    def lanes():
+        checks.append(len(seen))
+        return alive, bc
+
+    trace.enable(True)
+    for it in common.events(p, lanes):
+        seen.append(it)
+        if it == 37 and case != "iter_cap":
+            alive[:] = 0                  # every lane dies in iteration 37
+        if it == 50:
+            bc[:] = 3                     # the last launch budget is spent
+    trace.enable(False)
+    spans = trace.take()["spans"]
+    # no lane alive at 48; with refill budget is left until iteration 50
+    last = {"refill": 64, "no-refill": 48, "iter_cap": 40}[case]
+    assert seen == list(range(last))
+    assert checks == list(range(0, last if case == "iter_cap" else last + 1,
+                                16))
+    assert [s[0] for s in spans] == ["check"] * len(checks)
 
 
 def _poly_case(device, refill=True, n=1000, panels=8):
