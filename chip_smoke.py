@@ -4,9 +4,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py k2 bin_sum exact_peel k1 k3 k4 k4d k5 k6 k6d k6p
-k7 chunked` runs phases 1-2 and then only the named kernel phases (k1
-phase 4, k2 phase 3, bin_sum phase 3b, exact_peel phase 3c,
+`python3 chip_smoke.py k2 bin_sum exact_peel peel_sed k1 k3 k4 k4d k5 k6
+k6d k6p k7 chunked` runs phases 1-2 and then only the named kernel phases
+(k1 phase 4, k2 phase 3, bin_sum phase 3b, exact_peel phase 3c, peel_sed
+phase 3d,
 k3 phase 5, k4 phase 6, k5 phase 7, k6 phase 8, k7 phase 9, k4d phase 10,
 k6d phase 11, k6p phase 12, chunked phase 12b, each on the models main
 builds for it, built once per run), and prints their
@@ -45,6 +46,15 @@ exits non-zero without printing a result):
      bitwise repeat of two launches, kernel / plain / bound ms (4 B a
      crossed voxel a component and 16 B a ray, from exact_peel_work) and
      the launches
+  3d. the SED peel's kernel PS (ops.peel_sed.peel_sed_add,
+     csrc/peel_sed.cu) vs its plain version on the card at torus-poly24's
+     shapes (ten SKIRTOR leaders from the lanes' directions, W = 24, 2^15
+     lanes) and disc-poly128's SED (one leader from (L, N) cosines,
+     W = 128, 2^17 lanes), fresh and dead lanes: the largest relative
+     tally error, the bitwise repeat of two launches, kernel / plain /
+     bound ms (the reads over 3.35 TB/s, or an exp and an rsqrt a term on
+     the MUFU lanes) and the launches; the main paths count PS's launches
+     and fail where a poly path with an SED never launched it
   4. K1 poly_event kernel vs its plain version on identical inputs at the
      polychromatic path's shapes (N = 32,768 lanes, W = 128, 32/8 panels,
      2 leaders, refill K = 128 from the ExpDisk sampler), chained over six
@@ -685,6 +695,87 @@ def phase_exact_peel(torch, results):
                      "times": times}
 
 
+def phase_peel_sed(torch, results):
+    """The SED peel's kernel (ops.peel_sed.peel_sed_add,
+    csrc/peel_sed.cu) against its plain version on the card at
+    torus-poly24's shapes (ten SKIRTOR leaders from the lanes'
+    directions, W = 24, 2^15 lanes) and disc-poly128's SED (one leader
+    from (L, N) cosines, W = 128, 2^17 lanes), a fifth of the lanes dead
+    and a fifth fresh: the largest relative tally error (within 1e-5:
+    both sum in float32, in other orders), the bitwise repeat of two
+    launches, kernel / plain / bound ms (Lp, Ln, I, the cosines or
+    directions and the flags read once over 3.35 TB/s, or an exp and an
+    rsqrt a (leader, wavelength, lane) term over the MUFU lanes' 4.18
+    T/s) and the launches."""
+    from skirt_tpu_torch.experiments.common import MUFU_OPS_PER_S
+    from skirt_tpu_torch.ops import binned, peel_sed
+
+    skirtor = [(np.sin(i), 0.0, np.cos(i))
+               for i in np.deg2rad(np.arange(0, 91, 10))]
+    shapes = {"torus-poly24": (10, 24, 1 << 15, "directions"),
+              "disc-poly128 SED": (1, 128, 1 << 17, "rows")}
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    times, worst, launches = {}, 0.0, 0
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    for name, (L, W, N, form) in shapes.items():
+        d = torch.randn((N, 3), generator=gen, device="cuda")
+        d /= d.norm(dim=1, keepdim=True)
+        cos = peel_sed.LeaderCosines(d, skirtor[:L])
+        if form == "rows":
+            cos = torch.stack([cos(j) for j in range(L)])
+        args = (list(range(L)), peel_sed.wavelengths(W, "cuda"),
+                1e30 * rand(W, N), 1e30 * rand(W, N), rand(N) >= 0.2,
+                rand(N) < 0.2, 1.3 * rand(W) - 0.4, -0.05 - 3.0 * rand(W),
+                2.0 * rand(L, N), cos)
+
+        def kernel(tal):
+            return peel_sed.peel_sed_add(tal, *args)
+
+        def plain(tal):
+            return peel_sed.peel_sed_plain(tal, *args)
+
+        def zeros():
+            return [torch.zeros(W, device="cuda") for _ in range(L)]
+
+        before = peel_sed.peel_sed_add.launches
+        got = [kernel(zeros()) for _ in range(2)]
+        launches += peel_sed.peel_sed_add.launches - before
+        want = zeros()
+        plain(want)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(*got))
+        err = max(float(((a.double() - b.double()).abs()
+                         / b.double().abs()).max())
+                  for a, b in zip(got[0], want))
+        if not repeat or err > 1e-5:
+            raise AssertionError(f"peel_sed {name}: bitwise repeat "
+                                 f"{repeat}, max_rel_err {err:.3e}")
+        worst = max(worst, err)
+        tal = zeros()
+        ms = cuda_ms(lambda: kernel(tal))
+        plain_ms = cuda_ms(lambda: plain(tal), reps=5)
+        nbyte = (8 * W * N + 4 * L * N + 2 * N
+                 + (12 * N if form == "directions" else 4 * L * N))
+        bnd = bound(nbyte, 2 * L * W * N, MUFU_OPS_PER_S)
+        times[name] = (ms, plain_ms, bnd)
+        plan = peel_sed.peel_sed_plan(N, W, L,
+                                      binned.device_limits("cuda")[1])
+        log(f"  peel_sed {name}: {L} leaders ({form}) x W={W} x {N} lanes, "
+            f"{plan}, max_rel_err {err:.3e}, bitwise repeat {repeat}, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}: {nbyte / 1e6:.2f} MB, "
+            f"{2 * L * W * N / 1e6:.2f}M MUFU operations), "
+            f"{bnd[0] / ms:.1%} of it")
+    main = times["torus-poly24"]
+    results["PS"] = {"max_abs_err": worst, "ms": main[0],
+                     "plain_ms": main[1], "bound_ms": main[2][0],
+                     "bound_by": main[2][1], "launches": launches,
+                     "times": times}
+
+
 def phase_k1(torch, results):
     from bench_torch import _build
     from skirt_tpu_torch import rng
@@ -827,7 +918,7 @@ def phase_main_poly(torch, results):
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine import fused_poly
     from skirt_tpu_torch.engine.lifecycle import make_multibatch
-    from skirt_tpu_torch.ops import binned
+    from skirt_tpu_torch.ops import binned, peel_sed
 
     W, packets, K, nbatches = 128, 1 << 15, 128, 2
     run_batch, zero_tallies, ell, L0 = _build(
@@ -838,12 +929,14 @@ def phase_main_poly(torch, results):
     torch.cuda.synchronize()
     binned.binned_add.launches = 0
     fused_poly.poly_event.launches = 0
+    peel_sed.peel_sed_add.launches = 0
     t0 = time.perf_counter()
     out = run_many(rng.root_key(4357), ell, L0, tallies)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"K1": fused_poly.poly_event.launches,
-                "K2": binned.binned_add.launches}
+                "K2": binned.binned_add.launches,
+                "PS": peel_sed.peel_sed_add.launches}
     results["launches_poly"] = launches
     pps = packets * K * nbatches * W / dt
     sed = out["instruments"][0]["Ftot"].double().cpu().numpy()
@@ -857,7 +950,7 @@ def phase_main_poly(torch, results):
             + [out["labs"]]:
         if not bool(torch.isfinite(leaf).all()):
             raise AssertionError("non-finite tally")
-    if launches["K1"] <= 0 or launches["K2"] <= 0:
+    if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     if not (sed.sum() > 0 and (sed > 0).all()):
@@ -1909,13 +2002,15 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
     packets, SED, labs
     total (per wavelength with labs_by_wavelength), launched W, launches
     of the path's kernels; on the direct table K4d or K6d; EP the exact
-    peel's, 0 where the peel is staged or runs on the CPU)."""
+    peel's, 0 where the peel is staged or runs on the CPU; PS the SED
+    peel's, 0 on the mono paths, the blend of several components and the
+    CPU)."""
     import warnings
 
     from bench_torch import _octree_build
     from skirt_tpu_torch import rng
     from skirt_tpu_torch.engine.lifecycle import make_multibatch
-    from skirt_tpu_torch.ops import binned, exact_peel
+    from skirt_tpu_torch.ops import binned, exact_peel, peel_sed
 
     with warnings.catch_warnings():
         # the direct table's staged-peel downgrade, expected here; any
@@ -1935,6 +2030,7 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
         torch.cuda.synchronize()
     binned.binned_add.launches = 0
     exact_peel.peel_columns.launches = 0
+    peel_sed.peel_sed_add.launches = 0
     event.launches = 0
     if direct:
         event.direct_launches = 0
@@ -1950,6 +2046,7 @@ def _run_table_path(torch, poly, lanes, batches, grid, device="cuda",
     else:
         launches = {kname: event.launches, "K2": binned.binned_add.launches}
     launches["EP"] = exact_peel.peel_columns.launches
+    launches["PS"] = peel_sed.peel_sed_add.launches
     for leaf in [v for d in out["instruments"] for v in d.values()] \
             + [out["labs"]]:
         if not bool(torch.isfinite(leaf).all()):
@@ -1979,7 +2076,8 @@ def phase_main_table(torch, results, octree):
             f"({launches[kname] / batches:.0f} event iterations per batch); "
             f"SED {', '.join(f'{v:.4e}' for v in sed)} W, labs "
             f"{labs:.4e} W of {launched:.4e} W launched")
-        if min(launches[kname], launches["K2"], launches["EP"]) <= 0:
+        if min(launches[kname], launches["K2"], launches["EP"],
+               launches["PS"] if poly else 1) <= 0:
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
         if not (sed > 0).all():
@@ -1999,7 +2097,7 @@ def phase_simulation_table(torch, results, octree):
     from skirt_tpu_torch.engine import fused_table_poly
     from skirt_tpu_torch.engine.simulation import OligoSimulation
     from skirt_tpu_torch.log import SilentLog
-    from skirt_tpu_torch.ops import binned, exact_peel
+    from skirt_tpu_torch.ops import binned, exact_peel, peel_sed
 
     grid, ds, ss, ins, opts, _ = _octree_model(grid=octree, voxelize=False)
     W, lanes, K = 2, 1 << 17, opts.refill_batches
@@ -2013,6 +2111,7 @@ def phase_simulation_table(torch, results, octree):
     torch.cuda.synchronize()
     binned.binned_add.launches = 0
     exact_peel.peel_columns.launches = 0
+    peel_sed.peel_sed_add.launches = 0
     fused_table_poly.table_poly_event.launches = 0
     t0 = time.perf_counter()
     acc = sim._run_phase(rng.root_key(sim.seed), 0)
@@ -2020,7 +2119,8 @@ def phase_simulation_table(torch, results, octree):
     dt = time.perf_counter() - t0
     launches = {"K6": fused_table_poly.table_poly_event.launches,
                 "K2": binned.binned_add.launches,
-                "EP": exact_peel.peel_columns.launches}
+                "EP": exact_peel.peel_columns.launches,
+                "PS": peel_sed.peel_sed_add.launches}
     results["launches_table_sim"] = launches
     launched = float(ss.Lv.sum())
     sed, labs = _check_tallies(acc, launched, "table OligoSimulation")
@@ -2904,7 +3004,8 @@ def _model(name):
 # probes' SASS counts logged, not required, so that a parent tree without
 # TMA or wgmma still times)
 SUBSET = {"k2": phase_k2, "bin_sum": phase_bin_sum,
-          "exact_peel": phase_exact_peel, "k1": phase_k1,
+          "exact_peel": phase_exact_peel, "peel_sed": phase_peel_sed,
+          "k1": phase_k1,
           "k3": phase_k3,
           "k8": phase_k8,
           "pm": lambda torch, res: phase_pm(torch, res),
@@ -2971,6 +3072,8 @@ def main():
     phase_bin_sum(torch, results)
     stamp("phase 3c: the exact peel's kernel vs plain")
     phase_exact_peel(torch, results)
+    stamp("phase 3d: the SED peel's kernel vs plain")
+    phase_peel_sed(torch, results)
     stamp("phase 4: K1 poly_event kernel vs plain")
     phase_k1(torch, results)
     stamp("phase 5: K3 mono_event kernel vs plain")
@@ -3092,6 +3195,8 @@ def main():
         "EP": sum(results[f"launches_{p}"]["EP"]
                   for p in ("table_mono", "table_poly", "table_sim",
                             "multi_mono", "multi_poly", "multi_sim")),
+        "PS": sum(results[f"launches_{p}"]["PS"]
+                  for p in ("poly", "table_poly", "table_sim")),
         **results["launches_probes"]}
     meta = {
         "K1": ("K1 poly_event", "skirt_tpu_torch/csrc/fused_poly.cu",
@@ -3104,6 +3209,9 @@ def main():
         "EP": ("exact peel", "skirt_tpu_torch/csrc/exact_peel.cu",
                "no Pallas kernel: skirt_tpu/engine/fused_table.py:395-540, "
                "the exact peel in XLA"),
+        "PS": ("SED peel", "skirt_tpu_torch/csrc/peel_sed.cu",
+               "no Pallas kernel: skirt_tpu/engine/fused_table_poly.py, "
+               "fused_poly.py, the poly scattering peel in XLA"),
         "K3": ("K3 mono_event", "skirt_tpu_torch/csrc/fused_mono.cu",
                "skirt_tpu/engine/fused.py:199"),
         "K4": ("K4 table_event", "skirt_tpu_torch/csrc/fused_table.cu",
@@ -3165,8 +3273,9 @@ def main():
     kern["K3"]["by_case"] = results["K3"]["by_case"]
     kern["BS"]["ms_by_shape"] = {n: v[0] for n, v
                                  in results["BS"]["times"].items()}
-    kern["EP"]["ms_by_shape"] = {n: v[0] for n, v
-                                 in results["EP"]["times"].items()}
+    for k in ("EP", "PS"):
+        kern[k]["ms_by_shape"] = {n: v[0] for n, v
+                                  in results[k]["times"].items()}
     for k, by_shape in results["chunked"].items():
         kern[k]["chunked"] = by_shape
     for k in ("K8", "PG", "PO", "PM"):

@@ -77,6 +77,8 @@ def layer_of(name: str) -> str:
         return "bin sum (the mono detects' SEDs)"
     if "exact_peel_kernel" in name:
         return "exact peel (the table engines' column integrals)"
+    if "peel_sed_kernel" in name:
+        return "peel: the SED peel (the poly scattering peel into the SEDs)"
     if "distribution" in name:
         return "uniforms (Philox)"
     if "memcpy" in name.lower() or "memset" in name.lower():

@@ -19,14 +19,17 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import kernels, rng, trace
+from ..instruments import SEDInstrument
 from ..media import polarization as pol
 from ..numerics import f32
 from ..ops import binned_add
+from ..ops.peel_sed import hg as _hg, peel_sed_add, rows_of
 from . import vector_traversal as vt
 
 _BIG = 3.4e38
@@ -290,12 +293,6 @@ def _hg_costheta(g, u_g):
     cos_hg = (1.0 + g * g - f * f) / (2.0 * torch.where(small_g, 1.0, g))
     return torch.where(small_g, 2.0 * u_g - 1.0,
                        torch.clamp(cos_hg, -1.0, 1.0))
-
-
-def _hg(g, cosa):
-    """The Henyey-Greenstein phase function at cosine cosa."""
-    t = 1.0 + g * g - 2.0 * g * cosa
-    return (1.0 - g) * (1.0 + g) / torch.sqrt(t * t * t)
 
 
 def _scatter_direction(costheta, u_phi, DX, DY, DZ):
@@ -628,17 +625,6 @@ class Stokes:
             self.state = pol.carry_stokes(self.state, new, scat, fresh)
 
 
-def leader_cosines(direction, leaders):
-    """cos(j): the (N,) cosines of the lanes' directions (N, 3) toward
-    leader j, in float32."""
-    def cos(j):
-        kx, ky, kz = (f32(v) for v in leaders[j])
-        return (direction[:, 0] * kx + direction[:, 1] * ky
-                + direction[:, 2] * kz)
-
-    return cos
-
-
 def emit_mono(peels, ins, lead_of, pos, ell, contribution, tags, taus):
     """The monochromatic emission peel-off: every instrument's peel
     (make_peel_off) of `contribution` through its leader's depth taus[j]."""
@@ -679,28 +665,70 @@ def emit_poly(instruments, ins, lead_of, pos, wls, contrib, minus_tau,
         obj.detect_poly(ins[i], pos, wls, ext, tags)
 
 
+class SingleMix(NamedTuple):
+    """The one-mix form of a polychromatic peel's phase and depths: the HG
+    phase weights of g ((W,) float32) and the optical depths
+    -minus_kext ((W,) float32) x I[j] toward leader j (I: (L, N), or a
+    list of L (N,) rows).  The SED peel (ops/peel_sed.py) takes this form
+    whole."""
+    g: torch.Tensor
+    minus_kext: torch.Tensor
+    I: object
+
+    def phase(self, j, cosj):
+        return _hg(self.g[:, None], cosj[None])
+
+    def minus_tau(self, j):
+        return self.minus_kext[:, None] * self.I[j][None]
+
+
+class PeelForm(NamedTuple):
+    """Any other form: phase(j, cosj), the (W, N) phase weights toward
+    leader j at the cosines cosj, and minus_tau(j), minus the (W, N)
+    optical depths toward it."""
+    phase: object
+    minus_tau: object
+
+
 def peel_poly(instruments, ins, lead_of, pos, wls, Lp, Ln, alive, tags,
-              minus_tau, cos, phase, fresh=None, polarized=None):
+              form, cos, fresh=None, polarized=None):
     """The polychromatic drivers' merged scattering peel-off toward every
     instrument: lanes that scattered carry their peel luminosities Lp
-    (W, N) times the per-wavelength phase weights phase(j, cosj) toward
-    leader j at the cosine cos(j) of their incoming direction (or the
-    Mueller weights and Stokes tags of `polarized`, a Stokes.peel(...)),
-    fresh (relaunched) lanes their onward Ln with the isotropic emission
-    weight, dead lanes none, extincted by exp(minus_tau(j)) ((W, N),
-    minus the optical depths toward leader j)."""
+    (W, N) times the per-wavelength phase weights form.phase(j, cosj)
+    toward leader j at the cosines cos of their incoming direction ((L, N)
+    rows, or LeaderCosines) (or the Mueller weights and Stokes tags of
+    `polarized`, a Stokes.peel(...)), fresh (relaunched) lanes their
+    onward Ln with the isotropic emission weight, dead lanes none,
+    extincted by exp(form.minus_tau(j)).
+
+    Without `polarized`, a SingleMix form sends every SEDInstrument
+    through one SED peel (ops.peel_sed.peel_sed_add: on the card one
+    launch of the kernel PS); every other instrument and form takes the
+    per-instrument loop.  The trace counts both (sed_peels_kernel,
+    sed_peels_plain)."""
+    sed = []
+    if isinstance(form, SingleMix) and polarized is None:
+        sed = [i for i, obj in enumerate(instruments)
+               if type(obj) is SEDInstrument]
+    if sed:
+        peel_sed_add([ins[i]["Ftot"] for i in sed],
+                     [lead_of[i] for i in sed], wls, Lp, Ln, alive, fresh,
+                     form.g, form.minus_kext, rows_of(form.I), cos)
+    trace.count_sed_peels(len(sed), len(instruments) - len(sed))
     for i, obj in enumerate(instruments):
+        if i in sed:
+            continue
         j = lead_of[i]
-        cosj = cos(j)
+        cosj = cos[j] if torch.is_tensor(cos) else cos(j)
         tg = dict(tags)
         if polarized is not None:
             pw, tg["stokes"] = polarized(i, j, cosj)
         else:
-            pw = phase(j, cosj)
+            pw = form.phase(j, cosj)
         cw = Lp * pw
         if fresh is not None:
             cw = torch.where(fresh[None], Ln, cw)
         cw = torch.where(alive[None], cw, 0.0)
-        ext = cw * torch.exp(minus_tau(j))
+        ext = cw * torch.exp(form.minus_tau(j))
         tg["transparent"] = cw
         obj.detect_poly(ins[i], pos, wls, ext, tg)

@@ -36,8 +36,9 @@ import torch
 
 from .. import kernels, trace
 from ..numerics import f32
-from .common import (_CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER, _TINY,
-                     _check_tensors, _expon_cutoff, _geom_args, _hg,
+from ..ops.peel_sed import wavelengths
+from .common import (SingleMix, _CUDA_DENSITY, _CUDA_MAXP, _CUDA_SAMPLER,
+                     _TINY, _check_tensors, _expon_cutoff, _geom_args, _hg,
                      _hg_costheta, _invert, _launch_in_event, _make_locate,
                      _make_span, _moved, _on_device, _ptr, _scattered,
                      _set_ptrs, _uniform_grid, batch_keys, check_shared,
@@ -452,10 +453,9 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
             L = L0.T.contiguous()
             l0 = L
             alive = (L > 0).any(0)
-            wls = torch.arange(W, device=dev)
+            wls = wavelengths(W, dev)
             oc = torch.as_tensor(spec.oc, device=dev)
-            minus_kext = -oc[0][:, None]
-            g_col = oc[2][:, None]
+            minus_kext = -oc[0]
             kext_t_col = torch.as_tensor(
                 np.asarray(ds.kappaext, np.float32)[0, :W],
                 device=dev)[:, None]
@@ -501,9 +501,8 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
                     peel_poly(instruments, ins, p.lead_of, pos_new, wls, Lp,
                               Ln, alive_new,
                               {"nscatt": st[7], "is_dust": dust},
-                              lambda j: minus_kext * out["Ip"][j][None],
-                              lambda j: out["cos"][j],
-                              lambda j, cosj: _hg(g_col, cosj[None]), fresh)
+                              SingleMix(oc[2], minus_kext, out["Ip"]),
+                              out["cos"], fresh)
             state = list(st)
             if p.refill:
                 state.append(out["bc"])

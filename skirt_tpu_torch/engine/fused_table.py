@@ -72,14 +72,15 @@ from .. import kernels, rng, trace
 from ..media import polarization as pol
 from ..numerics import f32
 from ..ops import exact_peel
+from ..ops.peel_sed import LeaderCosines
 from . import vector_traversal as vt
 from .common import (EventCount, Stokes, _TINY, _check_tensors, _expon_cutoff,
                      _forced, _hg_costheta, _hit_point, _locate_args,
                      _make_locate, _moved, _on_device, _scattered, _set_ptrs,
                      _uniform_grid, batch_keys, check_shared, chunk_rows,
                      count_entry_lanes, deposit, emit_mono, events,
-                     lane_columns, leader_cosines, make_peel_off, panel_taus,
-                     peel_mono, plan, relaunch, table_peel_mode, uniforms)
+                     lane_columns, make_peel_off, panel_taus, peel_mono, plan,
+                     relaunch, table_peel_mode, uniforms)
 # the direct table's deposits (K4d, K6d), placed here beside the exact peel
 # the direct table's deposits (K4d, K6d), placed here as skirt_tpu places
 # its peels
@@ -874,7 +875,7 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                                  if sk is not None else None)
                     peel_mono(peels, ins, p.lead_of, pos, ell, L, alive_b,
                               {"nscatt": ns, "is_dust": dust}, taus0,
-                              leader_cosines(dir_old, p.leaders),
+                              LeaderCosines(dir_old, p.leaders),
                               phase_weight, fresh, polarized)
             elif p.refill and emission_peeloff:
                 with trace.span("peel"):

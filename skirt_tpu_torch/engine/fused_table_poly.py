@@ -66,14 +66,15 @@ import torch
 from .. import kernels, rng, trace
 from ..media import polarization as pol
 from ..numerics import f32
+from ..ops.peel_sed import LeaderCosines, wavelengths
 from . import vector_traversal as vt
-from .common import (EventCount, Stokes, _CUDA_MAXP, _TINY, _check_tensors,
-                     _expon_cutoff, _hg, _hg_costheta, _invert, _locate_args,
-                     _make_locate, _moved, _on_device, _scattered, _set_ptrs,
-                     _uniform_grid, batch_keys, check_shared, chunk_rows,
-                     count_entry_lanes, deposit, emit_poly, events,
-                     lane_columns, leader_cosines, peel_poly, plan, relaunch,
-                     table_peel_mode, uniforms)
+from .common import (EventCount, PeelForm, SingleMix, Stokes, _CUDA_MAXP,
+                     _TINY, _check_tensors, _expon_cutoff, _hg, _hg_costheta,
+                     _invert, _locate_args, _make_locate, _moved, _on_device,
+                     _scattered, _set_ptrs, _uniform_grid, batch_keys,
+                     check_shared, chunk_rows, count_entry_lanes, deposit,
+                     emit_poly, events, lane_columns, peel_poly, plan,
+                     relaunch, table_peel_mode, uniforms)
 from .fused_table import make_table_peel
 
 
@@ -756,12 +757,18 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                         want_sca=False).T.contiguous()
             return component_rows(grid, ds, pos, direction, midp)
 
-        def phase_weights(j, cosj):
-            """Per-wavelength peel phase weights (W, N) at the incoming
-            direction: the mix's HG, or with several components their
-            blend by kappa_sca,hw * rho_h at the new position's cell."""
+        def peel_form(Ipeel):
+            """The scattering peel's phase weights and depths: the mix's
+            HG and kext_w * I (common.SingleMix), or with several
+            components the blend of their HG weights by kappa_sca,hw *
+            rho_h at the new position's cell and kext_hw^T @ I_h."""
             if not multi:
-                return _hg(g_col, cosj[None])
+                return SingleMix(oc[2], minus_kext, Ipeel)
+            return PeelForm(phase_weights, minus_tau(Ipeel))
+
+        def phase_weights(j, cosj):
+            """The components' per-wavelength HG weights (W, N) toward
+            leader j, blended by kappa_sca,hw * rho_h."""
             num = den = 0.0
             for h in range(H):
                 kr = oc[H + h][:, None] * rho_n_h[h][None]
@@ -783,10 +790,10 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             l0 = L0.T.to(torch.float32).contiguous()              # (W, N)
             L = l0
             alive = (L > 0).any(0)
-            wls = torch.arange(W, device=dev)
+            wls = wavelengths(W, dev)
             oc = torch.as_tensor(spec.oc, device=dev)
             kext_col = oc[0][:, None]
-            g_col = oc[2][:, None]
+            minus_kext = -oc[0]
             dust = torch.full((n,), bool(is_dust_emission), device=dev)
             ins = tallies["instruments"]
             labs = tallies.get("labs")
@@ -916,9 +923,9 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                                  if sk is not None else None)
                     peel_poly(instruments, ins, p.lead_of, pos, wls, Lp, Ln,
                               alive_b, {"nscatt": ns, "is_dust": dust},
-                              minus_tau(Ipeel),
-                              leader_cosines(dir_old, p.leaders),
-                              phase_weights, fresh, polarized)
+                              peel_form(Ipeel),
+                              LeaderCosines(dir_old, p.leaders), fresh,
+                              polarized)
             elif p.refill and emission_peeloff:
                 with trace.span("peel"):
                     detect_all(pos, torch.where(fresh[None], Ln, 0.0),

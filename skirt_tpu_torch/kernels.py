@@ -267,6 +267,25 @@ class TablePolyMultiArgs(ctypes.Structure):
         + [("geo", Geom), ("cend", ctypes.c_void_p)])
 
 
+class PeelSedArgs(ctypes.Structure):
+    """Mirror of `struct PeelSedArgs` in csrc/peel_sed.cu (same order):
+    one launch of the SED peel, up to MAX_SED instruments and MAX_SLOT
+    distinct leaders."""
+    MAX_SED = 32
+    MAX_SLOT = 32
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "Lp", "Ln", "alive", "fresh", "g", "mk", "I", "cos", "dir",
+            "part", "ticket")]
+        + [("ftot", ctypes.c_void_p * MAX_SED),
+           ("slot_of", ctypes.c_int * MAX_SED),
+           ("row", ctypes.c_int * MAX_SLOT),
+           ("kdir", (ctypes.c_float * 3) * MAX_SLOT),
+           ("N", ctypes.c_longlong)]
+        + [(name, ctypes.c_int) for name in (
+            "W", "nsed", "nslot", "group", "wsplit", "epad")])
+
+
 # (entry-point stem, argument struct, source) of the event kernels that take
 # one struct: skirt_<stem>_event(args, labs, stream) and
 # skirt_<stem>_args_size()
@@ -308,6 +327,10 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
             ctypes.c_void_p]
         lib.skirt_exact_peel.restype = ctypes.c_int
+        lib.skirt_peel_sed.argtypes = [
+            ctypes.POINTER(PeelSedArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.skirt_peel_sed.restype = ctypes.c_int
         lib.skirt_probe_gather.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -337,6 +360,7 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for name, struct, src in (("poly", PolyArgs, "fused_poly.cu"),
                                   ("mono", MonoArgs, "fused_mono.cu"),
+                                  ("peel_sed", PeelSedArgs, "peel_sed.cu"),
                                   *_TABLE_EVENTS):
             size = getattr(lib, f"skirt_{name}_args_size")
             size.argtypes = []

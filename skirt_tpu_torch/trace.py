@@ -28,7 +28,11 @@ Counters:
   positive length times the dust components H, counted from the lanes'
   geometry whatever implements the peel, and added on the device into
   one int64 pair per device with no synchronization.  `take()` reads
-  them.
+  them;
+- `sed_peels_kernel`, `sed_peels_plain`: the instruments' scattering
+  peels of the polychromatic drivers (`engine/common.py::peel_poly`),
+  those taken by the SED peel (`ops/peel_sed.py`: the kernel PS on the
+  card) and those left to the per-instrument loop, counted on the host.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ _open: list = []          # indices of the spans open now, innermost last
 _slots = 0
 _live: dict = {}          # device -> int64 live-lane counters
 _peel: dict = {}          # device -> int64 (rays, voxels) counters
+_sed = [0, 0]             # instrument peels by the SED peel, by the loop
 # the live-lane counters a kernel adds to, LIVE_STRIDE int64 apart
 # (csrc/common.cuh's LIVE_SLOTS and LIVE_STRIDE)
 LIVE_SLOTS = 256
@@ -149,10 +154,19 @@ def count_peel(work):
     t += work
 
 
+def count_sed_peels(kernel: int, plain: int):
+    """Add a scattering peel's instruments taken by the SED peel and
+    those left to the loop (when on)."""
+    if _on:
+        _sed[0] += int(kernel)
+        _sed[1] += int(plain)
+
+
 def take() -> dict:
     """{"spans": [(name, start ns, end ns, parent), ...], "counters":
     {"lane_slots": n, "live_lanes": n, "peel_rays": n, "peel_voxels":
-    n}}, and clear them.  Called outside every span."""
+    n, "sed_peels_kernel": n, "sed_peels_plain": n}}, and clear them.
+    Called outside every span."""
     global _spans, _slots
     if _open:
         raise RuntimeError("trace.take: spans are still open")
@@ -161,9 +175,12 @@ def take() -> dict:
         (0, 0), *(t.tolist() for t in _peel.values())))
     out = {"spans": [tuple(s) for s in _spans],
            "counters": {"lane_slots": _slots, "live_lanes": live,
-                        "peel_rays": rays, "peel_voxels": voxels}}
+                        "peel_rays": rays, "peel_voxels": voxels,
+                        "sed_peels_kernel": _sed[0],
+                        "sed_peels_plain": _sed[1]}}
     _spans = []
     _slots = 0
+    _sed[:] = [0, 0]
     _live.clear()
     _peel.clear()
     return out

@@ -67,7 +67,8 @@ def test_poly_args_mirror_the_c_struct():
     ("fused_table_multi.cu", "TableMultiArgs", kernels.TableMultiArgs),
     ("fused_table_poly.cu", "TablePolyArgs", kernels.TablePolyArgs),
     ("fused_table_poly_multi.cu", "TablePolyMultiArgs",
-     kernels.TablePolyMultiArgs)])
+     kernels.TablePolyMultiArgs),
+    ("peel_sed.cu", "PeelSedArgs", kernels.PeelSedArgs)])
 def test_structs_mirror_the_c_structs(source, struct, mirror):
     """kernels.Geom, MonoArgs and the table events' argument structs list
     the fields of their C structs in the same order."""

@@ -79,9 +79,12 @@ def test_span_is_the_shared_null_context_while_off():
             pass
     trace.count_slots(128)
     assert trace.live_counter("cpu") is None
+    trace.count_sed_peels(10, 0)
     assert trace.take() == {"spans": [],
                             "counters": {"lane_slots": 0, "live_lanes": 0,
-                                         "peel_rays": 0, "peel_voxels": 0}}
+                                         "peel_rays": 0, "peel_voxels": 0,
+                                         "sed_peels_kernel": 0,
+                                         "sed_peels_plain": 0}}
 
 
 def test_span_records_nesting_while_on():
@@ -279,7 +282,8 @@ def test_plain_live_lane_count_equals_a_count_by_hand(kernel, refill):
     c = trace.take()["counters"]
     want = _by_hand(alive_in, out)
     assert c == {"lane_slots": alive_in.shape[0], "live_lanes": want,
-                 "peel_rays": 0, "peel_voxels": 0}
+                 "peel_rays": 0, "peel_voxels": 0, "sed_peels_kernel": 0,
+                 "sed_peels_plain": 0}
     # some lanes were dead on entry; with refill some were relaunched
     assert want > int((alive_in != 0).sum()) if refill else \
         want < alive_in.shape[0]
